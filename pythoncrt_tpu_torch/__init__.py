@@ -1,0 +1,27 @@
+"""pythoncrt_tpu_torch — the CRT video effect renderer in PyTorch and CUDA.
+
+A port of pythoncrt_tpu (JAX/Pallas for TPU) to one NVIDIA H100: the
+same effect chain, CLI and parity contract (<= 1 uint8 LSB against the
+shared NumPy oracle), with the TPU's Pallas kernels rewritten as CUDA
+C++ kernels for Hopper (csrc/). It imports no JAX; the parameter core,
+oracle, media I/O, text rasterizer and perf report are shared with the
+JAX package, which imports no JAX in those modules either.
+"""
+
+__version__ = "0.1.0"
+
+from pythoncrt_tpu.params import EffectParams, TextParams  # noqa: F401
+
+
+def __getattr__(name):
+    # Lazy imports keep `import pythoncrt_tpu_torch` light (no torch
+    # import) for --help and preset tooling.
+    import importlib
+
+    if name in ("CRTEngine", "FrameAux", "unsupported"):
+        return getattr(importlib.import_module(".engine", __name__), name)
+    if name in ("process_video", "render_stream"):
+        return getattr(importlib.import_module(".pipeline", __name__), name)
+    if name == "oracle":
+        return importlib.import_module("pythoncrt_tpu.oracle")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels under ``pythoncrt_tpu_torch/csrc``.
+
+The ``.cu`` files have a plain C interface. At first use they are
+compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library
+under ``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources and flags, and loaded with ``ctypes``. Nothing is built when the
+package is imported: the CPU tests import every module on hosts without
+``nvcc``.
+
+Flags: ``-fmad=false`` keeps every multiply and add separately rounded,
+as the reference's f32 chain is (the triad's 1024-bin quantize turns a
+contracted ulp into a visible step). No ``--use_fast_math``: divisions
+stay IEEE (``-prec-div=true`` is nvcc's default).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_ROOT = PKG / "_build"
+SOURCES = ("fused.cu", "warp.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""       # nvcc's output of the build this process made
+build_seconds = 0.0  # 0.0 when the library was already built
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or NVCC)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it on first use."""
+    global _lib, build_log, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = BUILD_ROOT / _digest()
+        so = out_dir / "libcrt_kernels.so"
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / f"libcrt_kernels.{os.getpid()}.tmp.so"
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *(str(CSRC / s) for s in SOURCES)]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for fn in ("crt_fused_launch", "crt_warp_launch"):
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+        for fn in ("crt_fused_args_bytes", "crt_warp_args_bytes"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def launch(fn_name: str, args: ctypes.Structure, stream: int) -> None:
+    """Call a C launcher with its argument struct on ``stream`` and raise
+    if the launch was refused (the C side returns cudaGetLastError())."""
+    lib = library()
+    size = getattr(lib, fn_name.replace("_launch", "_args_bytes"))()
+    if size != ctypes.sizeof(args):
+        raise RuntimeError(f"{fn_name}: argument struct is {ctypes.sizeof(args)} "
+                           f"bytes in Python but {size} in C")
+    rc = getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed with CUDA error {rc}")

@@ -1,0 +1,173 @@
+"""The port's entry points: no JAX import, refusals for what the slice
+does not run, the render loop against CRTEngine.process, and a CLI
+render of a tiny clip on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pythoncrt_tpu_torch import CRTEngine, cli
+from pythoncrt_tpu_torch.pipeline import render_stream
+
+from conftest import synth_frames
+from test_engine_vs_oracle import identity_params
+from test_fused import FULL
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H, W, FPS = 48, 256, 24.0
+
+C3_FLAGS = [
+    "--scanline-strength", "0.6", "--triad-strength", "0.35", "--triad-softness", "0.5",
+    "--aberration-px", "1", "--bloom-sigma", "1.2", "--bloom-strength", "0.25",
+    "--no-fast-bloom", "--noise-strength", "1.5", "--vignette-strength", "0.25",
+    "--persistence", "0", "--pixel-size", "2", "--grain-size", "2",
+    "--warp-strength", "0.15", "--flicker-strength", "0.2", "--flicker-hz", "2",
+    "--brightness", "0.02", "--contrast", "1.05", "--gamma", "1.1",
+    "--saturation", "0.9", "--temperature", "0.1",
+]
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, pythoncrt_tpu_torch, pythoncrt_tpu_torch.cli, "
+            "pythoncrt_tpu_torch.pipeline, pythoncrt_tpu_torch.convert; "
+            "pythoncrt_tpu_torch.CRTEngine; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("overrides,kw,item", [
+    (dict(bloom_strength=0.3, fast_bloom=True), {}, "c4 slice"),
+    (dict(persistence=0.2), {}, "c4 slice"),
+    (dict(glitch_amp_px=4, glitch_height_frac=0.3), {}, "c4 slice"),
+    ({}, dict(engine="preview"), "c4 slice"),
+    ({}, dict(assoc_scan=True), "c4 slice"),
+    ({}, dict(precision="fast"), "fallback slice"),
+    (dict(scanline_strength=0.5, scanline_angle=12.0), {}, "fallback slice"),
+    (dict(text=__import__("pythoncrt_tpu").TextParams(text="hi")), {}, "fallback slice"),
+])
+def test_out_of_slice_configs_raise(overrides, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        CRTEngine(identity_params(**overrides), H, W, FPS, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batch-manifest", "jobs.json"], ["--gui"], ["--segment-frames", "64"],
+    ["--assoc-scan"], ["--precision", "fast"], ["--engine-mode", "preview"],
+])
+def test_out_of_slice_flags_exit_2(flags, capsys):
+    assert cli.main(["--input", "x.mp4", *flags]) == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_cli_defaults_are_refused_with_the_reason(tmp_path, capsys):
+    inp = tmp_path / "in.mp4"
+    inp.write_bytes(b"")
+    assert cli.main(["--input", str(inp), "--device", "cpu"]) == 2
+    assert "fast bloom" in capsys.readouterr().err
+
+
+def test_cuda_device_without_cuda_exits_nonzero(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    inp = tmp_path / "in.mp4"
+    inp.write_bytes(b"")
+    assert cli.main(["--input", str(inp), *C3_FLAGS]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+class ListReader:
+    """In-memory reader with the io.video protocol."""
+
+    def __init__(self, frames):
+        self.frames, self.i = frames, 0
+        self.out_h, self.out_w = frames.shape[1], frames.shape[2]
+
+    def read_into(self, buf) -> bool:
+        if self.i >= len(self.frames):
+            return False
+        buf[...] = self.frames[self.i]
+        self.i += 1
+        return True
+
+    def close(self):
+        pass
+
+
+class ListWriter:
+    def __init__(self):
+        self.frames = []
+
+    def write_frame(self, frame):
+        self.frames.append(np.array(frame))
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar_gbr"])
+def test_render_stream_matches_process(layout):
+    """The render loop (threads, host buffer pools, batch split 3+3+2)
+    gives the bytes of one process() call, in the NHWC layout and in
+    the planar gbrp layout an ffmpeg pipe feeds."""
+    p = identity_params(**FULL)
+    frames = synth_frames(8, H, W, seed=4)
+    kw = {}
+    if layout == "planar_gbr":
+        frames = np.ascontiguousarray(np.transpose(frames, (0, 3, 1, 2))[:, [1, 2, 0]])
+        kw = dict(layout="planar", channel_order="gbr")
+    reader = ListReader(frames)
+    reader.out_h, reader.out_w, reader.frame_shape = H, W, frames.shape[1:]
+    writer = ListWriter()
+    eng = CRTEngine(p, H, W, FPS, seed=3, device="cpu", **kw)
+    n = render_stream(reader, writer, eng, batch_size=3)
+    assert n == 8 and len(writer.frames) == 8
+    want, _ = CRTEngine(p, H, W, FPS, seed=3, device="cpu", **kw).process(frames)
+    np.testing.assert_array_equal(np.stack(writer.frames), want.numpy())
+
+
+def test_render_stream_surfaces_codec_failures():
+    p = identity_params(**FULL)
+    frames = synth_frames(8, H, W, seed=4)
+    eng = CRTEngine(p, H, W, FPS, device="cpu")
+
+    class BadWriter(ListWriter):
+        def write_frame(self, frame):
+            raise OSError("disk full")
+
+    class BadReader(ListReader):
+        def read_into(self, buf):
+            if self.i == 5:
+                raise OSError("corrupt packet")
+            return super().read_into(buf)
+
+    with pytest.raises(RuntimeError, match="encode failed"):
+        render_stream(ListReader(frames), BadWriter(), eng, batch_size=2)
+    with pytest.raises(RuntimeError, match="decode failed"):
+        render_stream(BadReader(frames), ListWriter(), eng, batch_size=2)
+
+
+def test_cli_renders_a_tiny_clip(tmp_path, capsys):
+    cv2 = pytest.importorskip("cv2")
+    inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
+    wr = cv2.VideoWriter(str(inp), cv2.VideoWriter_fourcc(*"mp4v"), FPS, (W, H))
+    for f in synth_frames(8, H, W, seed=2):
+        wr.write(f)
+    wr.release()
+    rc = cli.main(["--input", str(inp), "--output", str(out), *C3_FLAGS,
+                   "--batch-size", "4", "--device", "cpu"])
+    assert rc == 0, capsys.readouterr()
+    report = capsys.readouterr().out
+    assert "perf frames 8" in report and "fx.dispatch" in report
+    cap = cv2.VideoCapture(str(out))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 8

@@ -1,0 +1,69 @@
+"""Carrying the JAX engine's tables and state over to the port
+(pythoncrt_tpu_torch.convert), and the port's native-rng contract."""
+
+import numpy as np
+import pytest
+import torch
+
+from pythoncrt_tpu import CRTEngine as JaxEngine
+from pythoncrt_tpu_torch import CRTEngine
+from pythoncrt_tpu_torch.convert import consts_from_jax, state_from_numpy
+
+from conftest import synth_frames
+from test_engine_vs_oracle import identity_params
+from test_fused import FULL
+
+H, W, FPS = 48, 256, 24.0
+
+
+def numpy_consts(c: dict) -> dict:
+    return {k: tuple(np.asarray(a) for a in v) if isinstance(v, tuple) else np.asarray(v)
+            for k, v in c.items()}
+
+
+@pytest.mark.parametrize("overrides", [FULL, {**FULL, "aberration_px": 0},
+                                       {**FULL, "pixel_size": 3, "warp_strength": -0.4}])
+def test_consts_from_jax_equal_the_port_tables(overrides):
+    p = identity_params(**overrides)
+    jc = consts_from_jax(numpy_consts(JaxEngine(p, H, W, FPS, pallas="off")._c))
+    own = CRTEngine(p, H, W, FPS, device="cpu").consts
+    assert set(jc) == {"pix_y", "pix_x", "triad", "vig_ny2", "vig_nx2", "warp"}
+    for k, v in jc.items():
+        mine = own[k]
+        for a, b in zip(v if isinstance(v, tuple) else (v,),
+                        mine if isinstance(mine, tuple) else (mine,)):
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def test_engine_from_converted_consts_is_byte_identical():
+    p = identity_params(**FULL)
+    frames = synth_frames(4, H, W, seed=9)
+    jc = consts_from_jax(numpy_consts(JaxEngine(p, H, W, FPS, pallas="off")._c))
+    a, _ = CRTEngine(p, H, W, FPS, rng="host", device="cpu").process(frames)
+    b, _ = CRTEngine(p, H, W, FPS, rng="host", device="cpu", consts=jc).process(frames)
+    assert torch.equal(a, b)
+
+
+def test_native_rng_is_invariant_to_batch_split():
+    """Native draws are a pure function of (seed, frame index): frames
+    0-7 as one batch of 8 equal two batches of 4 through fresh engines."""
+    p = identity_params(**{**FULL, "noise_strength": 12.0})
+    frames = synth_frames(8, H, W, seed=1)
+    whole, _ = CRTEngine(p, H, W, FPS, seed=7, device="cpu").process(frames, np.arange(8))
+    head, _ = CRTEngine(p, H, W, FPS, seed=7, device="cpu").process(frames[:4], np.arange(4))
+    tail, _ = CRTEngine(p, H, W, FPS, seed=7, device="cpu").process(frames[4:], np.arange(4, 8))
+    assert torch.equal(torch.cat([head, tail]), whole)
+    other, _ = CRTEngine(p, H, W, FPS, seed=8, device="cpu").process(frames, np.arange(8))
+    assert not torch.equal(other, whole)
+
+
+def test_state_from_numpy_layouts():
+    s = np.random.default_rng(0).random((H, W, 3), dtype=np.float32)
+    t = state_from_numpy(s, "nhwc")
+    assert t.shape == (H, W, 3) and np.array_equal(t.numpy(), s)
+    sp = np.ascontiguousarray(np.transpose(s, (2, 0, 1)))
+    assert state_from_numpy(sp, "planar", "gbr").shape == (3, H, W)
+    with pytest.raises(ValueError):
+        state_from_numpy(s, "planar")
+    with pytest.raises(ValueError):
+        state_from_numpy(s, "nhwc", "gbr")

@@ -1,0 +1,109 @@
+"""The port's fused stage 1-11 pass (pythoncrt_tpu_torch.kernels.fused)
+against the JAX Pallas kernel it replaces, run in interpret mode on the
+same spec and operands. The CUDA kernel against its twin on a card is
+in test_torch_cuda.py.
+
+The CPU path of the port is the kernel's plain PyTorch twin. Both sides
+keep the reference's f32 op order, so f32 outputs agree to 2e-6 (the
+FMA-contraction class of tests/test_fused.py) and the uint8 emit to
+<= 1 LSB with fewer than 1e-3 of values off. The grain operand is a
+plain (B, H, W) field (grain_g=1): the JAX kernel's half-field bf16
+window forms are TPU workarounds, covered at engine level by
+test_torch_engine.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from pythoncrt_tpu.kernels import fused as jfused
+from pythoncrt_tpu_torch.kernels import fused as tfused
+
+from test_engine_vs_oracle import identity_params
+from test_fused import CASES
+
+H, W, B = 48, 256, 2
+
+PORTED = ("c3_full", "no_warp", "luma_knee", "bloom_only", "ab_only",
+          "c2_retro", "no_bloom_warp", "c1_scan_vig")
+
+
+def spec_kwargs(p, corder=(0, 1, 2), emit="f32"):
+    """The build_fused_spec arguments the JAX engine derives from params
+    (engine._resolve_fused), for a plain (B, H, W) grain operand."""
+    t = float(p.temperature)
+    return dict(
+        sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
+        threshold=float(p.bloom_threshold), fast=False, bloom=p.bloom_on,
+        pre=True, px=int(p.pixel_size) if p.pixelate_on else 1,
+        ab=int(p.aberration_px) if p.aberration_on else 0,
+        saturation=float(p.saturation),
+        temp_r=float(np.clip(1.0 + 0.5 * t, 0.5, 1.5)) if t != 0.0 else 1.0,
+        temp_b=float(np.clip(1.0 - 0.5 * t, 0.5, 1.5)) if t != 0.0 else 1.0,
+        brightness=float(p.brightness), contrast=float(p.contrast),
+        inv_gamma=(1.0 / float(p.gamma)) if p.gamma != 1.0 else 1.0,
+        triad=p.triad_on, triad_gamma=float(p.triad_gamma),
+        triad_luma=bool(p.triad_preserve_luma), lut_exact=True,
+        scanlines=p.scanlines_on, vignette=p.vignette_on,
+        vig_strength=float(p.vignette_strength), flicker=p.flicker_on,
+        noise=p.noise_on, noise_scale=float(p.noise_strength) / 255.0,
+        emit=emit, corder=corder)
+
+
+def operands(p, corder, seed=11):
+    """Seeded numpy operands, in each kernel's operand shapes."""
+    from pythoncrt_tpu import oracle
+    from conftest import synth_frames
+
+    rng = np.random.default_rng(seed)
+    frames = synth_frames(B, H, W, seed=seed)  # (B, H, W, 3) RGB
+    img = np.ascontiguousarray(np.transpose(frames, (0, 3, 1, 2))[:, list(corder)])
+    ops = dict(
+        grain=rng.standard_normal((B, H, W), dtype=np.float32),
+        sl=(1.0 - 0.6 * rng.random((B, H))).astype(np.float32),
+        vy2=np.linspace(0.0, 1.0, H, dtype=np.float32) ** 2,
+        vx2=np.linspace(-1.0, 1.0, W, dtype=np.float32) ** 2,
+        tri=oracle.triad_mask(1, W, p.triad_strength, p.triad_softness)[0].T[list(corder)],
+        flicker=(1.0 + 0.05 * rng.standard_normal(B)).astype(np.float32))
+    return img, ops
+
+
+def run_both(p, corder, emit_jax, emit_port):
+    jspec = jfused.build_fused_spec(H, W, **spec_kwargs(p, corder, emit_jax))
+    tspec = tfused.build_fused_spec(H, W, **spec_kwargs(p, corder, emit_port))
+    img, ops = operands(p, corder)
+    jkw = {k: ops[k] for k, on in (("grain", jspec.noise), ("sl", jspec.scanlines),
+                                    ("vy2", jspec.vignette), ("vx2", jspec.vignette),
+                                    ("tri", jspec.triad), ("flicker", jspec.flicker)) if on}
+    shape = dict(sl=(B, H, 1), vy2=(H, 1), vx2=(1, W), tri=(3, 1, W), flicker=(B, 1))
+    want = np.asarray(jfused.fused_pipeline(
+        img, jspec, interpret=True,
+        **{k: v.reshape(shape.get(k, v.shape)) for k, v in jkw.items()}))
+    got = tfused.fused_pipeline(
+        torch.from_numpy(img), tspec, tfused.fused_consts(tspec),
+        **{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in jkw.items()}).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("name", PORTED + ("c3_full_gbr",))
+def test_fused_twin_matches_jax_kernel(name):
+    corder = (1, 2, 0) if name.endswith("_gbr") else (0, 1, 2)
+    p = identity_params(**CASES[name.replace("_gbr", "")][0])
+    got, want = run_both(p, corder, "f32", "f32")
+    assert got.dtype == np.float32 and got.shape == (B, 3, H, W)
+    err = np.abs(got - want).max()
+    assert err <= 2e-6, f"{name}: max |port - jax| = {err:.3g}"
+
+
+def test_fused_u8_emit_matches_jax_kernel():
+    p = identity_params(**CASES["no_warp"][0])
+    got, want = run_both(p, (0, 1, 2), "u8_255", "u8")
+    assert got.dtype == np.uint8
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (
+        f"u8 emit: max {d.max()} LSB, {(d > 0).mean():.2e} off")
+
+
+def test_fused_spec_refuses_out_of_slice():
+    p = identity_params(**CASES["c4_fast"][0])
+    with pytest.raises(NotImplementedError, match="c4 slice"):
+        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "fast": True})
