@@ -2,15 +2,16 @@
 
 A port of pythoncrt_tpu (JAX/Pallas for TPU) to one NVIDIA H100: the
 same effect chain, CLI and parity contract (<= 1 uint8 LSB against the
-shared NumPy oracle), with the TPU's Pallas kernels rewritten as CUDA
-C++ kernels for Hopper (csrc/). It imports no JAX; the parameter core,
-oracle, media I/O, text rasterizer and perf report are shared with the
-JAX package, which imports no JAX in those modules either.
+NumPy oracle), with the TPU's Pallas kernels rewritten as CUDA C++
+kernels for Hopper (csrc/). It imports neither JAX nor anything of
+pythoncrt_tpu: the parameter core, oracle, CLI parser, media I/O and perf
+report are the port's own copies (params.py, oracle/, cli.py, io/,
+perf.py).
 """
 
 __version__ = "0.1.0"
 
-from pythoncrt_tpu.params import EffectParams, TextParams  # noqa: F401
+from .params import EffectParams, TextParams  # noqa: F401
 
 
 def __getattr__(name):
@@ -23,5 +24,5 @@ def __getattr__(name):
     if name in ("process_video", "render_stream"):
         return getattr(importlib.import_module(".pipeline", __name__), name)
     if name == "oracle":
-        return importlib.import_module("pythoncrt_tpu.oracle")
+        return importlib.import_module(".oracle", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

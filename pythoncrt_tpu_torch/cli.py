@@ -1,42 +1,195 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-The flag surface is the JAX package's (pythoncrt_tpu.cli.build_parser,
-name for name with the reference CLI), plus ``--device``. Flags whose
-machinery is not ported yet exit with status 2 and name the ROADMAP.md
-item that brings them; so do effect configurations outside the port's
-slice (engine.unsupported). Nothing falls back to another path.
+The flag surface is the reference CLI's (crt_filter.py:1153-1207), name
+for name and default for default with pythoncrt_tpu/cli.py (the JAX
+package's additions included), plus ``--device``. The clamp semantics of
+the reference driver (:1225-1266) apply through EffectParams.clamped.
+Flags whose machinery is not ported yet exit with status 2 and name the
+ROADMAP.md item that brings them; so do effect configurations outside the
+port (engine.unsupported). Nothing falls back to another path.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
 
-from pythoncrt_tpu.cli import build_parser, params_from_args, provided_flags
+from .params import EffectParams, TextParams, load_preset, load_text_preset
 
 
-def _parser():
-    p = build_parser()
-    p.prog = "python -m pythoncrt_tpu_torch"
-    p.description = "CRT video effect renderer (PyTorch/CUDA port)"
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m pythoncrt_tpu_torch",
+        description="CRT video effect renderer (PyTorch/CUDA port)",
+    )
+    p.add_argument("--input", type=str, default="")
+    p.add_argument("--output", type=str)
+    p.add_argument("--width", type=int, default=0)
+    p.add_argument("--height", type=int, default=0)
+    p.add_argument("--fps", type=int, default=0)
+    p.add_argument("--scanline-strength", type=float, default=0.6)
+    p.add_argument("--triad-strength", type=float, default=0.35)
+    p.add_argument("--triad-gamma", type=float, default=2.2)
+    p.add_argument("--triad-preserve-luma", action="store_true")
+    p.add_argument("--triad-softness", type=float, default=0.5)
+    p.add_argument("--aberration-px", type=int, default=1)
+    p.add_argument("--bloom-sigma", type=float, default=1.2)
+    p.add_argument("--bloom-strength", type=float, default=0.25)
+    p.add_argument("--bloom-threshold", type=float, default=0.0)
+    p.add_argument("--noise-strength", type=float, default=1.5)
+    p.add_argument("--vignette-strength", type=float, default=0.25)
+    p.add_argument("--persistence", type=float, default=0.2)
+    p.add_argument("--crf", type=int, default=18)
+    p.add_argument("--bitrate", type=int, default=0)
+    p.add_argument("--scanline-speed", type=float, default=30.0)
+    p.add_argument("--scanline-period", type=float, default=2.0)
+    # the default rides on the action, not on p.set_defaults: parser-level
+    # defaults would slip past provided_flags and beat a preset's value
+    p.add_argument("--fast-bloom", action="store_true", default=True)
+    p.add_argument("--no-fast-bloom", dest="fast_bloom", action="store_false")
+    p.add_argument("--pixel-size", type=int, default=2)
+    p.add_argument("--brightness", type=float, default=0.0)
+    p.add_argument("--contrast", type=float, default=1.0)
+    p.add_argument("--gamma", type=float, default=1.0)
+    p.add_argument("--saturation", type=float, default=1.0)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--flicker-strength", type=float, default=0.0)
+    p.add_argument("--flicker-hz", type=float, default=0.0)
+    p.add_argument("--grain-size", type=int, default=1)
+    p.add_argument("--scanline-angle", type=float, default=0.0)
+    p.add_argument("--scanline-thickness", type=float, default=1.0)
+    p.add_argument("--warp-strength", type=float, default=0.0)
+    p.add_argument("--text", type=str, default="")
+    p.add_argument("--text-font", type=str, default="")
+    p.add_argument("--text-size", type=int, default=36)
+    p.add_argument("--text-color", type=str, default="#FFFFFF")
+    p.add_argument("--text-x", type=int, default=32)
+    p.add_argument("--text-y", type=int, default=32)
+    p.add_argument("--text-after", action="store_true")
+    p.add_argument("--gpu", action="store_true",
+                   help="prefer a hardware host encoder (probe-verified)")
+    p.add_argument("--nvenc-preset", type=str, default="p4")
+    p.add_argument("--encoder", type=str, default="auto",
+                   choices=["auto", "nvidia", "amd", "cpu"])
+    p.add_argument("--decoder", type=str, default="auto",
+                   choices=["auto", "nvidia", "amd", "intel", "cpu"])
+    p.add_argument("--glitch-amp", type=int, default=0)
+    p.add_argument("--glitch-height", type=float, default=0.0)
+    p.add_argument("--gui", action="store_true")
+    p.add_argument("--check-deps", action="store_true",
+                   help="report missing dependencies and exit")
+    p.add_argument("--preset", type=str, default="",
+                   help="load an effect preset JSON (reference schema)")
+    p.add_argument("--text-preset", type=str, default="",
+                   help="load a text preset JSON (reference schema)")
+    p.add_argument("--batch-size", type=int, default=16,
+                   help="frames per device batch")
+    p.add_argument("--engine-mode", type=str, default="export",
+                   choices=["export", "preview"],
+                   help="glitch algorithm variant (reference export/preview split)")
+    p.add_argument("--rng", type=str, default="native", choices=["native", "host"],
+                   help="noise/glitch randomness source")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--precision", type=str, default="exact",
+                   choices=["exact", "fast"],
+                   help="'exact' keeps <=1 LSB parity with the CPU reference")
+    p.add_argument("--assoc-scan", action="store_true",
+                   help="O(log B) associative persistence scan")
+    p.add_argument("--pipe-format", type=str, default="rgb24",
+                   choices=["rgb24", "yuv420p"],
+                   help="rawvideo decode pipe format (rgb24 becomes planar "
+                        "gbrp pipes when an ffmpeg binary is present)")
+    p.add_argument("--segment-frames", type=int, default=0,
+                   help="checkpoint the render every N frames; 0 disables")
+    p.add_argument("--profile", type=str, default="",
+                   help="write a torch.profiler trace of the render to this directory")
+    p.add_argument("--sharding", type=str, default="auto", choices=["auto", "none"],
+                   help="frame-axis sharding across devices")
+    p.add_argument("--devices", type=int, default=0,
+                   help="max devices to shard across (0 = all visible)")
+    p.add_argument("--decode-workers", type=int, default=1,
+                   help="parallel seek-positioned decode workers")
+    p.add_argument("--steps-per-call", type=int, default=0,
+                   help="batch chunks per device dispatch (0 = auto)")
+    p.add_argument("--batch-manifest", type=str, default="",
+                   help="render a batch of clips from a JSON manifest")
+    p.add_argument("--batch-journal", type=str, default="",
+                   help="journal path for --batch-manifest resume")
+    p.add_argument("--batch-retries", type=int, default=1,
+                   help="per-clip retries for failed --batch-manifest jobs")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to render on (default cuda; 'cpu' runs "
                         "the kernels' plain PyTorch twins)")
     return p
 
 
-def _without_device(argv):
-    """argv minus --device (the JAX parser would read it as --devices)."""
-    out, skip = [], False
-    for tok in argv:
-        if skip:
-            skip = False
-        elif tok == "--device":
-            skip = True
-        elif not tok.startswith("--device="):
-            out.append(tok)
-    return out
+def provided_flags(argv=None) -> set:
+    """Dest names of the options the user passed: a parallel parse with
+    every default suppressed leaves only the given options. Lets an
+    explicit flag beat a --preset value even when it equals the default."""
+    sp = build_parser()
+    for act in sp._actions:
+        act.default = argparse.SUPPRESS
+    sp._defaults.clear()  # parser-level set_defaults would bypass the above
+    ns, _ = sp.parse_known_args(argv)
+    return set(vars(ns))
+
+
+def params_from_args(a: argparse.Namespace, provided: set | None = None) -> EffectParams:
+    """EffectParams from the flags. As in the reference, the preset is
+    the base and explicit flags win. ``provided`` (from provided_flags)
+    names the explicit flags exactly; without it, a flag at its parser
+    default defers to the preset."""
+    base = EffectParams()
+    if a.preset:
+        try:
+            base, _ = load_preset(a.preset, base)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"failed to load preset {a.preset!r}: {e}")
+    defaults = build_parser().parse_args([]) if provided is None else None
+
+    def explicit(flag: str) -> bool:
+        if provided is not None:
+            return flag in provided
+        return getattr(a, flag) != getattr(defaults, flag)
+
+    t_base = TextParams()
+    if a.text_preset:
+        try:
+            t_base = load_text_preset(a.text_preset)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"failed to load text preset {a.text_preset!r}: {e}")
+    text_map = dict(text="text", text_font="font", text_size="size",
+                    text_color="color", text_x="x", text_y="y", text_after="after")
+    t_upd = {}
+    for flag, field in text_map.items():
+        if not a.text_preset or explicit(flag):
+            t_upd[field] = getattr(a, flag)
+    text = dataclasses.replace(t_base, **t_upd)
+    flag_map = dict(
+        scanline_strength="scanline_strength", triad_strength="triad_strength",
+        triad_gamma="triad_gamma", triad_preserve_luma="triad_preserve_luma",
+        triad_softness="triad_softness", aberration_px="aberration_px",
+        bloom_sigma="bloom_sigma", bloom_strength="bloom_strength",
+        bloom_threshold="bloom_threshold", noise_strength="noise_strength",
+        vignette_strength="vignette_strength", persistence="persistence",
+        scanline_speed="scanline_speed_px_s", scanline_period="scanline_period_px",
+        fast_bloom="fast_bloom", pixel_size="pixel_size",
+        brightness="brightness", contrast="contrast", gamma="gamma",
+        saturation="saturation", temperature="temperature",
+        flicker_strength="flicker_strength", flicker_hz="flicker_hz",
+        grain_size="grain_size", scanline_angle="scanline_angle",
+        scanline_thickness="scanline_thickness", warp_strength="warp_strength",
+        glitch_amp="glitch_amp_px", glitch_height="glitch_height_frac",
+    )
+    updates = {}
+    for flag, field in flag_map.items():
+        if not a.preset or explicit(flag):
+            updates[field] = getattr(a, flag)
+    return dataclasses.replace(base, **updates, text=text).clamped()
 
 
 def _refusal(a) -> str:
@@ -46,10 +199,10 @@ def _refusal(a) -> str:
         (a.gui, "--gui", "queue 1, GUI"),
         (a.segment_frames > 0, "--segment-frames", "queue 1, pipeline: segment resume"),
         (a.devices > 1, "--devices", "queue 1, multiclip"),
-        (a.assoc_scan, "--assoc-scan", "queue 1, c4 slice"),
         (a.precision == "fast", "--precision fast", "queue 1, fallback slice"),
-        (a.engine_mode == "preview", "--engine-mode preview", "queue 1, c4 slice"),
         (a.decode_workers > 1, "--decode-workers", "queue 1, pipeline: parallel decode"),
+        (a.pipe_format == "yuv420p", "--pipe-format yuv420p",
+         "queue 1, pipeline: yuv420p decode"),
         (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline"),
         (a.check_deps, "--check-deps", "queue 1, pipeline"),
     ]
@@ -61,7 +214,7 @@ def _refusal(a) -> str:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    a = _parser().parse_args(argv)
+    a = build_parser().parse_args(argv)
     msg = _refusal(a)
     if msg:
         print(msg, file=sys.stderr)
@@ -76,7 +229,7 @@ def main(argv=None) -> int:
         print("input not found", file=sys.stderr)
         return 2
     out = Path(a.output) if a.output else inp.with_name(inp.stem + "_crt.mp4")
-    params = params_from_args(a, provided_flags(_without_device(argv)))
+    params = params_from_args(a, provided_flags(argv))
     from .engine import unsupported
 
     why = unsupported(params)
@@ -108,6 +261,7 @@ def main(argv=None) -> int:
             engine_mode=str(a.engine_mode),
             rng=str(a.rng),
             seed=int(a.seed),
+            assoc_scan=bool(a.assoc_scan),
             precision=str(a.precision),
             pipe_format=str(a.pipe_format),
             device=a.device,

@@ -24,9 +24,11 @@ def consts_from_jax(c: dict, device="cpu") -> dict:
         # aberration is composed in; the port keeps one (3, W) map by colour
         out["pix_x"] = np.stack([np.asarray(c.get("pix_x_r", x), np.int32), x,
                                  np.asarray(c.get("pix_x_b", x), np.int32)])
-    for k in ("triad", "vig_ny2", "vig_nx2"):
+    for k in ("triad", "vig_ny2", "vig_nx2", "glitch_amp"):
         if k in c:
             out[k] = np.asarray(c[k], np.float32)
+    if "glitch_seg_index" in c:  # export glitch only; preview has one offset per row
+        out["glitch_seg_index"] = np.asarray(c["glitch_seg_index"], np.int32)
     if "warp" in c:
         y0, x0, fy, fx = (np.asarray(a) for a in c["warp"])
         out["warp"] = (y0.astype(np.int32), x0.astype(np.int32),
@@ -51,4 +53,4 @@ def state_from_numpy(state, layout: str = "nhwc", channel_order: str = "rgb",
         raise ValueError(f"state shape {s.shape} does not fit layout {layout!r}")
     if channel_order not in ("rgb", "gbr") or (channel_order == "gbr" and layout == "nhwc"):
         raise ValueError(f"channel_order {channel_order!r} does not fit layout {layout!r}")
-    return torch.from_numpy(np.ascontiguousarray(s)).to(device)
+    return torch.from_numpy(np.array(s, np.float32, order="C")).to(device)  # a writable copy

@@ -1,39 +1,52 @@
-// Fused CRT stripe pass for Hopper (sm_90a): stages 1-11 of the effect
-// chain in one kernel over planar uint8 frames.
+// Fused CRT pass for Hopper (sm_90a): stages 1-11 of the effect chain in
+// one kernel over planar uint8 frames.
 //
 // Replaces: pythoncrt_tpu/kernels/fused.py, fused_pipeline / _fused_kernel
-// (the Pallas TPU row-stripe kernel).
+// (the Pallas TPU row-stripe kernel), with its three bloom cores: the
+// exact gaussian, the fast half-res down+up (the `fast` variant,
+// fused.py:453-477, op for op with bloom3._bloom3_fast_kernel) and
+// bloom off.
 //
-// What bounds it on the card: bytes. A 1080p frame is 6.2 MB of uint8 in,
-// and the pass writes either 6.2 MB of uint8 (warp off) or 24.9 MB of f32
-// (the warp kernel's feed). The arithmetic per pixel (grade pow, gaussian
-// taps, two triad table reads) is small beside that on an H100.
+// What bounds it on the card: bytes, on paper. A 1080p frame is 6.2 MB of
+// uint8 in, plus the 8.3 MB f32 grain field when the noise stage is on;
+// the pass writes either 6.2 MB of uint8 (nothing downstream) or 24.9 MB
+// of f32 (the warp, glitch or persistence kernel's feed). The arithmetic
+// per pixel (grade pow, bloom taps, two triad table reads) is small beside
+// that on an H100; measured, the gaussian taps and the FP64 grade pow set
+// the time (PERF.md).
 //
 // Design: one block owns a 32x32 output tile of one frame, all three
 // planes (the saturation and triad luma need the three planes of a pixel
-// together). The block gathers its tile plus an r-pixel halo through the
-// composed per-plane pixelate/aberration index maps (any pixel size, any
-// frame shape: halo reads are clamped to the frame, which is exactly the
-// replicate border), applies /255 and the grade into shared memory, runs
-// the horizontal then the vertical gaussian taps out of shared memory and
-// finishes the epilogue in registers. Only the uint8 input, the small
-// per-row/per-column tables and the output cross device memory.
+// together). The block gathers its tile plus a halo through the composed
+// per-plane pixelate/aberration index maps (any pixel size, any frame
+// shape), applies /255 and the grade into shared memory, runs the bloom
+// core out of shared memory and finishes the epilogue in registers. Only
+// the uint8 input, the grain field, the small per-row/per-column tables
+// and the output cross device memory.
+// - Gaussian core: an r-pixel halo, reads clamped to the frame (the
+//   replicate border); horizontal then vertical taps.
+// - Fast core: the oracle's resize_bilinear down to (H/2, W/2) and back,
+//   each pass rows first then columns, lo*(1-f) + hi*f, from the oracle's
+//   bilinear_taps tables. The halo is the tables' extent for the tile
+//   (2 full-res pixels at a 2x ratio), read per block from the tables, so
+//   any H and W work, odd ones included.
 //
 // Exactness: the triad quantizes to a 1024-bin grid, so every f32 op
 // upstream of it keeps the reference's order. The file is compiled with
 // -fmad=false (no multiply-add contraction); divisions are IEEE (nvcc's
 // default -prec-div=true); the grade pow is computed in double and rounded
 // once to float; the triad's two pow sites read 1025-entry tables the host
-// builds with the same rounding. Border taps follow the fold the JAX paths
-// use: out-of-frame taps add nothing in tap order, then the clipped taps'
-// summed coefficient times the edge sample is added (left, then right).
+// builds with the same rounding. Gaussian border taps follow the fold the
+// JAX paths use: out-of-frame taps add nothing in tap order, then the
+// clipped taps' summed coefficient times the edge sample is added (left,
+// then right).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TX = 32;       // output tile width
+constexpr int TX = 32;       // output tile width (kernels/fused.py TILE)
 constexpr int TY = 32;       // output tile height
 constexpr int NT = 256;      // threads per block
 constexpr int MAXK = 63;     // taps (radius <= 31)
@@ -54,6 +67,11 @@ struct FusedArgs {
     const float* flicker;    // (B,)
     const float* lut_fwd;    // (1025,) pow(i/1024, g)
     const float* lut_fin;    // (1025,) exp2(log2(i/1024) / g)
+    // fast bloom core: the oracle's bilinear_taps (lo, frac) per axis
+    const int32_t* fd_ylo; const float* fd_yf;   // (H2,) down, rows
+    const int32_t* fd_xlo; const float* fd_xf;   // (W2,) down, columns
+    const int32_t* fu_ylo; const float* fu_yf;   // (H,)  up, rows
+    const int32_t* fu_xlo; const float* fu_xf;   // (W,)  up, columns
     int32_t b, h, w;
     int32_t emit_u8;
     // prologue (stage 1 + 4)
@@ -70,6 +88,10 @@ struct FusedArgs {
     float taps[MAXK];
     float edge_l[MAXK];  // edge_l[d]: summed taps clipped off the left/top at distance d
     float edge_r[MAXK];  // edge_r[d]: same for the right/bottom edge
+    int32_t fast_on, h2, w2;
+    // largest per-tile extents of the fast core's tables (shared memory
+    // sizing): full-res rows/columns, half-res rows/columns
+    int32_t fs_rows, fs_cols, fh_rows, fh_cols;
     // epilogue (stages 7-11)
     int32_t triad_mode;  // 0 off, 1 multiply only, 2 LUT-exact
     int32_t luma_on;
@@ -95,6 +117,10 @@ __device__ __forceinline__ int quantize(float v) {
 
 __device__ __forceinline__ float luma(float r, float g, float b) {
     return 0.2126f * r + 0.7152f * g + 0.0722f * b;
+}
+
+__device__ __forceinline__ float lerp_taps(float lo, float hi, float f) {
+    return lo * (1.0f - f) + hi * f;   // the oracle's resize_bilinear order
 }
 
 // Stages 1-4 for one pixel: gather through the index maps, /255, grade.
@@ -128,6 +154,64 @@ __device__ void prologue(const FusedArgs& a, int bi, int gy, int gx, float x[3])
     }
 }
 
+// Stages 7-11 for one composited pixel, then the store.
+__device__ void epilogue(const FusedArgs& a, int bi, int gy, int gx, float m[3]) {
+    const int h = a.h, w = a.w;
+    if (a.triad_mode == 1) {
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * a.tri[p * w + gx]);
+    } else if (a.triad_mode == 2) {
+        float lin[3], ol[3];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            lin[p] = a.lut_fwd[quantize(m[p])];
+            ol[p] = lin[p] * a.tri[p * w + gx];
+        }
+        if (a.luma_on) {
+            const float yb = luma(lin[a.ir], lin[a.ig], lin[a.ib]);
+            const float ya = luma(ol[a.ir], ol[a.ig], ol[a.ib]);
+            const float ratio = fminf(fmaxf(yb / fmaxf(ya, 1e-6f), 0.5f), 2.0f);
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) ol[p] = ol[p] * ratio;
+        }
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(a.lut_fin[quantize(ol[p])]);
+    }
+    if (a.sl_on) {
+        const float s = a.sl[(size_t)bi * h + gy];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * s);
+    }
+    if (a.vig_on) {
+        const float v = 1.0f - a.vig_strength * clip01(a.vy2[gy] + a.vx2[gx]);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * v);
+    }
+    if (a.flicker_on) {
+        const float f = a.flicker[bi];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * f);
+    }
+    if (a.noise_on) {
+        const float n = a.grain[((size_t)bi * h + gy) * w + gx] * a.noise_scale;
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] + n);
+    }
+    const size_t plane = (size_t)h * w;
+    const size_t o = (size_t)bi * 3 * plane + (size_t)gy * w + gx;
+    if (a.emit_u8) {
+        uint8_t* out = static_cast<uint8_t*>(a.out);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p)
+            out[o + p * plane] = (uint8_t)fminf(fmaxf(rintf(m[p] * 255.0f), 0.0f), 255.0f);
+    } else {
+        float* out = static_cast<float*>(a.out);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) out[o + p * plane] = m[p];
+    }
+}
+
+// Gaussian and bloom-off cores.
 __global__ void __launch_bounds__(NT)
 fused_kernel(const FusedArgs a) {
     extern __shared__ float smem[];
@@ -181,7 +265,6 @@ fused_kernel(const FusedArgs a) {
     }
 
     // ---- vertical taps, composite, epilogue ----
-    const size_t plane = (size_t)h * w;
     for (int i = tid; i < TY * TX; i += NT) {
         const int ly = i / TX, lx = i - (i / TX) * TX;
         const int gy = y0 + ly, gx = x0 + lx;
@@ -206,77 +289,129 @@ fused_kernel(const FusedArgs a) {
             }
             m[p] = clip01(xv + a.strength * acc);
         }
+        epilogue(a, bi, gy, gx, m);
+    }
+}
 
-        if (a.triad_mode == 1) {
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * a.tri[p * w + gx]);
-        } else if (a.triad_mode == 2) {
-            float lin[3], ol[3];
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) {
-                lin[p] = a.lut_fwd[quantize(m[p])];
-                ol[p] = lin[p] * a.tri[p * w + gx];
-            }
-            if (a.luma_on) {
-                const float yb = luma(lin[a.ir], lin[a.ig], lin[a.ib]);
-                const float ya = luma(ol[a.ir], ol[a.ig], ol[a.ib]);
-                const float ratio = fminf(fmaxf(yb / fmaxf(ya, 1e-6f), 0.5f), 2.0f);
-                #pragma unroll
-                for (int p = 0; p < 3; ++p) ol[p] = ol[p] * ratio;
-            }
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(a.lut_fin[quantize(ol[p])]);
+// The block's source and half-res windows for the fast core, from the
+// tables: rows [sy0, sy0 + nr) and half rows [i0, i0 + nh); same on x.
+struct FastWindow {
+    int s0, n, i0, nh;
+};
+
+__device__ __forceinline__ FastWindow fast_window(
+        const int32_t* up_lo, const int32_t* dn_lo, int t0, int t1, int full, int half) {
+    FastWindow f;
+    f.i0 = up_lo[t0];
+    const int i1 = min(up_lo[t1] + 1, half - 1);
+    f.nh = i1 - f.i0 + 1;
+    f.s0 = min(dn_lo[f.i0], t0);           // the tile itself is read for the composite
+    const int s1 = max(min(dn_lo[i1] + 1, full - 1), t1);
+    f.n = s1 - f.s0 + 1;
+    return f;
+}
+
+// Fast core: resize_bilinear(resize_bilinear(knee(x), H/2, W/2), H, W).
+__global__ void __launch_bounds__(NT)
+fused_fast_kernel(const FusedArgs a) {
+    extern __shared__ float smem[];
+    const int h = a.h, w = a.w;
+    const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, bi = blockIdx.z;
+    const int tid = threadIdx.x;
+    const int ty1 = min(y0 + TY, h) - 1, tx1 = min(x0 + TX, w) - 1;
+    const FastWindow fy = fast_window(a.fu_ylo, a.fd_ylo, y0, ty1, h, a.h2);
+    const FastWindow fx = fast_window(a.fu_xlo, a.fd_xlo, x0, tx1, w, a.w2);
+    const int SR = a.fs_rows, SC = a.fs_cols, HR = a.fh_rows, HC = a.fh_cols;
+    float* S = smem;                  // [3][SR][SC] prologue output (pre-knee)
+    float* D1 = S + 3 * SR * SC;      // [3][HR][SC] down, rows
+    float* D2 = D1 + 3 * HR * SC;     // [3][HR][HC] down, columns: the half-res image
+    float* U1 = D2 + 3 * HR * HC;     // [3][TY][HC] up, rows
+
+    for (int i = tid; i < fy.n * fx.n; i += NT) {
+        const int ly = i / fx.n, lx = i - ly * fx.n;
+        float x[3];
+        prologue(a, bi, fy.s0 + ly, fx.s0 + lx, x);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) S[(p * SR + ly) * SC + lx] = x[p];
+    }
+    __syncthreads();
+    for (int i = tid; i < fy.nh * fx.n; i += NT) {
+        const int li = i / fx.n, lx = i - li * fx.n;
+        const int lo = a.fd_ylo[fy.i0 + li];
+        const int hi = min(lo + 1, h - 1);
+        const float f = a.fd_yf[fy.i0 + li];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p)
+            D1[(p * HR + li) * SC + lx] = lerp_taps(
+                knee(a, S[(p * SR + lo - fy.s0) * SC + lx]),
+                knee(a, S[(p * SR + hi - fy.s0) * SC + lx]), f);
+    }
+    __syncthreads();
+    for (int i = tid; i < fy.nh * fx.nh; i += NT) {
+        const int li = i / fx.nh, lj = i - li * fx.nh;
+        const int lo = a.fd_xlo[fx.i0 + lj];
+        const int hi = min(lo + 1, w - 1);
+        const float f = a.fd_xf[fx.i0 + lj];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            const float* row = D1 + (p * HR + li) * SC - fx.s0;
+            D2[(p * HR + li) * HC + lj] = lerp_taps(row[lo], row[hi], f);
         }
-        if (a.sl_on) {
-            const float s = a.sl[(size_t)bi * h + gy];
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * s);
+    }
+    __syncthreads();
+    const int nty = ty1 - y0 + 1;
+    for (int i = tid; i < nty * fx.nh; i += NT) {
+        const int ly = i / fx.nh, lj = i - ly * fx.nh;
+        const int lo = a.fu_ylo[y0 + ly];
+        const int hi = min(lo + 1, a.h2 - 1);
+        const float f = a.fu_yf[y0 + ly];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p)
+            U1[(p * TY + ly) * HC + lj] = lerp_taps(
+                D2[(p * HR + lo - fy.i0) * HC + lj], D2[(p * HR + hi - fy.i0) * HC + lj], f);
+    }
+    __syncthreads();
+    for (int i = tid; i < TY * TX; i += NT) {
+        const int ly = i / TX, lx = i - ly * TX;
+        const int gy = y0 + ly, gx = x0 + lx;
+        if (gy >= h || gx >= w) continue;
+        const int lo = a.fu_xlo[gx];
+        const int hi = min(lo + 1, a.w2 - 1);
+        const float f = a.fu_xf[gx];
+        float m[3];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            const float* row = U1 + (p * TY + ly) * HC - fx.i0;
+            const float blur = lerp_taps(row[lo], row[hi], f);
+            const float xv = S[(p * SR + gy - fy.s0) * SC + gx - fx.s0];
+            m[p] = clip01(xv + a.strength * blur);
         }
-        if (a.vig_on) {
-            const float v = 1.0f - a.vig_strength * clip01(a.vy2[gy] + a.vx2[gx]);
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * v);
-        }
-        if (a.flicker_on) {
-            const float f = a.flicker[bi];
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * f);
-        }
-        if (a.noise_on) {
-            const float n = a.grain[((size_t)bi * h + gy) * w + gx] * a.noise_scale;
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] + n);
-        }
-        const size_t o = (size_t)bi * 3 * plane + (size_t)gy * w + gx;
-        if (a.emit_u8) {
-            uint8_t* out = static_cast<uint8_t*>(a.out);
-            #pragma unroll
-            for (int p = 0; p < 3; ++p)
-                out[o + p * plane] = (uint8_t)fminf(fmaxf(rintf(m[p] * 255.0f), 0.0f), 255.0f);
-        } else {
-            float* out = static_cast<float*>(a.out);
-            #pragma unroll
-            for (int p = 0; p < 3; ++p) out[o + p * plane] = m[p];
-        }
+        epilogue(a, bi, gy, gx, m);
     }
 }
 
 }  // namespace
 
-static int fused_smem_bytes(int r) {
+static int fused_smem_bytes(const FusedArgs* a) {
+    if (a->bloom_on && a->fast_on) {
+        const int SR = a->fs_rows, SC = a->fs_cols, HR = a->fh_rows, HC = a->fh_cols;
+        return (int)sizeof(float) * 3 * (SR * SC + HR * SC + HR * HC + TY * HC);
+    }
+    const int r = a->bloom_on ? a->r : 0;
     const int rh = TY + 2 * r, sp = TX + 2 * r + 1;
     return (int)sizeof(float) * (3 * rh * sp + (r > 0 ? 3 * rh * TX : 0));
 }
 
 extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
     if (a->r < 0 || 2 * a->r + 1 > MAXK) return (int)cudaErrorInvalidValue;
-    const int r = a->bloom_on ? a->r : 0;
-    const int smem = fused_smem_bytes(r);
+    const bool fast = a->bloom_on && a->fast_on;
+    void (*kern)(const FusedArgs) = fast ? fused_fast_kernel : fused_kernel;
+    const int smem = fused_smem_bytes(a);
     cudaError_t e = cudaFuncSetAttribute(
-        fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((a->w + TX - 1) / TX, (a->h + TY - 1) / TY, a->b);
-    fused_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+    kern<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(*a);
     return (int)cudaGetLastError();
 }
 

@@ -1,24 +1,25 @@
 """The CRT effect engine in PyTorch.
 
-Port of pythoncrt_tpu/engine.py for the c3 slice: one batched step
+Port of pythoncrt_tpu/engine.py: one batched step
 
-    step : (frames_u8 [B, 3, H, W], aux) -> out_u8 [B, 3, H, W]
+    step : (frames_u8 [B, 3, H, W], aux, state [3, H, W]) -> (out_u8, state)
 
-that runs the fused kernel (stages 1-11) and, when the warp is on, the
-warp kernel (stage 12) with the uint8 cast folded into the last one.
-On CUDA tensors those are the hand-written kernels under csrc/; on CPU
-tensors their plain PyTorch twins, so the CPU tests exercise the same
-step.
+that runs, in the reference's stage order, the fused kernel (stages
+1-11), the warp kernel (stage 12, when on), the glitch kernel (stage 14,
+when on, in place on the band) and the persistence kernel (stage 15,
+when on), with the uint8 cast folded into the last of them. On CUDA
+tensors those are the hand-written kernels under csrc/; on CPU tensors
+their plain PyTorch twins, so the CPU tests exercise the same step.
 
 Host tables (pixel maps, triad row, vignette vectors, warp tables,
-resize taps) come from the shared NumPy oracle and are uploaded once.
-Per-frame inputs (scanline phase, flicker gain, noise) are computed per
-batch from absolute frame indices, so every draw is a pure function of
-(seed, frame index): outputs do not depend on how frames are split
-into batches.
+resize taps, glitch amplitudes and segment index) come from the port's
+NumPy oracle and are uploaded once. Per-frame inputs (scanline phase,
+flicker gain, noise, glitch offsets) are computed per batch from
+absolute frame indices, so every draw is a pure function of (seed, frame
+index): outputs do not depend on how frames are split into batches.
 
-Configs outside the slice raise NotImplementedError naming the
-ROADMAP.md item that will bring them; nothing computes them another way.
+Configs outside the port raise NotImplementedError naming the ROADMAP.md
+item that will bring them; nothing computes them another way.
 """
 
 from __future__ import annotations
@@ -28,13 +29,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pythoncrt_tpu import oracle
-from pythoncrt_tpu.params import EffectParams
-
+from . import oracle
 from .kernels import fused as kfused
+from .kernels import glitch as kglitch
+from .kernels import persist as kpersist
 from .kernels import warp as kwarp
 from .ops import color as ocolor
+from .ops import glitch as oglitch
 from .ops import resize as oresize
+from .params import EffectParams
+
+# SeedSequence tags of the per-frame native-rng streams: the grain's and
+# the glitch's are independent, so turning the glitch on leaves the grain
+# as it was (the JAX engine's fold_in(key, 11) and fold_in(key, 14)).
+_GRAIN_STREAM, _GLITCH_STREAM = 11, 14
 
 
 class FrameAux(NamedTuple):
@@ -44,25 +52,14 @@ class FrameAux(NamedTuple):
     phase: np.ndarray  # (B,) f32 scanline phase in px
     flicker: np.ndarray  # (B,) f32 flicker gain (1.0 when off)
     noise: Optional[np.ndarray] = None  # (B, gh, gw) f32 std-normal (rng="host")
+    glitch_base: Optional[np.ndarray] = None  # (B, rows) f32 (rng="host")
+    glitch_seg: Optional[np.ndarray] = None  # (B, rows, segs) f32 (rng="host", export)
 
 
-def unsupported(params: EffectParams, *, engine: str = "export",
-                precision: str = "exact", assoc_scan: bool = False,
+def unsupported(params: EffectParams, *, precision: str = "exact",
                 lut_exact: bool = True) -> Optional[str]:
-    """Why this configuration is outside the port's c3 slice, or None."""
+    """Why this configuration is outside the port, or None."""
     p = params.clamped()
-    if p.bloom_on and p.fast_bloom:
-        return ("fast bloom (--fast-bloom, the CLI default) is not ported yet: "
-                "ROADMAP.md queue 1, c4 slice (pass --no-fast-bloom)")
-    if p.persistence_on:
-        return ("persistence > 0 (the CLI default is 0.2) is not ported yet: "
-                "ROADMAP.md queue 1, c4 slice (pass --persistence 0)")
-    if p.glitch_on:
-        return "the glitch stage is not ported yet: ROADMAP.md queue 1, c4 slice"
-    if engine == "preview":
-        return "the preview engine is not ported yet: ROADMAP.md queue 1, c4 slice"
-    if assoc_scan:
-        return "assoc_scan is not ported yet: ROADMAP.md queue 1, c4 slice"
     if p.text.enabled:
         return "text overlays are not ported yet: ROADMAP.md queue 1, fallback slice"
     if p.scanlines_on and not p.scanlines_1d:
@@ -78,10 +75,15 @@ class CRTEngine:
 
     Same constructor surface as the JAX engine, with ``device`` in place
     of the TPU's ``pallas``/``interpret`` switches. ``layout`` "nhwc"
-    takes and returns (B, H, W, 3) uint8; "planar" (B, 3, H, W) with
-    plane i holding colour ``channel_order[i]`` ("gbr" is ffmpeg's gbrp
-    order); "auto" is planar, the kernels' own layout. ``consts``
-    overrides host tables by name (see ``consts`` and convert.py).
+    takes and returns (B, H, W, 3) uint8 and an (H, W, 3) state;
+    "planar" (B, 3, H, W) and (3, H, W), plane i holding colour
+    ``channel_order[i]`` ("gbr" is ffmpeg's gbrp order); "auto" is
+    planar, the kernels' own layout. ``engine`` "preview" selects the
+    preview glitch (one offset per row), "export" the canonical one.
+    ``assoc_scan`` runs the persistence recurrence as an O(log B)
+    associative scan in plain PyTorch instead of the sequential kernel.
+    ``consts`` overrides host tables by name (see ``consts`` and
+    convert.py).
     """
 
     def __init__(self, params: EffectParams, height: int, width: int, fps: float, *,
@@ -106,8 +108,7 @@ class CRTEngine:
         if text_rgba is not None and p.text.enabled:
             raise NotImplementedError(
                 "text overlays are not ported yet: ROADMAP.md queue 1, fallback slice")
-        why = unsupported(p, engine=engine, precision=precision,
-                          assoc_scan=assoc_scan, lut_exact=lut_exact)
+        why = unsupported(p, precision=precision, lut_exact=lut_exact)
         if why:
             raise NotImplementedError(why)
         self.params = p
@@ -118,7 +119,7 @@ class CRTEngine:
         self.seed = int(seed)
         self.precision = precision
         self.lut_exact = True
-        self.assoc_scan = False
+        self.assoc_scan = bool(assoc_scan)
         self.device = torch.device(device)
         self.layout = "planar" if layout == "auto" else layout
         self.channel_order = channel_order
@@ -151,6 +152,21 @@ class CRTEngine:
             x0, fx = oracle.ops.split_map(map_x)
             y0, fy = oracle.ops.split_map(map_y)
             own["warp"] = (y0, x0, fy, fx)
+        self._glitch_y0, self._glitch_rows = oracle.glitch_rows(h, p.glitch_height_frac)
+        self._glitch = p.glitch_on and self._glitch_rows > 0
+        if self._glitch:
+            # amplitude per band row and the static segment of each column
+            # (the JAX engine's glitch consts, engine.py:721-736)
+            rows = self._glitch_rows
+            ridx = np.arange(rows, dtype=np.float32)
+            if self.engine == "preview":
+                amp = float(p.glitch_amp_px) * np.exp(-3.0 * (ridx / max(1.0, float(rows))))
+                own["glitch_seg_index"] = np.zeros(w, np.int32)
+            else:
+                amp = float(p.glitch_amp_px) * (1.0 - ridx / max(1.0, float(rows)))
+                seg_len = max(8, min(32, w // 120 if w >= 120 else 8))
+                own["glitch_seg_index"] = (np.arange(w, dtype=np.int32) // seg_len).astype(np.int32)
+            own["glitch_amp"] = amp.astype(np.float32)
         g = max(1, int(p.grain_size))
         self._grain_hw = (max(1, h // g), max(1, w // g)) if g > 1 else (h, w)
 
@@ -163,12 +179,20 @@ class CRTEngine:
 
         self.consts = {k: dev_t(given.get(k, v)) for k, v in own.items()}
         c = self.consts
+        if self._glitch:
+            seg = c["glitch_seg_index"].to(torch.int32).contiguous()
+            if tuple(seg.shape) != (w,) or int(seg.min().item()) < 0:
+                raise ValueError("glitch_seg_index must hold (W,) segment indices >= 0")
+            self._glitch_nseg = int(seg.max().item()) + 1
+            c["glitch_seg_index"] = seg
+        # the uint8 cast folds into the last kernel of the step
+        temporal = self._glitch or p.persistence_on
         pc = self._plane_colors
         t = float(p.temperature)
         temp_r, temp_b = ocolor.temperature_gains(t) if t != 0.0 else (1.0, 1.0)
         self.spec = kfused.build_fused_spec(
             h, w, sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
-            threshold=float(p.bloom_threshold), bloom=p.bloom_on,
+            threshold=float(p.bloom_threshold), fast=bool(p.fast_bloom), bloom=p.bloom_on,
             px=int(p.pixel_size) if p.pixelate_on else 1,
             ab=int(p.aberration_px) if p.aberration_on else 0,
             saturation=float(p.saturation), temp_r=temp_r, temp_b=temp_b,
@@ -180,7 +204,8 @@ class CRTEngine:
             vig_strength=float(p.vignette_strength),
             flicker=p.flicker_on, noise=p.noise_on,
             noise_scale=float(p.noise_strength) / 255.0,
-            emit="f32" if p.warp_on else "u8", corder=pc)
+            emit="f32" if (p.warp_on or temporal) else "u8", corder=pc)
+        self._warp_u8 = p.warp_on and not temporal
         own_fc = kfused.fused_consts(self.spec, dev)
         self.fused_tables = own_fc._replace(
             y_map=c["pix_y"].to(torch.int32).contiguous(),
@@ -190,8 +215,9 @@ class CRTEngine:
         if p.warp_on:
             y0, x0, fy, fx = c["warp"]
             self.warp_tables = kwarp.WarpTables(y0.to(torch.int32).contiguous(),
-                                          x0.to(torch.int32).contiguous(),
-                                          fy.float().contiguous(), fx.float().contiguous())
+                                                x0.to(torch.int32).contiguous(),
+                                                fy.float().contiguous(),
+                                                fx.float().contiguous())
         if p.noise_on and g > 1:
             gh, gw = self._grain_hw
             self._grain_taps = oresize.bilinear_consts(gh, gw, h, w, dev)
@@ -207,25 +233,41 @@ class CRTEngine:
         p = self.params
         idx = np.asarray(frame_indices, dtype=np.int64).reshape(-1)
         t = idx / float(self.fps)
-        phase = (t * p.scanline_speed_px_s).astype(np.float32)
+        # the host glitch seeds take int(|phase| * k) of the f64 phase
+        # (crt_filter.py:841, :670): a f32 phase near an integer boundary
+        # would draw another frame's whole field
+        phase64 = t * p.scanline_speed_px_s
+        phase = phase64.astype(np.float32)
         if p.flicker_on:
             flicker = (1.0 + 0.25 * p.flicker_strength
                        * np.sin(2.0 * np.pi * p.flicker_hz * t)).astype(np.float32)
         else:
             flicker = np.ones(idx.shape[0], np.float32)
-        noise = None
-        if self.rng == "host" and p.noise_on:
-            gh, gw = self._grain_hw
-            # independent per-frame streams keyed by frame index
-            noise = np.stack([
-                np.random.default_rng((self.seed, int(i))).standard_normal(
-                    (gh, gw), dtype=np.float32) for i in idx])
-        return FrameAux(idx, phase, flicker, noise)
+        noise = g_base = g_seg = None
+        if self.rng == "host":
+            if p.noise_on:
+                gh, gw = self._grain_hw
+                # independent per-frame streams keyed by frame index
+                noise = np.stack([
+                    np.random.default_rng((self.seed, int(i))).standard_normal(
+                        (gh, gw), dtype=np.float32) for i in idx])
+            if self._glitch and self.engine == "preview":
+                g_base = np.stack([oracle.glitch_offsets_preview(
+                    self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
+                    for ph in phase64])
+            elif self._glitch:
+                fields = [oracle.glitch_fields_export(
+                    self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
+                    for ph in phase64]
+                g_base = np.stack([f[0] for f in fields])
+                g_seg = np.stack([f[1] for f in fields])
+        return FrameAux(idx, phase, flicker, noise, g_base, g_seg)
 
-    def _frame_generator(self, frame_idx: int) -> torch.Generator:
-        """The native-rng generator of one frame, seeded as a pure
-        function of (seed, frame index)."""
-        ss = np.random.SeedSequence([self.seed % (1 << 64), int(frame_idx) % (1 << 64), 11])
+    def _frame_generator(self, frame_idx: int, stream: int) -> torch.Generator:
+        """The native-rng generator of one frame and stream, seeded as a
+        pure function of (seed, frame index, stream)."""
+        ss = np.random.SeedSequence([self.seed % (1 << 64), int(frame_idx) % (1 << 64),
+                                     stream])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(ss.generate_state(1, np.uint64)[0]) >> 1)
         return gen
@@ -236,7 +278,7 @@ class CRTEngine:
         gh, gw = self._grain_hw
         if aux.noise is None:
             field = torch.stack([
-                torch.randn((gh, gw), generator=self._frame_generator(i),
+                torch.randn((gh, gw), generator=self._frame_generator(i, _GRAIN_STREAM),
                             device=self.device, dtype=torch.float32)
                 for i in aux.frame_idx])
         else:
@@ -244,6 +286,32 @@ class CRTEngine:
         if self.params.grain_size > 1:
             field = oresize.resize_bilinear(field, *self._grain_taps)
         return field.contiguous()
+
+    def glitch_offsets(self, aux: FrameAux) -> torch.Tensor:
+        """(B, rows, NSEG) int32 per-segment offsets of stage 14: the host
+        fields or per-frame native draws, base + segment in f32, then
+        rint (the JAX engine's _glitch_seg_offsets and _band_maps)."""
+        amp = self.consts["glitch_amp"]
+        if self.engine == "preview":
+            if aux.glitch_base is None:
+                base = torch.stack([oglitch.native_preview_offsets(
+                    self._frame_generator(i, _GLITCH_STREAM), self._glitch_rows, amp)
+                    for i in aux.frame_idx])
+            else:
+                base = torch.from_numpy(np.ascontiguousarray(aux.glitch_base)).to(self.device)
+            offs = base[:, :, None]
+        else:
+            if aux.glitch_base is None:
+                fields = [oglitch.native_export_fields(
+                    self._frame_generator(i, _GLITCH_STREAM), self._glitch_rows,
+                    self._glitch_nseg, amp) for i in aux.frame_idx]
+                base = torch.stack([f[0] for f in fields])
+                seg = torch.stack([f[1] for f in fields])
+            else:
+                base = torch.from_numpy(np.ascontiguousarray(aux.glitch_base)).to(self.device)
+                seg = torch.from_numpy(np.ascontiguousarray(aux.glitch_seg)).to(self.device)
+            offs = base[:, :, None] + seg
+        return kglitch.round_offsets(offs).contiguous()
 
     def _scanline_rows(self, phase: np.ndarray) -> np.ndarray:
         """(B, H) stage-8 1-D multiplier, f32 in the JAX engine's op order
@@ -259,12 +327,51 @@ class CRTEngine:
     # The step
     # ------------------------------------------------------------------
 
-    def _step(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
-        """(B, 3, H, W) uint8 planar frames on the device -> uint8 planar."""
+    def _step(self, x: torch.Tensor, aux: FrameAux, state: torch.Tensor, first: bool):
+        """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
+        the device -> (uint8 planar frames, new state)."""
+        p = self.params
         out = kfused.fused_pipeline(x, self.spec, self.fused_tables, **self.fused_operands(aux))
-        if self.params.warp_on:
-            out = kwarp.warp_planar(out, self.warp_tables, emit_u8=True)
-        return out
+        if p.warp_on:  # stage 12
+            out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8)
+        if self._glitch:  # stage 14
+            kglitch.shear_planar_inplace(out, self._glitch_y0, self.glitch_offsets(aux),
+                                         self.consts["glitch_seg_index"])
+        if p.persistence_on:  # stage 15
+            if self.assoc_scan:
+                return self._assoc_persistence(out, state, first)
+            return kpersist.persistence_scan(out, state, first, p.persistence, emit_u8=True)
+        if out.dtype == torch.uint8:
+            # the carried state is the quantized last frame in [0, 1];
+            # nothing reads it back while persistence is off
+            return out, out[-1].float() * np.float32(1.0 / 255.0)
+        return ocolor.to_uint8(out), out[-1]
+
+    def _assoc_persistence(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
+        """Stage 15 as an O(log B) associative scan (the JAX engine's
+        _assoc_persistence): s_t = A_t * s_0 + b_t with the pairs (A, b)
+        composed as (A2 * A1, A2 * b1 + b2) by a Hillis-Steele prefix over
+        frames 1..B-1; frame 0 is blended (or passed through) as in the
+        sequential scan. The clip is a no-op on a convex combination of
+        [0, 1] values and is applied once at the end. Plain PyTorch: the
+        JAX form is a lax.associative_scan, not a kernel."""
+        pp = np.float32(self.params.persistence)
+        om = np.float32(1.0 - self.params.persistence)
+        x0 = imgs[0]
+        out0 = x0 if first else torch.clamp(pp * state + om * x0, 0.0, 1.0)
+        n = imgs.shape[0] - 1
+        outs = out0[None]
+        if n > 0:
+            a = torch.full((n,) + (1,) * (imgs.ndim - 1), float(pp),
+                           dtype=imgs.dtype, device=imgs.device)
+            b = om * imgs[1:]
+            d = 1
+            while d < n:
+                a, b = (torch.cat([a[:d], a[:-d] * a[d:]]),
+                        torch.cat([b[:d], a[d:] * b[:-d] + b[d:]]))
+                d *= 2
+            outs = torch.cat([outs, torch.clamp(a * out0[None] + b, 0.0, 1.0)])
+        return ocolor.to_uint8(outs), outs[-1].contiguous()
 
     def fused_operands(self, aux: FrameAux) -> dict:
         """The per-batch operands the step hands the fused kernel."""
@@ -282,14 +389,6 @@ class CRTEngine:
             kw["flicker"] = torch.from_numpy(aux.flicker).to(self.device)
         return kw
 
-    def _finish(self, out: torch.Tensor):
-        """Restore the I/O layout of the uint8 planar result. The carried
-        state is the quantized last frame in [0, 1] (persistence is
-        outside the slice, so nothing reads it back yet)."""
-        if self.layout == "nhwc":
-            out = out.permute(0, 2, 3, 1).contiguous()
-        return out, out[-1].float() * np.float32(1.0 / 255.0)
-
     # ------------------------------------------------------------------
     # Host API
     # ------------------------------------------------------------------
@@ -303,20 +402,31 @@ class CRTEngine:
     def process(self, frames_u8, frame_indices=None, state=None):
         """Run a batch: (B, H, W, 3) uint8 (numpy or tensor), or
         (B, 3, H, W) for layout "planar". Returns (out_u8 tensor on the
-        engine's device, state)."""
+        engine's device, state). Pass state=None for the first batch of a
+        stream (its first frame passes through unblended); thereafter the
+        returned state carries the persistence tail across batches."""
         x = torch.as_tensor(frames_u8).to(self.device, non_blocking=True)
         if x.dtype != torch.uint8 or tuple(x.shape[1:]) != self._frame_shape():
             raise ValueError(f"frames {x.dtype} {tuple(x.shape[1:])} != uint8 "
                              f"{self._frame_shape()} for layout={self.layout!r}")
-        if state is not None and tuple(state.shape) != self._frame_shape():
+        first = state is None
+        if first:
+            state = self.init_state()
+        elif tuple(state.shape) != self._frame_shape():
+            # the JAX engine refuses a mid-stream shape change the same way
+            # (the oracle's persistence_blend resizes; PARITY.md)
             raise ValueError(f"state shape {tuple(state.shape)} != {self._frame_shape()}")
+        state = torch.as_tensor(state, dtype=torch.float32).to(self.device)
         b = x.shape[0]
         if frame_indices is None:
             frame_indices = np.arange(b)
         aux = self.make_aux(frame_indices)
         if self.layout == "nhwc":
-            x = x.permute(0, 3, 1, 2)
-        return self._finish(self._step(x.contiguous(), aux))
+            x, state = x.permute(0, 3, 1, 2), state.permute(2, 0, 1)
+        out, state = self._step(x.contiguous(), aux, state.contiguous(), first)
+        if self.layout == "nhwc":
+            out, state = out.permute(0, 2, 3, 1), state.permute(1, 2, 0)
+        return out.contiguous(), state.contiguous()
 
     def process_stack(self, frames_stack, frame_indices, state=None):
         """n sequential process() calls over (n, B, ...) frames with (n, B)

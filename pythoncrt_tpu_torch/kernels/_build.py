@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels under ``pythoncrt_tpu_torch/csrc``.
 
-The ``.cu`` files have a plain C interface. At first use they are
-compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library
-under ``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the
-sources and flags, and loaded with ``ctypes``. Nothing is built when the
+The ``.cu`` files have a plain C interface. At first use each is
+compiled by its own ``nvcc`` process for Hopper (``sm_90a``), all started
+together, and the objects are linked into one shared library under
+``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
+and flags, and loaded with ``ctypes``. Nothing is built when the
 package is imported: the CPU tests import every module on hosts without
 ``nvcc``.
 
@@ -27,10 +28,12 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("fused.cu", "warp.cu")
+SOURCES = ("fused.cu", "warp.cu", "persist.cu", "glitch.cu")
+KERNELS = ("crt_fused", "crt_warp", "crt_persist", "crt_glitch")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -68,24 +71,35 @@ def library() -> ctypes.CDLL:
         so = out_dir / "libcrt_kernels.so"
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libcrt_kernels.{os.getpid()}.tmp.so"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
+            nvcc, tag = find_nvcc(), os.getpid()
+            objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                       str(CSRC / src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            for src, p in zip(SOURCES, procs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{build_log}")
+            tmp = out_dir / f"libcrt_kernels.{tag}.tmp.so"
+            res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
             build_seconds = time.perf_counter() - t0
-            build_log = res.stdout + res.stderr
+            build_log += res.stdout + res.stderr
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
             os.replace(tmp, so)
+            for obj in objs:
+                obj.unlink()
         lib = ctypes.CDLL(str(so))
-        for fn in ("crt_fused_launch", "crt_warp_launch"):
-            f = getattr(lib, fn)
+        for k in KERNELS:
+            f = getattr(lib, k + "_launch")
             f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             f.restype = ctypes.c_int
-        for fn in ("crt_fused_args_bytes", "crt_warp_args_bytes"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, k + "_args_bytes").argtypes = []
+            getattr(lib, k + "_args_bytes").restype = ctypes.c_int
         _lib = lib
         return lib
 

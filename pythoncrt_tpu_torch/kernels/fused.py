@@ -3,8 +3,12 @@
 Port of pythoncrt_tpu/kernels/fused.py (fused_pipeline / _fused_kernel):
 
   u8 planar frame --gather through the pixelate/aberration maps-->
-  /255 -> grade -> knee -> exact gaussian (H then V) -> composite ->
-  triad -> scanlines -> vignette -> flicker -> grain -> f32 or uint8
+  /255 -> grade -> knee -> bloom core -> composite -> triad ->
+  scanlines -> vignette -> flicker -> grain -> f32 or uint8
+
+The bloom core is the exact gaussian (H then V), the fast half-res
+down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
+tables), or off.
 
 ``fused_pipeline`` launches csrc/fused.cu for CUDA tensors and runs
 ``fused_pipeline_ref`` (plain PyTorch, the same op order) for CPU
@@ -22,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import oracle
 from ..ops import blur as oblur
 from ..ops import color as ocolor
 from ..ops import resize as oresize
@@ -30,15 +35,18 @@ from . import _build
 launches = 0  # CUDA launches made by fused_pipeline
 
 MAX_TAPS = 63  # csrc/fused.cu MAXK
+TILE = 32  # csrc/fused.cu TX, TY: the output tile of one block
 
 
 @dataclass(frozen=True)
 class FusedSpec:
     h: int
     w: int
-    # stage 6 (bloom): gaussian taps, radius r = len(taps) // 2
+    # stage 6 (bloom): gaussian taps, radius r = len(taps) // 2, or the
+    # fast half-res down+up core (no taps)
     bloom: bool = True
     taps: tuple = ()
+    fast: bool = False
     strength: float = 0.0
     threshold: float = 0.0
     # stages 2-4 (prologue)
@@ -73,37 +81,69 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
                      pre: bool = True, lut_exact: bool = True, **kw) -> FusedSpec:
     """Build a spec from the arguments of the JAX package's
     build_fused_spec (kernels/fused.py:168). The u8 prologue is always
-    on and the triad always LUT-exact; the fast-bloom core is the c4
-    slice's."""
-    if bloom and fast:
-        raise NotImplementedError(
-            "the fast-bloom fused core is not ported yet "
-            "(ROADMAP.md queue 1: c4 slice)")
+    on and the triad always LUT-exact. Any H and W: the TPU kernel's
+    shape gates (H%8, W%128, even sizes for the fast core) have no
+    counterpart."""
     if not pre or not lut_exact:
         raise NotImplementedError(
             "the port's fused kernel always runs the u8 prologue and the "
-            "LUT-exact triad (ROADMAP.md queue 1: precision fast, text before)")
+            "LUT-exact triad (precision fast, text before bloom: ROADMAP.md queue 1, "
+            "fallback slice)")
     if kw.get("emit", "f32") not in ("f32", "u8"):
         raise ValueError(f"unknown emit mode {kw.get('emit')!r}")
     for tpu_only in ("grain_g", "grain_off", "grain_frac", "grain_raw"):
         kw.pop(tpu_only, None)  # the TPU's in-kernel grain upsample forms
-    taps = oblur.gaussian_taps(sigma) if bloom else ()
+    fast = bool(bloom and fast)
+    taps = oblur.gaussian_taps(sigma) if bloom and not fast else ()
     if len(taps) > MAX_TAPS:
         raise NotImplementedError(
             f"bloom radius {len(taps) // 2} exceeds the fused kernel's 31 "
             "(ROADMAP.md queue 2: bloom3)")
     if int(kw.get("px", 1)) < 1 or abs(int(kw.get("ab", 0))) >= w:
         raise ValueError("pixel size must be >= 1 and |aberration| < width")
-    return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps,
+    return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps, fast=fast,
                      strength=float(strength), threshold=float(threshold), **kw)
 
 
 class FusedConsts(NamedTuple):
-    """Device tables of one spec: index maps and the triad tables."""
+    """Device tables of one spec: index maps, the triad tables and the
+    fast core's resize taps."""
     y_map: torch.Tensor            # (H,) int32
     x_maps: torch.Tensor           # (3, W) int32, plane order
     lut_fwd: Optional[torch.Tensor]  # (1025,) f32
     lut_fin: Optional[torch.Tensor]  # (1025,) f32
+    # fast core: (lo int32, frac f32) for the down rows (H2,), down
+    # columns (W2,), up rows (H,) and up columns (W,): the oracle's
+    # bilinear_taps
+    fast_taps: Optional[tuple] = None
+    # fast core: the largest per-tile (rows, columns, half rows, half
+    # columns) the kernel holds in shared memory
+    fast_extent: Optional[tuple] = None
+
+
+def _tile_extents(up_lo: np.ndarray, dn_lo: np.ndarray, full: int, half: int):
+    """Largest full-res and half-res extents over the tiles of one axis,
+    by csrc/fused.cu's fast_window: the half-res range the up pass reads,
+    the source range the down pass reads, and the tile itself."""
+    t0 = np.arange(0, full, TILE)
+    t1 = np.minimum(t0 + TILE, full) - 1
+    i0 = up_lo[t0]
+    i1 = np.minimum(up_lo[t1] + 1, half - 1)
+    s0 = np.minimum(dn_lo[i0], t0)
+    s1 = np.maximum(np.minimum(dn_lo[i1] + 1, full - 1), t1)
+    return int((s1 - s0 + 1).max()), int((i1 - i0 + 1).max())
+
+
+def fast_tables(h: int, w: int) -> tuple[tuple, tuple]:
+    """The fast core's taps, the oracle's resize_bilinear to (H//2, W//2)
+    and back (oracle/engine.py apply_effects, stage 6), and the per-tile
+    extents they give."""
+    h2, w2 = max(1, h // 2), max(1, w // 2)
+    taps = (*oracle.ops.bilinear_taps(h, h2), *oracle.ops.bilinear_taps(w, w2),
+            *oracle.ops.bilinear_taps(h2, h), *oracle.ops.bilinear_taps(w2, w))
+    rows, hrows = _tile_extents(taps[4], taps[0], h, h2)
+    cols, hcols = _tile_extents(taps[6], taps[2], w, w2)
+    return taps, (rows, cols, hrows, hcols)
 
 
 def fused_consts(spec: FusedSpec, device="cpu") -> FusedConsts:
@@ -111,8 +151,12 @@ def fused_consts(spec: FusedSpec, device="cpu") -> FusedConsts:
     fwd = fin = None
     if spec.triad and not ocolor.triad_is_multiply(spec.triad_gamma, spec.triad_luma):
         fwd, fin = ocolor.triad_tables(spec.triad_gamma, device)
+    taps = extent = None
+    if spec.bloom and spec.fast:
+        taps, extent = fast_tables(spec.h, spec.w)
+        taps = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in taps)
     return FusedConsts(torch.from_numpy(y_map).to(device),
-                       torch.from_numpy(x_maps).to(device), fwd, fin)
+                       torch.from_numpy(x_maps).to(device), fwd, fin, taps, extent)
 
 
 def _knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
@@ -136,7 +180,11 @@ def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, 
         if s.threshold > 0.0:
             thr, rden = _knee_consts(s.threshold)
             src = torch.clamp((x - thr) * rden, 0.0, 1.0)
-        bl = oblur.gaussian_blur_replicate(src, s.taps)
+        if s.fast:
+            t = [a.long() if i % 2 == 0 else a for i, a in enumerate(consts.fast_taps)]
+            bl = oresize.resize_bilinear(oresize.resize_bilinear(src, *t[:4]), *t[4:])
+        else:
+            bl = oblur.gaussian_blur_replicate(src, s.taps)
         m = torch.clamp(x + np.float32(s.strength) * bl, 0.0, 1.0)
     if s.triad:
         m = ocolor.apply_triad_planar(m, tri, s.triad_gamma, s.triad_luma, s.corder,
@@ -163,6 +211,10 @@ class _FusedArgs(ctypes.Structure):
         ("vy2", ctypes.c_void_p), ("vx2", ctypes.c_void_p),
         ("tri", ctypes.c_void_p), ("flicker", ctypes.c_void_p),
         ("lut_fwd", ctypes.c_void_p), ("lut_fin", ctypes.c_void_p),
+        ("fd_ylo", ctypes.c_void_p), ("fd_yf", ctypes.c_void_p),
+        ("fd_xlo", ctypes.c_void_p), ("fd_xf", ctypes.c_void_p),
+        ("fu_ylo", ctypes.c_void_p), ("fu_yf", ctypes.c_void_p),
+        ("fu_xlo", ctypes.c_void_p), ("fu_xf", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
         ("emit_u8", ctypes.c_int32),
         ("inv255", ctypes.c_float),
@@ -178,6 +230,9 @@ class _FusedArgs(ctypes.Structure):
         ("taps", ctypes.c_float * MAX_TAPS),
         ("edge_l", ctypes.c_float * MAX_TAPS),
         ("edge_r", ctypes.c_float * MAX_TAPS),
+        ("fast_on", ctypes.c_int32), ("h2", ctypes.c_int32), ("w2", ctypes.c_int32),
+        ("fs_rows", ctypes.c_int32), ("fs_cols", ctypes.c_int32),
+        ("fh_rows", ctypes.c_int32), ("fh_cols", ctypes.c_int32),
         ("triad_mode", ctypes.c_int32), ("luma_on", ctypes.c_int32),
         ("sl_on", ctypes.c_int32), ("vig_on", ctypes.c_int32),
         ("vig_strength", ctypes.c_float),
@@ -261,7 +316,16 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     if a.knee_on:
         a.thr, a.rden = _knee_consts(s.threshold)
     a.strength = np.float32(s.strength)
-    if s.bloom:
+    if s.bloom and s.fast:
+        a.fast_on = 1
+        a.h2, a.w2 = max(1, s.h // 2), max(1, s.w // 2)
+        names = ("fd_ylo", "fd_yf", "fd_xlo", "fd_xf", "fu_ylo", "fu_yf", "fu_xlo", "fu_xf")
+        lens = (a.h2, a.h2, a.w2, a.w2, s.h, s.h, s.w, s.w)
+        for i, (name, n) in enumerate(zip(names, lens)):
+            setattr(a, name, _check(name, consts.fast_taps[i], (n,),
+                                    torch.int32 if i % 2 == 0 else torch.float32, dev))
+        a.fs_rows, a.fs_cols, a.fh_rows, a.fh_cols = consts.fast_extent
+    elif s.bloom:
         left, right = oblur.edge_coefs(s.taps)
         a.taps[:len(s.taps)] = [float(np.float32(t)) for t in s.taps]
         a.edge_l[:len(left)] = [float(v) for v in left]

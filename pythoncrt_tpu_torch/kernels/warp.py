@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pythoncrt_tpu import oracle
+from .. import oracle
 from ..ops import color as ocolor
 from ..ops.warp import bilinear_gather_const0
 from . import _build

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pythoncrt_tpu.oracle import ops as oops
+from ..oracle import ops as oops
 
 
 def gaussian_taps(sigma: float) -> tuple[float, ...]:

@@ -1,7 +1,7 @@
 """Static-index resampling in PyTorch.
 
 Port of pythoncrt_tpu/ops/resize.py. The index maps and bilinear taps
-come from the shared NumPy oracle (pythoncrt_tpu.oracle.ops), so device
+come from the port's NumPy oracle (oracle/ops.py), so device
 results are the ground truth's: gathers plus f32 lerps in the oracle's
 order. Replaces cv2.resize at crt_filter.py:582-583 (pixelate) and :642
 (the grain upsample).
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pythoncrt_tpu import oracle
+from .. import oracle
 
 
 def plane_index_maps(h: int, w: int, pixel_size: int, aberration_px: int,

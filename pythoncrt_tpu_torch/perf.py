@@ -1,17 +1,60 @@
 """Named-stage performance accounting for the port.
 
-The accumulators and the report are the JAX package's own
-(pythoncrt_tpu.perf, which imports no JAX at module level), so the host
-I/O stages timed by pythoncrt_tpu.io.video (``io.*``) and the port's
-effect stages (``fx.*``) land in one report of the reference's format.
-Only ``device_trace`` differs: it annotates torch.profiler traces.
+The report contract of the reference's perf subsystem
+(crt_filter.py:58-101): thread-safe accumulators keyed by stage name and
+a plain-text report sorted by total time with per-call averages. Stage
+namespaces: ``io.*`` host I/O (io/video.py and the pipeline's decode and
+encode threads), ``fx.*`` the effect step. ``device_trace`` annotates
+torch.profiler traces.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
+import time
+from collections import defaultdict
 
-from pythoncrt_tpu.perf import perf_report, perf_reset, timed  # noqa: F401
+_lock = threading.Lock()
+_totals: dict[str, float] = defaultdict(float)
+_counts: dict[str, int] = defaultdict(int)
+
+
+def _add(name: str, dt: float) -> None:
+    with _lock:
+        _totals[name] += float(dt)
+        _counts[name] += 1
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _add(name, time.perf_counter() - t0)
+
+
+def perf_reset() -> None:
+    with _lock:
+        _totals.clear()
+        _counts.clear()
+
+
+def perf_report(total_frames: int, total_seconds: float, print_fn=print) -> str:
+    """Plain-text report in the reference's format (crt_filter.py:69-76)."""
+    with _lock:
+        snap = {k: (_totals[k], _counts[k]) for k in _totals}
+    lines = [f"perf total {total_seconds:.3f}s", f"perf frames {total_frames}"]
+    if total_seconds > 0 and total_frames:
+        lines.append(f"perf fps {total_frames / total_seconds:.1f}")
+    for k, (tot, cnt) in sorted(snap.items(), key=lambda kv: kv[1][0], reverse=True):
+        avg = (tot / cnt * 1000.0) if cnt else 0.0
+        lines.append(f"{k} total={tot:.3f}s count={cnt} avg_ms={avg:.2f}")
+    text = "\n".join(lines)
+    if print_fn is not None:
+        print_fn(text)
+    return text
 
 
 @contextlib.contextmanager

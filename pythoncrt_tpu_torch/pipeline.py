@@ -1,6 +1,6 @@
 """Video render pipeline: decode -> device batches -> encode.
 
-Port of pythoncrt_tpu/pipeline.py for the c3 slice:
+Port of pythoncrt_tpu/pipeline.py (single clip, single device):
 
   decode thread -> pinned host batch -> H2D -> engine step (kernels)
   -> D2H into a pinned host batch -> encode thread
@@ -14,8 +14,8 @@ output buffer once the encoder has written it.
 
 ``render_stream`` is the loop over any reader (``read_into(buf) ->
 bool``, ``out_h``, ``out_w``, optional ``frame_shape``, ``close()``) and
-writer (``write_frame(frame)``, ``close()``), the protocols of
-pythoncrt_tpu.io.video; ``process_video`` opens the codec ends around it.
+writer (``write_frame(frame)``, ``close()``), the protocols of io/video.py;
+``process_video`` opens the codec ends around it.
 """
 
 from __future__ import annotations
@@ -33,11 +33,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from pythoncrt_tpu.io import video as vio
-from pythoncrt_tpu.params import EffectParams
-
 from . import perf
 from .engine import CRTEngine, unsupported
+from .io import video as vio
+from .params import EffectParams
 
 DEFAULT_BATCH = 16
 POOL = 4  # host batch buffers per direction
@@ -224,6 +223,7 @@ def process_video(
     engine_mode: str = "export",
     rng: str = "native",
     seed: int = 0,
+    assoc_scan: bool = False,
     precision: str = "exact",
     pipe_format: str = "rgb24",
     device="cuda",
@@ -238,9 +238,12 @@ def process_video(
     ffmpeg binary pipes both ends, frames travel as planar gbrp and the
     engine runs in that layout (no host repack). Returns whether a
     hardware encoder was used."""
-    why = unsupported(params, engine=engine_mode, precision=precision)
+    why = unsupported(params, precision=precision)
     if why:
         raise NotImplementedError(why)
+    if pipe_format != "rgb24":
+        raise NotImplementedError(f"pipe_format {pipe_format!r} is not ported yet: "
+                                  "ROADMAP.md queue 1, pipeline: yuv420p decode")
     input_path, output_path = Path(input_path), Path(output_path)
     info = vio.probe_clip(input_path)
     out_w = int(width) if width else info.width
@@ -250,10 +253,10 @@ def process_video(
 
     perf.perf_reset()
     t_start = time.perf_counter()
-    planar = pipe_format == "rgb24" and vio.find_ffmpeg() is not None
+    planar = vio.find_ffmpeg() is not None
     with perf.timed("fx.compile"):
         eng = CRTEngine(params, out_h, out_w, fps_out, engine=engine_mode, rng=rng,
-                        seed=seed, precision=precision,
+                        seed=seed, precision=precision, assoc_scan=assoc_scan,
                         layout="planar" if planar else "nhwc",
                         channel_order="gbr" if planar else "rgb", device=device)
         if eng.device.type == "cuda":
@@ -271,7 +274,7 @@ def process_video(
             bitrate_kbps=target_bitrate_kbps, nvenc_preset=nvenc_preset,
             audio_path=audio_path, pix_fmt="gbrp" if planar else "rgb24")
         reader = vio.open_reader(str(input_path), out_w, out_h, fps_out,
-                                 decoder_preference, "gbrp" if planar else pipe_format)
+                                 decoder_preference, "gbrp" if planar else "rgb24")
         prof = contextlib.nullcontext()
         if profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]

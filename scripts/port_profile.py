@@ -1,0 +1,173 @@
+"""Where the time goes in the PyTorch/CUDA port's engine step, on one GPU.
+
+    python3 scripts/port_profile.py [--out port_profile.json]
+
+For each configuration (c3, the CLI defaults, c4) at 1080p with a batch
+of 8, native rng, planar gbrp frames already on the card:
+
+- engine fps: 5 repeats of 32 frames (4 batches, the state carried),
+  median, min and max;
+- each kernel of the step: 5 repeats of 20 launches timed with CUDA
+  events on the step's own operands, median ms per call;
+- a torch.profiler trace of 4 batches: device time per kernel name, the
+  sum, and the profiled loop's wall time, from which the device's idle
+  share of the loop follows;
+- nvidia-smi clocks and power drawn during the run.
+
+Prints one JSON object per configuration and writes them all to --out
+(a JSON list).
+Imports nothing of JAX or of the JAX package; exits 2 without a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+H, W, B, N = 1080, 1920, 8, 32
+CONFIGS = {
+    "c3": dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5,
+               aberration_px=1, bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False,
+               noise_strength=1.5, vignette_strength=0.25, persistence=0.0, pixel_size=2,
+               grain_size=2, warp_strength=0.15, flicker_strength=0.2, flicker_hz=2.0,
+               brightness=0.02, contrast=1.05, gamma=1.1, saturation=0.9, temperature=0.1),
+    "defaults": {},
+    "c4": dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1,
+               bloom_strength=0.25, fast_bloom=True, noise_strength=1.5,
+               vignette_strength=0.25, persistence=0.6, pixel_size=1, glitch_amp_px=6,
+               glitch_height_frac=0.3, scanline_speed_px_s=120.0),
+}
+
+
+def smi(fields: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def events_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        runs.append(t0.elapsed_time(t1) / iters)
+    return statistics.median(runs)
+
+
+def profile(name: str, params: dict, xs) -> dict:
+    import torch
+
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch.kernels import fused as kfused
+    from pythoncrt_tpu_torch.kernels import glitch as kglitch
+    from pythoncrt_tpu_torch.kernels import persist as kpersist
+    from pythoncrt_tpu_torch.kernels import warp as kwarp
+
+    p = EffectParams(**params)
+    eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device="cuda")
+
+    def loop():
+        st = None
+        for k in range(0, N, B):
+            _, st = eng.process(xs[k:k + B], np.arange(k, k + B), st)
+        torch.cuda.synchronize()
+
+    loop()
+    fps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loop()
+        fps.append(N / (time.perf_counter() - t0))
+
+    aux = eng.make_aux(np.arange(B))
+    kw = eng.fused_operands(aux)
+    x = xs[:B]
+    kernels = {"fused_pipeline": events_ms(
+        lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))}
+    f = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    if p.warp_on:
+        kernels["warp_planar"] = events_ms(
+            lambda: kwarp.warp_planar(f, eng.warp_tables, emit_u8=eng._warp_u8))
+    if eng._glitch:
+        off = eng.glitch_offsets(aux)
+        seg = eng.consts["glitch_seg_index"]
+        kernels["glitch_shear"] = events_ms(
+            lambda: kglitch.shear_planar_inplace(f, eng._glitch_y0, off, seg))
+        kernels["glitch_offsets (native draws, torch ops)"] = events_ms(
+            lambda: eng.glitch_offsets(aux), iters=5)
+    if p.persistence_on:
+        state = torch.zeros((3, H, W), device="cuda")
+        kernels["persistence_scan"] = events_ms(
+            lambda: kpersist.persistence_scan(f, state, False, p.persistence, emit_u8=True))
+    kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
+        lambda: eng._grain_field(aux), iters=5)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loop()
+        prof_wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    device_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return dict(
+        config=name, shape=[B, 3, H, W], frames=N, card=smi("name,power.limit"),
+        engine_fps_median=statistics.median(fps), engine_fps_min=min(fps),
+        engine_fps_max=max(fps), kernel_ms_per_call=kernels,
+        profiled_loop_wall_ms=prof_wall * 1e3, device_ms_in_loop=device_ms,
+        device_idle_share_of_profiled_loop=1.0 - device_ms / (prof_wall * 1e3),
+        unprofiled_loop_wall_ms=N / statistics.median(fps) * 1e3,
+        device_idle_share_of_unprofiled_loop=1.0 - device_ms / (N / statistics.median(fps) * 1e3),
+        device_ms_by_kernel=top,
+        clocks_power=smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="port_profile.json")
+    ap.add_argument("--configs", default=",".join(CONFIGS))
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("port_profile: no CUDA device available", file=sys.stderr)
+        return 2
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (N, 3, H, W), dtype=np.uint8)
+    xs = torch.from_numpy(frames).cuda()
+    results = []
+    for name in a.configs.split(","):
+        r = profile(name, CONFIGS[name], xs)
+        print(json.dumps(r), flush=True)
+        results.append(r)
+    os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+    with open(a.out, "w") as f:
+        json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
-"""The port's entry points: no JAX import, refusals for what the slice
-does not run, the render loop against CRTEngine.process, and a CLI
-render of a tiny clip on the CPU."""
+"""The port's entry points: no import of JAX or of the JAX package,
+refusals for what the port does not run, the render loop against
+CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
+CLI defaults and c4, export and preview)."""
 
 import os
 import subprocess
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pythoncrt_tpu_torch import CRTEngine, cli
+from pythoncrt_tpu_torch import CRTEngine, TextParams, cli
 from pythoncrt_tpu_torch.pipeline import render_stream
 
 from conftest import synth_frames
@@ -31,26 +32,45 @@ C3_FLAGS = [
 ]
 
 
-def test_port_imports_no_jax():
-    code = ("import sys, pythoncrt_tpu_torch, pythoncrt_tpu_torch.cli, "
-            "pythoncrt_tpu_torch.pipeline, pythoncrt_tpu_torch.convert; "
-            "pythoncrt_tpu_torch.CRTEngine; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
-            "print(bad); sys.exit(1 if bad else 0)")
+def write_clip(path, n=8, seed=2):
+    cv2 = pytest.importorskip("cv2")
+    wr = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), FPS, (W, H))
+    for f in synth_frames(n, H, W, seed=seed):
+        wr.write(f)
+    wr.release()
+
+
+def count_frames(path):
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def test_port_imports_no_jax(tmp_path):
+    """After a CLI render with the CLI defaults on the CPU, in a fresh
+    interpreter, neither JAX nor any module of the JAX package is loaded."""
+    inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
+    write_clip(inp, n=4)
+    code = ("import sys, pythoncrt_tpu_torch.cli as c, pythoncrt_tpu_torch.convert; "
+            f"rc = c.main(['--input', {str(inp)!r}, '--output', {str(out)!r}, "
+            "'--device', 'cpu', '--batch-size', '2']); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'pythoncrt_tpu')); "
+            "print('rc', rc, 'loaded', bad); sys.exit(rc or (1 if bad else 0))")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+    assert "rc 0 loaded []" in res.stdout and count_frames(out) == 4
 
 
 @pytest.mark.parametrize("overrides,kw,item", [
-    (dict(bloom_strength=0.3, fast_bloom=True), {}, "c4 slice"),
-    (dict(persistence=0.2), {}, "c4 slice"),
-    (dict(glitch_amp_px=4, glitch_height_frac=0.3), {}, "c4 slice"),
-    ({}, dict(engine="preview"), "c4 slice"),
-    ({}, dict(assoc_scan=True), "c4 slice"),
     ({}, dict(precision="fast"), "fallback slice"),
     (dict(scanline_strength=0.5, scanline_angle=12.0), {}, "fallback slice"),
-    (dict(text=__import__("pythoncrt_tpu").TextParams(text="hi")), {}, "fallback slice"),
+    (dict(text=TextParams(text="hi")), {}, "fallback slice"),
 ])
 def test_out_of_slice_configs_raise(overrides, kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -59,18 +79,35 @@ def test_out_of_slice_configs_raise(overrides, kw, item):
 
 @pytest.mark.parametrize("flags", [
     ["--batch-manifest", "jobs.json"], ["--gui"], ["--segment-frames", "64"],
-    ["--assoc-scan"], ["--precision", "fast"], ["--engine-mode", "preview"],
+    ["--precision", "fast"], ["--pipe-format", "yuv420p"], ["--decode-workers", "4"],
 ])
 def test_out_of_slice_flags_exit_2(flags, capsys):
     assert cli.main(["--input", "x.mp4", *flags]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
-def test_cli_defaults_are_refused_with_the_reason(tmp_path, capsys):
-    inp = tmp_path / "in.mp4"
-    inp.write_bytes(b"")
-    assert cli.main(["--input", str(inp), "--device", "cpu"]) == 2
-    assert "fast bloom" in capsys.readouterr().err
+C4_FLAGS = [
+    "--scanline-strength", "0.6", "--triad-strength", "0.35", "--aberration-px", "1",
+    "--bloom-strength", "0.25", "--fast-bloom", "--noise-strength", "1.5",
+    "--vignette-strength", "0.25", "--persistence", "0.6", "--pixel-size", "1",
+    "--glitch-amp", "6", "--glitch-height", "0.3", "--scanline-speed", "120",
+]
+
+
+@pytest.mark.parametrize("flags", [
+    [], C4_FLAGS, [*C4_FLAGS, "--engine-mode", "preview"], ["--assoc-scan", "--rng", "host"],
+], ids=["defaults", "c4", "c4_preview", "defaults_assoc_host"])
+def test_cli_renders_the_temporal_configs(tmp_path, capsys, flags):
+    """The CLI defaults (no effect flags) and c4, in both glitch modes and
+    with the associative persistence scan, render on the CPU, exit 0 and
+    write every frame."""
+    inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
+    write_clip(inp, n=6)
+    rc = cli.main(["--input", str(inp), "--output", str(out), *flags,
+                   "--batch-size", "4", "--device", "cpu"])
+    assert rc == 0, capsys.readouterr()
+    assert "perf frames 6" in capsys.readouterr().out
+    assert count_frames(out) == 6
 
 
 def test_cuda_device_without_cuda_exits_nonzero(tmp_path, capsys):

@@ -67,3 +67,45 @@ def test_state_from_numpy_layouts():
         state_from_numpy(s, "planar")
     with pytest.raises(ValueError):
         state_from_numpy(s, "nhwc", "gbr")
+
+
+C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_strength=0.25,
+          fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
+          pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3, scanline_speed_px_s=120.0)
+
+
+@pytest.mark.parametrize("engine_mode", ["export", "preview"])
+def test_consts_from_jax_carry_the_glitch_tables(engine_mode):
+    """The JAX engine's glitch amplitudes (and the export segment index)
+    are the port's, and an engine fed them renders c4 byte for byte as
+    with its own tables."""
+    p = identity_params(**C4)
+    jc = consts_from_jax(numpy_consts(
+        JaxEngine(p, H, W, FPS, engine=engine_mode, pallas="off")._c))
+    eng = CRTEngine(p, H, W, FPS, engine=engine_mode, device="cpu")
+    assert {"glitch_amp"} <= set(jc) and ("glitch_seg_index" in jc) == (engine_mode == "export")
+    for k in ("glitch_amp", "glitch_seg_index"):
+        if k in jc:
+            assert torch.equal(jc[k], eng.consts[k]), k
+    frames = synth_frames(4, H, W, seed=2)
+    a, _ = eng.process(frames)
+    b, _ = CRTEngine(p, H, W, FPS, engine=engine_mode, device="cpu", consts=jc).process(frames)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar"])
+def test_state_from_jax_carries_the_persistence_stream(layout):
+    """A stream whose first batch ran on the JAX engine continues on the
+    port from the converted state within 1 LSB of the port alone."""
+    p = identity_params(**C4)
+    frames = synth_frames(8, H, W, seed=4)
+    if layout == "planar":
+        frames = np.ascontiguousarray(np.transpose(frames, (0, 3, 1, 2)))
+    kw = dict(rng="host", layout=layout)
+    _, js = JaxEngine(p, H, W, FPS, pallas="off", **kw).process(frames[:4], np.arange(4))
+    eng = CRTEngine(p, H, W, FPS, device="cpu", **kw)
+    got, _ = eng.process(frames[4:], np.arange(4, 8), state_from_numpy(js, layout))
+    _, st = eng.process(frames[:4], np.arange(4))
+    want, _ = eng.process(frames[4:], np.arange(4, 8), st)
+    d = (got.int() - want.int()).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3

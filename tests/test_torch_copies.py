@@ -1,0 +1,195 @@
+"""The port's own copies of the JAX package's host modules (params,
+oracle, the CLI parser, io.video's helpers, the perf report) against the
+originals: the same flags and defaults, the same fields, clamps and
+preset semantics, and equal results on seeded inputs (bitwise: the
+copies run the same NumPy code)."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+import pythoncrt_tpu.cli as jcli
+import pythoncrt_tpu.io.video as jvideo
+import pythoncrt_tpu.params as jparams
+from pythoncrt_tpu import oracle as joracle
+from pythoncrt_tpu_torch import cli as tcli
+from pythoncrt_tpu_torch import oracle as toracle
+from pythoncrt_tpu_torch import params as tparams
+from pythoncrt_tpu_torch import perf as tperf
+from pythoncrt_tpu_torch.io import video as tvideo
+
+
+def options(parser):
+    return {opt: (a.dest, a.default, a.type, tuple(a.choices or ()), a.nargs, a.const)
+            for a in parser._actions for opt in a.option_strings if opt not in ("-h", "--help")}
+
+
+def test_parser_has_the_jax_flags_and_defaults():
+    mine, theirs = options(tcli.build_parser()), options(jcli.build_parser())
+    assert set(mine) - set(theirs) == {"--device"}
+    assert set(theirs) <= set(mine)
+    for opt, spec in theirs.items():
+        assert mine[opt] == spec, opt
+    assert vars(tcli.build_parser().parse_args([])).keys() - {"device"} \
+        == vars(jcli.build_parser().parse_args([])).keys()
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--persistence", "0.6", "--glitch-amp", "6", "--glitch-height", "0.3",
+     "--no-fast-bloom", "--pixel-size", "1", "--scanline-speed", "120"],
+    ["--persistence", "2.0", "--aberration-px", "-30", "--gamma", "0", "--warp-strength", "3"],
+])
+def test_params_from_args_match(argv):
+    a_t, a_j = tcli.build_parser().parse_args(argv), jcli.build_parser().parse_args(argv)
+    got = tcli.params_from_args(a_t, tcli.provided_flags(argv))
+    want = jcli.params_from_args(a_j, jcli.provided_flags(argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_preset_precedence_matches(tmp_path):
+    """A preset is the base, an explicit flag wins even at its default
+    value, and an unpassed flag never overrides the preset."""
+    preset = tmp_path / "p.json"
+    preset.write_text(json.dumps({"persistence": 0.7, "fast_bloom": False, "glitch_amp": 3,
+                                  "scanline": 0.2}))
+    argv = ["--preset", str(preset), "--scanline-strength", "0.6"]
+    got = tcli.params_from_args(tcli.build_parser().parse_args(argv), tcli.provided_flags(argv))
+    want = jcli.params_from_args(jcli.build_parser().parse_args(argv), jcli.provided_flags(argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.persistence == 0.7 and not got.fast_bloom and got.scanline_strength == 0.6
+
+
+def test_effect_params_fields_defaults_and_clamps():
+    mine = {f.name: f.default for f in dataclasses.fields(tparams.EffectParams)}
+    theirs = {f.name: f.default for f in dataclasses.fields(jparams.EffectParams)}
+    assert mine.keys() == theirs.keys()
+    for k in mine:
+        if k != "text":
+            assert mine[k] == theirs[k], k
+    assert dataclasses.asdict(tparams.TextParams()) == dataclasses.asdict(jparams.TextParams())
+    wild = dict(scanline_strength=3.0, triad_strength=-1.0, triad_gamma=0.0,
+                aberration_px=40, persistence=1.5, pixel_size=0, glitch_amp_px=-2,
+                glitch_height_frac=2.0, gamma=0.0, temperature=-5.0, flicker_strength=9.0,
+                grain_size=0, scanline_thickness=0.0, warp_strength=-4.0)
+    got = tparams.EffectParams(**wild).clamped()
+    want = jparams.EffectParams(**wild).clamped()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    gates = [n for n in dir(jparams.EffectParams) if n.endswith("_on") or n == "scanlines_1d"]
+    for p_t, p_j in ((got, want), (tparams.EffectParams(), jparams.EffectParams())):
+        assert [getattr(p_t, g) for g in gates] == [getattr(p_j, g) for g in gates]
+
+
+def test_text_preset_loads_the_same(tmp_path):
+    f = tmp_path / "t.json"
+    f.write_text(json.dumps({"text": "HELLO", "size": 20, "x": 5, "after": False}))
+    assert dataclasses.asdict(tparams.load_text_preset(f)) \
+        == dataclasses.asdict(jparams.load_text_preset(f))
+
+
+def fx(rng, h=24, w=40):
+    return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("defaults", {}),
+    ("c4", dict(persistence=0.6, pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3,
+                scanline_speed_px_s=120.0)),
+    ("gauss_warp_grade", dict(fast_bloom=False, warp_strength=0.3, gamma=1.3, saturation=0.7,
+                              temperature=0.3, grain_size=2, flicker_strength=0.3,
+                              flicker_hz=2.0, bloom_threshold=0.2)),
+    ("scan_2d_luma", dict(scanline_angle=10.0, scanline_thickness=2.0,
+                          triad_preserve_luma=True)),
+])
+@pytest.mark.parametrize("engine", ["export", "preview"])
+def test_oracle_apply_effects_is_the_same(name, kw, engine, rng):
+    frame = fx(rng)
+    p_t, p_j = tparams.EffectParams(**kw).clamped(), jparams.EffectParams(**kw).clamped()
+    g = max(1, p_t.grain_size)
+    noise = rng.standard_normal((24 // g, 40 // g), dtype=np.float32)
+    a = toracle.apply_effects(frame, p_t, phase_px=3.25, time_sec=0.5, noise_field=noise,
+                              engine=engine)
+    b = joracle.apply_effects(frame, p_j, phase_px=3.25, time_sec=0.5, noise_field=noise,
+                              engine=engine)
+    np.testing.assert_array_equal(a, b)
+    prev = rng.random(a.shape, dtype=np.float32)
+    np.testing.assert_array_equal(toracle.persistence_blend(prev, a, 0.6),
+                                  joracle.persistence_blend(prev, b, 0.6))
+    np.testing.assert_array_equal(toracle.ops.to_uint8(a), joracle.ops.to_uint8(b))
+
+
+def test_oracle_tables_are_the_same(rng):
+    cases = [
+        (lambda o: o.triad_mask(2, 50, 0.35, 0.5), None),
+        (lambda o: o.barrel_warp_maps(30, 50, -0.4), None),
+        (lambda o: o.pixelate_index_maps(45, 250, 3), None),
+        (lambda o: o.glitch_rows(1080, 0.3), None),
+        (lambda o: o.glitch_fields_export(1080, 1920, 37.5, 6, 0.3), None),
+        (lambda o: o.glitch_offsets_preview(1080, 1920, 37.5, 6, 0.3), None),
+        (lambda o: o.ops.bilinear_taps(1080, 540), None),
+        (lambda o: o.ops.bilinear_taps(22, 45), None),
+        (lambda o: o.ops.gaussian_kernel_1d(9, 1.2), None),
+        (lambda o: o.ops.split_map(np.linspace(-2, 9, 31, dtype=np.float32)), None),
+    ]
+    for fn, _ in cases:
+        a, b = fn(toracle), fn(joracle)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y)
+    img = rng.random((20, 30, 3), dtype=np.float32)
+    np.testing.assert_array_equal(toracle.ops.resize_bilinear(img, 10, 15),
+                                  joracle.ops.resize_bilinear(img, 10, 15))
+    offs = rng.normal(0, 9, (8, 30)).astype(np.float32)
+    np.testing.assert_array_equal(toracle.apply_glitch_gather(img, 12, offs),
+                                  joracle.apply_glitch_gather(img, 12, offs))
+
+
+def test_video_helpers_are_the_same():
+    for preset in ("p1", "p4", "p7", "hq", "bogus", ""):
+        assert tvideo.normalize_nvenc_preset(preset) == jvideo.normalize_nvenc_preset(preset)
+    for pref in ("auto", "nvidia", "amd", "intel", "cpu", None):
+        assert tvideo.map_decoder_to_hwaccel(pref) == jvideo.map_decoder_to_hwaccel(pref)
+    for codec in ("libx264", "h264_nvenc", "h264_amf"):
+        for kbps in (0, 8000):
+            assert tvideo.encoder_ffparams(codec, 20, kbps, "p5") \
+                == jvideo.encoder_ffparams(codec, 20, kbps, "p5")
+    assert tvideo.find_ffmpeg() == jvideo.find_ffmpeg()
+
+
+def test_video_roundtrip_through_cv2(tmp_path):
+    """The port's writer and reader give the frames and clip info the
+    JAX package's give (cv2 codecs: no ffmpeg binary here)."""
+    pytest.importorskip("cv2")
+    frames = np.random.default_rng(0).integers(0, 256, (5, 32, 48, 3), dtype=np.uint8)
+    path = str(tmp_path / "c.mp4")
+    wr, used_gpu = tvideo.open_writer(path, 48, 32, 24.0)
+    for f in frames:
+        wr.write_frame(f)
+    wr.close()
+    assert not used_gpu
+    assert dataclasses.asdict(tvideo.probe_clip(path)) \
+        == dataclasses.asdict(jvideo.probe_clip(path))
+    got = []
+    rd = tvideo.open_reader(path, 48, 32, 24.0)
+    buf = np.empty((32, 48, 3), np.uint8)
+    while rd.read_into(buf):
+        got.append(buf.copy())
+    rd.close()
+    want = list(jvideo.open_reader(path, 48, 32, 24.0).iter_frames())
+    assert len(got) == 5 and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_perf_report_format():
+    tperf.perf_reset()
+    with tperf.timed("io.decode"):
+        pass
+    with tperf.timed("io.decode"):
+        pass
+    text = tperf.perf_report(total_frames=4, total_seconds=2.0, print_fn=None)
+    lines = text.splitlines()
+    assert lines[:3] == ["perf total 2.000s", "perf frames 4", "perf fps 2.0"]
+    assert lines[3].startswith("io.decode total=") and "count=2" in lines[3]
+    tperf.perf_reset()
+    assert tperf.perf_report(0, 0.0, print_fn=None).splitlines() == [
+        "perf total 0.000s", "perf frames 0"]

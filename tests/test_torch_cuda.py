@@ -5,20 +5,23 @@ imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Operands are the ones the engine's step hands each kernel (c3 and
-variants), at a small shape and at 1080p. Both sides keep one f32 op
-order (the kernels build with -fmad=false and round pow once from
-double, as the twins do), so f32 outputs agree to 2e-6 and uint8
-outputs to 1 LSB."""
+Operands are the ones the engine's step hands each kernel (c3, the CLI
+defaults, c4 and variants), at small shapes (an odd one included) and at
+1080p. Both sides keep one f32 op order (the kernels build with
+-fmad=false and round pow once from double, as the twins do), so fused
+f32 outputs agree to 2e-6 and uint8 outputs to 1 LSB; the persistence
+scan and the glitch shear are bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
-from pythoncrt_tpu.params import EffectParams
 from pythoncrt_tpu_torch import CRTEngine
 from pythoncrt_tpu_torch.kernels import fused as kfused
+from pythoncrt_tpu_torch.kernels import glitch as kglitch
+from pythoncrt_tpu_torch.kernels import persist as kpersist
 from pythoncrt_tpu_torch.kernels import warp as kwarp
+from pythoncrt_tpu_torch.params import EffectParams
 
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5,
           aberration_px=1, bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False,
@@ -32,8 +35,15 @@ VARIANTS = {
                       "pixel_size": 3, "warp_strength": -0.5},
     "bloom_off_no_warp": {**C3, "bloom_strength": 0.0, "warp_strength": 0.0},
     "wide_bloom": {**C3, "bloom_sigma": 4.0},
+    "defaults": {},
+    "c4": dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1,
+               bloom_strength=0.25, fast_bloom=True, noise_strength=1.5,
+               vignette_strength=0.25, persistence=0.6, pixel_size=1, glitch_amp_px=6,
+               glitch_height_frac=0.3, scanline_speed_px_s=120.0),
+    "fast_knee_px3": {"bloom_threshold": 0.35, "pixel_size": 3, "grain_size": 2},
 }
-SHAPES = [(2, 48, 200), (8, 1080, 1920)]
+SHAPES = [(2, 48, 200), (2, 45, 251), (8, 1080, 1920)]
+SHAPE_IDS = ["small", "odd", "1080p"]
 
 
 @pytest.fixture
@@ -55,7 +65,7 @@ def frames(b, h, w, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "1080p"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_fused_kernel_matches_twin(cuda_dev, name, shape):
     b, h, w = shape
@@ -75,7 +85,7 @@ def test_fused_kernel_matches_twin(cuda_dev, name, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=["small", "1080p"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("strength", [0.15, -0.5])
 def test_warp_kernel_matches_twin(cuda_dev, shape, strength):
     b, h, w = shape
@@ -115,3 +125,75 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_dev):
     want = eng_cpu.process(x, np.arange(10, 14))[0]
     d = (got.int() - want.int()).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(3, 5, 7)], ids=SHAPE_IDS + ["ragged"])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("emit_u8", [True, False])
+def test_persist_kernel_matches_twin(cuda_dev, shape, first, emit_u8):
+    """Bitwise, with the carry in registers over B frames; the ragged
+    shape (3 * 5 * 7 values) takes the scalar path."""
+    b, h, w = shape
+    g = torch.Generator(device=cuda_dev).manual_seed(7)
+    imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    state = torch.rand((3, h, w), generator=g, device=cuda_dev)
+    n0 = kpersist.launches
+    got, gs = kpersist.persistence_scan(imgs, state, first, 0.6, emit_u8=emit_u8)
+    want, ws = kpersist.persistence_scan_ref(imgs, state, first, 0.6, emit_u8=emit_u8)
+    torch.cuda.synchronize()
+    assert kpersist.launches == n0 + 1
+    assert got.dtype == want.dtype and torch.equal(got, want) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("engine_mode", ["export", "preview"])
+def test_glitch_kernel_matches_twin(cuda_dev, shape, engine_mode):
+    """Both entries (in place on frames, out of place on the band) are
+    bitwise the twin's gather, with the c4 band and host-rng offsets."""
+    b, h, w = shape
+    eng = CRTEngine(EffectParams(**VARIANTS["c4"]), h, w, 24.0, rng="host",
+                    engine=engine_mode, device=cuda_dev)
+    off = eng.glitch_offsets(eng.make_aux(np.arange(b)))
+    seg = eng.consts["glitch_seg_index"]
+    y0 = eng._glitch_y0
+    g = torch.Generator(device=cuda_dev).manual_seed(2)
+    imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    want = imgs.clone()
+    want[:, :, y0:] = kglitch.shear_planar_ref(imgs[:, :, y0:], off, seg)
+    band = kglitch.shear_planar(imgs[:, :, y0:].contiguous(), off, seg)
+    got = kglitch.shear_planar_inplace(imgs.clone(), y0, off, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(band, want[:, :, y0:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["defaults", "c4"])
+@pytest.mark.parametrize("engine_mode", ["export", "preview"])
+def test_temporal_engine_on_card_matches_cpu(cuda_dev, name, engine_mode):
+    """The CLI defaults and c4 on the card against the CPU step, over two
+    batches with the persistence state carried."""
+    p = EffectParams(**VARIANTS[name])
+    eng_gpu = CRTEngine(p, 96, 320, 24.0, rng="host", engine=engine_mode, device=cuda_dev)
+    eng_cpu = CRTEngine(p, 96, 320, 24.0, rng="host", engine=engine_mode, device="cpu")
+    x = np.random.default_rng(1).integers(0, 256, (6, 96, 320, 3), dtype=np.uint8)
+    sg = sc = None
+    for k in range(2):
+        idx = np.arange(3 * k, 3 * k + 3)
+        got, sg = eng_gpu.process(x[idx], idx, sg)
+        want, sc = eng_cpu.process(x[idx], idx, sc)
+        d = (got.cpu().int() - want.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+    assert (sg.cpu() - sc).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_native_rng_on_card_is_invariant_to_batch_split(cuda_dev):
+    p = EffectParams(**VARIANTS["c4"])
+    x = np.random.default_rng(3).integers(0, 256, (8, 64, 256, 3), dtype=np.uint8)
+    whole, _ = CRTEngine(p, 64, 256, 24.0, seed=5, device=cuda_dev).process(x, np.arange(8))
+    eng = CRTEngine(p, 64, 256, 24.0, seed=5, device=cuda_dev)
+    head, st = eng.process(x[:4], np.arange(4))
+    tail, _ = eng.process(x[4:], np.arange(4, 8), st)
+    assert torch.equal(torch.cat([head, tail]), whole)

@@ -94,3 +94,111 @@ def test_slice_variants_match_oracle(name, overrides):
     want = render_oracle(JaxEngine(p, H, W, FPS, rng="host", pallas="off"), frames)
     mx, frac = lsb(got, want)
     assert mx <= 1 and frac < 1e-3, f"{name}: vs oracle max {mx} LSB, {frac:.2e} off"
+
+
+C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_strength=0.25,
+          fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
+          pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3, scanline_speed_px_s=120.0)
+TEMPORAL = {"defaults": {}, "c4": C4}
+
+
+def run_batches(eng, frames, nb, planar=False):
+    """nb consecutive batches through eng.process, the state carried."""
+    b = frames.shape[0] // nb
+    outs, state = [], None
+    for k in range(nb):
+        idx = np.arange(k * b, (k + 1) * b)
+        x = frames[idx]
+        if planar:
+            x = np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2)))
+        out, state = eng.process(x, idx, state)
+        out = np.asarray(out)
+        outs.append(np.transpose(out, (0, 2, 3, 1)) if planar else out)
+    return np.concatenate(outs), state
+
+
+def oracle_stream(eng, frames):
+    """The oracle's chain frame by frame, then persistence_blend in
+    sequence, then to_uint8, on the port engine's own host-rng aux."""
+    from pythoncrt_tpu_torch import oracle
+
+    aux = eng.make_aux(np.arange(frames.shape[0]))
+    p, prev, outs = eng.params, None, []
+    for j in range(frames.shape[0]):
+        img = oracle.apply_effects(frames[j], p, phase_px=float(aux.phase[j]),
+                                   time_sec=j / eng.fps,
+                                   noise_field=None if aux.noise is None else aux.noise[j],
+                                   engine=eng.engine)
+        prev = oracle.persistence_blend(prev, img, p.persistence if p.persistence_on else 0.0)
+        outs.append(oracle.ops.to_uint8(prev))
+    return np.stack(outs)
+
+
+@pytest.mark.parametrize("engine_mode", ["export", "preview"])
+@pytest.mark.parametrize("name", sorted(TEMPORAL))
+def test_temporal_slice_matches_oracle_and_jax(name, engine_mode):
+    """The CLI defaults (fast bloom, persistence 0.2) and c4 (fast bloom,
+    glitch, persistence 0.6), host rng, two batches with the state
+    carried: <= 1 LSB and fewer than 1e-3 of values off against the
+    oracle and against the JAX engine's XLA path."""
+    from pythoncrt_tpu import EffectParams as JaxParams
+    from pythoncrt_tpu_torch import EffectParams
+
+    frames = synth_frames(2 * B, H, W, seed=6)
+    eng = CRTEngine(EffectParams(**TEMPORAL[name]), H, W, FPS, rng="host", engine=engine_mode,
+                    device="cpu")
+    got, _ = run_batches(eng, frames, 2)
+    mx, frac = lsb(got, oracle_stream(eng, frames))
+    assert mx <= 1 and frac < 1e-3, f"{name}/{engine_mode} vs oracle: {mx} LSB, {frac:.2e}"
+    jx = JaxEngine(JaxParams(**TEMPORAL[name]), H, W, FPS, rng="host", engine=engine_mode,
+                   pallas="off")
+    want, _ = run_batches(jx, frames, 2)
+    mx, frac = lsb(got, want)
+    assert mx <= 1 and frac < 1e-3, f"{name}/{engine_mode} vs JAX: {mx} LSB, {frac:.2e}"
+
+
+def test_c4_matches_jax_pallas_kernels():
+    """c4 through the JAX engine's kernels in interpret mode (fused fast
+    core, planar glitch, persistence scan) on planar gbrp frames."""
+    from pythoncrt_tpu import EffectParams as JaxParams
+    from pythoncrt_tpu_torch import EffectParams
+
+    frames = synth_frames(B, H, W, seed=8)
+    x = np.ascontiguousarray(np.transpose(frames, (0, 3, 1, 2))[:, [1, 2, 0]])
+    kw = dict(rng="host", layout="planar", channel_order="gbr")
+    got = CRTEngine(EffectParams(**C4), H, W, FPS, device="cpu", **kw).process(x)[0].numpy()
+    pk = JaxEngine(JaxParams(**C4), H, W, FPS, pallas="on", interpret=True, **kw)
+    assert pk._pallas_fused and pk._pallas_glitch and pk._pallas_persist
+    mx, frac = lsb(got, np.asarray(pk.process(x)[0]))
+    assert mx <= 1 and frac < 1e-3, f"vs Pallas interpret: max {mx} LSB, {frac:.2e} off"
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_assoc_scan_matches_jax(first):
+    """The O(log B) persistence scan against the JAX engine's
+    _assoc_persistence (a lax.associative_scan): <= 1 LSB."""
+    from pythoncrt_tpu import EffectParams as JaxParams
+    from pythoncrt_tpu_torch import EffectParams
+
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(4)
+    imgs = rng.random((7, 3, 8, 16), dtype=np.float32)
+    state = rng.random((3, 8, 16), dtype=np.float32)
+    p = dict(persistence=0.7)
+    eng = CRTEngine(EffectParams(**p), 8, 16, FPS, assoc_scan=True, device="cpu")
+    out, ns = eng._assoc_persistence(torch.from_numpy(imgs), torch.from_numpy(state), first)
+    jx = JaxEngine(JaxParams(**p), 8, 16, FPS, assoc_scan=True, pallas="off")
+    out0 = imgs[0] if first else np.clip(np.float32(0.7) * state + np.float32(0.3) * imgs[0],
+                                          0, 1)
+    rest = np.asarray(jx._assoc_persistence(jnp.asarray(imgs[1:]), jnp.asarray(out0)))
+    want = np.concatenate([out0[None], rest])
+    assert np.abs(ns.numpy() - want[-1]).max() <= 2e-6
+    mx, _ = lsb(out.numpy(), np.clip(np.rint(want * 255.0), 0, 255))
+    assert mx <= 1
+    seq, _ = eng.process(np.ascontiguousarray(np.transpose(
+        (imgs * 255).astype(np.uint8), (0, 2, 3, 1))))
+    kernel_path = CRTEngine(EffectParams(**p), 8, 16, FPS, device="cpu").process(
+        np.ascontiguousarray(np.transpose((imgs * 255).astype(np.uint8), (0, 2, 3, 1))))[0]
+    assert lsb(seq.numpy(), kernel_path.numpy())[0] <= 1

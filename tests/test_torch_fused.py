@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from pythoncrt_tpu import oracle
 from pythoncrt_tpu.kernels import fused as jfused
+from pythoncrt_tpu_torch import EffectParams
 from pythoncrt_tpu_torch.kernels import fused as tfused
 
 from test_engine_vs_oracle import identity_params
@@ -33,7 +35,7 @@ def spec_kwargs(p, corder=(0, 1, 2), emit="f32"):
     t = float(p.temperature)
     return dict(
         sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
-        threshold=float(p.bloom_threshold), fast=False, bloom=p.bloom_on,
+        threshold=float(p.bloom_threshold), fast=bool(p.fast_bloom), bloom=p.bloom_on,
         pre=True, px=int(p.pixel_size) if p.pixelate_on else 1,
         ab=int(p.aberration_px) if p.aberration_on else 0,
         saturation=float(p.saturation),
@@ -51,7 +53,6 @@ def spec_kwargs(p, corder=(0, 1, 2), emit="f32"):
 
 def operands(p, corder, seed=11):
     """Seeded numpy operands, in each kernel's operand shapes."""
-    from pythoncrt_tpu import oracle
     from conftest import synth_frames
 
     rng = np.random.default_rng(seed)
@@ -105,5 +106,49 @@ def test_fused_u8_emit_matches_jax_kernel():
 
 def test_fused_spec_refuses_out_of_slice():
     p = identity_params(**CASES["c4_fast"][0])
-    with pytest.raises(NotImplementedError, match="c4 slice"):
-        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "fast": True})
+    with pytest.raises(NotImplementedError, match="fallback slice"):
+        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "lut_exact": False})
+    with pytest.raises(NotImplementedError, match="fallback slice"):
+        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "pre": False})
+
+
+@pytest.mark.parametrize("name", ["c4_fast", "fast_knee", "defaults", "defaults_gbr"])
+def test_fast_core_twin_matches_jax_kernel(name):
+    """The fast-bloom core (half-res down+up) against the JAX kernel's
+    fast variant in interpret mode."""
+    corder = (1, 2, 0) if name.endswith("_gbr") else (0, 1, 2)
+    base = name.replace("_gbr", "")
+    p = EffectParams() if base == "defaults" else identity_params(**CASES[base][0])
+    assert p.fast_bloom and p.bloom_on
+    got, want = run_both(p, corder, "f32", "f32")
+    err = np.abs(got - want).max()
+    assert err <= 2e-6, f"{name}: max |port - jax| = {err:.3g}"
+
+
+@pytest.mark.parametrize("shape", [(48, 256), (45, 250), (7, 9), (1, 5)])
+@pytest.mark.parametrize("threshold", [0.0, 0.35])
+def test_fast_core_twin_matches_the_oracle(shape, threshold):
+    """Stages 1-6 with the fast bloom, uint8 emit, against the oracle's
+    resize_bilinear down and up, at the frame edges and on odd sizes
+    (bilinear_taps clamps the last half-res row and column): <= 1 LSB."""
+    h, w = shape
+    p = identity_params(bloom_strength=0.4, fast_bloom=True, bloom_threshold=threshold,
+                        aberration_px=1, pixel_size=2, saturation=0.8)
+    spec = tfused.build_fused_spec(h, w, **{**spec_kwargs(p, emit="u8"), "noise": False,
+                                            "triad": False, "scanlines": False,
+                                            "vignette": False, "flicker": False})
+    frames = np.random.default_rng(h * w).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    got = tfused.fused_pipeline(torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2))),
+                                spec, tfused.fused_consts(spec)).numpy()
+    want = np.stack([oracle.ops.to_uint8(oracle.apply_effects(f, p)) for f in frames])
+    d = np.abs(got.transpose(0, 2, 3, 1).astype(np.int32) - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, f"{shape}: max {d.max()} LSB"
+
+
+def test_fast_tile_extents_cover_the_tables():
+    """The shared-memory extents the kernel is sized by: the 2-pixel halo
+    of a 2x ratio at 1080p, a little more on odd sizes."""
+    _, ext = tfused.fast_tables(1080, 1920)
+    assert ext == (36, 36, 18, 18)
+    _, ext = tfused.fast_tables(45, 251)
+    assert all(e <= 40 for e in ext[:2]) and all(e <= 20 for e in ext[2:])
