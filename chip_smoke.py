@@ -13,20 +13,28 @@ Phases (each must pass; any failure exits non-zero):
    kernel with the c3 spec (gaussian core) and the CLI-default spec (fast
    core), the warp, the persistence scan (stream head and carried
    state) and the glitch shear (the c4 band, export and preview offsets,
-   both entries). Max abs error, CUDA-event time per call of the kernel,
+   both entries); the stand-alone bloom (gaussian on the c3-angled
+   pre-bloom image, fast on the defaults-angled one) and the fused
+   kernel's f32-input mode (c4-text). Max abs error, CUDA-event time per call of the kernel,
    of the twin and, where one PyTorch call computes the same function,
    of that call; the least time the card could take (bytes over the
    memory rate, or operations over the f32 rate).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
-   c3 on two frames; the CLI defaults and c4 on four frames in two
-   batches with the persistence state carried. <= 1 uint8 LSB, fewer
-   than 1e-3 of values off.
+   c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
+   and c4-text on four frames in two batches with the persistence state
+   carried; the text paths with a seeded synthetic overlay. <= 1 uint8
+   LSB, fewer than 1e-3 of values off. The 2-D scanline mask against the
+   oracle's (its NumPy f32 sin and pow are not correctly rounded).
 5. The main paths at 1080p with batch 8: the CLI defaults (no effect
-   flags) and c4 on 32 frames, c3 on 16, each through
+   flags), c4, defaults-angled (scanline angle 12, thickness 2) and
+   c4-text (text before the bloom) on 32 frames, c3 and c3-angled
+   (angle 5, thickness 1.5, text after the warp) on 16, each through
    ``pythoncrt_tpu_torch.cli.main`` on a synthetic clip when a codec
    backend exists, else through ``render_stream`` with in-memory frames.
    Every kernel of a path must launch during that path's run (the counts
-   are set to 0 just before it). Then the engine step alone per path.
+   are set to 0 just before it). The text is rasterized by PIL when the
+   host has it, else a seeded synthetic overlay takes its place (the
+   line says which). Then the engine step alone per path.
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -36,6 +44,7 @@ exits 2 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -73,13 +82,23 @@ C4_FLAGS = [
     "--vignette-strength", "0.25", "--persistence", "0.6", "--pixel-size", "1",
     "--glitch-amp", "6", "--glitch-height", "0.3", "--scanline-speed", "120",
 ]
+# the staged step (2-D scanlines) and the text overlays
+C3_ANGLED = dict(C3, scanline_angle=5.0, scanline_thickness=1.5)
+C3_ANGLED_TEXT = dict(text="CH 3", size=48, after=True)
+C3_ANGLED_FLAGS = [*C3_FLAGS, "--scanline-angle", "5", "--scanline-thickness", "1.5",
+                   "--text", "CH 3", "--text-size", "48", "--text-after"]
+DEF_ANGLED = dict(scanline_angle=12.0, scanline_thickness=2.0)
+DEF_ANGLED_FLAGS = ["--scanline-angle", "12", "--scanline-thickness", "2"]
+C4_TEXT = dict(text="PLAY", size=48, after=False)
+C4_TEXT_FLAGS = [*C4_FLAGS, "--text", "PLAY", "--text-size", "48"]
 FUSED_TOL = 2e-6  # f32, same op order on both sides (-fmad=false)
 LSB_TOL = 1
 # f32 operations per output value, estimated from the kernels' sources for
 # the stages these specs turn on (rounded up; the FP64 grade pow of c3 is
 # not counted). At these counts every kernel is bound by bytes.
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
-                 "persistence_scan": 6, "glitch_shear": 0}
+                 "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
+                 "bloom3_planar": 45, "bloom3_fast_planar": 16}
 
 
 def fail(msg: str) -> None:
@@ -99,6 +118,16 @@ def synth(n: int, h: int, w: int, seed: int) -> np.ndarray:
         out[i, ..., 2] = (f * 3 + i) % 256
         out[i, ::7] = rng.integers(0, 256, (out[i, ::7].shape), dtype=np.uint8)
     return out
+
+
+def synth_overlay(h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w, 4) uint8 RGBA: a seeded text-like box, clear elsewhere."""
+    rng = np.random.default_rng(seed)
+    ov = np.zeros((h, w, 4), np.uint8)
+    y0, x0 = h // 10, w // 10
+    ov[y0:y0 + h // 8, x0:x0 + w // 3] = rng.integers(
+        0, 256, (h // 8, w // 3, 4), dtype=np.uint8)
+    return ov
 
 
 def time_ms(fn, iters: int = 10) -> float:
@@ -157,10 +186,22 @@ def main() -> int:
     except ImportError:
         cv2_ver = None
     ffmpeg = vio.find_ffmpeg()
+    from pythoncrt_tpu_torch import TextParams
+    from pythoncrt_tpu_torch import text as ptext
+
+    try:  # the text paths render through the CLI when PIL can rasterize
+        ptext.rasterize_text(64, 16, TextParams(text="x"))
+        import PIL
+
+        path = getattr(ptext._resolve_font("", 48), "path", None)
+        pil = f"PIL {PIL.__version__} ({path if isinstance(path, str) else 'its built-in font'})"
+    except ImportError:
+        pil = None
     print(f"[1] card: {card}")
     print(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"torch CUDA {torch.version.cuda}, nvcc: {nvcc}")
-    print(f"[1] ffmpeg: {ffmpeg or 'absent'}, cv2: {cv2_ver or 'absent'}", flush=True)
+    print(f"[1] ffmpeg: {ffmpeg or 'absent'}, cv2: {cv2_ver or 'absent'}, text rasterizer: "
+          f"{pil or 'absent (no PIL)'}", flush=True)
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -174,6 +215,7 @@ def main() -> int:
     sys.stdout.flush()
 
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, oracle
+    from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
@@ -181,7 +223,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    configs = {"defaults": EffectParams(), "c4": EffectParams(**C4), "c3": EffectParams(**C3)}
+    configs = {"defaults": EffectParams(), "c4": EffectParams(**C4), "c3": EffectParams(**C3),
+               "c3-angled": EffectParams(**C3_ANGLED, text=TextParams(**C3_ANGLED_TEXT)),
+               "defaults-angled": EffectParams(**DEF_ANGLED),
+               "c4-text": EffectParams(**C4, text=TextParams(**C4_TEXT))}
+    ov_synth = synth_overlay(H, W, seed=4)  # the parity phases need no font
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
@@ -290,6 +336,10 @@ def main() -> int:
                                   + off.long()[:, :, seg.long()], W)[:, None].expand(
                                       B, 3, rows, W).contiguous()
             work = img.clone()
+            band_ms = time_ms(lambda: kglitch.shear_planar(band, off, seg))
+            print(f"[3] glitch_shear out-of-place band entry (shear_planar, the TPU's "
+                  f"glitch.py:165; on no main path): kernel {band_ms:.4f} ms/call "
+                  f"({band_ms / B:.4f} ms/frame) on {card}", flush=True)
             glitch_times = (
                 time_ms(lambda: kglitch.shear_planar_inplace(work, y0, off, seg)),
                 time_ms(lambda: kglitch.shear_planar_ref(band, off, seg), iters=3),
@@ -300,13 +350,59 @@ def main() -> int:
     row("glitch_shear", "pythoncrt_tpu_torch/csrc/glitch.cu",
         "pythoncrt_tpu/kernels/glitch.py:194", worst, 0, *glitch_times, tol=0.0,
         note=" (c4 band 756+324, export and preview, both entries)")
-    del fused_out, fz, fd, x, state
+    del fused_out, fz, fd, state
+
+    # the stand-alone bloom and the fused f32-input mode, each on the
+    # pre-bloom image (stages 1-5, synthetic overlay) of its path
+    for cfg, kname in (("c3-angled", "bloom3_planar"), ("defaults-angled", "bloom3_fast_planar"),
+                       ("c4-text", "fused_pipeline_f32in")):
+        eng = CRTEngine(configs[cfg], H, W, FPS, rng="host", layout="planar",
+                        channel_order="gbr", device=dev, text_rgba=ov_synth)
+        feed = eng._pre_bloom(x)
+        if kname == "fused_pipeline_f32in":
+            if eng._staged or eng.spec.pre:
+                fail(f"{cfg} does not take the fused kernel's f32-input mode")
+            kw = eng.fused_operands(eng.make_aux(np.arange(B)))
+            run = functools.partial(kfused.fused_pipeline, feed, eng.spec, eng.fused_tables, **kw)
+            twin = functools.partial(kfused.fused_pipeline_ref, feed, eng.spec, eng.fused_tables,
+                                     **kw)
+            src, repl, extra = ("pythoncrt_tpu_torch/csrc/fused.cu",
+                                "pythoncrt_tpu/kernels/fused.py:680", list(kw.values()))
+            note = " (c4-text spec: text before the bloom, fast core)"
+        else:
+            if not eng._staged or eng.bloom3_spec is None:
+                fail(f"{cfg} does not take the staged step")
+            spec = eng.bloom3_spec
+            src = "pythoncrt_tpu_torch/csrc/bloom3.cu"
+            if spec.fast:
+                tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
+                run = functools.partial(kbloom3.bloom3_fast_planar, feed, spec, tabs)
+                twin = functools.partial(kbloom3.bloom3_fast_planar_ref, feed, spec, tabs)
+                repl, extra = "pythoncrt_tpu/kernels/bloom3.py:495", list(tabs[0])
+                note = " (defaults-angled: half-res down and up)"
+            else:
+                run = functools.partial(kbloom3.bloom3_planar, feed, spec)
+                twin = functools.partial(kbloom3.bloom3_planar_ref, feed, spec)
+                repl, extra = "pythoncrt_tpu/kernels/bloom3.py:274", []
+                note = f" (c3-angled: sigma 1.2, {len(spec.taps)} taps)"
+        got, want = run(), twin()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{kname}: non-finite output")
+        row(kname, src, repl, (got - want).abs().max().item(),
+            (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+            time_ms(run), time_ms(twin, iters=3), None, nbytes(feed, got, *extra), got.numel(),
+            note=note)
+        del feed, got, want, run, twin
+    del x
 
     # ---- 4. end to end against the oracle ----
-    for cfg, n, nb in (("c3", 2, 1), ("defaults", 4, 2), ("c4", 4, 2)):
+    for cfg, n, nb in (("c3", 2, 1), ("defaults", 4, 2), ("c4", 4, 2), ("c3-angled", 2, 1),
+                       ("defaults-angled", 4, 2), ("c4-text", 4, 2)):
         p = configs[cfg]
         clip = synth(n, H, W, seed=2)
-        eng = CRTEngine(p, H, W, FPS, rng="host", device=dev)
+        ov = ov_synth if p.text.enabled else None
+        eng = CRTEngine(p, H, W, FPS, rng="host", device=dev, text_rgba=ov)
         outs, st = [], None
         for k in range(nb):
             idx = np.arange(k * n // nb, (k + 1) * n // nb)
@@ -317,7 +413,7 @@ def main() -> int:
         prev, want = None, []
         for j in range(n):
             img = oracle.apply_effects(clip[j], eng.params, phase_px=float(aux.phase[j]),
-                                       time_sec=j / FPS, noise_field=aux.noise[j])
+                                       time_sec=j / FPS, noise_field=aux.noise[j], text_rgba=ov)
             prev = oracle.persistence_blend(prev, img,
                                             p.persistence if p.persistence_on else 0.0)
             want.append(oracle.ops.to_uint8(prev))
@@ -327,16 +423,37 @@ def main() -> int:
               f"carried: max {d.max()} LSB, {frac:.3e} of values off", flush=True)
         if d.max() > LSB_TOL or frac >= 1e-3 or got.shape != (n, H, W, 3):
             fail(f"engine disagrees with the oracle on {cfg}")
+        if eng._staged:
+            mask = eng._scanline_mask_2d(aux.phase).cpu().numpy()
+            ref = np.stack([oracle.scanline_mask_2d(
+                H, W, p.scanline_strength, p.scanline_period_px, float(ph), p.scanline_angle,
+                p.scanline_thickness) for ph in aux.phase])
+            dm = np.abs(mask - ref)
+            print(f"[4] 2-D scanline mask vs the oracle's (NumPy f32 sin and pow), {cfg}: "
+                  f"max {dm.max():.3g} abs, {(dm > 0).mean():.3e} of values differ", flush=True)
+            if dm.max() > 1e-5:
+                fail(f"2-D scanline mask of {cfg} is off the oracle's by {dm.max():.3g}")
 
     # ---- 5. the main paths ----
     counters = {"fused_pipeline": kfused, "warp_planar": kwarp,
-                "persistence_scan": kpersist, "glitch_shear": kglitch}
+                "persistence_scan": kpersist, "glitch_shear": kglitch, "bloom3": kbloom3}
     paths = (  # name, flags, params, frames, kernels that must launch
         ("defaults", [], configs["defaults"], N_MAIN, ("fused_pipeline", "persistence_scan")),
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
          ("fused_pipeline", "glitch_shear", "persistence_scan")),
         ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar")),
+        ("c3-angled", C3_ANGLED_FLAGS, configs["c3-angled"], N_C3, ("bloom3", "warp_planar")),
+        ("defaults-angled", DEF_ANGLED_FLAGS, configs["defaults-angled"], N_MAIN,
+         ("bloom3", "persistence_scan")),
+        ("c4-text", C4_TEXT_FLAGS, configs["c4-text"], N_MAIN,
+         ("fused_pipeline", "glitch_shear", "persistence_scan")),
     )
+
+    def overlay(p):
+        """The overlay a render of p composites: PIL's, or the synthetic one."""
+        if not p.text.enabled:
+            return None
+        return ptext.overlay_for(W, H, p.text) if pil else ov_synth
     clip = synth(N_MAIN, H, W, seed=3)
     launches = {k: {} for k in counters}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -350,7 +467,11 @@ def main() -> int:
         for pname, flags, p, n, needs in paths:
             for mod in counters.values():
                 mod.launches = 0
-            if cv2_ver:
+            text = ""
+            if p.text.enabled:
+                text = (f"; text rasterized by {pil}" if pil else
+                        "; text: a seeded synthetic overlay (no PIL on this host)")
+            if cv2_ver and (pil or not p.text.enabled):
                 from pythoncrt_tpu_torch import cli
 
                 outp = os.path.join(tmp, f"out_{pname}.mp4")
@@ -390,17 +511,18 @@ def main() -> int:
 
                 wtr = Writer()
                 t0 = time.perf_counter()
-                n_out = render_stream(Reader(), wtr, CRTEngine(p, H, W, FPS, device=dev),
+                n_out = render_stream(Reader(), wtr, CRTEngine(p, H, W, FPS, device=dev,
+                                                               text_rgba=overlay(p)),
                                       batch_size=B)
                 wall = time.perf_counter() - t0
                 out_arr = np.stack(wtr.frames)
                 if not (out_arr.shape == (n, H, W, 3) and out_arr.std() > 0):
                     fail(f"render_stream ({pname}) output has the wrong shape or is constant")
-                how = "render_stream (in-memory frames: no codec backend on this host)"
+                how = "render_stream (in-memory frames: no codec backend or no PIL)"
             got = {k: mod.launches for k, mod in counters.items()}
             for k, v in got.items():
                 launches[k][pname] = v
-            print(f"[5] main path {pname}: {how}; {n_out} frames out of {n}; launches "
+            print(f"[5] main path {pname}: {how}{text}; {n_out} frames out of {n}; launches "
                   f"{got}; {n / wall:.2f} fps wall (codecs included) on {card}", flush=True)
             if n_out != n:
                 fail(f"main path {pname} wrote {n_out} frames, expected {n}")
@@ -413,7 +535,8 @@ def main() -> int:
     # device-side throughput of the same steps (no codecs): batches of 8
     xs = planar_gbr(clip)
     for pname, _, p, n, _ in paths:
-        eng_dev = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev)
+        eng_dev = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev,
+                            text_rgba=overlay(p))
         st = None
         _, st = eng_dev.process(xs[:B], np.arange(B), st)
         torch.cuda.synchronize()
@@ -426,11 +549,13 @@ def main() -> int:
               f"{N_MAIN / dt:.2f} fps on {card}", flush=True)
 
     # ---- 6. results ----
-    # the fused kernel's two cores share one counter: the gaussian core
-    # runs on the c3 path, the fast core on the defaults and c4 paths
-    runs_on = {"fused_pipeline_gaussian": ("c3",), "fused_pipeline": ("defaults", "c4")}
+    # the fused kernel's modes share one counter, as do the two bloom3
+    # variants: each runs on the paths named here
+    runs_on = {"fused_pipeline_gaussian": ("c3",), "fused_pipeline": ("defaults", "c4"),
+               "fused_pipeline_f32in": ("c4-text",), "bloom3_planar": ("c3-angled",),
+               "bloom3_fast_planar": ("defaults-angled",)}
     for kname, entry in table.items():
-        base = "fused_pipeline" if kname.startswith("fused_pipeline") else kname
+        base = next((k for k in ("fused_pipeline", "bloom3") if kname.startswith(k)), kname)
         by_path = {pn: v for pn, v in launches[base].items()
                    if pn in runs_on.get(kname, launches[base])}
         entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path

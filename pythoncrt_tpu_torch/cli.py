@@ -199,7 +199,7 @@ def _refusal(a) -> str:
         (a.gui, "--gui", "queue 1, GUI"),
         (a.segment_frames > 0, "--segment-frames", "queue 1, pipeline: segment resume"),
         (a.devices > 1, "--devices", "queue 1, multiclip"),
-        (a.precision == "fast", "--precision fast", "queue 1, fallback slice"),
+        (a.precision == "fast", "--precision fast", "queue 1, precision fast"),
         (a.decode_workers > 1, "--decode-workers", "queue 1, pipeline: parallel decode"),
         (a.pipe_format == "yuv420p", "--pipe-format yuv420p",
          "queue 1, pipeline: yuv420p decode"),

@@ -24,7 +24,8 @@ def consts_from_jax(c: dict, device="cpu") -> dict:
         # aberration is composed in; the port keeps one (3, W) map by colour
         out["pix_x"] = np.stack([np.asarray(c.get("pix_x_r", x), np.int32), x,
                                  np.asarray(c.get("pix_x_b", x), np.int32)])
-    for k in ("triad", "vig_ny2", "vig_nx2", "glitch_amp"):
+    for k in ("triad", "vig_ny2", "vig_nx2", "glitch_amp", "sl_slant", "text_alpha",
+              "text_rgb"):
         if k in c:
             out[k] = np.asarray(c[k], np.float32)
     if "glitch_seg_index" in c:  # export glitch only; preview has one offset per row

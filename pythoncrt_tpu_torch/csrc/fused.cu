@@ -1,14 +1,17 @@
 // Fused CRT pass for Hopper (sm_90a): stages 1-11 of the effect chain in
-// one kernel over planar uint8 frames.
+// one kernel over planar uint8 frames (or stages 6-11 over an f32 image).
 //
 // Replaces: pythoncrt_tpu/kernels/fused.py, fused_pipeline / _fused_kernel
 // (the Pallas TPU row-stripe kernel), with its three bloom cores: the
 // exact gaussian, the fast half-res down+up (the `fast` variant,
 // fused.py:453-477, op for op with bloom3._bloom3_fast_kernel) and
-// bloom off.
+// bloom off; and its two inputs: the uint8 frame (`pre`, stages 1-4 in
+// the kernel) or the engine's pre-processed f32 image (`pre=False`,
+// fused.py:325-326: text composited before the bloom), read as it is.
 //
 // What bounds it on the card: bytes, on paper. A 1080p frame is 6.2 MB of
-// uint8 in, plus the 8.3 MB f32 grain field when the noise stage is on;
+// uint8 in (24.9 MB of f32 in the f32-input mode), plus the 8.3 MB f32
+// grain field when the noise stage is on;
 // the pass writes either 6.2 MB of uint8 (nothing downstream) or 24.9 MB
 // of f32 (the warp, glitch or persistence kernel's feed). The arithmetic
 // per pixel (grade pow, bloom taps, two triad table reads) is small beside
@@ -19,7 +22,8 @@
 // planes (the saturation and triad luma need the three planes of a pixel
 // together). The block gathers its tile plus a halo through the composed
 // per-plane pixelate/aberration index maps (any pixel size, any frame
-// shape), applies /255 and the grade into shared memory, runs the bloom
+// shape), applies /255 and the grade into shared memory (the f32-input
+// mode loads the halo with clamped coordinates instead), runs the bloom
 // core out of shared memory and finishes the epilogue in registers. Only
 // the uint8 input, the grain field, the small per-row/per-column tables
 // and the output cross device memory.
@@ -44,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "crt_common.cuh"
+
 namespace {
 
 constexpr int TX = 32;       // output tile width (kernels/fused.py TILE)
@@ -55,7 +61,8 @@ constexpr int MAXK = 63;     // taps (radius <= 31)
 
 // Mirrored field for field by a ctypes.Structure in the Python wrapper.
 struct FusedArgs {
-    const uint8_t* img;      // (B, 3, H, W)
+    const uint8_t* img;      // (B, 3, H, W) uint8 frames (pre_on), or null
+    const float* imgf;       // (B, 3, H, W) f32 pre-processed image (!pre_on), or null
     void* out;               // (B, 3, H, W) float or uint8
     const int32_t* ymap;     // (H,)    source row of each output row
     const int32_t* xmap;     // (3, W)  source column per plane
@@ -74,6 +81,7 @@ struct FusedArgs {
     const int32_t* fu_xlo; const float* fu_xf;   // (W,)  up, columns
     int32_t b, h, w;
     int32_t emit_u8;
+    int32_t pre_on;          // 1: stages 1-4 from img; 0: read imgf as it is
     // prologue (stage 1 + 4)
     float inv255;
     int32_t sat_on; float sat;
@@ -102,12 +110,11 @@ struct FusedArgs {
 
 namespace {
 
-__device__ __forceinline__ float clip01(float v) {
-    return fminf(fmaxf(v, 0.0f), 1.0f);
-}
+using crt::clip01;
+using crt::lerp_taps;
 
 __device__ __forceinline__ float knee(const FusedArgs& a, float v) {
-    return a.knee_on ? clip01((v - a.thr) * a.rden) : v;
+    return crt::knee(a.knee_on, a.thr, a.rden, v);
 }
 
 __device__ __forceinline__ int quantize(float v) {
@@ -119,13 +126,17 @@ __device__ __forceinline__ float luma(float r, float g, float b) {
     return 0.2126f * r + 0.7152f * g + 0.0722f * b;
 }
 
-__device__ __forceinline__ float lerp_taps(float lo, float hi, float f) {
-    return lo * (1.0f - f) + hi * f;   // the oracle's resize_bilinear order
-}
-
 // Stages 1-4 for one pixel: gather through the index maps, /255, grade.
+// In the f32-input mode, the pixel of the pre-processed image (gy, gx are
+// already clamped to the frame).
 __device__ void prologue(const FusedArgs& a, int bi, int gy, int gx, float x[3]) {
     const size_t plane = (size_t)a.h * a.w;
+    if (!a.pre_on) {
+        const float* src = a.imgf + (size_t)bi * 3 * plane + (size_t)gy * a.w + gx;
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) x[p] = src[p * plane];
+        return;
+    }
     const uint8_t* base = a.img + (size_t)bi * 3 * plane;
     const int sy = a.ymap[gy];
     #pragma unroll
@@ -293,24 +304,6 @@ fused_kernel(const FusedArgs a) {
     }
 }
 
-// The block's source and half-res windows for the fast core, from the
-// tables: rows [sy0, sy0 + nr) and half rows [i0, i0 + nh); same on x.
-struct FastWindow {
-    int s0, n, i0, nh;
-};
-
-__device__ __forceinline__ FastWindow fast_window(
-        const int32_t* up_lo, const int32_t* dn_lo, int t0, int t1, int full, int half) {
-    FastWindow f;
-    f.i0 = up_lo[t0];
-    const int i1 = min(up_lo[t1] + 1, half - 1);
-    f.nh = i1 - f.i0 + 1;
-    f.s0 = min(dn_lo[f.i0], t0);           // the tile itself is read for the composite
-    const int s1 = max(min(dn_lo[i1] + 1, full - 1), t1);
-    f.n = s1 - f.s0 + 1;
-    return f;
-}
-
 // Fast core: resize_bilinear(resize_bilinear(knee(x), H/2, W/2), H, W).
 __global__ void __launch_bounds__(NT)
 fused_fast_kernel(const FusedArgs a) {
@@ -319,8 +312,8 @@ fused_fast_kernel(const FusedArgs a) {
     const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, bi = blockIdx.z;
     const int tid = threadIdx.x;
     const int ty1 = min(y0 + TY, h) - 1, tx1 = min(x0 + TX, w) - 1;
-    const FastWindow fy = fast_window(a.fu_ylo, a.fd_ylo, y0, ty1, h, a.h2);
-    const FastWindow fx = fast_window(a.fu_xlo, a.fd_xlo, x0, tx1, w, a.w2);
+    const crt::FastWindow fy = crt::fast_window(a.fu_ylo, a.fd_ylo, y0, ty1, h, a.h2);
+    const crt::FastWindow fx = crt::fast_window(a.fu_xlo, a.fd_xlo, x0, tx1, w, a.w2);
     const int SR = a.fs_rows, SC = a.fs_cols, HR = a.fh_rows, HC = a.fh_cols;
     float* S = smem;                  // [3][SR][SC] prologue output (pre-knee)
     float* D1 = S + 3 * SR * SC;      // [3][HR][SC] down, rows

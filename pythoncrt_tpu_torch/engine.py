@@ -5,11 +5,24 @@ Port of pythoncrt_tpu/engine.py: one batched step
     step : (frames_u8 [B, 3, H, W], aux, state [3, H, W]) -> (out_u8, state)
 
 that runs, in the reference's stage order, the fused kernel (stages
-1-11), the warp kernel (stage 12, when on), the glitch kernel (stage 14,
-when on, in place on the band) and the persistence kernel (stage 15,
-when on), with the uint8 cast folded into the last of them. On CUDA
-tensors those are the hand-written kernels under csrc/; on CPU tensors
-their plain PyTorch twins, so the CPU tests exercise the same step.
+1-11), the warp kernel (stage 12, when on), the text overlay (stage 13,
+when composited after the effects), the glitch kernel (stage 14, when
+on, in place on the band) and the persistence kernel (stage 15, when
+on), with the uint8 cast folded into the last kernel when nothing
+follows it. On CUDA tensors those are the hand-written kernels under
+csrc/; on CPU tensors their plain PyTorch twins, so the CPU tests
+exercise the same step.
+
+Two configurations take another route to stage 11:
+
+- text composited before the bloom (stage 5): stages 1-5 run as torch
+  ops (the fused twin's prologue, then the composite) and the fused
+  kernel takes the f32 image (its ``pre=False`` mode);
+- 2-D scanlines (angled or shaped): the staged step, stages 1-5 as torch
+  ops, the stand-alone bloom kernel (kernels/bloom3.py), then stages
+  7-11 as torch ops with the per-pixel mask (the JAX engine sends these
+  to its XLA path for the same reason: the mask needs sin and pow per
+  pixel).
 
 Host tables (pixel maps, triad row, vignette vectors, warp tables,
 resize taps, glitch amplitudes and segment index) come from the port's
@@ -18,8 +31,9 @@ flicker gain, noise, glitch offsets) are computed per batch from
 absolute frame indices, so every draw is a pure function of (seed, frame
 index): outputs do not depend on how frames are split into batches.
 
-Configs outside the port raise NotImplementedError naming the ROADMAP.md
-item that will bring them; nothing computes them another way.
+Configs outside the port (``--precision fast``) raise
+NotImplementedError naming the ROADMAP.md item that will bring them;
+nothing computes them another way.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import numpy as np
 import torch
 
 from . import oracle
+from .kernels import bloom3 as kbloom3
 from .kernels import fused as kfused
 from .kernels import glitch as kglitch
 from .kernels import persist as kpersist
@@ -59,14 +74,8 @@ class FrameAux(NamedTuple):
 def unsupported(params: EffectParams, *, precision: str = "exact",
                 lut_exact: bool = True) -> Optional[str]:
     """Why this configuration is outside the port, or None."""
-    p = params.clamped()
-    if p.text.enabled:
-        return "text overlays are not ported yet: ROADMAP.md queue 1, fallback slice"
-    if p.scanlines_on and not p.scanlines_1d:
-        return ("angled or shaped (2-D) scanlines are not ported yet: "
-                "ROADMAP.md queue 1, fallback slice")
     if precision == "fast" or not lut_exact:
-        return "precision 'fast' is not ported yet: ROADMAP.md queue 1, fallback slice"
+        return "precision 'fast' is not ported yet: ROADMAP.md queue 1, precision fast"
     return None
 
 
@@ -83,7 +92,9 @@ class CRTEngine:
     ``assoc_scan`` runs the persistence recurrence as an O(log B)
     associative scan in plain PyTorch instead of the sequential kernel.
     ``consts`` overrides host tables by name (see ``consts`` and
-    convert.py).
+    convert.py). ``text_rgba`` is the (H, W, 4) uint8 overlay of
+    ``params.text`` (text.overlay_for); without it the text is off, as
+    in the JAX engine.
     """
 
     def __init__(self, params: EffectParams, height: int, width: int, fps: float, *,
@@ -105,9 +116,6 @@ class CRTEngine:
         if channel_order != "rgb" and layout == "nhwc":
             raise ValueError("channel_order requires layout 'planar'/'auto'")
         p = params.clamped()
-        if text_rgba is not None and p.text.enabled:
-            raise NotImplementedError(
-                "text overlays are not ported yet: ROADMAP.md queue 1, fallback slice")
         why = unsupported(p, precision=precision, lut_exact=lut_exact)
         if why:
             raise NotImplementedError(why)
@@ -125,13 +133,13 @@ class CRTEngine:
         self.channel_order = channel_order
         # plane i of a planar frame holds colour _plane_colors[i] (0=R, 1=G, 2=B)
         self._plane_colors = (0, 1, 2) if channel_order == "rgb" else (1, 2, 0)
-        self._build_consts(consts or {})
+        self._build_consts(consts or {}, text_rgba)
 
     # ------------------------------------------------------------------
     # Host tables (the oracle is the single source of truth)
     # ------------------------------------------------------------------
 
-    def _build_consts(self, given: dict) -> None:
+    def _build_consts(self, given: dict, text_rgba: Optional[np.ndarray]) -> None:
         p, h, w, dev = self.params, self.h, self.w, self.device
         own: dict = {}
         y_map, x_rgb = oresize.plane_index_maps(
@@ -167,6 +175,17 @@ class CRTEngine:
                 seg_len = max(8, min(32, w // 120 if w >= 120 else 8))
                 own["glitch_seg_index"] = (np.arange(w, dtype=np.int32) // seg_len).astype(np.int32)
             own["glitch_amp"] = amp.astype(np.float32)
+        if p.scanlines_on and not p.scanlines_1d:
+            # static part of the 2-D mask; the phase is added per frame
+            own["sl_slant"] = oracle.scanline_slant(h, w, p.scanline_angle)
+        has_text = text_rgba is not None and p.text.enabled
+        if has_text:
+            ov = np.asarray(text_rgba)
+            if ov.shape[:2] != (h, w):
+                raise ValueError(f"text overlay shape {ov.shape[:2]} != frame {(h, w)}")
+            # the JAX engine's constants (engine.py:742-743), RGB last
+            own["text_alpha"] = ov[..., 3:4].astype(np.float32) / 255.0
+            own["text_rgb"] = ov[..., :3].astype(np.float32) / 255.0
         g = max(1, int(p.grain_size))
         self._grain_hw = (max(1, h // g), max(1, w // g)) if g > 1 else (h, w)
 
@@ -185,15 +204,27 @@ class CRTEngine:
                 raise ValueError("glitch_seg_index must hold (W,) segment indices >= 0")
             self._glitch_nseg = int(seg.max().item()) + 1
             c["glitch_seg_index"] = seg
-        # the uint8 cast folds into the last kernel of the step
-        temporal = self._glitch or p.persistence_on
         pc = self._plane_colors
+        self._text_before = has_text and not p.text.after  # stage 5
+        self._text_after = has_text and p.text.after  # stage 13
+        if has_text:  # (H, W) alpha and (3, H, W) colour in plane order
+            self._text = (c["text_alpha"][..., 0].float().contiguous(),
+                          c["text_rgb"].permute(2, 0, 1)[list(pc)].float().contiguous())
+        # 2-D scanlines need the per-pixel mask: the staged step
+        self._staged = p.scanlines_on and not p.scanlines_1d
+        if self._staged:
+            self._sl_omega = np.float32(2.0 * np.pi / max(1e-6, p.scanline_period_px))
+            self._sl_inv_sharp = np.float32(
+                1.0 / float(np.clip(p.scanline_thickness, 0.1, 4.0)))
+        # the uint8 cast folds into the last kernel of the step when
+        # nothing follows it
+        temporal = self._glitch or p.persistence_on
         t = float(p.temperature)
         temp_r, temp_b = ocolor.temperature_gains(t) if t != 0.0 else (1.0, 1.0)
         self.spec = kfused.build_fused_spec(
             h, w, sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
             threshold=float(p.bloom_threshold), fast=bool(p.fast_bloom), bloom=p.bloom_on,
-            px=int(p.pixel_size) if p.pixelate_on else 1,
+            pre=not self._text_before, px=int(p.pixel_size) if p.pixelate_on else 1,
             ab=int(p.aberration_px) if p.aberration_on else 0,
             saturation=float(p.saturation), temp_r=temp_r, temp_b=temp_b,
             brightness=float(p.brightness), contrast=float(p.contrast),
@@ -204,8 +235,16 @@ class CRTEngine:
             vig_strength=float(p.vignette_strength),
             flicker=p.flicker_on, noise=p.noise_on,
             noise_scale=float(p.noise_strength) / 255.0,
-            emit="f32" if (p.warp_on or temporal) else "u8", corder=pc)
-        self._warp_u8 = p.warp_on and not temporal
+            emit="f32" if (p.warp_on or temporal or self._text_after) else "u8", corder=pc)
+        self._warp_u8 = p.warp_on and not temporal and not self._text_after
+        self.bloom3_spec = None  # the staged step's stand-alone bloom
+        if p.bloom_on:
+            self.bloom3_spec = (
+                kbloom3.build_bloom3_fast_spec(h, w, float(p.bloom_strength),
+                                               float(p.bloom_threshold))
+                if p.fast_bloom else
+                kbloom3.build_bloom3_spec(h, w, float(p.bloom_sigma), float(p.bloom_strength),
+                                          float(p.bloom_threshold)))
         own_fc = kfused.fused_consts(self.spec, dev)
         self.fused_tables = own_fc._replace(
             y_map=c["pix_y"].to(torch.int32).contiguous(),
@@ -323,6 +362,18 @@ class CRTEngine:
                                + np.sin(omega * (y[None, :] + phase[:, None])))
         return (np.float32(1.0) - np.float32(p.scanline_strength) * s).astype(np.float32)
 
+    def _scanline_mask_2d(self, phase: np.ndarray) -> torch.Tensor:
+        """(B, H, W) stage-8 2-D multiplier on the device, f32 in the
+        oracle's op order (scanline_mask_2d). Its sin and pow are each
+        rounded once from double, so the mask is the same on every
+        device; NumPy's f32 forms are not, and may differ by an ulp."""
+        p = self.params
+        ph = torch.from_numpy(np.ascontiguousarray(phase, np.float32)).to(self.device)
+        arg = self._sl_omega * (self.consts["sl_slant"][None] + ph[:, None, None])
+        s = 0.5 * (1.0 + torch.sin(arg.double()).float())
+        shaped = ocolor.powf_rn(s, self._sl_inv_sharp)
+        return 1.0 - np.float32(p.scanline_strength) * shaped
+
     # ------------------------------------------------------------------
     # The step
     # ------------------------------------------------------------------
@@ -331,9 +382,16 @@ class CRTEngine:
         """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
         the device -> (uint8 planar frames, new state)."""
         p = self.params
-        out = kfused.fused_pipeline(x, self.spec, self.fused_tables, **self.fused_operands(aux))
+        if self._staged:
+            out = self._staged_stages(x, aux)
+        else:
+            feed = x if self.spec.pre else self._pre_bloom(x)
+            out = kfused.fused_pipeline(feed, self.spec, self.fused_tables,
+                                        **self.fused_operands(aux))
         if p.warp_on:  # stage 12
             out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8)
+        if self._text_after:  # stage 13
+            out = ocolor.composite_text(out, *self._text)
         if self._glitch:  # stage 14
             kglitch.shear_planar_inplace(out, self._glitch_y0, self.glitch_offsets(aux),
                                          self.consts["glitch_seg_index"])
@@ -373,14 +431,41 @@ class CRTEngine:
             outs = torch.cat([outs, torch.clamp(a * out0[None] + b, 0.0, 1.0)])
         return ocolor.to_uint8(outs), outs[-1].contiguous()
 
+    def _pre_bloom(self, x: torch.Tensor) -> torch.Tensor:
+        """Stages 1-5 as torch ops on (B, 3, H, W) uint8: the fused twin's
+        prologue (so the staged and fused paths agree bit for bit up to
+        the bloom input), then the text composited before the bloom."""
+        img = kfused.prologue_ref(x, self.spec, self.fused_tables)
+        if self._text_before:
+            img = ocolor.composite_text(img, *self._text)
+        return img
+
+    def _staged_stages(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
+        """Stages 1-11 for the configurations the fused kernel cannot take:
+        torch ops up to the bloom, the stand-alone bloom kernel, then the
+        fused twin's epilogue (stages 7-11, the 2-D mask) as torch ops."""
+        img = self._pre_bloom(x)
+        if self.bloom3_spec is not None:  # stage 6
+            if self.bloom3_spec.fast:
+                ft = self.fused_tables
+                img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec,
+                                                 (ft.fast_taps, ft.fast_extent))
+            else:
+                img = kbloom3.bloom3_planar(img, self.bloom3_spec)
+        return kfused.epilogue_ref(img, self.spec, self.fused_tables,
+                                   **self.fused_operands(aux))
+
     def fused_operands(self, aux: FrameAux) -> dict:
-        """The per-batch operands the step hands the fused kernel."""
+        """The per-batch operands of stages 7-11, as the fused kernel (or
+        the staged step's epilogue) takes them."""
         s, c = self.spec, self.consts
         kw = {}
         if s.noise:
             kw["grain"] = self._grain_field(aux)
-        if s.scanlines:
+        if s.scanlines and self.params.scanlines_1d:
             kw["sl"] = torch.from_numpy(self._scanline_rows(aux.phase)).to(self.device)
+        elif s.scanlines:
+            kw["sl"] = self._scanline_mask_2d(aux.phase)
         if s.vignette:
             kw["vy2"], kw["vx2"] = c["vig_ny2"], c["vig_nx2"]
         if s.triad:

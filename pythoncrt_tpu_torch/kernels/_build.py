@@ -3,8 +3,8 @@
 The ``.cu`` files have a plain C interface. At first use each is
 compiled by its own ``nvcc`` process for Hopper (``sm_90a``), all started
 together, and the objects are linked into one shared library under
-``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and flags, and loaded with ``ctypes``. Nothing is built when the
+``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the sources,
+the headers they include and the flags, and loaded with ``ctypes``. Nothing is built when the
 package is imported: the CPU tests import every module on hosts without
 ``nvcc``.
 
@@ -28,8 +28,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("fused.cu", "warp.cu", "persist.cu", "glitch.cu")
-KERNELS = ("crt_fused", "crt_warp", "crt_persist", "crt_glitch")
+SOURCES = ("fused.cu", "warp.cu", "persist.cu", "glitch.cu", "bloom3.cu")
+HEADERS = ("crt_common.cuh",)  # included by the sources: hashed with them
+KERNELS = ("crt_fused", "crt_warp", "crt_persist", "crt_glitch", "crt_bloom3")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -55,7 +56,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -8,7 +8,13 @@ Port of pythoncrt_tpu/kernels/fused.py (fused_pipeline / _fused_kernel):
 
 The bloom core is the exact gaussian (H then V), the fast half-res
 down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
-tables), or off.
+tables), or off. With ``spec.pre`` False (the JAX kernel's ``pre=False``,
+text composited before the bloom) the input is the engine's f32 image
+after stages 1-5 and the kernel starts at the knee.
+
+The twin is split at the bloom (``prologue_ref``, ``bloom_ref``,
+``epilogue_ref``) so that the engine's staged step, which runs the
+stand-alone bloom kernel between them, shares its op order.
 
 ``fused_pipeline`` launches csrc/fused.cu for CUDA tensors and runs
 ``fused_pipeline_ref`` (plain PyTorch, the same op order) for CPU
@@ -49,7 +55,9 @@ class FusedSpec:
     fast: bool = False
     strength: float = 0.0
     threshold: float = 0.0
-    # stages 2-4 (prologue)
+    # stages 2-4 (prologue): run by the kernel when pre, else by the
+    # caller (prologue_ref) before it hands the kernel an f32 image
+    pre: bool = True
     px: int = 1
     ab: int = 0
     saturation: float = 1.0
@@ -80,15 +88,15 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
                      threshold: float = 0.0, fast: bool = False, bloom: bool = True,
                      pre: bool = True, lut_exact: bool = True, **kw) -> FusedSpec:
     """Build a spec from the arguments of the JAX package's
-    build_fused_spec (kernels/fused.py:168). The u8 prologue is always
-    on and the triad always LUT-exact. Any H and W: the TPU kernel's
-    shape gates (H%8, W%128, even sizes for the fast core) have no
+    build_fused_spec (kernels/fused.py:168). ``pre`` False takes the f32
+    image (the prologue's fields then describe the caller's prologue);
+    the triad is always LUT-exact. Any H and W: the TPU kernel's shape
+    gates (H%8, W%128, even sizes for the fast core) have no
     counterpart."""
-    if not pre or not lut_exact:
+    if not lut_exact:
         raise NotImplementedError(
-            "the port's fused kernel always runs the u8 prologue and the "
-            "LUT-exact triad (precision fast, text before bloom: ROADMAP.md queue 1, "
-            "fallback slice)")
+            "the port's fused kernel always runs the LUT-exact triad "
+            "(precision fast: ROADMAP.md queue 1, precision fast)")
     if kw.get("emit", "f32") not in ("f32", "u8"):
         raise ValueError(f"unknown emit mode {kw.get('emit')!r}")
     for tpu_only in ("grain_g", "grain_off", "grain_frac", "grain_raw"):
@@ -102,7 +110,8 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
     if int(kw.get("px", 1)) < 1 or abs(int(kw.get("ab", 0))) >= w:
         raise ValueError("pixel size must be >= 1 and |aberration| < width")
     return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps, fast=fast,
-                     strength=float(strength), threshold=float(threshold), **kw)
+                     strength=float(strength), threshold=float(threshold), pre=bool(pre),
+                     **kw)
 
 
 class FusedConsts(NamedTuple):
@@ -159,38 +168,60 @@ def fused_consts(spec: FusedSpec, device="cpu") -> FusedConsts:
                        torch.from_numpy(x_maps).to(device), fwd, fin, taps, extent)
 
 
-def _knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
+def knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
     # multiply by the rounded reciprocal, as the JAX kernel does
     thr = np.float32(min(0.99, max(0.0, threshold)))
     den = np.float32(max(1e-6, 1.0 - float(thr)))
     return thr, np.float32(1.0 / float(den))
 
 
-def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
-                       grain=None, sl=None, vy2=None, vx2=None, tri=None,
-                       flicker=None) -> torch.Tensor:
-    """The fused kernel's plain PyTorch twin, on any device."""
+def prologue_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts) -> torch.Tensor:
+    """Stages 1-4 on (B, 3, H, W) uint8: the composed index maps, a
+    multiply by f32(1/255), the grade."""
     s = spec
     x = oresize.remap_planes(img, consts.y_map, consts.x_maps).float() * np.float32(1.0 / 255.0)
-    x = ocolor.grade(x, s.saturation, s.temp_r, s.temp_b, s.brightness, s.contrast,
-                     s.inv_gamma, s.corder, dim=1)
-    m = x
-    if s.bloom:
-        src = x
-        if s.threshold > 0.0:
-            thr, rden = _knee_consts(s.threshold)
-            src = torch.clamp((x - thr) * rden, 0.0, 1.0)
-        if s.fast:
-            t = [a.long() if i % 2 == 0 else a for i, a in enumerate(consts.fast_taps)]
-            bl = oresize.resize_bilinear(oresize.resize_bilinear(src, *t[:4]), *t[4:])
-        else:
-            bl = oblur.gaussian_blur_replicate(src, s.taps)
-        m = torch.clamp(x + np.float32(s.strength) * bl, 0.0, 1.0)
+    return ocolor.grade(x, s.saturation, s.temp_r, s.temp_b, s.brightness, s.contrast,
+                        s.inv_gamma, s.corder, dim=1)
+
+
+def bloom_core_ref(x: torch.Tensor, strength: float, threshold: float, *, taps=(),
+                   fast_taps: Optional[tuple] = None) -> torch.Tensor:
+    """clip(x + strength * blur(knee(x))) over the last two axes: the
+    gaussian ``taps``, or with ``fast_taps`` (the oracle's bilinear_taps
+    for the down rows, down columns, up rows and up columns, lo int32
+    and frac f32) the half-res down and up. The fused kernel's stage 6
+    and the stand-alone bloom (kernels/bloom3.py) share it."""
+    src = x
+    if threshold > 0.0:
+        thr, rden = knee_consts(threshold)
+        src = torch.clamp((x - thr) * rden, 0.0, 1.0)
+    if fast_taps is not None:
+        t = [a.long() if i % 2 == 0 else a for i, a in enumerate(fast_taps)]
+        bl = oresize.resize_bilinear(oresize.resize_bilinear(src, *t[:4]), *t[4:])
+    else:
+        bl = oblur.gaussian_blur_replicate(src, taps)
+    return torch.clamp(x + np.float32(strength) * bl, 0.0, 1.0)
+
+
+def bloom_ref(x: torch.Tensor, spec: FusedSpec, consts: FusedConsts) -> torch.Tensor:
+    """Stage 6 with the spec's core (the identity when the bloom is off)."""
+    if not spec.bloom:
+        return x
+    return bloom_core_ref(x, spec.strength, spec.threshold, taps=spec.taps,
+                          fast_taps=consts.fast_taps if spec.fast else None)
+
+
+def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
+                 grain=None, sl=None, vy2=None, vx2=None, tri=None,
+                 flicker=None) -> torch.Tensor:
+    """Stages 7-11 and the emit. ``sl`` is the kernel's (B, H) scanline
+    multiplier or, in the engine's staged step, the (B, H, W) 2-D mask."""
+    s = spec
     if s.triad:
         m = ocolor.apply_triad_planar(m, tri, s.triad_gamma, s.triad_luma, s.corder,
                                       tables=(consts.lut_fwd, consts.lut_fin))
     if s.scanlines:
-        m = torch.clamp(m * sl[:, None, :, None], 0.0, 1.0)
+        m = torch.clamp(m * (sl[:, None, :, None] if sl.ndim == 2 else sl[:, None]), 0.0, 1.0)
     if s.vignette:
         r2 = vy2[:, None] + vx2[None, :]
         v = np.float32(1.0) - np.float32(s.vig_strength) * torch.clamp(r2, 0.0, 1.0)
@@ -202,10 +233,19 @@ def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, 
     return ocolor.to_uint8(m) if s.emit == "u8" else m
 
 
+def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
+                       grain=None, sl=None, vy2=None, vx2=None, tri=None,
+                       flicker=None) -> torch.Tensor:
+    """The fused kernel's plain PyTorch twin, on any device."""
+    x = prologue_ref(img, spec, consts) if spec.pre else img
+    return epilogue_ref(bloom_ref(x, spec, consts), spec, consts, grain=grain, sl=sl,
+                        vy2=vy2, vx2=vx2, tri=tri, flicker=flicker)
+
+
 class _FusedArgs(ctypes.Structure):
     """Mirror of FusedArgs in csrc/fused.cu (checked by size at launch)."""
     _fields_ = [
-        ("img", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("img", ctypes.c_void_p), ("imgf", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("ymap", ctypes.c_void_p), ("xmap", ctypes.c_void_p),
         ("grain", ctypes.c_void_p), ("sl", ctypes.c_void_p),
         ("vy2", ctypes.c_void_p), ("vx2", ctypes.c_void_p),
@@ -216,7 +256,7 @@ class _FusedArgs(ctypes.Structure):
         ("fu_ylo", ctypes.c_void_p), ("fu_yf", ctypes.c_void_p),
         ("fu_xlo", ctypes.c_void_p), ("fu_xf", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
-        ("emit_u8", ctypes.c_int32),
+        ("emit_u8", ctypes.c_int32), ("pre_on", ctypes.c_int32),
         ("inv255", ctypes.c_float),
         ("sat_on", ctypes.c_int32), ("sat", ctypes.c_float),
         ("temp_on", ctypes.c_int32), ("gain", ctypes.c_float * 3),
@@ -259,7 +299,8 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     """Run stages 1-11.
 
     img: (B, 3, H, W) uint8 planar frames, plane i holding colour
-    spec.corder[i]. grain: (B, H, W) f32 unscaled noise field [noise];
+    spec.corder[i], or the f32 image after stages 1-5 when spec.pre is
+    False. grain: (B, H, W) f32 unscaled noise field [noise];
     sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
     f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
     order [triad]; flicker: (B,) f32 [flicker]. Returns (B, 3, H, W)
@@ -277,7 +318,10 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     b = img.shape[0]
     dev = img.device
     a = _FusedArgs()
-    a.img = _check("img", img, (b, 3, s.h, s.w), torch.uint8, dev)
+    if s.pre:
+        a.img = _check("img", img, (b, 3, s.h, s.w), torch.uint8, dev)
+    else:
+        a.imgf = _check("img", img, (b, 3, s.h, s.w), torch.float32, dev)
     a.ymap = _check("y_map", consts.y_map, (s.h,), torch.int32, dev)
     a.xmap = _check("x_maps", consts.x_maps, (3, s.w), torch.int32, dev)
     if s.noise:
@@ -302,6 +346,7 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     a.out = out.data_ptr()
     a.b, a.h, a.w = b, s.h, s.w
     a.emit_u8 = int(s.emit == "u8")
+    a.pre_on = int(s.pre)
     a.inv255 = np.float32(1.0 / 255.0)
     a.sat_on, a.sat = int(s.saturation != 1.0), np.float32(s.saturation)
     a.temp_on = int(s.temp_r != 1.0 or s.temp_b != 1.0)
@@ -314,7 +359,7 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     a.bloom_on, a.r = int(s.bloom), s.r if s.bloom else 0
     a.knee_on = int(s.bloom and s.threshold > 0.0)
     if a.knee_on:
-        a.thr, a.rden = _knee_consts(s.threshold)
+        a.thr, a.rden = knee_consts(s.threshold)
     a.strength = np.float32(s.strength)
     if s.bloom and s.fast:
         a.fast_on = 1

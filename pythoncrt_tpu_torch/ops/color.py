@@ -146,6 +146,13 @@ def apply_triad(img: torch.Tensor, mask: torch.Tensor, gamma: float,
     return out.permute(0, 2, 3, 1)
 
 
+def composite_text(img: torch.Tensor, alpha: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+    """Alpha-over composite of a text overlay (crt_filter.py:595-597) on
+    planar (B, 3, H, W) data: alpha (H, W) and rgb (3, H, W) in the
+    data's plane order, both u8 / 255 in f32, built once on the host."""
+    return torch.clamp(img * (1.0 - alpha) + rgb * alpha, 0.0, 1.0)
+
+
 def to_uint8(img: torch.Tensor) -> torch.Tensor:
     """float [0, 1] -> uint8, round half to even, saturate
     (cv2.convertScaleAbs semantics, crt_filter.py:696)."""

@@ -37,6 +37,7 @@ from . import perf
 from .engine import CRTEngine, unsupported
 from .io import video as vio
 from .params import EffectParams
+from .text import overlay_for
 
 DEFAULT_BATCH = 16
 POOL = 4  # host batch buffers per direction
@@ -254,9 +255,11 @@ def process_video(
     perf.perf_reset()
     t_start = time.perf_counter()
     planar = vio.find_ffmpeg() is not None
+    text_rgba = overlay_for(out_w, out_h, params.text)
     with perf.timed("fx.compile"):
         eng = CRTEngine(params, out_h, out_w, fps_out, engine=engine_mode, rng=rng,
-                        seed=seed, precision=precision, assoc_scan=assoc_scan,
+                        seed=seed, text_rgba=text_rgba, precision=precision,
+                        assoc_scan=assoc_scan,
                         layout="planar" if planar else "nhwc",
                         channel_order="gbr" if planar else "rgb", device=device)
         if eng.device.type == "cuda":

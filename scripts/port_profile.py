@@ -2,13 +2,17 @@
 
     python3 scripts/port_profile.py [--out port_profile.json]
 
-For each configuration (c3, the CLI defaults, c4) at 1080p with a batch
-of 8, native rng, planar gbrp frames already on the card:
+For each configuration (c3, the CLI defaults, c4, and the angled-scanline
+and text paths: c3-angled, defaults-angled, c4-text, with a seeded
+synthetic text overlay) at 1080p with a batch of 8, native rng, planar
+gbrp frames already on the card:
 
 - engine fps: 5 repeats of 32 frames (4 batches, the state carried),
   median, min and max;
-- each kernel of the step: 5 repeats of 20 launches timed with CUDA
-  events on the step's own operands, median ms per call;
+- each kernel of the step, and the staged step's torch-op stages (the
+  pre-bloom, the post-bloom with the 2-D mask, the text composite): 5
+  repeats of 20 calls timed with CUDA events on the step's own
+  operands, median ms per call;
 - a torch.profiler trace of 4 batches: device time per kernel name, the
   sum, and the profiled loop's wall time, from which the device's idle
   share of the loop follows;
@@ -47,6 +51,20 @@ CONFIGS = {
                vignette_strength=0.25, persistence=0.6, pixel_size=1, glitch_amp_px=6,
                glitch_height_frac=0.3, scanline_speed_px_s=120.0),
 }
+CONFIGS["c3-angled"] = dict(CONFIGS["c3"], scanline_angle=5.0, scanline_thickness=1.5)
+CONFIGS["defaults-angled"] = dict(scanline_angle=12.0, scanline_thickness=2.0)
+CONFIGS["c4-text"] = dict(CONFIGS["c4"])
+TEXT = {"c3-angled": dict(text="CH 3", size=48, after=True),
+        "c4-text": dict(text="PLAY", size=48, after=False)}
+
+
+def synth_overlay(seed: int = 4) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA: a seeded text-like box, clear elsewhere."""
+    rng = np.random.default_rng(seed)
+    ov = np.zeros((H, W, 4), np.uint8)
+    ov[H // 10:H // 10 + H // 8, W // 10:W // 10 + W // 3] = rng.integers(
+        0, 256, (H // 8, W // 3, 4), dtype=np.uint8)
+    return ov
 
 
 def smi(fields: str) -> str:
@@ -74,14 +92,17 @@ def events_ms(fn, iters: int = 20, repeats: int = 5) -> float:
 def profile(name: str, params: dict, xs) -> dict:
     import torch
 
-    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams
+    from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
     from pythoncrt_tpu_torch.kernels import warp as kwarp
+    from pythoncrt_tpu_torch.ops import color as ocolor
 
-    p = EffectParams(**params)
-    eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device="cuda")
+    p = EffectParams(**params, text=TextParams(**TEXT.get(name, {})))
+    eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device="cuda",
+                    text_rgba=synth_overlay() if p.text.enabled else None)
 
     def loop():
         st = None
@@ -99,9 +120,33 @@ def profile(name: str, params: dict, xs) -> dict:
     aux = eng.make_aux(np.arange(B))
     kw = eng.fused_operands(aux)
     x = xs[:B]
-    kernels = {"fused_pipeline": events_ms(
-        lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))}
-    f = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    kernels = {}
+    feed = x
+    if eng._staged or not eng.spec.pre:
+        kernels["pre-bloom (torch ops)"] = events_ms(lambda: eng._pre_bloom(x), iters=5)
+        feed = eng._pre_bloom(x)
+    if eng._staged:
+        spec = eng.bloom3_spec
+        tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
+        if spec.fast:
+            kernels["bloom3_fast_planar"] = events_ms(
+                lambda: kbloom3.bloom3_fast_planar(feed, spec, tabs))
+            bl = kbloom3.bloom3_fast_planar(feed, spec, tabs)
+        else:
+            kernels["bloom3_planar"] = events_ms(lambda: kbloom3.bloom3_planar(feed, spec))
+            bl = kbloom3.bloom3_planar(feed, spec)
+        kernels["post-bloom with the 2-D mask (torch ops)"] = events_ms(
+            lambda: kfused.epilogue_ref(bl, eng.spec, eng.fused_tables, **kw), iters=5)
+        kernels["2-D scanline mask alone (torch ops)"] = events_ms(
+            lambda: eng._scanline_mask_2d(aux.phase), iters=5)
+        f = kfused.epilogue_ref(bl, eng.spec, eng.fused_tables, **kw)
+    else:
+        kernels["fused_pipeline"] = events_ms(
+            lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw))
+        f = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    if eng._text_after:
+        kernels["text composite after the warp (torch ops)"] = events_ms(
+            lambda: ocolor.composite_text(f, *eng._text), iters=5)
     if p.warp_on:
         kernels["warp_planar"] = events_ms(
             lambda: kwarp.warp_planar(f, eng.warp_tables, emit_u8=eng._warp_u8))

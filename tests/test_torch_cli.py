@@ -1,7 +1,8 @@
 """The port's entry points: no import of JAX or of the JAX package,
 refusals for what the port does not run, the render loop against
 CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
-CLI defaults and c4, export and preview)."""
+CLI defaults and c4, export and preview; 2-D scanlines and text
+overlays)."""
 
 import os
 import subprocess
@@ -52,29 +53,49 @@ def count_frames(path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """After a CLI render with the CLI defaults on the CPU, in a fresh
-    interpreter, neither JAX nor any module of the JAX package is loaded."""
-    inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
+    """After CLI renders on the CPU (the CLI defaults, angled scanlines, a
+    text overlay), in a fresh interpreter each, neither JAX nor any
+    module of the JAX package is loaded."""
+    inp = tmp_path / "in.mp4"
     write_clip(inp, n=4)
-    code = ("import sys, pythoncrt_tpu_torch.cli as c, pythoncrt_tpu_torch.convert; "
-            f"rc = c.main(['--input', {str(inp)!r}, '--output', {str(out)!r}, "
-            "'--device', 'cpu', '--batch-size', '2']); "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'pythoncrt_tpu')); "
-            "print('rc', rc, 'loaded', bad); sys.exit(rc or (1 if bad else 0))")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert "rc 0 loaded []" in res.stdout and count_frames(out) == 4
+    for i, flags in enumerate([[], ["--scanline-angle", "12", "--scanline-thickness", "2"],
+                               ["--text", "HI", "--text-size", "12"]]):
+        out = tmp_path / f"out{i}.mp4"
+        code = ("import sys, pythoncrt_tpu_torch.cli as c, pythoncrt_tpu_torch.convert; "
+                f"rc = c.main(['--input', {str(inp)!r}, '--output', {str(out)!r}, *{flags!r}, "
+                "'--device', 'cpu', '--batch-size', '2']); "
+                "bad = sorted(m for m in sys.modules "
+                "if m.split('.')[0] in ('jax', 'pythoncrt_tpu')); "
+                "print('rc', rc, 'loaded', bad); sys.exit(rc or (1 if bad else 0))")
+        res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, (flags, res.stdout + res.stderr)
+        assert "rc 0 loaded []" in res.stdout and count_frames(out) == 4, flags
 
 
 @pytest.mark.parametrize("overrides,kw,item", [
-    ({}, dict(precision="fast"), "fallback slice"),
-    (dict(scanline_strength=0.5, scanline_angle=12.0), {}, "fallback slice"),
-    (dict(text=TextParams(text="hi")), {}, "fallback slice"),
+    ({}, dict(precision="fast"), "precision fast"),
 ])
 def test_out_of_slice_configs_raise(overrides, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         CRTEngine(identity_params(**overrides), H, W, FPS, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(scanline_strength=0.5, scanline_angle=12.0),
+    dict(text=TextParams(text="hi", size=14, after=False)),
+], ids=["scanline_angle", "text"])
+def test_formerly_refused_configs_render(overrides):
+    """Angled scanlines and a text overlay (rasterized by the port's
+    text.overlay_for) build and render, and change the frames."""
+    from pythoncrt_tpu_torch.text import overlay_for
+
+    p = identity_params(**overrides)
+    frames = synth_frames(4, H, W, seed=6)
+    eng = CRTEngine(p, H, W, FPS, device="cpu", text_rgba=overlay_for(W, H, p.text))
+    out, _ = eng.process(frames)
+    assert out.shape == frames.shape and out.dtype == torch.uint8
+    assert not np.array_equal(out.numpy(), frames)
 
 
 @pytest.mark.parametrize("flags", [
@@ -96,11 +117,17 @@ C4_FLAGS = [
 
 @pytest.mark.parametrize("flags", [
     [], C4_FLAGS, [*C4_FLAGS, "--engine-mode", "preview"], ["--assoc-scan", "--rng", "host"],
-], ids=["defaults", "c4", "c4_preview", "defaults_assoc_host"])
+    ["--scanline-angle", "12", "--scanline-thickness", "2"],
+    [*C4_FLAGS, "--text", "PLAY", "--text-size", "12"],
+    [*C3_FLAGS, "--scanline-angle", "5", "--scanline-thickness", "1.5", "--text", "HI",
+     "--text-size", "12", "--text-after"],
+], ids=["defaults", "c4", "c4_preview", "defaults_assoc_host", "defaults_angled", "c4_text",
+        "c3_angled_text_after"])
 def test_cli_renders_the_temporal_configs(tmp_path, capsys, flags):
     """The CLI defaults (no effect flags) and c4, in both glitch modes and
-    with the associative persistence scan, render on the CPU, exit 0 and
-    write every frame."""
+    with the associative persistence scan, and the new paths (angled
+    scanlines, text before and after the effects) render on the CPU,
+    exit 0 and write every frame."""
     inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
     write_clip(inp, n=6)
     rc = cli.main(["--input", str(inp), "--output", str(out), *flags,

@@ -44,6 +44,28 @@ def test_engine_from_converted_consts_is_byte_identical():
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("after", [False, True])
+def test_consts_from_jax_carry_text_and_2d_scanlines(after):
+    """The overlay's alpha and colour and the 2-D scanline slant come over
+    equal to the port's own, and an engine built on them renders the
+    same bytes."""
+    from pythoncrt_tpu import TextParams
+
+    p = identity_params(**{**FULL, "scanline_angle": 8.0, "scanline_thickness": 1.4,
+                           "text": TextParams(text="HI", after=after)})
+    ov = np.random.default_rng(2).integers(0, 256, (H, W, 4), dtype=np.uint8)
+    jc = consts_from_jax(numpy_consts(JaxEngine(p, H, W, FPS, pallas="off", text_rgba=ov)._c))
+    eng = CRTEngine(p, H, W, FPS, rng="host", device="cpu", text_rgba=ov)
+    assert {"sl_slant", "text_alpha", "text_rgb"} <= set(jc)
+    for k in ("sl_slant", "text_alpha", "text_rgb"):
+        assert jc[k].dtype == eng.consts[k].dtype and torch.equal(jc[k], eng.consts[k]), k
+    frames = synth_frames(4, H, W, seed=9)
+    a, _ = eng.process(frames)
+    b, _ = CRTEngine(p, H, W, FPS, rng="host", device="cpu", text_rgba=ov,
+                     consts=jc).process(frames)
+    assert torch.equal(a, b)
+
+
 def test_native_rng_is_invariant_to_batch_split():
     """Native draws are a pure function of (seed, frame index): frames
     0-7 as one batch of 8 equal two batches of 4 through fresh engines."""

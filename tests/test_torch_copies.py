@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's host modules (params,
-oracle, the CLI parser, io.video's helpers, the perf report) against the
+oracle, the CLI parser, io.video's helpers, the perf report, the text
+rasterizer) against the
 originals: the same flags and defaults, the same fields, clamps and
 preset semantics, and equal results on seeded inputs (bitwise: the
 copies run the same NumPy code)."""
@@ -13,11 +14,13 @@ import pytest
 import pythoncrt_tpu.cli as jcli
 import pythoncrt_tpu.io.video as jvideo
 import pythoncrt_tpu.params as jparams
+import pythoncrt_tpu.text as jtext
 from pythoncrt_tpu import oracle as joracle
 from pythoncrt_tpu_torch import cli as tcli
 from pythoncrt_tpu_torch import oracle as toracle
 from pythoncrt_tpu_torch import params as tparams
 from pythoncrt_tpu_torch import perf as tperf
+from pythoncrt_tpu_torch import text as ttext
 from pythoncrt_tpu_torch.io import video as tvideo
 
 
@@ -193,3 +196,28 @@ def test_perf_report_format():
     tperf.perf_reset()
     assert tperf.perf_report(0, 0.0, print_fn=None).splitlines() == [
         "perf total 0.000s", "perf frames 0"]
+
+
+@pytest.mark.parametrize("color", ["#FF8000", "00ff7f", " #123456 ", "#12345", "red", ""])
+def test_parse_hex_color_is_the_same(color):
+    assert ttext.parse_hex_color(color) == jtext.parse_hex_color(color)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(text="CH 3", size=24, color="#FFCC00", x=10, y=5),
+    dict(text="PLAY", size=12, font="DejaVu Sans Mono", x=200, y=30, after=False),
+    dict(text="", size=36),
+])
+def test_rasterize_text_is_the_same(kw):
+    """The same RGBA canvas from the same PIL calls, and the same
+    overlay_for (None when the text is off)."""
+    pytest.importorskip("PIL")
+    t_t, t_j = tparams.TextParams(**kw), jparams.TextParams(**kw)
+    got, want = ttext.rasterize_text(256, 48, t_t), jtext.rasterize_text(256, 48, t_j)
+    assert got.shape == (48, 256, 4) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    ov = ttext.overlay_for(256, 48, t_t)
+    assert (ov is None) == (not t_t.enabled)
+    if ov is not None:
+        np.testing.assert_array_equal(ov, jtext.overlay_for(256, 48, t_j))
+        assert ov[..., 3].any()

@@ -6,17 +6,19 @@ imports no JAX, so on a machine without it run
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Operands are the ones the engine's step hands each kernel (c3, the CLI
-defaults, c4 and variants), at small shapes (an odd one included) and at
-1080p. Both sides keep one f32 op order (the kernels build with
--fmad=false and round pow once from double, as the twins do), so fused
-f32 outputs agree to 2e-6 and uint8 outputs to 1 LSB; the persistence
-scan and the glitch shear are bitwise."""
+defaults, c4 and variants; the angled-scanline and text paths), at small
+shapes (an odd one included) and at 1080p. Both sides keep one f32 op
+order (the kernels build with -fmad=false and round pow once from
+double, as the twins do), so fused and bloom f32 outputs agree to 2e-6
+and uint8 outputs to 1 LSB; the persistence scan and the glitch shear
+are bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
-from pythoncrt_tpu_torch import CRTEngine
+from pythoncrt_tpu_torch import CRTEngine, TextParams
+from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
 from pythoncrt_tpu_torch.kernels import fused as kfused
 from pythoncrt_tpu_torch.kernels import glitch as kglitch
 from pythoncrt_tpu_torch.kernels import persist as kpersist
@@ -197,3 +199,89 @@ def test_native_rng_on_card_is_invariant_to_batch_split(cuda_dev):
     head, st = eng.process(x[:4], np.arange(4))
     tail, _ = eng.process(x[4:], np.arange(4, 8), st)
     assert torch.equal(torch.cat([head, tail]), whole)
+
+
+BLOOM3 = {  # variant -> (fast, sigma, threshold)
+    "gaussian": (False, 1.2, 0.0),
+    "gaussian_wide_knee": (False, 4.0, 0.3),
+    "fast": (True, 0.0, 0.0),
+    "fast_knee": (True, 0.0, 0.35),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(1, 7, 9)], ids=SHAPE_IDS + ["tiny"])
+@pytest.mark.parametrize("variant", sorted(BLOOM3))
+def test_bloom3_kernel_matches_twin(cuda_dev, variant, shape):
+    b, h, w = shape
+    fast, sigma, thr = BLOOM3[variant]
+    spec = (kbloom3.build_bloom3_fast_spec(h, w, 0.25, thr) if fast
+            else kbloom3.build_bloom3_spec(h, w, sigma, 0.25, thr))
+    g = torch.Generator(device=cuda_dev).manual_seed(11)
+    imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    n0 = kbloom3.launches
+    if fast:
+        got = kbloom3.bloom3_fast_planar(imgs, spec)
+        want = kbloom3.bloom3_fast_planar_ref(imgs, spec)
+    else:
+        got = kbloom3.bloom3_planar(imgs, spec)
+        want = kbloom3.bloom3_planar_ref(imgs, spec)
+    torch.cuda.synchronize()
+    assert kbloom3.launches == n0 + 1
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+TEXT_BEFORE = {"c4_text": VARIANTS["c4"], "c3_text": C3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("name", sorted(TEXT_BEFORE))
+def test_fused_f32_input_matches_twin(cuda_dev, name, shape):
+    """The fused kernel's f32-input mode on the engine's own feed (stages
+    1-5 with a text overlay composited before the bloom)."""
+    b, h, w = shape
+    ov = np.random.default_rng(4).integers(0, 256, (h, w, 4), dtype=np.uint8)
+    p = EffectParams(**TEXT_BEFORE[name], text=TextParams(text="T", after=False))
+    eng = CRTEngine(p, h, w, 24.0, rng="host", layout="planar", channel_order="gbr",
+                    device=cuda_dev, text_rgba=ov)
+    assert not eng.spec.pre
+    feed = eng._pre_bloom(frames(b, h, w, cuda_dev))
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    n0 = kfused.launches
+    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    want = kfused.fused_pipeline_ref(feed, eng.spec, eng.fused_tables, **kw)
+    torch.cuda.synchronize()
+    assert kfused.launches == n0 + 1
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+NEW_PATHS = {
+    "c3_angled_text_after": ({**C3, "scanline_angle": 5.0, "scanline_thickness": 1.5}, True),
+    "defaults_angled": ({"scanline_angle": 12.0, "scanline_thickness": 2.0}, None),
+    "c4_text_before": (VARIANTS["c4"], False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NEW_PATHS))
+def test_staged_and_text_engine_on_card_matches_cpu(cuda_dev, name):
+    """The angled-scanline and text paths on the card (bloom3, the fused
+    f32-input mode) against the CPU step, two batches, state carried."""
+    overrides, after = NEW_PATHS[name]
+    text = TextParams() if after is None else TextParams(text="T", after=after)
+    ov = np.random.default_rng(6).integers(0, 256, (96, 320, 4), dtype=np.uint8)
+    p = EffectParams(**overrides, text=text)
+    eng_gpu = CRTEngine(p, 96, 320, 24.0, rng="host", device=cuda_dev, text_rgba=ov)
+    eng_cpu = CRTEngine(p, 96, 320, 24.0, rng="host", device="cpu", text_rgba=ov)
+    x = np.random.default_rng(1).integers(0, 256, (6, 96, 320, 3), dtype=np.uint8)
+    n0 = (kbloom3.launches, kfused.launches)
+    sg = sc = None
+    for k in range(2):
+        idx = np.arange(3 * k, 3 * k + 3)
+        got, sg = eng_gpu.process(x[idx], idx, sg)
+        want, sc = eng_cpu.process(x[idx], idx, sc)
+        d = (got.cpu().int() - want.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+    assert (kbloom3.launches > n0[0]) == eng_gpu._staged
+    assert (kfused.launches > n0[1]) == (not eng_gpu._staged)

@@ -68,10 +68,14 @@ def operands(p, corder, seed=11):
     return img, ops
 
 
-def run_both(p, corder, emit_jax, emit_port):
-    jspec = jfused.build_fused_spec(H, W, **spec_kwargs(p, corder, emit_jax))
-    tspec = tfused.build_fused_spec(H, W, **spec_kwargs(p, corder, emit_port))
+def run_both(p, corder, emit_jax, emit_port, pre=True):
+    """Both kernels on the same operands; ``pre`` False feeds them a
+    seeded f32 image in [0, 1] in place of the uint8 frames."""
+    jspec = jfused.build_fused_spec(H, W, **{**spec_kwargs(p, corder, emit_jax), "pre": pre})
+    tspec = tfused.build_fused_spec(H, W, **{**spec_kwargs(p, corder, emit_port), "pre": pre})
     img, ops = operands(p, corder)
+    if not pre:
+        img = np.random.default_rng(12).random(img.shape, dtype=np.float32)
     jkw = {k: ops[k] for k, on in (("grain", jspec.noise), ("sl", jspec.scanlines),
                                     ("vy2", jspec.vignette), ("vx2", jspec.vignette),
                                     ("tri", jspec.triad), ("flicker", jspec.flicker)) if on}
@@ -105,11 +109,32 @@ def test_fused_u8_emit_matches_jax_kernel():
 
 
 def test_fused_spec_refuses_out_of_slice():
+    """precision fast (lut_exact=False) is still refused; the f32-input
+    mode (pre=False, text before the bloom) builds and renders."""
     p = identity_params(**CASES["c4_fast"][0])
-    with pytest.raises(NotImplementedError, match="fallback slice"):
+    with pytest.raises(NotImplementedError, match="precision fast"):
         tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "lut_exact": False})
-    with pytest.raises(NotImplementedError, match="fallback slice"):
-        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "pre": False})
+    spec = tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "pre": False, "noise": False})
+    assert spec.pre is False
+    x = torch.rand((B, 3, H, W), generator=torch.Generator().manual_seed(1))
+    _, ops = operands(p, (0, 1, 2))
+    out = tfused.fused_pipeline(x, spec, tfused.fused_consts(spec),
+                                **{k: torch.from_numpy(np.ascontiguousarray(ops[k]))
+                                   for k in ("sl", "vy2", "vx2", "tri")})
+    assert out.shape == (B, 3, H, W) and out.dtype == torch.float32
+    assert torch.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0
+
+
+@pytest.mark.parametrize("name", ["c4_fast", "c3_full", "luma_knee", "c3_full_gbr"])
+def test_fused_f32_input_matches_jax_kernel(name):
+    """The f32-input mode (pre=False: the JAX engine's route for text
+    composited before the bloom) against the JAX kernel's, on the same
+    f32 image and operands."""
+    corder = (1, 2, 0) if name.endswith("_gbr") else (0, 1, 2)
+    p = identity_params(**CASES[name.replace("_gbr", "")][0])
+    got, want = run_both(p, corder, "f32", "f32", pre=False)
+    err = np.abs(got - want).max()
+    assert err <= 2e-6, f"{name}: max |port - jax| = {err:.3g}"
 
 
 @pytest.mark.parametrize("name", ["c4_fast", "fast_knee", "defaults", "defaults_gbr"])

@@ -1,0 +1,184 @@
+"""The port's staged step (2-D scanlines: torch ops, the stand-alone bloom
+kernel, torch ops) and its text overlays, on the CPU (the kernels' plain
+twins), against three references on the same frames, overlay and
+host-rng noise fields: the oracle, the JAX engine's XLA path and the JAX
+engine with its Pallas kernels in interpret mode.
+
+Contract: <= 1 uint8 LSB against each, and fewer than 1e-3 of values off
+against the oracle. Against the JAX XLA path the port is also held to
+fewer than 1e-3 of values off where that path agrees with the oracle
+(its grain upsample truncates the noise field to bf16, ROADMAP.md queue
+3); against the Pallas path (a uint8-rounded warp feed as well) only the
+max LSB is asserted, as in test_torch_engine.py. The JAX engine is shown
+to take the same routes: bloom3 with its fused kernel refused for 2-D
+scanlines, its fused kernel's pre=False mode for text before the bloom.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pythoncrt_tpu import CRTEngine as JaxEngine
+from pythoncrt_tpu import EffectParams as JaxParams
+from pythoncrt_tpu import TextParams as JaxText
+from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams, oracle
+from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
+
+from conftest import synth_frames
+from test_engine_vs_oracle import IDENTITY, STAGE_CASES
+from test_fused import FULL
+from test_torch_engine import C4, lsb
+
+H, W, B, FPS = 48, 256, 4, 24.0
+
+STAGED = {
+    "scan_2d": {**IDENTITY, **STAGE_CASES["scan_2d"]},
+    "scan_thick": {**IDENTITY, **STAGE_CASES["scan_thick"]},
+    "c3_angled": {**IDENTITY, **FULL, "scanline_angle": 5.0, "scanline_thickness": 1.5},
+    "defaults_angled": {"scanline_angle": 12.0, "scanline_thickness": 2.0},
+}
+TEXT = {"c3": {**IDENTITY, **FULL}, "c4": {**IDENTITY, **C4}}
+
+
+def params(overrides, text=None):
+    """The same configuration as the port's and the JAX package's params."""
+    t = {} if text is None else dataclasses.asdict(text)
+    return (EffectParams(**overrides, text=TextParams(**t)),
+            JaxParams(**overrides, text=JaxText(**t)))
+
+
+def overlay(seed=7):
+    """A seeded RGBA overlay: random colour and alpha in a box, clear elsewhere."""
+    rng = np.random.default_rng(seed)
+    ov = np.zeros((H, W, 4), np.uint8)
+    ov[6:30, 20:150] = rng.integers(0, 256, (24, 130, 4), dtype=np.uint8)
+    ov[12:20, 40:90, 3] = 255
+    return ov
+
+
+def to_planar(x):
+    return np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))[:, [1, 2, 0]])
+
+
+def from_planar(x):
+    return np.transpose(np.asarray(x)[:, [2, 0, 1]], (0, 2, 3, 1))
+
+
+def run(eng, frames, planar):
+    """Two batches through eng.process with the state carried; NHWC RGB out."""
+    outs, state = [], None
+    for k in range(2):
+        idx = np.arange(k * B, (k + 1) * B)
+        x = to_planar(frames[idx]) if planar else frames[idx]
+        out, state = eng.process(x, idx, state)
+        out = out.numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+        outs.append(from_planar(out) if planar else out)
+    return np.concatenate(outs)
+
+
+def oracle_stream(eng, frames, ov):
+    aux = eng.make_aux(np.arange(frames.shape[0]))
+    p, prev, outs = eng.params, None, []
+    for j in range(frames.shape[0]):
+        img = oracle.apply_effects(frames[j], p, phase_px=float(aux.phase[j]),
+                                   time_sec=j / FPS, text_rgba=ov,
+                                   noise_field=None if aux.noise is None else aux.noise[j])
+        prev = oracle.persistence_blend(prev, img, p.persistence if p.persistence_on else 0.0)
+        outs.append(oracle.ops.to_uint8(prev))
+    return np.stack(outs)
+
+
+def check_three_ways(overrides, layout, text=None, ov=None, route=None):
+    planar = layout == "planar_gbr"
+    kw = dict(layout="planar", channel_order="gbr") if planar else {}
+    tp, jp = params(overrides, text)
+    frames = synth_frames(2 * B, H, W, seed=13)
+    eng = CRTEngine(tp, H, W, FPS, rng="host", device="cpu", text_rgba=ov, **kw)
+    got = run(eng, frames, planar)
+    assert got.shape == (2 * B, H, W, 3) and got.dtype == np.uint8
+
+    want = oracle_stream(eng, frames, ov if tp.text.enabled else None)
+    mx, frac = lsb(got, want)
+    assert mx <= 1 and frac < 1e-3, f"vs oracle: max {mx} LSB, {frac:.2e} off"
+
+    xla = run(JaxEngine(jp, H, W, FPS, rng="host", pallas="off", text_rgba=ov, **kw),
+              frames, planar)
+    mx, frac = lsb(got, xla)
+    own = float(((got != xla) & (xla == want)).mean())
+    assert mx <= 1 and own < 1e-3, f"vs XLA: max {mx} LSB, {frac:.2e} off ({own:.2e} own)"
+
+    pk = JaxEngine(jp, H, W, FPS, rng="host", pallas="on", interpret=True, text_rgba=ov, **kw)
+    route(pk, tp)
+    mx, frac = lsb(got, run(pk, frames, planar))
+    assert mx <= 1, f"vs Pallas interpret: max {mx} LSB, {frac:.2e} off"
+    return eng
+
+
+def staged_route(pk, p):
+    assert not pk._pallas_fused and pk._pallas_bloom3 == p.bloom_on
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar_gbr"])
+@pytest.mark.parametrize("name", sorted(STAGED))
+def test_staged_step_matches_oracle_and_jax(name, layout):
+    eng = check_three_ways(STAGED[name], layout, route=staged_route)
+    assert eng._staged and (eng.bloom3_spec is not None) == eng.params.bloom_on
+
+
+@pytest.mark.parametrize("after", [False, True], ids=["before", "after"])
+@pytest.mark.parametrize("name", sorted(TEXT))
+def test_text_overlay_matches_oracle_and_jax(name, after):
+    """Text composited before the bloom (the fused kernel's f32-input
+    mode, as the JAX engine's pre=False) and after the warp."""
+    def route(pk, p):
+        assert pk._pallas_fused and pk._fused_spec.pre is after
+
+    text = TextParams(text="CH 3", size=12, after=after)
+    layout = "planar_gbr" if name == "c4" else "nhwc"
+    eng = check_three_ways(TEXT[name], layout, text, overlay(), route)
+    assert not eng._staged and eng.spec.pre is after
+
+
+def test_text_with_2d_scanlines_matches_oracle_and_jax():
+    """c3 with angled scanlines and text after the warp: the staged step
+    (bloom3 gaussian) with the warp's output kept f32 for the overlay."""
+    text = TextParams(text="CH 3", size=12, after=True)
+    eng = check_three_ways(STAGED["c3_angled"], "planar_gbr", text, overlay(3), staged_route)
+    assert eng._staged and not eng._warp_u8 and eng.spec.emit == "f32"
+
+
+@pytest.mark.parametrize("name", ["c3", "defaults", "c4"])
+def test_staged_step_is_the_fused_step_on_1d_scanlines(name, monkeypatch):
+    """Forced onto a 1-D-scanline configuration, the staged step (torch
+    prologue, stand-alone bloom, torch epilogue) gives the fused step's
+    bits on the CPU, state carried."""
+    overrides = {"c3": {**IDENTITY, **FULL}, "defaults": {}, "c4": {**IDENTITY, **C4}}[name]
+    p = EffectParams(**overrides)
+    frames = synth_frames(2 * B, H, W, seed=21)
+    fused = run(CRTEngine(p, H, W, FPS, seed=4, device="cpu"), frames, False)
+    calls = []
+    for fn in ("bloom3_planar", "bloom3_fast_planar"):
+        orig = getattr(kbloom3, fn)
+        monkeypatch.setattr(kbloom3, fn, lambda *a, _f=orig, **k: calls.append(1) or _f(*a, **k))
+    eng = CRTEngine(p, H, W, FPS, seed=4, device="cpu")
+    assert not eng._staged
+    eng._staged = True
+    staged = run(eng, frames, False)
+    assert len(calls) == 2
+    np.testing.assert_array_equal(staged, fused)
+
+
+def test_2d_mask_matches_the_oracle():
+    """The per-batch 2-D mask against oracle.scanline_mask_2d: the sin
+    and pow differ from NumPy's f32 forms by at most an ulp or so."""
+    p = EffectParams(scanline_angle=12.0, scanline_thickness=2.0, scanline_speed_px_s=97.0)
+    eng = CRTEngine(p, H, W, FPS, device="cpu")
+    phase = eng.make_aux(np.arange(5, 9)).phase
+    got = eng._scanline_mask_2d(phase).numpy()
+    want = np.stack([oracle.scanline_mask_2d(H, W, p.scanline_strength, p.scanline_period_px,
+                                             float(ph), p.scanline_angle,
+                                             p.scanline_thickness) for ph in phase])
+    assert got.shape == (4, H, W) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= 2e-6
