@@ -15,26 +15,45 @@ Phases (each must pass; any failure exits non-zero):
    state) and the glitch shear (the c4 band, export and preview offsets,
    both entries); the stand-alone bloom (gaussian on the c3-angled
    pre-bloom image, fast on the defaults-angled one) and the fused
-   kernel's f32-input mode (c4-text). Max abs error, CUDA-event time per call of the kernel,
+   kernel's f32-input mode (c4-text); the opt-in blooms on their paths'
+   pre-bloom images (bloom2 gaussian on c3-bloom2, bloom2 fast on
+   defaults-bloom2, bloom2's pipelined entry with limbs 3, 2 and 1, the
+   stripe bloom on c3-stripe); at 3840x2160 on c5's flat batch of 4
+   clips x 8 frames, the fused kernel (c4 spec, fast core; its twin
+   clip by clip), the glitch shear in place and, on the effects' output,
+   the persistence kernel's multi-clip mode.
+   Max abs error, CUDA-event time per call of the kernel,
    of the twin and, where one PyTorch call computes the same function,
    of that call; the least time the card could take (bytes over the
    memory rate, or operations over the f32 rate).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
-   carried; the text paths with a seeded synthetic overlay. <= 1 uint8
-   LSB, fewer than 1e-3 of values off. The 2-D scanline mask against the
-   oracle's (its NumPy f32 sin and pow are not correctly rounded).
+   carried; the text paths with a seeded synthetic overlay; the bloom
+   opt-ins c3-bloom2, c3-stripe (two frames) and defaults-bloom2 (four);
+   c5 on 4 clips x 8 frames in two steps against the oracle clip by
+   clip. <= 1 uint8 LSB, fewer than 1e-3 of values off. The 2-D scanline
+   mask against the oracle's (its NumPy f32 sin and pow are not
+   correctly rounded). At 3840x2160, c5 (4 clips x 16 frames, two
+   steps) equal bit for bit to four single-clip CRTEngine runs.
 5. The main paths at 1080p with batch 8: the CLI defaults (no effect
    flags), c4, defaults-angled (scanline angle 12, thickness 2) and
    c4-text (text before the bloom) on 32 frames, c3 and c3-angled
-   (angle 5, thickness 1.5, text after the warp) on 16, each through
+   (angle 5, thickness 1.5, text after the warp) on 16, the bloom
+   opt-ins c3-bloom2 (c3 + PCRT_BLOOM2_GAUSS=1) and c3-stripe (c3 +
+   PCRT_PALLAS_BLOOM=1) on 16 and defaults-bloom2 (PCRT_BLOOM2_FAST=1)
+   on 32, the variable set for that run only, each through
    ``pythoncrt_tpu_torch.cli.main`` on a synthetic clip when a codec
    backend exists, else through ``render_stream`` with in-memory frames.
-   Every kernel of a path must launch during that path's run (the counts
-   are set to 0 just before it). The text is rasterized by PIL when the
-   host has it, else a seeded synthetic overlay takes its place (the
-   line says which). Then the engine step alone per path.
+   Then c5: ``cli.main(["--batch-manifest", ...])`` with the c4 flags on
+   4 synthetic 3840x2160 clips of 16, 16, 12 and 9 frames (needs cv2),
+   every clip's frame count checked, then a second run that resumes all
+   4 from the journal. Every kernel of a path must launch during that
+   path's run (the counts are set to 0 just before it; c5 must launch
+   the persistence kernel in its multi-clip mode). The text is
+   rasterized by PIL when the host has it, else a seeded synthetic
+   overlay takes its place (the line says which). Then the engine step
+   alone per path (c5 at 3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -44,7 +63,9 @@ exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -57,6 +78,10 @@ import numpy as np
 
 H, W, B, FPS = 1080, 1920, 8, 24.0
 N_MAIN, N_C3 = 32, 16
+H4, W4, C5_CLIPS = 2160, 3840, 4   # c5: 4K clips in lockstep (bench.py:199-229)
+C5_LENGTHS = (16, 16, 12, 9)       # the manifest render's clips, ragged tails
+OPTINS = {"c3-bloom2": {"PCRT_BLOOM2_GAUSS": "1"}, "defaults-bloom2": {"PCRT_BLOOM2_FAST": "1"},
+          "c3-stripe": {"PCRT_PALLAS_BLOOM": "1"}}  # the JAX engine's bloom opt-ins
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
@@ -98,7 +123,10 @@ LSB_TOL = 1
 # not counted). At these counts every kernel is bound by bytes.
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
-                 "bloom3_planar": 45, "bloom3_fast_planar": 16}
+                 "bloom3_planar": 45, "bloom3_fast_planar": 16, "bloom2_planar": 45,
+                 "bloom2_planar_fast": 30, "bloom2_planar_pipelined": 45, "bloom_stripe": 45,
+                 "persistence_scan_multiclip": 6, "glitch_shear_band": 0,
+                 "fused_pipeline_c5": 40, "glitch_shear_c5": 0}
 
 
 def fail(msg: str) -> None:
@@ -118,6 +146,22 @@ def synth(n: int, h: int, w: int, seed: int) -> np.ndarray:
         out[i, ..., 2] = (f * 3 + i) % 256
         out[i, ::7] = rng.integers(0, 256, (out[i, ::7].shape), dtype=np.uint8)
     return out
+
+
+@contextlib.contextmanager
+def optin_env(cfg: str):
+    """The bloom opt-in variables of ``cfg`` set (and no other's) while
+    its engines are built or its render runs."""
+    names = {k for env in OPTINS.values() for k in env}
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update(OPTINS.get(cfg, {}))
+    try:
+        yield
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
 
 
 def synth_overlay(h: int, w: int, seed: int) -> np.ndarray:
@@ -170,6 +214,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    for k in {k for env in OPTINS.values() for k in env}:
+        os.environ.pop(k, None)  # the opt-in variables reach only the runs that set them
     # ---- 1. the card and the host ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -214,7 +260,9 @@ def main() -> int:
             print(f"[2] ptxas: {line.strip()}")
     sys.stdout.flush()
 
-    from pythoncrt_tpu_torch import CRTEngine, EffectParams, oracle
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, oracle
+    from pythoncrt_tpu_torch.kernels import bloom as kbloom
+    from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
@@ -226,18 +274,22 @@ def main() -> int:
     configs = {"defaults": EffectParams(), "c4": EffectParams(**C4), "c3": EffectParams(**C3),
                "c3-angled": EffectParams(**C3_ANGLED, text=TextParams(**C3_ANGLED_TEXT)),
                "defaults-angled": EffectParams(**DEF_ANGLED),
-               "c4-text": EffectParams(**C4, text=TextParams(**C4_TEXT))}
+               "c4-text": EffectParams(**C4, text=TextParams(**C4_TEXT)),
+               "c3-bloom2": EffectParams(**C3), "defaults-bloom2": EffectParams(),
+               "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4)}
     ov_synth = synth_overlay(H, W, seed=4)  # the parity phases need no font
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
-            tol=FUSED_TOL, note=""):
+            tol=FUSED_TOL, note="", frames=B, res=(H, W)):
         bms, by = bound(kname, bytes_moved, values_out)
         lib = f"{lib_ms:.4f} ms/call" if lib_ms is not None else "none (no one PyTorch call)"
         print(f"[3] {kname}{note}: max |kernel - twin| {err:.3g}, max {int(lsb)} LSB; "
-              f"kernel {ms:.4f} ms/call ({ms / B:.4f} ms/frame), plain twin "
-              f"{plain_ms:.4f} ms/call, library {lib}; bound {bms:.4f} ms/call "
-              f"({by}: {bytes_moved / 1e6:.1f} MB) at B={B} {H}x{W} on {card}", flush=True)
+              f"kernel {ms:.4f} ms/call ({ms / frames:.4f} ms/frame), plain twin "
+              f"{plain_ms:.4f} ms/call ({plain_ms / frames:.4f} ms/frame), library {lib}; "
+              f"bound {bms:.4f} ms/call ({bms / frames:.4f} ms/frame; {by}: "
+              f"{bytes_moved / 1e6:.1f} MB) at {frames} frames {res[0]}x{res[1]} on {card}",
+              flush=True)
         if err > tol or lsb > LSB_TOL:
             fail(f"{kname}{note} disagrees with its twin: {err:.3g} abs, {lsb} LSB")
         table[kname] = dict(name=kname, route="cuda", source=src, replaces=repl, launches=0,
@@ -337,9 +389,6 @@ def main() -> int:
                                       B, 3, rows, W).contiguous()
             work = img.clone()
             band_ms = time_ms(lambda: kglitch.shear_planar(band, off, seg))
-            print(f"[3] glitch_shear out-of-place band entry (shear_planar, the TPU's "
-                  f"glitch.py:165; on no main path): kernel {band_ms:.4f} ms/call "
-                  f"({band_ms / B:.4f} ms/frame) on {card}", flush=True)
             glitch_times = (
                 time_ms(lambda: kglitch.shear_planar_inplace(work, y0, off, seg)),
                 time_ms(lambda: kglitch.shear_planar_ref(band, off, seg), iters=3),
@@ -350,6 +399,9 @@ def main() -> int:
     row("glitch_shear", "pythoncrt_tpu_torch/csrc/glitch.cu",
         "pythoncrt_tpu/kernels/glitch.py:194", worst, 0, *glitch_times, tol=0.0,
         note=" (c4 band 756+324, export and preview, both entries)")
+    row("glitch_shear_band", "pythoncrt_tpu_torch/csrc/glitch.cu",
+        "pythoncrt_tpu/kernels/glitch.py:165", worst, 0, band_ms, *glitch_times[1:], tol=0.0,
+        note=" (the out-of-place band entry shear_planar, export offsets; on no main path)")
     del fused_out, fz, fd, state
 
     # the stand-alone bloom and the fused f32-input mode, each on the
@@ -394,15 +446,175 @@ def main() -> int:
             time_ms(run), time_ms(twin, iters=3), None, nbytes(feed, got, *extra), got.numel(),
             note=note)
         del feed, got, want, run, twin
+
+    # the opt-in blooms, each on the pre-bloom image of its path
+    for cfg, kname in (("c3-bloom2", "bloom2_planar"), ("defaults-bloom2", "bloom2_planar_fast"),
+                       ("c3-stripe", "bloom_stripe")):
+        with optin_env(cfg):
+            eng = CRTEngine(configs[cfg], H, W, FPS, rng="host", layout="planar",
+                            channel_order="gbr", device=dev)
+        if eng.bloom_route != ("stripe" if cfg == "c3-stripe" else "bloom2"):
+            fail(f"{cfg} takes the {eng.bloom_route} route")
+        feed, spec = eng._pre_bloom(x), eng.bloom_spec
+        runs = []
+        if cfg == "c3-stripe":
+            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom2.cu",
+                         "pythoncrt_tpu/kernels/bloom.py:142", (),
+                         functools.partial(kbloom.bloom_planar, feed, spec),
+                         functools.partial(kbloom.bloom_planar_ref, feed, spec),
+                         f" (c3-stripe: sigma 1.2, {len(spec.taps)} taps, the oracle's "
+                         "pad-then-sum)"))
+        else:
+            tabs = eng.bloom2_tables
+            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom2.cu",
+                         "pythoncrt_tpu/kernels/bloom2.py:334", tabs,
+                         functools.partial(kbloom2.bloom2_planar, feed, spec, tabs),
+                         functools.partial(kbloom2.bloom2_planar_ref, feed, spec, tabs),
+                         f" ({cfg}: {spec.variant}, bands {spec.hd0}..{spec.hd1} x "
+                         f"{spec.vd0}..{spec.vd1})"))
+        if cfg == "c3-bloom2":  # the pipelined entry: limbs 3, 2, 1
+            for limbs in (3, 2, 1):
+                lt = kbloom2.bloom2_tables(spec, dev, limbs)
+                runs.append(("bloom2_planar_pipelined", "pythoncrt_tpu_torch/csrc/bloom2.cu",
+                             "pythoncrt_tpu/kernels/bloom2.py:455", lt,
+                             functools.partial(kbloom2.bloom2_planar_pipelined, feed, spec,
+                                               limbs, lt),
+                             functools.partial(kbloom2.bloom2_planar_pipelined_ref, feed, spec,
+                                               limbs, lt),
+                             f" (limbs {limbs}; kernel-only: no engine route in either package)"))
+        for name_, src, repl, tabs, run, twin, note in runs:
+            got, want = run(), twin()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"{name_}: non-finite output")
+            err = (got - want).abs().max().item()
+            if name_ in table:  # the pipelined entry's row keeps limbs 3's time, the worst error
+                print(f"[3] {name_}{note}: max |kernel - twin| {err:.3g}, kernel "
+                      f"{time_ms(run):.4f} ms/call on {card}", flush=True)
+                if err > FUSED_TOL:
+                    fail(f"{name_}{note} disagrees with its twin: {err:.3g}")
+                table[name_]["max_abs_err"] = max(table[name_]["max_abs_err"], err)
+            else:
+                row(name_, src, repl, err,
+                    (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+                    time_ms(run), time_ms(twin, iters=3), None, nbytes(feed, got, *tabs),
+                    got.numel(), note=note)
+            del got, want
+        del feed, runs
     del x
 
+    # c5's kernels at 3840x2160 on its operands: 4 clips x 8 frames flat
+    # (clip-major), the fused kernel (c4 spec, fast core) and the glitch
+    # shear in place as MultiClipEngine runs them, then the persistence
+    # kernel's multi-clip mode on the effects' output. The fused twin runs
+    # clip by clip (8 frames) to keep its intermediates small.
+    eng5 = CRTEngine(configs["c5"], H4, W4, FPS, layout="planar", channel_order="gbr",
+                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x5 = torch.randint(0, 256, (C5_CLIPS * B, 3, H4, W4), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    aux5 = eng5.make_aux(np.tile(np.arange(B), C5_CLIPS))
+    kw5 = eng5.fused_operands(aux5)
+    per_frame = {"grain", "sl", "flicker"}  # operands with one entry per frame
+
+    def fused5_twin():
+        return [kfused.fused_pipeline_ref(
+            x5[c * B:(c + 1) * B], eng5.spec, eng5.fused_tables,
+            **{k: v[c * B:(c + 1) * B] if k in per_frame else v for k, v in kw5.items()})
+            for c in range(C5_CLIPS)]
+
+    if not eng5.spec.fast or eng5._staged:
+        fail("c5 does not take the fused kernel's fast core")
+    f5 = kfused.fused_pipeline(x5, eng5.spec, eng5.fused_tables, **kw5)
+    err, lsb = 0.0, 0
+    for c, want in enumerate(fused5_twin()):
+        got = f5[c * B:(c + 1) * B]
+        err = max(err, (got - want).abs().max().item())
+        lsb = max(lsb, (torch.round(got * 255) - torch.round(want * 255)).abs().max().item())
+        del want
+    if not torch.isfinite(f5).all():
+        fail("fused_pipeline_c5: non-finite output")
+    row("fused_pipeline_c5", "pythoncrt_tpu_torch/csrc/fused.cu",
+        "pythoncrt_tpu/kernels/fused.py:680", err, lsb,
+        time_ms(lambda: kfused.fused_pipeline(x5, eng5.spec, eng5.fused_tables, **kw5)),
+        time_ms(fused5_twin, iters=2), None, nbytes(x5, f5, *kw5.values()), f5.numel(),
+        note=f" (c5: c4 spec, fast core, {C5_CLIPS} clips x {B} frames flat)",
+        frames=C5_CLIPS * B, res=(H4, W4))
+
+    off5, seg5 = eng5.glitch_offsets(aux5), eng5.consts["glitch_seg_index"]
+    y5, rows5 = eng5._glitch_y0, eng5._glitch_rows
+    if (y5, rows5) != (1512, 648):
+        fail(f"c5 band is rows {y5}+{rows5}, expected 1512+648")
+    band5 = f5[:, :, y5:].contiguous()
+    want = kglitch.shear_planar_ref(band5, off5, seg5)
+    g5 = kglitch.shear_planar_inplace(f5.clone(), y5, off5, seg5)
+    torch.cuda.synchronize()
+    if not (torch.equal(g5[:, :, y5:], want) and torch.equal(g5[:, :, :y5], f5[:, :, :y5])):
+        fail("glitch shear in place (c5, 3840x2160) is not bitwise its twin")
+    idx5 = torch.remainder(torch.arange(W4, device=dev) + off5.long()[:, :, seg5.long()],
+                           W4)[:, None].expand(C5_CLIPS * B, 3, rows5, W4).contiguous()
+    work = f5.clone()
+    row("glitch_shear_c5", "pythoncrt_tpu_torch/csrc/glitch.cu",
+        "pythoncrt_tpu/kernels/glitch.py:194", (g5[:, :, y5:] - want).abs().max().item(), 0,
+        time_ms(lambda: kglitch.shear_planar_inplace(work, y5, off5, seg5)),
+        time_ms(lambda: kglitch.shear_planar_ref(band5, off5, seg5), iters=3),
+        time_ms(lambda: torch.gather(band5, 3, idx5)),
+        nbytes(band5, want, off5, seg5), band5.numel(), tol=0.0,
+        note=f" (c5: band {y5}+{rows5}, in place, {C5_CLIPS} clips x {B} frames flat)",
+        frames=C5_CLIPS * B, res=(H4, W4))
+    del want, work, idx5, band5, f5
+
+    imgs5 = eng5._effects(x5, aux5)
+    if not torch.equal(imgs5, g5):
+        fail("c5's effects differ from the fused kernel then the glitch shear")
+    del x5, g5, kw5
+    states5 = torch.rand((C5_CLIPS, 3, H4, W4), generator=gen, device=dev)
+    p5 = configs["c5"].persistence
+    worst_err, worst_lsb = 0.0, 0
+    for first in (True, False):
+        got, gst = kpersist.persistence_scan(imgs5, None, first, p5, emit_u8=True,
+                                             clip_states=states5)
+        want, wst = kpersist.persistence_scan_ref(imgs5, None, first, p5, emit_u8=True,
+                                                  clip_states=states5)
+        torch.cuda.synchronize()
+        worst_lsb = max(worst_lsb, (got.int() - want.int()).abs().max().item())
+        worst_err = max(worst_err, (gst - wst).abs().max().item())
+        if not (torch.equal(got, want) and torch.equal(gst, wst)):
+            fail(f"persistence_scan multi-clip (first={first}) is not bitwise its twin")
+        del want, wst
+    row("persistence_scan_multiclip", "pythoncrt_tpu_torch/csrc/persist.cu",
+        "pythoncrt_tpu/kernels/persist.py:90", worst_err, worst_lsb,
+        time_ms(lambda: kpersist.persistence_scan(imgs5, None, False, p5, emit_u8=True,
+                                                  clip_states=states5)),
+        time_ms(lambda: kpersist.persistence_scan_ref(imgs5, None, False, p5, emit_u8=True,
+                                                      clip_states=states5), iters=2),
+        None, nbytes(imgs5, got, states5, gst), imgs5.numel(), tol=0.0,
+        note=f" (c5: {C5_CLIPS} clips x {B} frames, stream head and carried states)",
+        frames=C5_CLIPS * B, res=(H4, W4))
+    del imgs5, states5, got, gst, eng5
+    torch.cuda.empty_cache()
+
     # ---- 4. end to end against the oracle ----
+    def oracle_stream(eng, clip, idx, ov=None):
+        """The oracle's frames for absolute indices idx of one stream."""
+        p, aux = eng.params, eng.make_aux(idx)
+        prev, want = None, []
+        for j in range(len(idx)):
+            img = oracle.apply_effects(clip[j], p, phase_px=float(aux.phase[j]),
+                                       time_sec=idx[j] / FPS, noise_field=aux.noise[j],
+                                       text_rgba=ov)
+            prev = oracle.persistence_blend(prev, img, p.persistence if p.persistence_on else 0.0)
+            want.append(oracle.ops.to_uint8(prev))
+        return np.stack(want)
+
     for cfg, n, nb in (("c3", 2, 1), ("defaults", 4, 2), ("c4", 4, 2), ("c3-angled", 2, 1),
-                       ("defaults-angled", 4, 2), ("c4-text", 4, 2)):
+                       ("defaults-angled", 4, 2), ("c4-text", 4, 2), ("c3-bloom2", 2, 1),
+                       ("c3-stripe", 2, 1), ("defaults-bloom2", 4, 2)):
         p = configs[cfg]
         clip = synth(n, H, W, seed=2)
         ov = ov_synth if p.text.enabled else None
-        eng = CRTEngine(p, H, W, FPS, rng="host", device=dev, text_rgba=ov)
+        with optin_env(cfg):
+            eng = CRTEngine(p, H, W, FPS, rng="host", device=dev, text_rgba=ov)
         outs, st = [], None
         for k in range(nb):
             idx = np.arange(k * n // nb, (k + 1) * n // nb)
@@ -410,20 +622,15 @@ def main() -> int:
             outs.append(o.cpu().numpy())
         got = np.concatenate(outs)
         aux = eng.make_aux(np.arange(n))
-        prev, want = None, []
-        for j in range(n):
-            img = oracle.apply_effects(clip[j], eng.params, phase_px=float(aux.phase[j]),
-                                       time_sec=j / FPS, noise_field=aux.noise[j], text_rgba=ov)
-            prev = oracle.persistence_blend(prev, img,
-                                            p.persistence if p.persistence_on else 0.0)
-            want.append(oracle.ops.to_uint8(prev))
-        d = np.abs(got.astype(np.int32) - np.stack(want).astype(np.int32))
+        d = np.abs(got.astype(np.int32)
+                   - oracle_stream(eng, clip, np.arange(n), ov).astype(np.int32))
         frac = (d > 0).mean()
-        print(f"[4] engine vs oracle, {cfg}, {n} frames {H}x{W} in {nb} batch(es), state "
-              f"carried: max {d.max()} LSB, {frac:.3e} of values off", flush=True)
+        print(f"[4] engine vs oracle, {cfg} ({eng.bloom_route} bloom), {n} frames {H}x{W} in "
+              f"{nb} batch(es), state carried: max {d.max()} LSB, {frac:.3e} of values off",
+              flush=True)
         if d.max() > LSB_TOL or frac >= 1e-3 or got.shape != (n, H, W, 3):
             fail(f"engine disagrees with the oracle on {cfg}")
-        if eng._staged:
+        if p.scanlines_on and not p.scanlines_1d:
             mask = eng._scanline_mask_2d(aux.phase).cpu().numpy()
             ref = np.stack([oracle.scanline_mask_2d(
                 H, W, p.scanline_strength, p.scanline_period_px, float(ph), p.scanline_angle,
@@ -434,9 +641,69 @@ def main() -> int:
             if dm.max() > 1e-5:
                 fail(f"2-D scanline mask of {cfg} is off the oracle's by {dm.max():.3g}")
 
+    # c5: 4 clips x 8 frames in two steps of 4, each clip against its own
+    # oracle stream (1080p keeps the NumPy oracle's time down)
+    mc = MultiClipEngine(CRTEngine(configs["c5"], H, W, FPS, rng="host", device=dev))
+    clips = np.stack([synth(8, H, W, seed=20 + c) for c in range(C5_CLIPS)])
+    idx = np.tile(np.arange(8), (C5_CLIPS, 1)) + 8 * np.arange(C5_CLIPS)[:, None]
+    o1, st = mc.process(clips[:, :4], idx[:, :4])
+    o2, st = mc.process(clips[:, 4:], idx[:, 4:], st)
+    got = torch.cat([o1, o2], 1).cpu().numpy()
+    worst, frac = 0, 0.0
+    for c in range(C5_CLIPS):
+        d = np.abs(got[c].astype(np.int32)
+                   - oracle_stream(mc.engine, clips[c], idx[c]).astype(np.int32))
+        worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+    print(f"[4] MultiClipEngine vs oracle, c5 params, {C5_CLIPS} clips x 8 frames {H}x{W} in "
+          f"two steps, each clip against its own stream: max {worst} LSB, at most {frac:.3e} "
+          f"of a clip's values off", flush=True)
+    if worst > LSB_TOL or frac >= 1e-3:
+        fail("MultiClipEngine disagrees with the oracle on c5")
+    del clips, got, o1, o2, mc
+
+    # c5 at 3840x2160: 4 clips x 16 frames in two steps, bit for bit four
+    # single-clip runs (native rng, frames made on the card)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x4k = torch.randint(0, 256, (C5_CLIPS, 2 * B, H4, W4, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    idx = np.tile(np.arange(2 * B), (C5_CLIPS, 1))
+    mc = MultiClipEngine(CRTEngine(configs["c5"], H4, W4, FPS, device=dev))
+    n0 = kpersist.multiclip_launches
+    o1, st = mc.process(x4k[:, :B], idx[:, :B])
+    o2, st = mc.process(x4k[:, B:], idx[:, B:], st)
+    launched = kpersist.multiclip_launches - n0
+    same = True
+    for c in range(C5_CLIPS):
+        eng = CRTEngine(configs["c5"], H4, W4, FPS, device=dev)
+        a, s1 = eng.process(x4k[c, :B], idx[c, :B])
+        b, s1 = eng.process(x4k[c, B:], idx[c, B:], s1)
+        same = same and torch.equal(a, o1[c]) and torch.equal(b, o2[c]) and torch.equal(s1, st[c])
+    torch.cuda.synchronize()
+    print(f"[4] MultiClipEngine vs four single-clip CRTEngine runs, c5 at {H4}x{W4}, "
+          f"{C5_CLIPS} clips x {2 * B} frames in two steps (native rng): "
+          f"{'bit for bit equal' if same else 'DIFFERENT'}; {launched} multi-clip "
+          f"persistence launches", flush=True)
+    if not same:
+        fail("c5 at 4K differs from four single-clip runs")
+    if launched != 2:
+        fail(f"c5 at 4K made {launched} multi-clip persistence launches in two steps")
+    del x4k, o1, o2, st, a, b, s1, mc, eng
+    torch.cuda.empty_cache()
+
     # ---- 5. the main paths ----
-    counters = {"fused_pipeline": kfused, "warp_planar": kwarp,
-                "persistence_scan": kpersist, "glitch_shear": kglitch, "bloom3": kbloom3}
+    counters = {  # launch counter -> (module, attribute)
+        "fused_pipeline": (kfused, "launches"), "warp_planar": (kwarp, "launches"),
+        "persistence_scan": (kpersist, "launches"), "glitch_shear": (kglitch, "launches"),
+        "bloom3": (kbloom3, "launches"), "bloom2": (kbloom2, "launches"),
+        "bloom": (kbloom, "launches"), "persistence_multiclip": (kpersist, "multiclip_launches")}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
     paths = (  # name, flags, params, frames, kernels that must launch
         ("defaults", [], configs["defaults"], N_MAIN, ("fused_pipeline", "persistence_scan")),
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
@@ -447,6 +714,10 @@ def main() -> int:
          ("bloom3", "persistence_scan")),
         ("c4-text", C4_TEXT_FLAGS, configs["c4-text"], N_MAIN,
          ("fused_pipeline", "glitch_shear", "persistence_scan")),
+        ("c3-bloom2", C3_FLAGS, configs["c3-bloom2"], N_C3, ("bloom2", "warp_planar")),
+        ("defaults-bloom2", [], configs["defaults-bloom2"], N_MAIN,
+         ("bloom2", "persistence_scan")),
+        ("c3-stripe", C3_FLAGS, configs["c3-stripe"], N_C3, ("bloom", "warp_planar")),
     )
 
     def overlay(p):
@@ -465,8 +736,7 @@ def main() -> int:
                     wr.write_frame(f)
                 wr.close()
         for pname, flags, p, n, needs in paths:
-            for mod in counters.values():
-                mod.launches = 0
+            zero_counts()
             text = ""
             if p.text.enabled:
                 text = (f"; text rasterized by {pil}" if pil else
@@ -476,8 +746,9 @@ def main() -> int:
 
                 outp = os.path.join(tmp, f"out_{pname}.mp4")
                 t0 = time.perf_counter()
-                rc = cli.main(["--input", os.path.join(tmp, f"in{n}.mp4"), "--output", outp,
-                               *flags, "--batch-size", str(B), "--device", "cuda"])
+                with optin_env(pname):
+                    rc = cli.main(["--input", os.path.join(tmp, f"in{n}.mp4"), "--output", outp,
+                                   *flags, "--batch-size", str(B), "--device", "cuda"])
                 wall = time.perf_counter() - t0
                 if rc != 0:
                     fail(f"cli.main ({pname}) exited {rc}")
@@ -511,15 +782,15 @@ def main() -> int:
 
                 wtr = Writer()
                 t0 = time.perf_counter()
-                n_out = render_stream(Reader(), wtr, CRTEngine(p, H, W, FPS, device=dev,
-                                                               text_rgba=overlay(p)),
-                                      batch_size=B)
+                with optin_env(pname):
+                    eng_r = CRTEngine(p, H, W, FPS, device=dev, text_rgba=overlay(p))
+                n_out = render_stream(Reader(), wtr, eng_r, batch_size=B)
                 wall = time.perf_counter() - t0
                 out_arr = np.stack(wtr.frames)
                 if not (out_arr.shape == (n, H, W, 3) and out_arr.std() > 0):
                     fail(f"render_stream ({pname}) output has the wrong shape or is constant")
                 how = "render_stream (in-memory frames: no codec backend or no PIL)"
-            got = {k: mod.launches for k, mod in counters.items()}
+            got = read_counts()
             for k, v in got.items():
                 launches[k][pname] = v
             print(f"[5] main path {pname}: {how}{text}; {n_out} frames out of {n}; launches "
@@ -529,14 +800,67 @@ def main() -> int:
             missing = [k for k in needs if got[k] < 1]
             if missing:
                 fail(f"main path {pname}: kernels never launched: {missing}")
+        del clip
+
+        # c5: a manifest of 4 clips at 3840x2160 through the CLI, the c4
+        # flags, batch 8; then the same command resumes all 4
+        if not cv2_ver:
+            fail("c5: the manifest render needs a codec backend (cv2), and this host has none")
+        t0 = time.perf_counter()
+        jobs = []
+        for c, n in enumerate(C5_LENGTHS):
+            src = os.path.join(tmp, f"c5_in{c}.mp4")
+            wr, _ = vio.open_writer(src, W4, H4, FPS)
+            for f in synth(n, H4, W4, seed=50 + c):
+                wr.write_frame(f)
+            wr.close()
+            jobs.append({"input": src, "output": os.path.join(tmp, f"c5_out{c}.mp4")})
+        made = time.perf_counter() - t0
+        manifest = os.path.join(tmp, "c5_jobs.json")
+        with open(manifest, "w") as f:
+            json.dump(jobs, f)
+        from pythoncrt_tpu_torch import cli
+
+        argv = ["--batch-manifest", manifest, *C4_FLAGS, "--batch-size", str(B),
+                "--device", "cuda"]
+        for attempt in ("render", "resume"):
+            zero_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with optin_env("c5"), contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            said = buf.getvalue().strip().splitlines()
+            got = read_counts()
+            if attempt == "render":
+                for k, v in got.items():
+                    launches[k]["c5"] = v
+                counts = [vio.probe_clip(j["output"]).frame_count for j in jobs]
+                print(f"[5] main path c5: cli.main --batch-manifest ({C5_CLIPS} clips "
+                      f"{W4}x{H4}, cv2 mp4v: {made:.2f}s to write the sources), "
+                      f"{sum(C5_LENGTHS) / wall:.2f} fps wall (codecs included), "
+                      f"{said[-1] if said else 'no summary'}; frames out per clip {counts} of "
+                      f"{list(C5_LENGTHS)}; launches {got} on {card}", flush=True)
+                if rc != 0 or counts != list(C5_LENGTHS):
+                    fail(f"c5 manifest render: exit {rc}, frames {counts}: {said[-4:]}")
+                missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip")
+                           if got[k] < 1]
+                if missing:
+                    fail(f"main path c5: kernels never launched: {missing}")
+            else:
+                print(f"[5] c5 again, the same command: {said[-1] if said else 'no summary'} "
+                      f"in {wall:.2f}s", flush=True)
+                if rc != 0 or f"({C5_CLIPS} resumed)" not in (said[-1] if said else ""):
+                    fail(f"c5 resume: exit {rc}: {said[-4:]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # device-side throughput of the same steps (no codecs): batches of 8
-    xs = planar_gbr(clip)
+    xs = planar_gbr(synth(N_MAIN, H, W, seed=3))
     for pname, _, p, n, _ in paths:
-        eng_dev = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev,
-                            text_rgba=overlay(p))
+        with optin_env(pname):
+            eng_dev = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev,
+                                text_rgba=overlay(p))
         st = None
         _, st = eng_dev.process(xs[:B], np.arange(B), st)
         torch.cuda.synchronize()
@@ -547,17 +871,50 @@ def main() -> int:
         dt = time.perf_counter() - t0
         print(f"[5] engine step alone, {pname} (frames already on the card): "
               f"{N_MAIN / dt:.2f} fps on {card}", flush=True)
+    del xs
+    mc = MultiClipEngine(CRTEngine(configs["c5"], H4, W4, FPS, layout="planar",
+                                   channel_order="gbr", device=dev))
+    x4k = torch.randint(0, 256, (C5_CLIPS, B, 3, H4, W4), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    idx = np.tile(np.arange(B), (C5_CLIPS, 1))
+    _, st = mc.process(x4k, idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, 4):
+        _, st = mc.process(x4k, idx + k * B, st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[5] engine step alone, c5 ({C5_CLIPS} clips x {B} frames {W4}x{H4}, frames already "
+          f"on the card): {3 * C5_CLIPS * B / dt:.2f} fps on {card}", flush=True)
+    del x4k, mc
 
     # ---- 6. results ----
-    # the fused kernel's modes share one counter, as do the two bloom3
-    # variants: each runs on the paths named here
-    runs_on = {"fused_pipeline_gaussian": ("c3",), "fused_pipeline": ("defaults", "c4"),
-               "fused_pipeline_f32in": ("c4-text",), "bloom3_planar": ("c3-angled",),
-               "bloom3_fast_planar": ("defaults-angled",)}
+    # JSON row -> (its launch counter, the paths whose runs it counts;
+    # None: every path). Kernels that share a counter (the fused modes,
+    # the bloom3 and bloom2 variants) count on their own paths only; the
+    # single-stream persistence row leaves out c5's multi-clip launches.
+    runs_on = {
+        "fused_pipeline_gaussian": ("fused_pipeline", ("c3",)),
+        "fused_pipeline": ("fused_pipeline", ("defaults", "c4")),
+        "fused_pipeline_c5": ("fused_pipeline", ("c5",)),
+        "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
+        "warp_planar": ("warp_planar", None),
+        "persistence_scan": ("persistence_scan", ("defaults", "c4", "defaults-angled",
+                                                  "c4-text", "defaults-bloom2")),
+        "persistence_scan_multiclip": ("persistence_multiclip", ("c5",)),
+        "glitch_shear": ("glitch_shear", ("c4", "c4-text")),
+        "glitch_shear_c5": ("glitch_shear", ("c5",)),
+        "glitch_shear_band": ("glitch_shear", ()),
+        "bloom3_planar": ("bloom3", ("c3-angled",)),
+        "bloom3_fast_planar": ("bloom3", ("defaults-angled",)),
+        "bloom2_planar": ("bloom2", ("c3-bloom2",)),
+        "bloom2_planar_fast": ("bloom2", ("defaults-bloom2",)),
+        "bloom2_planar_pipelined": ("bloom2", ()),
+        "bloom_stripe": ("bloom", ("c3-stripe",)),
+    }
     for kname, entry in table.items():
-        base = next((k for k in ("fused_pipeline", "bloom3") if kname.startswith(k)), kname)
-        by_path = {pn: v for pn, v in launches[base].items()
-                   if pn in runs_on.get(kname, launches[base])}
+        counter, on = runs_on[kname]
+        by_path = {pn: v for pn, v in launches[counter].items() if on is None or pn in on}
         entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
     print(f"card: {card}")
     print(card)

@@ -23,6 +23,10 @@ def __getattr__(name):
         return getattr(importlib.import_module(".engine", __name__), name)
     if name in ("process_video", "render_stream"):
         return getattr(importlib.import_module(".pipeline", __name__), name)
+    if name == "process_videos":
+        return getattr(importlib.import_module(".multiclip", __name__), name)
+    if name == "MultiClipEngine":
+        return getattr(importlib.import_module(".parallel", __name__), name)
     if name == "oracle":
         return importlib.import_module(".oracle", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

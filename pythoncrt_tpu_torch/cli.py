@@ -4,9 +4,13 @@ The flag surface is the reference CLI's (crt_filter.py:1153-1207), name
 for name and default for default with pythoncrt_tpu/cli.py (the JAX
 package's additions included), plus ``--device``. The clamp semantics of
 the reference driver (:1225-1266) apply through EffectParams.clamped.
-Flags whose machinery is not ported yet exit with status 2 and name the
-ROADMAP.md item that brings them; so do effect configurations outside the
-port (engine.unsupported). Nothing falls back to another path.
+``--batch-manifest`` renders a JSON manifest of clips (batch.render_batch:
+lockstep groups through multiclip.process_videos, journal resume,
+per-clip retry), as pythoncrt_tpu/cli.py's ``_run_batch`` does. Flags
+whose machinery is not ported yet exit with status 2 and name the
+ROADMAP.md item that brings them, in manifest runs too; so do effect
+configurations outside the port (engine.unsupported). Nothing falls back
+to another path.
 """
 
 from __future__ import annotations
@@ -195,10 +199,9 @@ def params_from_args(a: argparse.Namespace, provided: set | None = None) -> Effe
 def _refusal(a) -> str:
     """The first flag the port does not run yet, as a message, or ''."""
     todo = [
-        (a.batch_manifest, "--batch-manifest", "queue 1, multiclip"),
         (a.gui, "--gui", "queue 1, GUI"),
         (a.segment_frames > 0, "--segment-frames", "queue 1, pipeline: segment resume"),
-        (a.devices > 1, "--devices", "queue 1, multiclip"),
+        (a.devices > 1, "--devices", "queue 1, multiclip: multi-GPU"),
         (a.precision == "fast", "--precision fast", "queue 1, precision fast"),
         (a.decode_workers > 1, "--decode-workers", "queue 1, pipeline: parallel decode"),
         (a.pipe_format == "yuv420p", "--pipe-format yuv420p",
@@ -212,6 +215,116 @@ def _refusal(a) -> str:
     return ""
 
 
+def _run_batch(a: argparse.Namespace, argv) -> int:
+    """--batch-manifest: manifest jobs -> batch.render_batch (journal
+    resume, per-clip retry; jobs that share params, size and fps render
+    in lockstep through multiclip.process_videos). Exit 2 on a bad
+    manifest, 5 when a clip failed."""
+    import json
+
+    mpath = Path(a.batch_manifest)
+    if not mpath.exists():
+        print("batch manifest not found", file=sys.stderr)
+        return 2
+    try:
+        data = json.loads(mpath.read_text())
+        if isinstance(data, dict):
+            data = data["jobs"]
+        if not isinstance(data, list) or not data:
+            raise ValueError("manifest must be a non-empty list of jobs (or {'jobs': [...]})")
+    except (OSError, ValueError, KeyError) as e:
+        print(f"failed to load batch manifest {a.batch_manifest!r}: {e}", file=sys.stderr)
+        return 2
+
+    prov = provided_flags(argv)
+    params = params_from_args(a, prov)
+    from .batch import ClipJob, render_batch
+
+    # the JAX CLI's kwargs (so the journal signatures agree), plus the device
+    kwargs = dict(
+        crf=int(max(12, min(28, a.crf))),
+        target_bitrate_kbps=int(max(0, a.bitrate)),
+        gpu=bool(a.gpu),
+        nvenc_preset=str(a.nvenc_preset),
+        encoder_preference=str(a.encoder),
+        decoder_preference=str(a.decoder),
+        batch_size=max(1, int(a.batch_size)),
+        engine_mode=str(a.engine_mode),
+        rng=str(a.rng),
+        seed=int(a.seed),
+        precision=str(a.precision),
+        pipe_format=str(a.pipe_format),
+        devices=max(0, int(a.devices)),
+        steps_per_call=int(a.steps_per_call),
+        device=a.device,
+    )
+    # options outside the lockstep surface send the job down the
+    # sequential per-clip path (batch.MULTI_CLIP_KWARGS)
+    if a.assoc_scan:
+        kwargs["assoc_scan"] = True
+    if a.profile:
+        kwargs["profile_dir"] = str(a.profile)
+
+    jobs = []
+    for i, d in enumerate(data):
+        try:
+            inp = Path(d["input"])
+        except (TypeError, KeyError):
+            print(f"manifest job {i} has no 'input'", file=sys.stderr)
+            return 2
+        out = d.get("output") or str(inp.with_name(inp.stem + "_crt.mp4"))
+        job_params = params
+        if d.get("preset") or d.get("text_preset"):
+            # a job's preset replaces --preset/--text-preset as its base;
+            # explicitly passed flags still win (the single-clip rule)
+            ja = argparse.Namespace(**vars(a))
+            if d.get("preset"):
+                ja.preset = str(d["preset"])
+            if d.get("text_preset"):
+                ja.text_preset = str(d["text_preset"])
+            try:
+                job_params = params_from_args(ja, prov)
+            except SystemExit as e:
+                print(f"manifest job {i}: {e}", file=sys.stderr)
+                return 2
+        try:
+            jw = int(d["width"]) if d.get("width") else (a.width if a.width > 0 else None)
+            jh = int(d["height"]) if d.get("height") else (a.height if a.height > 0 else None)
+            jf = float(d["fps"]) if d.get("fps") else (a.fps if a.fps > 0 else None)
+        except (TypeError, ValueError) as e:
+            print(f"manifest job {i}: bad width/height/fps: {e}", file=sys.stderr)
+            return 2
+        jobs.append(ClipJob(str(inp), str(out), job_params, width=jw, height=jh, fps=jf,
+                            kwargs=dict(kwargs)))
+
+    journal = a.batch_journal or str(mpath) + ".journal.jsonl"
+    if journal == "none":
+        journal = None
+    t0 = time.perf_counter()
+    results = render_batch(jobs, journal=journal, max_retries=max(0, int(a.batch_retries)))
+    n_ok = sum(r.ok for r in results)
+    n_skip = sum(r.skipped for r in results)
+    for r in results:
+        tag = "skipped (journal)" if r.skipped else "ok" if r.ok else "FAILED"
+        print(f"{r.job.input_path} -> {r.job.output_path}: {tag}"
+              + (f" [{r.seconds:.1f}s]" if not r.skipped else ""))
+        if not r.ok and r.error:
+            print(f"  {r.error.strip().splitlines()[-1]}", file=sys.stderr)
+    print(f"{n_ok}/{len(results)} clips ok ({n_skip} resumed), "
+          f"elapsed {time.perf_counter() - t0:.3f}s")
+    return 0 if n_ok == len(results) else 5
+
+
+def _no_cuda(device: str) -> bool:
+    import torch
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print(f"--device {device}: no CUDA device is available "
+              "(pass --device cpu to render with the plain PyTorch path)", file=sys.stderr)
+        return True
+    return False
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     a = build_parser().parse_args(argv)
@@ -219,6 +332,8 @@ def main(argv=None) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 2
+    if a.batch_manifest:
+        return 2 if _no_cuda(a.device) else _run_batch(a, argv)
     if not a.input:
         print("--input is required (the GUI is not ported yet: ROADMAP.md queue 1, GUI)",
               file=sys.stderr)
@@ -236,12 +351,7 @@ def main(argv=None) -> int:
     if why:
         print(why, file=sys.stderr)
         return 2
-    import torch
-
-    if a.device.startswith("cuda") and not torch.cuda.is_available():
-        print(f"--device {a.device}: no CUDA device is available "
-              "(pass --device cpu to render with the plain PyTorch path)",
-              file=sys.stderr)
+    if _no_cuda(a.device):
         return 2
     from .pipeline import process_video
 

@@ -1,7 +1,8 @@
-// Device helpers shared by fused.cu and bloom3.cu: the clip, the bloom
-// knee, the oracle's lerp order and the fast bloom core's tile windows.
-// Both files build with -fmad=false, so every multiply and add here is
-// separately rounded, as in the reference's f32 chain.
+// Device helpers shared by fused.cu and the bloom kernels (bloom3.cu,
+// bloom2.cu): the clip, the bloom knee, the oracle's lerp order
+// and the fast bloom core's tile windows. The files build with
+// -fmad=false, so every multiply and add here is separately rounded, as in
+// the reference's f32 chain.
 
 #pragma once
 

@@ -4,10 +4,12 @@
 // Replaces: pythoncrt_tpu/kernels/persist.py, persistence_scan /
 // _persist_kernel (and persistence_scan_nhwc, which wraps it): the Pallas
 // TPU kernel in which one program owns an (8, 128) tile and walks all B
-// frames with the carry in registers.
+// frames with the carry in registers; and its multi-clip mode
+// _persist_kernel_mc (clip_states), chosen inside the same pallas_call,
+// which resets the carry at each clip boundary of a flat batch.
 //
 // What bounds it on the card: bytes. Per 1080p frame it reads 24.9 MB of
-// f32 and writes 6.2 MB of uint8; the carried state (24.9 MB) is read and
+// f32 and writes 6.2 MB of uint8; each carried state (24.9 MB) is read and
 // written once per batch. Three flops per value.
 //
 // Design: each thread owns four contiguous values (16-byte loads and a
@@ -15,9 +17,13 @@
 // and walks all B frames, the carry in registers: the carry never touches
 // device memory between frames and the whole batch is one launch. Frame t
 // is s_t = clip(p * s_{t-1} + (1 - p) * x_t, 0, 1); the first frame of a
-// stream passes through unblended (crt_filter.py:1094-1095). The per-step
-// expression and operand order are _persist_kernel's, and the file builds
-// with -fmad=false, so the result is bitwise the sequential scan's.
+// stream passes through unblended (crt_filter.py:1094-1095). The batch is
+// C clips of cl = B / C frames, laid out flat and clip-major (C = 1: one
+// stream): at t % cl == 0 the carry restarts from states[t / cl] (or from
+// the frame itself when `first`) and the finished clip's carry goes to
+// new_states[t / cl - 1]. The per-step expression and operand order are
+// _persist_kernel's, and the file builds with -fmad=false, so the result
+// is bitwise the sequential per-clip scan's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,16 +36,17 @@ constexpr int NT = 256;
 
 // Mirrored field for field by a ctypes.Structure in the Python wrapper.
 struct PersistArgs {
-    const float* imgs;   // (B, N) f32 in [0, 1]
-    const float* state;  // (N,) carried state
+    const float* imgs;   // (B, N) f32 in [0, 1], C clips of cl frames, clip-major
+    const float* state;  // (C, N) carried state of each clip
     void* out;           // (B, N) uint8 or f32
-    float* new_state;    // (N,)
+    float* new_state;    // (C, N)
     int64_t n;
     int32_t b;
-    int32_t first;       // 1: frame 0 passes through unblended
+    int32_t first;       // 1: each clip's frame 0 passes through unblended
     float pp, om;        // p and 1 - p, rounded to f32 on the host
     int32_t emit_u8;
     int32_t vec;         // every operand 16-byte aligned (4-byte for a uint8 out), n % 4 == 0
+    int32_t cl;          // frames per clip: B for one stream
 };
 
 namespace {
@@ -50,6 +57,15 @@ __device__ __forceinline__ float blend(float pp, float om, float s, float x) {
 
 __device__ __forceinline__ uint8_t to_u8(float s) {
     return (uint8_t)fminf(fmaxf(rintf(s * 255.0f), 0.0f), 255.0f);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_state(float* dst, const float* s, int cnt) {
+    if (VEC) {
+        *reinterpret_cast<float4*>(dst) = make_float4(s[0], s[1], s[2], s[3]);
+    } else {
+        for (int j = 0; j < cnt; ++j) dst[j] = s[j];
+    }
 }
 
 template <bool VEC>
@@ -67,11 +83,14 @@ persist_kernel(const PersistArgs a) {
         } else {
             for (int j = 0; j < cnt; ++j) x[j] = src[j];
         }
-        if (t == 0) {
+        if (t % a.cl == 0) {  // a clip starts: restart the carry from its state
+            const int c = t / a.cl;
+            if (c > 0) store_state<VEC>(a.new_state + (size_t)(c - 1) * a.n + i0, s, cnt);
+            const float* st = a.state + (size_t)c * a.n + i0;
             #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 if (j >= cnt) break;
-                s[j] = a.first ? x[j] : blend(a.pp, a.om, a.state[i0 + j], x[j]);
+                s[j] = a.first ? x[j] : blend(a.pp, a.om, st[j], x[j]);
             }
         } else {
             #pragma unroll
@@ -98,17 +117,14 @@ persist_kernel(const PersistArgs a) {
             }
         }
     }
-    if (VEC) {
-        *reinterpret_cast<float4*>(a.new_state + i0) = make_float4(s[0], s[1], s[2], s[3]);
-    } else {
-        for (int j = 0; j < cnt; ++j) a.new_state[i0 + j] = s[j];
-    }
+    store_state<VEC>(a.new_state + (size_t)(a.b / a.cl - 1) * a.n + i0, s, cnt);
 }
 
 }  // namespace
 
 extern "C" int crt_persist_launch(const PersistArgs* a, void* stream) {
-    if (a->b < 1 || a->n < 1) return (int)cudaErrorInvalidValue;
+    if (a->b < 1 || a->n < 1 || a->cl < 1 || a->b % a->cl != 0)
+        return (int)cudaErrorInvalidValue;
     const int64_t threads = (a->n + 3) / 4;
     const unsigned grid = (unsigned)((threads + NT - 1) / NT);
     cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -13,7 +13,7 @@ follows it. On CUDA tensors those are the hand-written kernels under
 csrc/; on CPU tensors their plain PyTorch twins, so the CPU tests
 exercise the same step.
 
-Two configurations take another route to stage 11:
+Three kinds of configuration take another route to stage 11:
 
 - text composited before the bloom (stage 5): stages 1-5 run as torch
   ops (the fused twin's prologue, then the composite) and the fused
@@ -22,7 +22,27 @@ Two configurations take another route to stage 11:
   ops, the stand-alone bloom kernel (kernels/bloom3.py), then stages
   7-11 as torch ops with the per-pixel mask (the JAX engine sends these
   to its XLA path for the same reason: the mask needs sin and pow per
-  pixel).
+  pixel);
+- the JAX engine's bloom opt-ins, read from the environment when the
+  engine is built, with its precedence (pythoncrt_tpu/engine.py:286-356):
+  ``PCRT_PALLAS_BLOOM=1`` with the gaussian bloom selects the stripe
+  bloom (kernels/bloom.py); else ``PCRT_BLOOM2_FAST=1`` with the fast
+  bloom, or ``PCRT_BLOOM2_GAUSS=1`` with the gaussian, selects bloom2 of
+  that variant (kernels/bloom2.py). A selected kernel sends the
+  configuration to the staged step as its stage 6, with 1-D scanlines
+  and text before the bloom too (the JAX engine's fused path steps aside
+  for them, engine.py:402-403). ``bloom_route`` records the choice:
+  "fused", "bloom3", "bloom2", "stripe" or "none" (bloom off). The JAX
+  shape gates of those routes (H%8, W%128) have no counterpart: the
+  port's kernels take any H and W. The JAX variables that select an XLA
+  form in place of a kernel (PCRT_NO_BLOOM3, PCRT_NO_BLOOM2,
+  PCRT_NO_FUSED, PCRT_FUSED_EPI) are not read (ROADMAP.md).
+
+The step is two halves, as the JAX engine's ``_batch_effects`` and
+``_finish``: ``_effects`` (stages 1-14, per frame) and ``_finish`` (stage
+15 and the uint8 cast), so MultiClipEngine (parallel/mesh.py) can run
+the effects over a flat batch of several clips and finish it with the
+persistence kernel's multi-clip mode.
 
 Host tables (pixel maps, triad row, vignette vectors, warp tables,
 resize taps, glitch amplitudes and segment index) come from the port's
@@ -38,12 +58,15 @@ nothing computes them another way.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import oracle
+from .kernels import bloom as kbloom
+from .kernels import bloom2 as kbloom2
 from .kernels import bloom3 as kbloom3
 from .kernels import fused as kfused
 from .kernels import glitch as kglitch
@@ -76,6 +99,19 @@ def unsupported(params: EffectParams, *, precision: str = "exact",
     """Why this configuration is outside the port, or None."""
     if precision == "fast" or not lut_exact:
         return "precision 'fast' is not ported yet: ROADMAP.md queue 1, precision fast"
+    return None
+
+
+def bloom_optin(params: EffectParams) -> Optional[str]:
+    """The stage-6 kernel the JAX engine's opt-in variables select for
+    these params, with its precedence: "stripe", "bloom2" or None."""
+    if not params.bloom_on:
+        return None
+    env = os.environ
+    if not params.fast_bloom and env.get("PCRT_PALLAS_BLOOM") == "1":
+        return "stripe"
+    if env.get("PCRT_BLOOM2_FAST" if params.fast_bloom else "PCRT_BLOOM2_GAUSS") == "1":
+        return "bloom2"
     return None
 
 
@@ -210,9 +246,13 @@ class CRTEngine:
         if has_text:  # (H, W) alpha and (3, H, W) colour in plane order
             self._text = (c["text_alpha"][..., 0].float().contiguous(),
                           c["text_rgb"].permute(2, 0, 1)[list(pc)].float().contiguous())
-        # 2-D scanlines need the per-pixel mask: the staged step
-        self._staged = p.scanlines_on and not p.scanlines_1d
-        if self._staged:
+        # 2-D scanlines need the per-pixel mask, and a bloom opt-in names
+        # its own stage-6 kernel: both take the staged step
+        optin = bloom_optin(p)
+        self._staged = (p.scanlines_on and not p.scanlines_1d) or optin is not None
+        self.bloom_route = ("none" if not p.bloom_on
+                            else optin or ("bloom3" if self._staged else "fused"))
+        if p.scanlines_on and not p.scanlines_1d:
             self._sl_omega = np.float32(2.0 * np.pi / max(1e-6, p.scanline_period_px))
             self._sl_inv_sharp = np.float32(
                 1.0 / float(np.clip(p.scanline_thickness, 0.1, 4.0)))
@@ -245,6 +285,17 @@ class CRTEngine:
                 if p.fast_bloom else
                 kbloom3.build_bloom3_spec(h, w, float(p.bloom_sigma), float(p.bloom_strength),
                                           float(p.bloom_threshold)))
+        self.bloom_spec = self.bloom2_tables = None  # an opt-in's stage 6
+        if self.bloom_route == "stripe":
+            self.bloom_spec = kbloom.build_bloom_spec(h, w, float(p.bloom_sigma),
+                                                      float(p.bloom_strength),
+                                                      float(p.bloom_threshold))
+        elif self.bloom_route == "bloom2":
+            self.bloom_spec = kbloom2.build_bloom2_spec(
+                h, w, variant="fast" if p.fast_bloom else "gaussian",
+                sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
+                threshold=float(p.bloom_threshold))
+            self.bloom2_tables = kbloom2.bloom2_tables(self.bloom_spec, dev)
         own_fc = kfused.fused_consts(self.spec, dev)
         self.fused_tables = own_fc._replace(
             y_map=c["pix_y"].to(torch.int32).contiguous(),
@@ -378,9 +429,10 @@ class CRTEngine:
     # The step
     # ------------------------------------------------------------------
 
-    def _step(self, x: torch.Tensor, aux: FrameAux, state: torch.Tensor, first: bool):
-        """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
-        the device -> (uint8 planar frames, new state)."""
+    def _effects(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
+        """Stages 1-14 on (B, 3, H, W) uint8 planar frames on the device:
+        f32 in [0, 1], or uint8 when the cast folded into the last kernel
+        (nothing temporal follows)."""
         p = self.params
         if self._staged:
             out = self._staged_stages(x, aux)
@@ -395,15 +447,26 @@ class CRTEngine:
         if self._glitch:  # stage 14
             kglitch.shear_planar_inplace(out, self._glitch_y0, self.glitch_offsets(aux),
                                          self.consts["glitch_seg_index"])
+        return out
+
+    def _finish(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
+        """Stage 15 and the uint8 cast over one stream's batch -> (uint8
+        frames, new (3, H, W) f32 state)."""
+        p = self.params
         if p.persistence_on:  # stage 15
             if self.assoc_scan:
-                return self._assoc_persistence(out, state, first)
-            return kpersist.persistence_scan(out, state, first, p.persistence, emit_u8=True)
-        if out.dtype == torch.uint8:
+                return self._assoc_persistence(imgs, state, first)
+            return kpersist.persistence_scan(imgs, state, first, p.persistence, emit_u8=True)
+        if imgs.dtype == torch.uint8:
             # the carried state is the quantized last frame in [0, 1];
             # nothing reads it back while persistence is off
-            return out, out[-1].float() * np.float32(1.0 / 255.0)
-        return ocolor.to_uint8(out), out[-1]
+            return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
+        return ocolor.to_uint8(imgs), imgs[-1]
+
+    def _step(self, x: torch.Tensor, aux: FrameAux, state: torch.Tensor, first: bool):
+        """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
+        the device -> (uint8 planar frames, new state)."""
+        return self._finish(self._effects(x, aux), state, first)
 
     def _assoc_persistence(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
         """Stage 15 as an O(log B) associative scan (the JAX engine's
@@ -441,11 +504,16 @@ class CRTEngine:
         return img
 
     def _staged_stages(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
-        """Stages 1-11 for the configurations the fused kernel cannot take:
-        torch ops up to the bloom, the stand-alone bloom kernel, then the
-        fused twin's epilogue (stages 7-11, the 2-D mask) as torch ops."""
+        """Stages 1-11 for the configurations the fused kernel does not
+        take: torch ops up to the bloom, the stand-alone bloom kernel of
+        the route (an opt-in's, else bloom3), then the fused twin's
+        epilogue (stages 7-11, the 1-D rows or the 2-D mask) as torch ops."""
         img = self._pre_bloom(x)
-        if self.bloom3_spec is not None:  # stage 6
+        if self.bloom_route == "stripe":  # stage 6
+            img = kbloom.bloom_planar(img, self.bloom_spec)
+        elif self.bloom_route == "bloom2":
+            img = kbloom2.bloom2_planar(img, self.bloom_spec, self.bloom2_tables)
+        elif self.bloom3_spec is not None:
             if self.bloom3_spec.fast:
                 ft = self.fused_tables
                 img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec,

@@ -2,13 +2,16 @@
 
     python3 scripts/port_profile.py [--out port_profile.json]
 
-For each configuration (c3, the CLI defaults, c4, and the angled-scanline
+For each configuration (c3, the CLI defaults, c4, the angled-scanline
 and text paths: c3-angled, defaults-angled, c4-text, with a seeded
-synthetic text overlay) at 1080p with a batch of 8, native rng, planar
-gbrp frames already on the card:
+synthetic text overlay, and the bloom opt-ins c3-bloom2, defaults-bloom2
+and c3-stripe, their variable set while the engine is built) at 1080p
+with a batch of 8, and for c5 (the c4 params at 3840x2160, 4 clips x 8
+frames per step through MultiClipEngine, 2 steps per loop), native rng,
+planar gbrp frames already on the card:
 
-- engine fps: 5 repeats of 32 frames (4 batches, the state carried),
-  median, min and max;
+- engine fps: 5 repeats of 32 frames (4 batches, the state carried; c5:
+  64 frames in 2 steps), median, min and max;
 - each kernel of the step, and the staged step's torch-op stages (the
   pre-bloom, the post-bloom with the 2-D mask, the text composite): 5
   repeats of 20 calls timed with CUDA events on the step's own
@@ -27,6 +30,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -54,8 +58,29 @@ CONFIGS = {
 CONFIGS["c3-angled"] = dict(CONFIGS["c3"], scanline_angle=5.0, scanline_thickness=1.5)
 CONFIGS["defaults-angled"] = dict(scanline_angle=12.0, scanline_thickness=2.0)
 CONFIGS["c4-text"] = dict(CONFIGS["c4"])
+CONFIGS["c3-bloom2"] = CONFIGS["c3-stripe"] = dict(CONFIGS["c3"])
+CONFIGS["defaults-bloom2"] = {}
+CONFIGS["c5"] = dict(CONFIGS["c4"])
 TEXT = {"c3-angled": dict(text="CH 3", size=48, after=True),
         "c4-text": dict(text="PLAY", size=48, after=False)}
+OPTINS = {"c3-bloom2": {"PCRT_BLOOM2_GAUSS": "1"}, "defaults-bloom2": {"PCRT_BLOOM2_FAST": "1"},
+          "c3-stripe": {"PCRT_PALLAS_BLOOM": "1"}}  # the JAX engine's bloom opt-ins
+H4, W4, CLIPS = 2160, 3840, 4  # c5
+
+
+@contextlib.contextmanager
+def optin_env(name: str):
+    """The bloom opt-in variables of ``name`` set, and no other's."""
+    names = {k for env in OPTINS.values() for k in env}
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update(OPTINS.get(name, {}))
+    try:
+        yield
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
 
 
 def synth_overlay(seed: int = 4) -> np.ndarray:
@@ -89,10 +114,98 @@ def events_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
+def device_split(loop) -> tuple:
+    """torch.profiler over one run of loop: (wall ms, device ms, the top
+    kernels' device ms by name)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loop()
+        prof_wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return prof_wall * 1e3, sum(by_kernel.values()), top
+
+
+def timing(name, shape, frames, loop, kernels) -> dict:
+    """Engine fps over 5 repeats of loop, the profiled split, the card."""
+    loop()
+    fps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loop()
+        fps.append(frames / (time.perf_counter() - t0))
+    prof_wall, device_ms, top = device_split(loop)
+    wall = frames / statistics.median(fps) * 1e3
+    return dict(
+        config=name, shape=shape, frames=frames, card=smi("name,power.limit"),
+        engine_fps_median=statistics.median(fps), engine_fps_min=min(fps),
+        engine_fps_max=max(fps), kernel_ms_per_call=kernels,
+        profiled_loop_wall_ms=prof_wall, device_ms_in_loop=device_ms,
+        device_idle_share_of_profiled_loop=1.0 - device_ms / prof_wall,
+        unprofiled_loop_wall_ms=wall, device_idle_share_of_unprofiled_loop=1.0 - device_ms / wall,
+        device_ms_by_kernel=top,
+        clocks_power=smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+
+
+def profile_c5(params: dict) -> dict:
+    """c5: 4 clips x 8 frames at 3840x2160 per step through MultiClipEngine."""
+    import torch
+
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine
+    from pythoncrt_tpu_torch.kernels import fused as kfused
+    from pythoncrt_tpu_torch.kernels import glitch as kglitch
+    from pythoncrt_tpu_torch.kernels import persist as kpersist
+
+    eng = CRTEngine(EffectParams(**params), H4, W4, 24.0, layout="planar", channel_order="gbr",
+                    device="cuda")
+    mc = MultiClipEngine(eng)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, 256, (CLIPS, B, 3, H4, W4), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    idx = np.tile(np.arange(B), (CLIPS, 1))
+
+    def loop():
+        st = None
+        for k in range(2):
+            _, st = mc.process(x, idx + k * B, st)
+        torch.cuda.synchronize()
+
+    flat = x.reshape(CLIPS * B, 3, H4, W4)
+    aux = eng.make_aux(idx.reshape(-1))
+    kw = eng.fused_operands(aux)
+    kernels = {"fused_pipeline": events_ms(
+        lambda: kfused.fused_pipeline(flat, eng.spec, eng.fused_tables, **kw), iters=5)}
+    f = kfused.fused_pipeline(flat, eng.spec, eng.fused_tables, **kw)
+    off, seg = eng.glitch_offsets(aux), eng.consts["glitch_seg_index"]
+    kernels["glitch_shear"] = events_ms(
+        lambda: kglitch.shear_planar_inplace(f, eng._glitch_y0, off, seg), iters=5)
+    kernels["glitch_offsets (native draws, torch ops)"] = events_ms(
+        lambda: eng.glitch_offsets(aux), iters=2)
+    states = torch.zeros((CLIPS, 3, H4, W4), device="cuda")
+    kernels["persistence_scan (multi-clip)"] = events_ms(
+        lambda: kpersist.persistence_scan(f, None, False, eng.params.persistence, emit_u8=True,
+                                          clip_states=states), iters=5)
+    kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
+        lambda: eng._grain_field(aux), iters=2)
+    del f, states, kw
+    return timing("c5", [CLIPS * B, 3, H4, W4], 2 * CLIPS * B, loop, kernels)
+
+
 def profile(name: str, params: dict, xs) -> dict:
     import torch
 
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams
+    from pythoncrt_tpu_torch.kernels import bloom as kbloom
+    from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
@@ -101,21 +214,15 @@ def profile(name: str, params: dict, xs) -> dict:
     from pythoncrt_tpu_torch.ops import color as ocolor
 
     p = EffectParams(**params, text=TextParams(**TEXT.get(name, {})))
-    eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device="cuda",
-                    text_rgba=synth_overlay() if p.text.enabled else None)
+    with optin_env(name):
+        eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device="cuda",
+                        text_rgba=synth_overlay() if p.text.enabled else None)
 
     def loop():
         st = None
         for k in range(0, N, B):
             _, st = eng.process(xs[k:k + B], np.arange(k, k + B), st)
         torch.cuda.synchronize()
-
-    loop()
-    fps = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        loop()
-        fps.append(N / (time.perf_counter() - t0))
 
     aux = eng.make_aux(np.arange(B))
     kw = eng.fused_operands(aux)
@@ -125,7 +232,16 @@ def profile(name: str, params: dict, xs) -> dict:
     if eng._staged or not eng.spec.pre:
         kernels["pre-bloom (torch ops)"] = events_ms(lambda: eng._pre_bloom(x), iters=5)
         feed = eng._pre_bloom(x)
-    if eng._staged:
+    if eng.bloom_route in ("stripe", "bloom2"):
+        if eng.bloom_route == "stripe":
+            kernels["bloom_stripe"] = events_ms(lambda: kbloom.bloom_planar(feed, eng.bloom_spec))
+        else:
+            kernels[f"bloom2_planar ({eng.bloom_spec.variant})"] = events_ms(
+                lambda: kbloom2.bloom2_planar(feed, eng.bloom_spec, eng.bloom2_tables))
+        kernels["post-bloom (torch ops, 1-D scanlines)"] = events_ms(
+            lambda: kfused.epilogue_ref(feed, eng.spec, eng.fused_tables, **kw), iters=5)
+        f = eng._staged_stages(x, aux)
+    elif eng._staged:
         spec = eng.bloom3_spec
         tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
         if spec.fast:
@@ -164,30 +280,7 @@ def profile(name: str, params: dict, xs) -> dict:
     kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
         lambda: eng._grain_field(aux), iters=5)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        loop()
-        prof_wall = time.perf_counter() - t0
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
-    device_ms = sum(by_kernel.values())
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return dict(
-        config=name, shape=[B, 3, H, W], frames=N, card=smi("name,power.limit"),
-        engine_fps_median=statistics.median(fps), engine_fps_min=min(fps),
-        engine_fps_max=max(fps), kernel_ms_per_call=kernels,
-        profiled_loop_wall_ms=prof_wall * 1e3, device_ms_in_loop=device_ms,
-        device_idle_share_of_profiled_loop=1.0 - device_ms / (prof_wall * 1e3),
-        unprofiled_loop_wall_ms=N / statistics.median(fps) * 1e3,
-        device_idle_share_of_unprofiled_loop=1.0 - device_ms / (N / statistics.median(fps) * 1e3),
-        device_ms_by_kernel=top,
-        clocks_power=smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return timing(name, [B, 3, H, W], N, loop, kernels)
 
 
 def main() -> int:
@@ -205,7 +298,7 @@ def main() -> int:
     xs = torch.from_numpy(frames).cuda()
     results = []
     for name in a.configs.split(","):
-        r = profile(name, CONFIGS[name], xs)
+        r = profile_c5(CONFIGS[name]) if name == "c5" else profile(name, CONFIGS[name], xs)
         print(json.dumps(r), flush=True)
         results.append(r)
     os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)

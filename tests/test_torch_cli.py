@@ -99,12 +99,37 @@ def test_formerly_refused_configs_render(overrides):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--batch-manifest", "jobs.json"], ["--gui"], ["--segment-frames", "64"],
+    ["--devices", "2"], ["--gui"], ["--segment-frames", "64"],
     ["--precision", "fast"], ["--pipe-format", "yuv420p"], ["--decode-workers", "4"],
 ])
 def test_out_of_slice_flags_exit_2(flags, capsys):
     assert cli.main(["--input", "x.mp4", *flags]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [[], ["--devices", "2"]], ids=["render", "devices_2"])
+def test_cli_renders_a_batch_manifest(tmp_path, capsys, extra):
+    """--batch-manifest renders two clips of different lengths in
+    lockstep on the CPU (every frame of each); --devices 2 stays refused
+    in a manifest run, naming ROADMAP.md."""
+    import json
+
+    clips = []
+    for i, n in enumerate((5, 3)):
+        clips.append(tmp_path / f"in{i}.mp4")
+        write_clip(clips[-1], n=n, seed=i)
+    m = tmp_path / "jobs.json"
+    m.write_text(json.dumps({"jobs": [{"input": str(c), "output": str(tmp_path / f"o{i}.mp4")}
+                                      for i, c in enumerate(clips)]}))
+    rc = cli.main(["--batch-manifest", str(m), *C4_FLAGS, "--batch-size", "2",
+                   "--device", "cpu", *extra])
+    out, err = capsys.readouterr()
+    if extra:
+        assert rc == 2 and "ROADMAP.md queue 1, multiclip: multi-GPU" in err
+        return
+    assert rc == 0, out + err
+    assert "2/2 clips ok" in out
+    assert [count_frames(tmp_path / f"o{i}.mp4") for i in range(2)] == [5, 3]
 
 
 C4_FLAGS = [

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules (params,
 oracle, the CLI parser, io.video's helpers, the perf report, the text
-rasterizer) against the
+rasterizer, the batch journal and the multi-clip helpers) against the
 originals: the same flags and defaults, the same fields, clamps and
 preset semantics, and equal results on seeded inputs (bitwise: the
 copies run the same NumPy code)."""
@@ -11,12 +11,16 @@ import json
 import numpy as np
 import pytest
 
+import pythoncrt_tpu.batch as jbatch
 import pythoncrt_tpu.cli as jcli
+import pythoncrt_tpu.multiclip as jmulticlip
 import pythoncrt_tpu.io.video as jvideo
 import pythoncrt_tpu.params as jparams
 import pythoncrt_tpu.text as jtext
 from pythoncrt_tpu import oracle as joracle
+from pythoncrt_tpu_torch import batch as tbatch
 from pythoncrt_tpu_torch import cli as tcli
+from pythoncrt_tpu_torch import multiclip as tmulticlip
 from pythoncrt_tpu_torch import oracle as toracle
 from pythoncrt_tpu_torch import params as tparams
 from pythoncrt_tpu_torch import perf as tperf
@@ -221,3 +225,71 @@ def test_rasterize_text_is_the_same(kw):
     if ov is not None:
         np.testing.assert_array_equal(ov, jtext.overlay_for(256, 48, t_j))
         assert ov[..., 3].any()
+
+
+def seeded_jobs(seed, n=6):
+    """The same jobs as the port's and the JAX package's ClipJobs, with
+    the kwargs each CLI's --batch-manifest gives them (the port's adds
+    its device)."""
+    rng = np.random.default_rng(seed)
+    base = vars(jcli.build_parser().parse_args([]))
+    out = []
+    for i in range(n):
+        kw = dict(persistence=float(rng.choice([0.0, 0.2, 0.6])),
+                  glitch_amp_px=int(rng.integers(0, 8)), fast_bloom=bool(rng.integers(2)),
+                  text=dict(text=str(rng.choice(["", "CH 3"])), size=int(rng.integers(8, 40))))
+        geo = dict(width=int(rng.choice([0, 1920])) or None, height=None,
+                   fps=float(rng.choice([0.0, 24.0, 30000 / 1001])) or None)
+        kwargs = dict(crf=18, target_bitrate_kbps=0, gpu=False, nvenc_preset="p4",
+                      encoder_preference="auto", decoder_preference="auto",
+                      batch_size=int(rng.choice([8, 16])), engine_mode="export",
+                      rng=str(rng.choice(["native", "host"])), seed=int(rng.integers(9)),
+                      precision="exact", pipe_format=base["pipe_format"], devices=0,
+                      steps_per_call=0)
+        if rng.integers(2):
+            kwargs["assoc_scan"] = True
+        text = kw.pop("text")
+        jp = jparams.EffectParams(**kw, text=jparams.TextParams(**text))
+        tp = tparams.EffectParams(**kw, text=tparams.TextParams(**text))
+        paths = (f"/clips/in{i}.mp4", f"/clips/out{i}.mp4")
+        out.append((tbatch.ClipJob(*paths, tp, **geo, kwargs={**kwargs, "device": "cuda"}),
+                    jbatch.ClipJob(*paths, jp, **geo, kwargs=dict(kwargs))))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_batch_signatures_are_the_same(seed, tmp_path):
+    """_group_key and _job_sig equal the JAX ones on seeded jobs, so a
+    journal written by either CLI is read by the other."""
+    jobs = seeded_jobs(seed)
+    for mine, theirs in jobs:
+        assert tbatch._group_key(mine) == jbatch._group_key(theirs)
+        assert tbatch._job_sig(mine) == jbatch._job_sig(theirs)
+    assert tbatch.MULTI_CLIP_KWARGS == jbatch.MULTI_CLIP_KWARGS | {"device"}
+    j_theirs, j_mine = tmp_path / "jax.jsonl", tmp_path / "torch.jsonl"
+    for mine, theirs in jobs[:4]:
+        jbatch.RenderJournal(j_theirs).mark_done(theirs, 1.0)
+        tbatch.RenderJournal(j_mine).mark_done(mine, 1.0)
+    for k, (mine, theirs) in enumerate(jobs):
+        assert tbatch.RenderJournal(j_theirs).is_done(mine) == (k < 4)
+        assert jbatch.RenderJournal(j_mine).is_done(theirs) == (k < 4)
+
+
+def test_multiclip_helpers_are_the_same():
+    from types import SimpleNamespace
+
+    for h, w in ((2160, 3840), (1080, 1920), (48, 64), (1081, 1920)):
+        for clips in (1, 2, 4, 9):
+            for batch in (1, 8, 16, 64):
+                assert tmulticlip.auto_steps_per_call(h, w, clips, batch) \
+                    == jmulticlip.auto_steps_per_call(h, w, clips, batch)
+    ntsc = 30000 / 1001
+    infos = [SimpleNamespace(fps=ntsc), None, SimpleNamespace(fps=29.97000001),
+             SimpleNamespace(fps=0.0)]
+    for live, fps in (([0, 2], None), ([0, 2], 24.0), ([3], None), ([0], 0.0)):
+        assert tmulticlip._resolve_output_rate(infos, live, fps) \
+            == jmulticlip._resolve_output_rate(infos, live, fps)
+    for mod in (tmulticlip, jmulticlip):
+        with pytest.raises(ValueError, match="differ"):
+            mod._resolve_output_rate([SimpleNamespace(fps=24.0), SimpleNamespace(fps=25.0)],
+                                     [0, 1], None)

@@ -10,14 +10,16 @@ defaults, c4 and variants; the angled-scanline and text paths), at small
 shapes (an odd one included) and at 1080p. Both sides keep one f32 op
 order (the kernels build with -fmad=false and round pow once from
 double, as the twins do), so fused and bloom f32 outputs agree to 2e-6
-and uint8 outputs to 1 LSB; the persistence scan and the glitch shear
-are bitwise."""
+and uint8 outputs to 1 LSB; the persistence scan (its multi-clip mode
+too) and the glitch shear are bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
-from pythoncrt_tpu_torch import CRTEngine, TextParams
+from pythoncrt_tpu_torch import CRTEngine, MultiClipEngine, TextParams
+from pythoncrt_tpu_torch.kernels import bloom as kbloom
+from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
 from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
 from pythoncrt_tpu_torch.kernels import fused as kfused
 from pythoncrt_tpu_torch.kernels import glitch as kglitch
@@ -285,3 +287,132 @@ def test_staged_and_text_engine_on_card_matches_cpu(cuda_dev, name):
         assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
     assert (kbloom3.launches > n0[0]) == eng_gpu._staged
     assert (kfused.launches > n0[1]) == (not eng_gpu._staged)
+
+
+OPTIN_BLOOMS = {  # kernel -> (variant, sigma, threshold, limbs)
+    "stripe": (None, 1.2, 0.0, None),
+    "stripe_wide_knee": (None, 4.0, 0.3, None),
+    "bloom2_gauss": ("gaussian", 1.2, 0.0, 3),
+    "bloom2_gauss_knee": ("gaussian", 2.0, 0.4, 3),
+    "bloom2_fast": ("fast", 0.0, 0.0, 3),
+    "bloom2_fast_knee": ("fast", 0.0, 0.35, 3),
+    "bloom2_pipelined_1": ("gaussian", 1.2, 0.2, 1),
+    "bloom2_pipelined_2": ("fast", 0.0, 0.2, 2),
+    "bloom2_pipelined_3": ("gaussian", 1.2, 0.2, "3p"),
+}
+OPTIN_SHAPES = [(8, 1080, 1920), (2, 45, 250), (1, 7, 9), (2, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPTIN_SHAPES, ids=["1080p", "odd", "tiny", "row"])
+@pytest.mark.parametrize("name", sorted(OPTIN_BLOOMS))
+def test_optin_bloom_kernels_match_twins(cuda_dev, name, shape):
+    """The stripe bloom, bloom2 (both variants) and bloom2's pipelined
+    entry (limbs 1-3) against their twins: 2e-6."""
+    b, h, w = shape
+    variant, sigma, thr, limbs = OPTIN_BLOOMS[name]
+    g = torch.Generator(device=cuda_dev).manual_seed(13)
+    imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    if variant is None:
+        spec = kbloom.build_bloom_spec(h, w, sigma, 0.25, thr)
+        n0, mod = kbloom.launches, kbloom
+        got, want = kbloom.bloom_planar(imgs, spec), kbloom.bloom_planar_ref(imgs, spec)
+    else:
+        spec = kbloom2.build_bloom2_spec(h, w, variant=variant, sigma=sigma, strength=0.25,
+                                         threshold=thr)
+        n0, mod = kbloom2.launches, kbloom2
+        if limbs == 3:
+            got, want = kbloom2.bloom2_planar(imgs, spec), kbloom2.bloom2_planar_ref(imgs, spec)
+        else:
+            lb = 3 if limbs == "3p" else limbs
+            tabs = kbloom2.bloom2_tables(spec, cuda_dev, lb)
+            got = kbloom2.bloom2_planar_pipelined(imgs, spec, lb, tabs)
+            want = kbloom2.bloom2_planar_pipelined_ref(imgs, spec, lb, tabs)
+    torch.cuda.synchronize()
+    assert mod.launches == n0 + 1
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 3, 1080, 1920), (3, 2, 3, 45, 251), (2, 3, 3, 5, 7)],
+                         ids=["1080p", "odd", "ragged"])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("emit_u8", [True, False])
+def test_persist_multiclip_kernel_matches_twin(cuda_dev, shape, first, emit_u8):
+    """C clips of B frames, flat: bitwise the twin (and so the per-clip
+    sequential scans)."""
+    c, b, *frame = shape
+    g = torch.Generator(device=cuda_dev).manual_seed(9)
+    imgs = torch.rand((c * b, *frame), generator=g, device=cuda_dev)
+    states = torch.rand((c, *frame), generator=g, device=cuda_dev)
+    n0 = kpersist.launches
+    got, gs = kpersist.persistence_scan(imgs, None, first, 0.6, emit_u8=emit_u8,
+                                        clip_states=states)
+    want, ws = kpersist.persistence_scan_ref(imgs, None, first, 0.6, emit_u8=emit_u8,
+                                             clip_states=states)
+    torch.cuda.synchronize()
+    assert kpersist.launches == n0 + 1
+    assert torch.equal(got, want) and torch.equal(gs, ws)
+
+
+ENV_ROUTES = {
+    "c3_bloom2": ({"PCRT_BLOOM2_GAUSS": "1"}, C3, "bloom2"),
+    "defaults_bloom2": ({"PCRT_BLOOM2_FAST": "1"}, {}, "bloom2"),
+    "c3_stripe": ({"PCRT_PALLAS_BLOOM": "1"}, C3, "stripe"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ENV_ROUTES))
+def test_env_routes_on_card_match_cpu(cuda_dev, name, monkeypatch):
+    """The three bloom opt-ins on the card (their kernels launched)
+    against the CPU step, two batches, state carried."""
+    env, overrides, route = ENV_ROUTES[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    p = EffectParams(**overrides)
+    eng_gpu = CRTEngine(p, 96, 320, 24.0, rng="host", device=cuda_dev)
+    eng_cpu = CRTEngine(p, 96, 320, 24.0, rng="host", device="cpu")
+    assert eng_gpu.bloom_route == route == eng_cpu.bloom_route
+    mod = kbloom if route == "stripe" else kbloom2
+    x = np.random.default_rng(1).integers(0, 256, (6, 96, 320, 3), dtype=np.uint8)
+    n0 = mod.launches
+    sg = sc = None
+    for k in range(2):
+        idx = np.arange(3 * k, 3 * k + 3)
+        got, sg = eng_gpu.process(x[idx], idx, sg)
+        want, sc = eng_cpu.process(x[idx], idx, sc)
+        d = (got.cpu().int() - want.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+    assert mod.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "planar"])
+def test_multiclip_engine_on_card(cuda_dev, layout):
+    """c4 on 3 clips x 4 frames, two steps: equal, bit for bit, to three
+    single-clip runs on the card, and within 1 LSB of the CPU's."""
+    p = EffectParams(**VARIANTS["c4"])
+    kw = dict(layout="planar", channel_order="gbr") if layout == "planar" else {}
+    shape = (3, 8, 3, 96, 320) if layout == "planar" else (3, 8, 96, 320, 3)
+    x = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
+    idx = np.tile(np.arange(8), (3, 1))
+    res = {}
+    for dev in (cuda_dev, "cpu"):
+        mc = MultiClipEngine(CRTEngine(p, 96, 320, 24.0, rng="host", device=dev, **kw))
+        n0 = kpersist.launches
+        o1, st = mc.process(x[:, :4], idx[:, :4])
+        o2, st = mc.process(x[:, 4:], idx[:, 4:], st)
+        res[str(dev)] = (torch.cat([o1, o2], 1).cpu(), st.cpu())
+        if dev != "cpu":
+            assert kpersist.launches == n0 + 2
+            for c in range(3):
+                eng = CRTEngine(p, 96, 320, 24.0, rng="host", device=dev, **kw)
+                a, s = eng.process(x[c, :4], idx[c, :4])
+                b, s = eng.process(x[c, 4:], idx[c, 4:], s)
+                assert torch.equal(torch.cat([a, b]).cpu(), res[str(dev)][0][c])
+                assert torch.equal(s.cpu(), res[str(dev)][1][c])
+    (og, sg), (oc, sc) = res[str(cuda_dev)], res["cpu"]
+    d = (og.int() - oc.int()).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+    assert (sg - sc).abs().max().item() <= 2e-6

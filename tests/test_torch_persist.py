@@ -69,9 +69,15 @@ def test_twin_is_the_oracle_blend(persistence):
 
 
 def test_multiclip_mode_names_its_roadmap_item():
+    """The multi-clip mode is ported (tests/test_torch_multiclip.py); what
+    it refuses is a batch that does not split into whole clips, as the
+    JAX kernel does."""
     imgs, state = (torch.from_numpy(a) for a in inputs(3))
-    with pytest.raises(NotImplementedError, match="multiclip"):
-        tpersist.persistence_scan(imgs, state, False, 0.5, clip_states=state[None])
+    out, states = tpersist.persistence_scan(imgs, None, False, 0.5,
+                                            clip_states=torch.stack([state] * 3))
+    assert out.shape == imgs.shape and states.shape == (3, *state.shape)
+    with pytest.raises(ValueError, match="4 clips"):
+        tpersist.persistence_scan(imgs, None, False, 0.5, clip_states=torch.stack([state] * 4))
 
 
 def test_cpu_path_makes_no_launch():

@@ -12,6 +12,16 @@ fewer than 1e-3 of values off where that path agrees with the oracle
 max LSB is asserted, as in test_torch_engine.py. The JAX engine is shown
 to take the same routes: bloom3 with its fused kernel refused for 2-D
 scanlines, its fused kernel's pre=False mode for text before the bloom.
+
+The JAX engine's bloom opt-ins (PCRT_PALLAS_BLOOM, PCRT_BLOOM2_GAUSS,
+PCRT_BLOOM2_FAST) send the step through the staged step with the stripe
+bloom or bloom2 as stage 6, in both engines. Measured at 48x256 over 8
+frames (NHWC): c3 with bloom2 gaussian and with the stripe 1 LSB off the
+oracle on 3.4e-06 of values, defaults with bloom2 fast equal to it, c4
+with text before and bloom2 fast 1 LSB on 6.8e-06; against the JAX
+engine with the same variable 1 LSB on 12.6% (c3: its uint8 warp feed
+and bf16 grain, ROADMAP.md queue 3) and on 2.7e-04 to 4.6e-04 (the
+others: its FMA-contracted persistence blend).
 """
 
 import dataclasses
@@ -182,3 +192,67 @@ def test_2d_mask_matches_the_oracle():
                                              p.scanline_thickness) for ph in phase])
     assert got.shape == (4, H, W) and got.dtype == np.float32
     assert np.abs(got - want).max() <= 2e-6
+
+
+# The JAX engine's bloom opt-ins (environment variables read when the
+# engine is built): the named kernel becomes the staged step's stage 6.
+OPTINS = {  # name -> (variables, overrides, text before the bloom, route)
+    "c3_bloom2_gauss": ({"PCRT_BLOOM2_GAUSS": "1"}, {**IDENTITY, **FULL}, False, "bloom2"),
+    "c3_stripe": ({"PCRT_PALLAS_BLOOM": "1"}, {**IDENTITY, **FULL}, False, "stripe"),
+    "defaults_bloom2_fast": ({"PCRT_BLOOM2_FAST": "1"}, {}, False, "bloom2"),
+    "c4_text_bloom2_fast": ({"PCRT_BLOOM2_FAST": "1"}, {**IDENTITY, **C4}, True, "bloom2"),
+}
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "planar_gbr"])
+@pytest.mark.parametrize("name", sorted(OPTINS))
+def test_bloom_optins_match_oracle_and_jax(name, layout, monkeypatch):
+    """Each opt-in against the oracle, the JAX XLA path and the JAX engine
+    with the same variable (its bloom2 or stripe kernel in interpret
+    mode), two batches with the state carried."""
+    env, overrides, text_before, route = OPTINS[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    def jax_route(pk, p):
+        assert not pk._pallas_fused
+        assert (pk._pallas_bloom2, pk._pallas_bloom) == (route == "bloom2", route == "stripe")
+
+    text = TextParams(text="CH 3", size=12, after=False) if text_before else None
+    eng = check_three_ways(overrides, layout, text, overlay(5) if text_before else None,
+                           jax_route)
+    assert eng.bloom_route == route and eng._staged and eng.bloom_spec is not None
+
+
+PRECEDENCE = [  # variables, overrides, the port's route, the JAX flags (or None: not read)
+    ({"PCRT_BLOOM2_GAUSS": "1"}, {}, "fused", "fused"),  # the fast bloom stays fused
+    ({"PCRT_PALLAS_BLOOM": "1"}, {}, "fused", "fused"),  # the stripe is gaussian only
+    ({"PCRT_BLOOM2_FAST": "1"}, FULL, "fused", "fused"),
+    ({"PCRT_PALLAS_BLOOM": "1", "PCRT_BLOOM2_FAST": "1"}, {}, "bloom2", "bloom2"),
+    ({"PCRT_PALLAS_BLOOM": "1", "PCRT_BLOOM2_GAUSS": "1"}, FULL, "stripe", "stripe"),
+    ({"PCRT_BLOOM2_GAUSS": "1"}, {**FULL, "scanline_angle": 5.0}, "bloom2", "bloom2"),
+    ({"PCRT_PALLAS_BLOOM": "1"}, {**FULL, "bloom_strength": 0.0}, "none", "fused"),
+    ({"PCRT_PALLAS_BLOOM": "0", "PCRT_BLOOM2_GAUSS": "yes"}, FULL, "fused", "fused"),
+    ({"PCRT_NO_BLOOM3": "1"}, {"scanline_angle": 12.0}, "bloom3", None),
+    ({"PCRT_NO_FUSED": "1", "PCRT_FUSED_EPI": "xla"}, {}, "fused", None),
+]
+
+
+@pytest.mark.parametrize("env,overrides,route,jax", PRECEDENCE,
+                         ids=[f"{'+'.join(sorted(e))}-{r}-{i}" for i, (e, _, r, _j)
+                              in enumerate(PRECEDENCE)])
+def test_bloom_route_precedence_matches_jax(env, overrides, route, jax, monkeypatch):
+    """The JAX engine's precedence (engine.py:286-356): the stripe for the
+    gaussian bloom first, then bloom2 of the params' own variant, then the
+    default routes; the A/B variables that pick an XLA form are not read."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    tp, jp = params(overrides)
+    eng = CRTEngine(tp, H, W, FPS, device="cpu")
+    assert eng.bloom_route == route
+    assert eng._staged == (route not in ("fused", "none")
+                           or (tp.scanlines_on and not tp.scanlines_1d))
+    if jax is not None:
+        pk = JaxEngine(jp, H, W, FPS, pallas="on", interpret=True)
+        assert pk._pallas_fused == (jax == "fused")
+        assert (pk._pallas_bloom2, pk._pallas_bloom) == (jax == "bloom2", jax == "stripe")
