@@ -68,6 +68,7 @@ import functools
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -201,6 +202,44 @@ def bound(name: str, bytes_moved: int, values_out: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fused_instances(log: str) -> list:
+    """ptxas's lines for each instantiation of csrc/fused.cu's template
+    (core, radius, input): registers, stack frame, spill and static
+    shared memory bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            if "fused_strip_kernel" in line:
+                core, radius, f32 = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)E", line).groups()
+                cur = dict(core="fast" if core == "1" else "gaussian",
+                           radius="runtime" if radius.startswith("n") else int(radius),
+                           input="f32" if f32 == "1" else "uint8", registers=None, stack=None,
+                           spill_stores=None, spill_loads=None, static_smem=0)
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and cur["stack"] is None:  # the entry's own, not a callee's
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(m.group(1)) if m else 0
+    if len(out) != 6 or any(i["registers"] is None or i["stack"] is None for i in out):
+        fail(f"ptxas reported {len(out)} fused instantiations, expected 6: {out}")
+    return out
+
+
+def plan_note(tables) -> str:
+    """The fused kernel's walk for a spec (kernels/fused.py fused_plan)."""
+    p = tables.plan
+    return (f"; strips of {p.sw} columns, runs of {p.run} rows, chunks of {p.step} distinct "
+            f"rows, ring {p.depth}{f' + {p.hdepth} half-res' if p.fast else ''} rows, "
+            f"{p.smem} bytes of shared memory per block")
+
+
 def planar_gbr(frames: np.ndarray):
     import torch
 
@@ -258,6 +297,14 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[2] ptxas: {line.strip()}")
+    for inst in fused_instances(_build.build_log):
+        print(f"[2] fused instantiation {inst['core']}, radius {inst['radius']}, "
+              f"{inst['input']} input: {inst['registers']} registers, {inst['stack']} bytes "
+              f"stack frame, {inst['spill_stores']} + {inst['spill_loads']} bytes spill "
+              f"(stores + loads), {inst['static_smem']} bytes static shared memory (dynamic: "
+              f"the plan's, in [3])")
+        if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
+            fail(f"fused instantiation {inst} uses local memory")
     sys.stdout.flush()
 
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, oracle
@@ -288,8 +335,8 @@ def main() -> int:
               f"kernel {ms:.4f} ms/call ({ms / frames:.4f} ms/frame), plain twin "
               f"{plain_ms:.4f} ms/call ({plain_ms / frames:.4f} ms/frame), library {lib}; "
               f"bound {bms:.4f} ms/call ({bms / frames:.4f} ms/frame; {by}: "
-              f"{bytes_moved / 1e6:.1f} MB) at {frames} frames {res[0]}x{res[1]} on {card}",
-              flush=True)
+              f"{bytes_moved / 1e6:.1f} MB; {100 * bms / ms:.1f}% of the bound reached) at "
+              f"{frames} frames {res[0]}x{res[1]} on {card}", flush=True)
         if err > tol or lsb > LSB_TOL:
             fail(f"{kname}{note} disagrees with its twin: {err:.3g} abs, {lsb} LSB")
         table[kname] = dict(name=kname, route="cuda", source=src, replaces=repl, launches=0,
@@ -316,7 +363,8 @@ def main() -> int:
                         iters=3)
         row(kname, "pythoncrt_tpu_torch/csrc/fused.cu", "pythoncrt_tpu/kernels/fused.py:680",
             err, lsb, ms, plain, None, nbytes(x, got, *kw.values()), got.numel(),
-            note=f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core)")
+            note=f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core"
+                 f"{plan_note(eng.fused_tables)})")
         fused_out[cfg] = (eng, got)
         del want
 
@@ -420,7 +468,8 @@ def main() -> int:
                                      **kw)
             src, repl, extra = ("pythoncrt_tpu_torch/csrc/fused.cu",
                                 "pythoncrt_tpu/kernels/fused.py:680", list(kw.values()))
-            note = " (c4-text spec: text before the bloom, fast core)"
+            note = (" (c4-text spec: text before the bloom, fast core"
+                    f"{plan_note(eng.fused_tables)})")
         else:
             if not eng._staged or eng.bloom3_spec is None:
                 fail(f"{cfg} does not take the staged step")
@@ -538,7 +587,8 @@ def main() -> int:
         "pythoncrt_tpu/kernels/fused.py:680", err, lsb,
         time_ms(lambda: kfused.fused_pipeline(x5, eng5.spec, eng5.fused_tables, **kw5)),
         time_ms(fused5_twin, iters=2), None, nbytes(x5, f5, *kw5.values()), f5.numel(),
-        note=f" (c5: c4 spec, fast core, {C5_CLIPS} clips x {B} frames flat)",
+        note=f" (c5: c4 spec, fast core, {C5_CLIPS} clips x {B} frames flat"
+             f"{plan_note(eng5.fused_tables)})",
         frames=C5_CLIPS * B, res=(H4, W4))
 
     off5, seg5 = eng5.glitch_offsets(aux5), eng5.consts["glitch_seg_index"]

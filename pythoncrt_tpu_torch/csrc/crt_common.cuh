@@ -1,6 +1,6 @@
 // Device helpers shared by fused.cu and the bloom kernels (bloom3.cu,
 // bloom2.cu): the clip, the bloom knee, the oracle's lerp order
-// and the fast bloom core's tile windows. The files build with
+// and bloom3.cu's tile windows of the fast bloom core. The files build with
 // -fmad=false, so every multiply and add here is separately rounded, as in
 // the reference's f32 chain.
 

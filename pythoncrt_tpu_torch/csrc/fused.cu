@@ -9,41 +9,75 @@
 // the kernel) or the engine's pre-processed f32 image (`pre=False`,
 // fused.py:325-326: text composited before the bloom), read as it is.
 //
-// What bounds it on the card: bytes, on paper. A 1080p frame is 6.2 MB of
+// What bounds it on the card: on paper, bytes. A 1080p frame is 6.2 MB of
 // uint8 in (24.9 MB of f32 in the f32-input mode), plus the 8.3 MB f32
-// grain field when the noise stage is on;
-// the pass writes either 6.2 MB of uint8 (nothing downstream) or 24.9 MB
-// of f32 (the warp, glitch or persistence kernel's feed). The arithmetic
-// per pixel (grade pow, bloom taps, two triad table reads) is small beside
-// that on an H100; measured, the gaussian taps and the FP64 grade pow set
-// the time (PERF.md).
+// grain field when the noise stage is on; the pass writes either 6.2 MB
+// of uint8 (nothing downstream) or 24.9 MB of f32 (the warp, glitch or
+// persistence kernel's feed). Measured on an H100 (PERF.md), it runs at
+// 20-30% of that bound and a uint8 emit is no faster than an f32 one: the
+// time goes to latency, the barriers between a chunk's phases and the
+// chains of dependent shared-memory reads in the prologue and the
+// epilogue's triad tables, with three (gaussian) or four (fast) blocks
+// of 256 threads per SM. Per distinct source pixel the grade costs three
+// FP64 pows (about a hundred FP64 instructions each).
 //
-// Design: one block owns a 32x32 output tile of one frame, all three
-// planes (the saturation and triad luma need the three planes of a pixel
-// together). The block gathers its tile plus a halo through the composed
-// per-plane pixelate/aberration index maps (any pixel size, any frame
-// shape), applies /255 and the grade into shared memory (the f32-input
-// mode loads the halo with clamped coordinates instead), runs the bloom
-// core out of shared memory and finishes the epilogue in registers. Only
-// the uint8 input, the grain field, the small per-row/per-column tables
+// Design: one block owns a strip of SW output columns of one run of rows
+// of one frame, all three planes (the saturation and triad luma need the
+// three planes of a pixel together), and walks down the run. The host
+// plans the walk (kernels/fused.py fused_plan): the strip width, the
+// chunk and run sizes, the ring depths, each strip's staged column
+// ranges, each run's schedule (which half-res and output rows each chunk
+// completes) and each row's ring offsets; plan_chunks replays the walk
+// (tests/test_torch_fused_plan.py). Per chunk of STEP distinct source
+// rows:
+// 1. The raw rows of the next chunk are staged into shared memory with
+//    cp.async (16-byte copies where the row pitch and pointer allow it,
+//    double-buffered, commit_group / wait_group) while this chunk
+//    computes: the uint8 source rows named by the row map, per plane
+//    the column window the strip's index maps read, as at most two
+//    ranges (the aberration roll wraps at the frame's edges); or f32
+//    rows in the f32-input mode. The window's offsets into the staged
+//    row are computed once per block: the maps do not change down the
+//    strip. The grain of each thread's first output of the next chunk is
+//    loaded a chunk ahead.
+// 2. The prologue (/255, grade) runs once per distinct source pixel: a
+//    row whose map entry equals the row above's is the same row (one
+//    ring slot per distinct row), and a column whose three plane maps
+//    equal the column to its left's reuses its values (the block's
+//    leader list). Pixelate at size 2 thus pays a quarter of the FP64
+//    pows. The knee runs once per value.
+// 3. Gaussian core: the knee'd window rows are filtered horizontally,
+//    once per distinct row, into a ring of rows; each output row is the
+//    vertical tap sum over the ring, then the composite with the
+//    pre-knee value and the epilogue. The radius of the CLI default
+//    sigma 1.2 (r = 4) is a template with unrolled taps; other radii up
+//    to 31 take a loop. Strips (rows) away from the frame's edges run
+//    the taps without bounds tests.
+//    Fast core: a ring of knee'd source rows and a ring of half-res rows;
+//    each half-res row (down rows, then down columns) is computed once
+//    per block as soon as its two source rows are in the ring; each
+//    output row is up rows then up columns from the half-res ring, then
+//    the composite and the epilogue. The oracle's bilinear_taps tables
+//    drive it, so any H and W work.
+// 4. The epilogue reads the triad tables and the strip's triad and
+//    vignette rows from shared memory, and stores four values per thread
+//    (float4 / uchar4) where W % 4 == 0.
+// The vertical halo is paid once per run, the horizontal one per strip.
+// Only the input, the grain field, the small per-row/per-column tables
 // and the output cross device memory.
-// - Gaussian core: an r-pixel halo, reads clamped to the frame (the
-//   replicate border); horizontal then vertical taps.
-// - Fast core: the oracle's resize_bilinear down to (H/2, W/2) and back,
-//   each pass rows first then columns, lo*(1-f) + hi*f, from the oracle's
-//   bilinear_taps tables. The halo is the tables' extent for the tile
-//   (2 full-res pixels at a 2x ratio), read per block from the tables, so
-//   any H and W work, odd ones included.
 //
 // Exactness: the triad quantizes to a 1024-bin grid, so every f32 op
 // upstream of it keeps the reference's order. The file is compiled with
 // -fmad=false (no multiply-add contraction); divisions are IEEE (nvcc's
 // default -prec-div=true); the grade pow is computed in double and rounded
 // once to float; the triad's two pow sites read 1025-entry tables the host
-// builds with the same rounding. Gaussian border taps follow the fold the
-// JAX paths use: out-of-frame taps add nothing in tap order, then the
-// clipped taps' summed coefficient times the edge sample is added (left,
-// then right).
+// builds with the same rounding. The tap sums are sequential f32
+// multiply-adds in tap order, on purpose not on the tensor cores: a TF32
+// or bf16 product, or a reordered sum, moves values across the triad's
+// quantize steps. Gaussian border taps follow the fold the JAX paths
+// use: out-of-frame taps add nothing in tap order, then the clipped
+// taps' summed coefficient times the edge sample is added (left, then
+// right).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,10 +86,11 @@
 
 namespace {
 
-constexpr int TX = 32;       // output tile width (kernels/fused.py TILE)
-constexpr int TY = 32;       // output tile height
 constexpr int NT = 256;      // threads per block
+constexpr int NWARP = NT / 32;
 constexpr int MAXK = 63;     // taps (radius <= 31)
+constexpr int GAUSS = 0, FAST = 1;
+constexpr int LUTP = 1028;   // pitch of the two 1025-entry triad tables in shared memory
 
 }  // namespace
 
@@ -64,7 +99,6 @@ struct FusedArgs {
     const uint8_t* img;      // (B, 3, H, W) uint8 frames (pre_on), or null
     const float* imgf;       // (B, 3, H, W) f32 pre-processed image (!pre_on), or null
     void* out;               // (B, 3, H, W) float or uint8
-    const int32_t* ymap;     // (H,)    source row of each output row
     const int32_t* xmap;     // (3, W)  source column per plane
     const float* grain;      // (B, H, W) unscaled noise field, or null
     const float* sl;         // (B, H) scanline multiplier, or null
@@ -79,6 +113,13 @@ struct FusedArgs {
     const int32_t* fd_xlo; const float* fd_xf;   // (W2,) down, columns
     const int32_t* fu_ylo; const float* fu_yf;   // (H,)  up, rows
     const int32_t* fu_xlo; const float* fu_xf;   // (W,)  up, columns
+    // the walk (kernels/fused.py fused_plan)
+    const int32_t* ysrc;     // (ND,) source row of each distinct row
+    const int32_t* segs;     // (strips, 3, 4) staged column ranges (a0, n0, a1, n1)
+    const int32_t* runtab;   // (runs, run_stride): d_lo, d_hi, first half-res row,
+                             // then (he, ye) per chunk: the walk's schedule
+    const int32_t* rowtab;   // (H, 4 or 2r + 2) ring offsets of each output row's operands
+    const int32_t* halftab;  // (H2, 4) fast core: ring offsets of each half-res row's rows
     int32_t b, h, w;
     int32_t emit_u8;
     int32_t pre_on;          // 1: stages 1-4 from img; 0: read imgf as it is
@@ -97,9 +138,15 @@ struct FusedArgs {
     float edge_l[MAXK];  // edge_l[d]: summed taps clipped off the left/top at distance d
     float edge_r[MAXK];  // edge_r[d]: same for the right/bottom edge
     int32_t fast_on, h2, w2;
-    // largest per-tile extents of the fast core's tables (shared memory
-    // sizing): full-res rows/columns, half-res rows/columns
-    int32_t fs_rows, fs_cols, fh_rows, fh_cols;
+    // strip width, distinct rows per chunk, rows per run; ring depths;
+    // window pitches; staged row pitch (elements); copy size (16, 4 or 1
+    // bytes); 16-byte epilogue loads and stores; shared memory bytes
+    int32_t sw, step, run;
+    int32_t depth, hdepth;
+    int32_t win, hwin;
+    int32_t seg_pitch, copy_bytes;
+    int32_t run_stride;
+    int32_t vec_ok, smem;
     // epilogue (stages 7-11)
     int32_t triad_mode;  // 0 off, 1 multiply only, 2 LUT-exact
     int32_t luma_on;
@@ -112,6 +159,63 @@ namespace {
 
 using crt::clip01;
 using crt::lerp_taps;
+
+// The block's shared memory, carved in this order (kernels/fused.py
+// plan_smem computes the same total).
+struct Smem {
+    unsigned char* stage;  // [2][step][3][seg_pitch] staged rows (uint8 or f32)
+    float* kw;             // gaussian: [step][3][win] knee'd window rows of the chunk
+    float* ring;           // gaussian: [depth][3][sw] filtered rows; fast: [depth][3][win] knee'd rows
+    float* half;           // fast: [hdepth][3][hwin] half-res rows
+    int* hx_lo; float* hx_f;  // fast: the down-column taps of the half-res window
+    int* ux_lo; float* ux_f;  // fast: the up-column taps of the strip
+    float* xr;             // [depth][3][sw] pre-knee strip (the composite's operand); the
+                           // fast core without a knee reads it from the knee'd ring
+    short* offs;           // [3][win] staged offset of each window column
+    short* lead;           // [win + 1] first column of each run of equal map columns
+    short* loffs;          // [3][win] the staged offset of each leader column
+    float* lut;            // [2][LUTP] the triad's tables (LUT-exact triad)
+    float* tri;            // [3][sw] the strip's triad rows
+    float* vx;             // [sw] the strip's vignette nx^2
+    int* misc;             // [12] this strip's staged ranges, [12] the leader count
+    int total;
+};
+
+__host__ __device__ __forceinline__ int a16h(int n) { return (n + 15) & ~15; }
+
+__host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* base) {
+    Smem s;
+    const bool fast = a.bloom_on && a.fast_on;
+    const int r = (a.bloom_on && !a.fast_on) ? a.r : 0;
+    int o = 0;
+    s.stage = base + o; o += a16h(2 * a.step * 3 * a.seg_pitch * (a.pre_on ? 1 : 4));
+    s.kw = s.ring = s.half = s.hx_f = s.ux_f = nullptr;
+    s.hx_lo = s.ux_lo = nullptr;
+    if (fast) {
+        s.ring = (float*)(base + o); o += a16h(a.depth * 3 * a.win * 4);
+        s.half = (float*)(base + o); o += a16h(a.hdepth * 3 * a.hwin * 4);
+        s.hx_lo = (int*)(base + o);
+        s.hx_f = (float*)(base + o + a.hwin * 4);
+        s.ux_lo = (int*)(base + o + a.hwin * 8);
+        s.ux_f = (float*)(base + o + a.hwin * 8 + a.sw * 4);
+        o += a16h((a.hwin + a.sw) * 8);
+    } else if (r > 0) {
+        s.kw = (float*)(base + o); o += a16h(a.step * 3 * a.win * 4);
+        s.ring = (float*)(base + o); o += a16h(a.depth * 3 * a.sw * 4);
+    }
+    s.xr = (float*)(base + o);
+    if (!fast || a.knee_on) o += a16h(a.depth * 3 * a.sw * 4);
+    s.offs = (short*)(base + o); o += a16h(3 * a.win * 2);
+    s.lead = (short*)(base + o); o += a16h((a.win + 1) * 2);
+    s.loffs = (short*)(base + o); o += a16h(3 * a.win * 2);
+    s.lut = (float*)(base + o);
+    s.tri = s.lut + 2 * LUTP;
+    s.vx = s.tri + 3 * a.sw;
+    o += a16h((2 * LUTP + 4 * a.sw) * 4);
+    s.misc = (int*)(base + o); o += 64;
+    s.total = o;
+    return s;
+}
 
 __device__ __forceinline__ float knee(const FusedArgs& a, float v) {
     return crt::knee(a.knee_on, a.thr, a.rden, v);
@@ -126,26 +230,20 @@ __device__ __forceinline__ float luma(float r, float g, float b) {
     return 0.2126f * r + 0.7152f * g + 0.0722f * b;
 }
 
-// Stages 1-4 for one pixel: gather through the index maps, /255, grade.
-// In the f32-input mode, the pixel of the pre-processed image (gy, gx are
-// already clamped to the frame).
-__device__ void prologue(const FusedArgs& a, int bi, int gy, int gx, float x[3]) {
-    const size_t plane = (size_t)a.h * a.w;
-    if (!a.pre_on) {
-        const float* src = a.imgf + (size_t)bi * 3 * plane + (size_t)gy * a.w + gx;
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) x[p] = src[p * plane];
-        return;
-    }
-    const uint8_t* base = a.img + (size_t)bi * 3 * plane;
-    const int sy = a.ymap[gy];
-    #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-        const int sx = a.xmap[p * a.w + gx];
-        x[p] = (float)base[p * plane + (size_t)sy * a.w + sx] * a.inv255;
-    }
+// x[i] for a plane index known only at run time, by selects: an indexed
+// read of a register array would put the array in local memory.
+__device__ __forceinline__ float pick(const float x[3], int i) {
+    return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
+}
+
+__device__ __forceinline__ float luma3(const FusedArgs& a, const float x[3]) {
+    return luma(pick(x, a.ir), pick(x, a.ig), pick(x, a.ib));
+}
+
+// Stages 2-4 on one gathered pixel (x already * 1/255).
+__device__ __forceinline__ void grade(const FusedArgs& a, float x[3]) {
     if (a.sat_on) {
-        const float l = luma(x[a.ir], x[a.ig], x[a.ib]);
+        const float l = luma3(a, x);
         #pragma unroll
         for (int p = 0; p < 3; ++p) x[p] = clip01(l + (x[p] - l) * a.sat);
     }
@@ -165,246 +263,546 @@ __device__ void prologue(const FusedArgs& a, int bi, int gy, int gx, float x[3])
     }
 }
 
-// Stages 7-11 for one composited pixel, then the store.
-__device__ void epilogue(const FusedArgs& a, int bi, int gy, int gx, float m[3]) {
-    const int h = a.h, w = a.w;
+// Stages 7-11 for one composited pixel, given its per-column operands.
+__device__ __forceinline__ void finish(const FusedArgs& a, const float* lut, float m[3],
+                                       const float tri[3], float s, float vy2, float vx2, float f,
+                                       float n) {
     if (a.triad_mode == 1) {
         #pragma unroll
-        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * a.tri[p * w + gx]);
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * tri[p]);
     } else if (a.triad_mode == 2) {
         float lin[3], ol[3];
         #pragma unroll
         for (int p = 0; p < 3; ++p) {
-            lin[p] = a.lut_fwd[quantize(m[p])];
-            ol[p] = lin[p] * a.tri[p * w + gx];
+            lin[p] = lut[quantize(m[p])];
+            ol[p] = lin[p] * tri[p];
         }
         if (a.luma_on) {
-            const float yb = luma(lin[a.ir], lin[a.ig], lin[a.ib]);
-            const float ya = luma(ol[a.ir], ol[a.ig], ol[a.ib]);
+            const float yb = luma3(a, lin);
+            const float ya = luma3(a, ol);
             const float ratio = fminf(fmaxf(yb / fmaxf(ya, 1e-6f), 0.5f), 2.0f);
             #pragma unroll
             for (int p = 0; p < 3; ++p) ol[p] = ol[p] * ratio;
         }
         #pragma unroll
-        for (int p = 0; p < 3; ++p) m[p] = clip01(a.lut_fin[quantize(ol[p])]);
+        for (int p = 0; p < 3; ++p) m[p] = clip01(lut[LUTP + quantize(ol[p])]);
     }
     if (a.sl_on) {
-        const float s = a.sl[(size_t)bi * h + gy];
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * s);
     }
     if (a.vig_on) {
-        const float v = 1.0f - a.vig_strength * clip01(a.vy2[gy] + a.vx2[gx]);
+        const float v = 1.0f - a.vig_strength * clip01(vy2 + vx2);
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * v);
     }
     if (a.flicker_on) {
-        const float f = a.flicker[bi];
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * f);
     }
     if (a.noise_on) {
-        const float n = a.grain[((size_t)bi * h + gy) * w + gx] * a.noise_scale;
+        const float nn = n * a.noise_scale;
         #pragma unroll
-        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] + n);
+        for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] + nn);
+    }
+}
+
+// The grain of nv (1-4) adjacent pixels of row gy from gx: one 16-byte
+// load when the epilogue is vectorized (0 when the noise stage is off).
+__device__ __forceinline__ void load_grain(const FusedArgs& a, int bi, int gy, int gx, int nv,
+                                           float gr[4]) {
+    #pragma unroll
+    for (int v = 0; v < 4; ++v) gr[v] = 0.0f;
+    if (!a.noise_on) return;
+    const float* g = a.grain + ((size_t)bi * a.h + gy) * a.w + gx;
+    if (a.vec_ok && nv == 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(g));
+        gr[0] = t.x; gr[1] = t.y; gr[2] = t.z; gr[3] = t.w;
+    } else {
+        #pragma unroll
+        for (int v = 0; v < 4; ++v) if (v < nv) gr[v] = __ldg(g + v);
+    }
+}
+
+// The epilogue and the store of nv (1-4) adjacent pixels of row gy from
+// gx (column lx of the strip), given their grain: one store per plane
+// when vec. The triad tables and the strip's triad and vignette rows are
+// read from shared memory, a column at a time.
+__device__ __forceinline__ void epilogue4(const FusedArgs& a, const Smem& S, int bi, int gy,
+                                          int gx, int lx, int nv, float m[3][4],
+                                          const float gr[4]) {
+    const int h = a.h, w = a.w;
+    const bool vec = a.vec_ok && nv == 4;
+    const float s = a.sl_on ? __ldg(a.sl + (size_t)bi * h + gy) : 0.0f;
+    const float vy = a.vig_on ? __ldg(a.vy2 + gy) : 0.0f;
+    const float f = a.flicker_on ? __ldg(a.flicker + bi) : 0.0f;
+    #pragma unroll
+    for (int v = 0; v < 4; ++v) {
+        const int c = lx + min(v, nv - 1);  // columns past the frame are not stored
+        float t3[3], px[3];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            t3[p] = S.tri[p * a.sw + c];
+            px[p] = m[p][v];
+        }
+        finish(a, S.lut, px, t3, s, vy, S.vx[c], f, gr[v]);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) m[p][v] = px[p];
     }
     const size_t plane = (size_t)h * w;
     const size_t o = (size_t)bi * 3 * plane + (size_t)gy * w + gx;
-    if (a.emit_u8) {
-        uint8_t* out = static_cast<uint8_t*>(a.out);
-        #pragma unroll
-        for (int p = 0; p < 3; ++p)
-            out[o + p * plane] = (uint8_t)fminf(fmaxf(rintf(m[p] * 255.0f), 0.0f), 255.0f);
-    } else {
-        float* out = static_cast<float*>(a.out);
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) out[o + p * plane] = m[p];
+    #pragma unroll
+    for (int p = 0; p < 3; ++p) {
+        if (a.emit_u8) {
+            uint8_t q[4];
+            #pragma unroll
+            for (int v = 0; v < 4; ++v)
+                q[v] = (uint8_t)fminf(fmaxf(rintf(m[p][v] * 255.0f), 0.0f), 255.0f);
+            uint8_t* dst = static_cast<uint8_t*>(a.out) + o + p * plane;
+            if (vec) {
+                *reinterpret_cast<uchar4*>(dst) = make_uchar4(q[0], q[1], q[2], q[3]);
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) if (v < nv) dst[v] = q[v];
+            }
+        } else {
+            float* dst = static_cast<float*>(a.out) + o + p * plane;
+            if (vec) {
+                *reinterpret_cast<float4*>(dst) = make_float4(m[p][0], m[p][1], m[p][2], m[p][3]);
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) if (v < nv) dst[v] = m[p][v];
+            }
+        }
     }
 }
 
-// Gaussian and bloom-off cores.
-__global__ void __launch_bounds__(NT)
-fused_kernel(const FusedArgs a) {
-    extern __shared__ float smem[];
-    const int r = a.bloom_on ? a.r : 0;
-    const int k = 2 * r + 1;
-    const int rh = TY + 2 * r;          // rows held (tile + halo)
-    const int rw = TX + 2 * r;          // columns held
-    const int sp = rw + 1;              // padded pitch
-    float* S = smem;                    // [3][rh][sp] prologue output (pre-knee)
-    float* Hs = smem + 3 * rh * sp;     // [3][rh][TX] horizontal pass
+// n / d for 0 <= n, d < 2^16 by a 64-bit multiply-high, exact there: the
+// phases' flat item indices split without a runtime division.
+struct FastDiv {
+    unsigned long long m;
+    __device__ explicit FastDiv(int d) : m((0xffffffffull / (unsigned)d) + 1ull) {}
+    __device__ int operator()(int n) const {
+        return (int)(((unsigned long long)(unsigned)n * m) >> 32);
+    }
+};
 
-    const int x0 = blockIdx.x * TX;
-    const int y0 = blockIdx.y * TY;
-    const int bi = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int h = a.h, w = a.w;
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" :: "r"(d), "l"(src), "n"(N));
+}
 
-    // ---- prologue into shared memory, halo clamped to the frame ----
-    for (int i = tid; i < rh * rw; i += NT) {
-        const int ly = i / rw, lx = i - (i / rw) * rw;
-        const int gy = min(max(y0 - r + ly, 0), h - 1);
-        const int gx = min(max(x0 - r + lx, 0), w - 1);
-        float x[3];
-        prologue(a, bi, gy, gx, x);
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Stage the raw rows of distinct rows [d, d + dn) of frame bi into buf:
+// per row and plane the strip's one or two column ranges, back to back.
+template <bool F32IN>
+__device__ void stage_rows(const FusedArgs& a, unsigned char* buf, const int* seg, int bi,
+                           int d, int dn) {
+    constexpr int ES = F32IN ? 4 : 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int cb = a.copy_bytes;
+    const unsigned char* src0 = F32IN ? reinterpret_cast<const unsigned char*>(a.imgf) : a.img;
+    for (int rp = warp; rp < dn * 3; rp += NWARP) {
+        const int k = rp / 3, p = rp - 3 * k;
+        const int sy = F32IN ? d + k : __ldg(a.ysrc + d + k);
+        const unsigned char* row = src0 + (((size_t)bi * 3 + p) * a.h + sy) * (size_t)a.w * ES;
+        unsigned char* dst = buf + (size_t)(k * 3 + p) * a.seg_pitch * ES;
         #pragma unroll
-        for (int p = 0; p < 3; ++p) S[(p * rh + ly) * sp + lx] = x[p];
+        for (int s = 0; s < 2; ++s) {
+            const unsigned char* src = row + (size_t)seg[p * 4 + 2 * s] * ES;
+            const int n = seg[p * 4 + 2 * s + 1] * ES;
+            if (cb == 16) {
+                for (int g = lane * 16; g < n; g += 32 * 16) cp_async<16>(dst + g, src + g);
+            } else if (cb == 4) {
+                for (int g = lane * 4; g < n; g += 32 * 4) cp_async<4>(dst + g, src + g);
+            } else {
+                for (int g = lane; g < n; g += 32) dst[g] = src[g];
+            }
+            dst += n;
+        }
+    }
+}
+
+// acc[v] += c * row[v] for four adjacent columns of a ring row (16-byte load).
+__device__ __forceinline__ void add4(float acc[4], float c, const float* row) {
+    const float4 t = *reinterpret_cast<const float4*>(row);
+    acc[0] = acc[0] + c * t.x;
+    acc[1] = acc[1] + c * t.y;
+    acc[2] = acc[2] + c * t.z;
+    acc[3] = acc[3] + c * t.w;
+}
+
+// Horizontal taps of four adjacent outputs from a knee'd window row.
+// `row` points at the window column of frame column gx - r.
+template <int RT>
+__device__ __forceinline__ void htaps_interior(const FusedArgs& a, const float* row, int r,
+                                               float acc[4]) {
+    #pragma unroll
+    for (int v = 0; v < 4; ++v) acc[v] = 0.0f;
+    if constexpr (RT > 0) {
+        static_assert(RT % 2 == 0, "the window loads are 16 bytes: 2 * RT a multiple of 4");
+        constexpr int NV = 4 + 2 * RT;   // a multiple of 4: 16-byte loads
+        float val[NV];
+        #pragma unroll
+        for (int i = 0; i < NV; i += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(row + i);
+            val[i] = t.x; val[i + 1] = t.y; val[i + 2] = t.z; val[i + 3] = t.w;
+        }
+        #pragma unroll
+        for (int t = 0; t < 2 * RT + 1; ++t) {
+            #pragma unroll
+            for (int v = 0; v < 4; ++v) acc[v] = acc[v] + a.taps[t] * val[v + t];
+        }
+    } else {
+        for (int t = 0; t < 2 * r + 1; ++t) {
+            const float tp = a.taps[t];
+            #pragma unroll
+            for (int v = 0; v < 4; ++v) acc[v] = acc[v] + tp * row[v + t];
+        }
+    }
+}
+
+// Blocks per SM the registers must allow: the gaussian instantiations
+// take 80 registers a thread (3 blocks), the fast ones 64 (4 blocks),
+// which measured faster for each on an H100 (PERF.md).
+template <int CORE, int RT, bool F32IN>
+__global__ void __launch_bounds__(NT, CORE == FAST ? 4 : 3)
+fused_strip_kernel(const __grid_constant__ FusedArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const Smem S = smem_layout(a, smem);
+    const int tid = threadIdx.x;
+    const int h = a.h, w = a.w, bi = blockIdx.z;
+    const int sw = a.sw, step = a.step, depth = a.depth;
+    const int x0 = blockIdx.x * sw, xe = min(x0 + sw, w), ncen = xe - x0;
+    const int y0 = blockIdx.y * a.run, y1 = min(y0 + a.run, h);
+    const int r = CORE == FAST ? 0 : (RT >= 0 ? RT : (a.bloom_on ? a.r : 0));
+
+    // ---- the strip's windows: full-res [win0, win1), half-res [j0, j1] ----
+    int win0, win1, j0 = 0, j1 = -1;
+    if constexpr (CORE == GAUSS) {
+        win0 = max(0, x0 - r);
+        win1 = min(w, xe + r);
+    } else {
+        j0 = __ldg(a.fu_xlo + x0);
+        j1 = min(__ldg(a.fu_xlo + xe - 1) + 1, a.w2 - 1);
+        win0 = min(__ldg(a.fd_xlo + j0), x0);
+        win1 = max(min(__ldg(a.fd_xlo + j1) + 1, w - 1), xe - 1) + 1;
+    }
+    const int nwin = win1 - win0, cofs = x0 - win0, nhw = j1 - j0 + 1;
+    // the fast core's knee'd ring holds window column c at c - win0 + ksh:
+    // the strip's first column then starts a 16-byte word, for the
+    // composite's loads when the ring also serves as the pre-knee strip
+    const int ksh = CORE == FAST ? (4 - (cofs & 3)) & 3 : 0;
+    const bool xsep = CORE == GAUSS || a.knee_on;  // a separate pre-knee strip ring
+    int* seg = S.misc;
+    if (tid < 12) seg[tid] = __ldg(a.segs + blockIdx.x * 12 + tid);
+    if (a.triad_mode == 2) {
+        for (int i = tid; i < 1025; i += NT) {
+            S.lut[i] = __ldg(a.lut_fwd + i);
+            S.lut[LUTP + i] = __ldg(a.lut_fin + i);
+        }
+    }
+    for (int x = tid; x < ncen; x += NT) {
+        #pragma unroll
+        for (int p = 0; p < 3; ++p)
+            S.tri[p * sw + x] = a.triad_mode ? __ldg(a.tri + p * w + x0 + x) : 0.0f;
+        S.vx[x] = a.vig_on ? __ldg(a.vx2 + x0 + x) : 0.0f;
+    }
+    if constexpr (CORE == FAST) {
+        for (int j = tid; j < nhw; j += NT) {
+            S.hx_lo[j] = __ldg(a.fd_xlo + j0 + j);
+            S.hx_f[j] = __ldg(a.fd_xf + j0 + j);
+        }
+        for (int x = tid; x < ncen; x += NT) {
+            S.ux_lo[x] = __ldg(a.fu_xlo + x0 + x);
+            S.ux_f[x] = __ldg(a.fu_xf + x0 + x);
+        }
     }
     __syncthreads();
 
-    // ---- horizontal taps on the knee'd source ----
-    if (r > 0) {
-        for (int i = tid; i < rh * TX; i += NT) {
-            const int ly = i / TX, lx = i - (i / TX) * TX;
-            const int gx = x0 + lx;
-            if (gx >= w) continue;
-            const int dl = gx, dr = w - 1 - gx;
+    // ---- staged offsets and the leader flags of the window's columns ----
+    for (int c = tid; c < nwin; c += NT) {
+        const int gc = win0 + c;
+        bool leader = F32IN || c == 0;
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            const int sx = F32IN ? gc : __ldg(a.xmap + p * w + gc);
+            const int a0 = seg[p * 4], n0 = seg[p * 4 + 1], a1 = seg[p * 4 + 2];
+            S.offs[p * a.win + c] = (short)((sx >= a0 && sx < a0 + n0) ? sx - a0 : n0 + sx - a1);
+            if (!F32IN && c > 0) leader = leader || sx != __ldg(a.xmap + p * w + gc - 1);
+        }
+        S.lead[c] = leader ? 1 : 0;
+    }
+    __syncthreads();
+    if (tid < 32) {  // compact the flags into the list of leader columns
+        int count = 0;
+        for (int base = 0; base < nwin; base += 32) {
+            const bool f = base + tid < nwin && S.lead[base + tid];
+            const unsigned m = __ballot_sync(0xffffffffu, f);
+            __syncwarp();
+            if (f) {
+                const int li = count + __popc(m & ((1u << tid) - 1u));
+                S.lead[li] = (short)(base + tid);
+                #pragma unroll
+                for (int p = 0; p < 3; ++p) S.loffs[p * a.win + li] = S.offs[p * a.win + base + tid];
+            }
+            count += __popc(m);
+            __syncwarp();
+        }
+        if (tid == 0) {
+            S.lead[count] = (short)nwin;
+            S.misc[12] = count;
+        }
+    }
+
+    // ---- the walk's schedule for this run (kernels/fused.py plan_chunks) ----
+    const int* sched = a.runtab + blockIdx.y * a.run_stride;
+    const int d_lo = __ldg(sched), d_hi = __ldg(sched + 1);
+    int nh = __ldg(sched + 2);
+    const size_t stage_buf = (size_t)step * 3 * a.seg_pitch * (F32IN ? 4 : 1);
+    stage_rows<F32IN>(a, S.stage, seg, bi, d_lo, min(step, d_hi - d_lo));
+    cp_commit();
+    __syncthreads();
+    const int nl = S.misc[12];
+    const int nq = (ncen + 3) >> 2;   // groups of four output columns
+    const FastDiv div_nl(nl), div_nq(nq), div_nhw(max(nhw, 1));
+    const int kt = 2 * r + 1;
+    const int rw = CORE == FAST ? 4 : kt + 1;  // ints per row of rowtab
+    int nxt = y0;
+    int he_next = __ldg(sched + 3), ye_next = __ldg(sched + 4);
+    // the grain of this thread's first output of a chunk is loaded a chunk
+    // ahead, so that its latency hides behind a whole chunk
+    float gr_next[4];
+    if (tid < (ye_next - y0) * nq) {
+        const int yy = div_nq(tid), q = tid - yy * nq;
+        load_grain(a, bi, y0 + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+    }
+
+    for (int d = d_lo, ci = 0; d < d_hi; d += step, ++ci) {
+        const int dn = min(step, d_hi - d), e = d + dn;
+        if (e < d_hi)
+            stage_rows<F32IN>(a, S.stage + ((ci + 1) & 1) * stage_buf, seg, bi, e,
+                              min(step, d_hi - e));
+        cp_commit();
+        cp_wait_prior();
+        __syncthreads();
+
+        // ---- the rows this chunk completes; the next chunk's rows and grain ----
+        const int he = CORE == FAST ? he_next : nh, ye = ye_next;
+        float gr0[4];
+        #pragma unroll
+        for (int v = 0; v < 4; ++v) gr0[v] = gr_next[v];
+        if (e < d_hi) {
+            he_next = __ldg(sched + 5 + 2 * ci);
+            ye_next = __ldg(sched + 6 + 2 * ci);
+            if (tid < (ye_next - ye) * nq) {
+                const int yy = div_nq(tid), q = tid - yy * nq;
+                load_grain(a, bi, ye + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+            }
+        }
+
+        // ---- 1. prologue, once per distinct source pixel ----
+        const unsigned char* st = S.stage + (ci & 1) * stage_buf;
+        const int rb = d % depth;  // ring slot of distinct row d
+        for (int it = tid; it < dn * nl; it += NT) {
+            const int k = div_nl(it), li = it - k * nl;
+            const int c = S.lead[li], ce = S.lead[li + 1];
+            float x[3];
             #pragma unroll
             for (int p = 0; p < 3; ++p) {
-                const float* row = S + (p * rh + ly) * sp;
-                float acc = 0.0f;
-                for (int t = 0; t < k; ++t) {
-                    const int sx = gx + t - r;
-                    if (sx >= 0 && sx < w) acc = acc + a.taps[t] * knee(a, row[lx + t]);
+                const int o = (k * 3 + p) * a.seg_pitch + S.loffs[p * a.win + li];
+                x[p] = F32IN ? reinterpret_cast<const float*>(st)[o] : (float)st[o] * a.inv255;
+            }
+            if (!F32IN) grade(a, x);
+            const int slot = rb + k < depth ? rb + k : rb + k - depth;
+            float kx[3];
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) kx[p] = knee(a, x[p]);
+            for (int cc = c; cc < ce; ++cc) {
+                #pragma unroll
+                for (int p = 0; p < 3; ++p) {
+                    if constexpr (CORE == GAUSS) {
+                        if (r > 0) S.kw[(k * 3 + p) * a.win + cc] = kx[p];
+                    } else {
+                        S.ring[(slot * 3 + p) * a.win + cc + ksh] = kx[p];
+                    }
+                    const int lc = cc - cofs;
+                    if (xsep && lc >= 0 && lc < ncen) S.xr[(slot * 3 + p) * sw + lc] = x[p];
                 }
-                if (dl < r) acc = acc + a.edge_l[dl] * knee(a, row[r - x0]);
-                if (dr < r) acc = acc + a.edge_r[dr] * knee(a, row[(w - 1) - x0 + r]);
-                Hs[(p * rh + ly) * TX + lx] = acc;
             }
         }
         __syncthreads();
-    }
 
-    // ---- vertical taps, composite, epilogue ----
-    for (int i = tid; i < TY * TX; i += NT) {
-        const int ly = i / TX, lx = i - (i / TX) * TX;
-        const int gy = y0 + ly, gx = x0 + lx;
-        if (gy >= h || gx >= w) continue;
-        float m[3];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            const float xv = S[(p * rh + ly + r) * sp + lx + r];
-            if (!a.bloom_on) { m[p] = xv; continue; }
-            // a one-tap gaussian is the identity (the reference skips it)
-            float acc = knee(a, xv);
+        if constexpr (CORE == GAUSS) {
+            // ---- 2. horizontal taps, once per distinct row ----
             if (r > 0) {
-                const float* col = Hs + p * rh * TX + lx;
-                acc = 0.0f;
-                for (int t = 0; t < k; ++t) {
-                    const int sy = gy + t - r;
-                    if (sy >= 0 && sy < h) acc = acc + a.taps[t] * col[(ly + t) * TX];
+                const bool interior = x0 >= r && x0 + sw + r <= w;
+                for (int it = tid; it < dn * 3 * nq; it += NT) {
+                    const int kp = div_nq(it), q = it - kp * nq;
+                    const int k = kp / 3, p = kp - 3 * k;
+                    const float* row = S.kw + (k * 3 + p) * a.win;
+                    const int gx = x0 + 4 * q;
+                    float acc[4];
+                    if (interior) {
+                        htaps_interior<RT>(a, row + (gx - r - win0), r, acc);
+                    } else {
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) {
+                            const int x = gx + v;
+                            float s = 0.0f;
+                            if (x < w) {
+                                for (int t = 0; t < kt; ++t) {
+                                    const int sx = x + t - r;
+                                    if (sx >= 0 && sx < w) s = s + a.taps[t] * row[sx - win0];
+                                }
+                                if (x < r) s = s + a.edge_l[x] * row[0 - win0];
+                                if (w - 1 - x < r) s = s + a.edge_r[w - 1 - x] * row[w - 1 - win0];
+                            }
+                            acc[v] = s;
+                        }
+                    }
+                    const int slot = rb + k < depth ? rb + k : rb + k - depth;
+                    *reinterpret_cast<float4*>(S.ring + (slot * 3 + p) * sw + 4 * q) =
+                        make_float4(acc[0], acc[1], acc[2], acc[3]);
                 }
-                const int dt = gy, db = h - 1 - gy;
-                if (dt < r) acc = acc + a.edge_l[dt] * col[(r - y0) * TX];
-                if (db < r) acc = acc + a.edge_r[db] * col[((h - 1) - y0 + r) * TX];
+                __syncthreads();
             }
-            m[p] = clip01(xv + a.strength * acc);
-        }
-        epilogue(a, bi, gy, gx, m);
-    }
-}
 
-// Fast core: resize_bilinear(resize_bilinear(knee(x), H/2, W/2), H, W).
-__global__ void __launch_bounds__(NT)
-fused_fast_kernel(const FusedArgs a) {
-    extern __shared__ float smem[];
-    const int h = a.h, w = a.w;
-    const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, bi = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int ty1 = min(y0 + TY, h) - 1, tx1 = min(x0 + TX, w) - 1;
-    const crt::FastWindow fy = crt::fast_window(a.fu_ylo, a.fd_ylo, y0, ty1, h, a.h2);
-    const crt::FastWindow fx = crt::fast_window(a.fu_xlo, a.fd_xlo, x0, tx1, w, a.w2);
-    const int SR = a.fs_rows, SC = a.fs_cols, HR = a.fh_rows, HC = a.fh_cols;
-    float* S = smem;                  // [3][SR][SC] prologue output (pre-knee)
-    float* D1 = S + 3 * SR * SC;      // [3][HR][SC] down, rows
-    float* D2 = D1 + 3 * HR * SC;     // [3][HR][HC] down, columns: the half-res image
-    float* U1 = D2 + 3 * HR * HC;     // [3][TY][HC] up, rows
+            // ---- 3. vertical taps, composite, epilogue ----
+            for (int it = tid; it < (ye - nxt) * nq; it += NT) {
+                const int yy = div_nq(it), q = it - yy * nq;
+                const int y = nxt + yy, gx = x0 + 4 * q;
+                const int* t = a.rowtab + (size_t)y * rw;
+                const bool inner = y - r >= 0 && y + r < h;
+                float m[3][4];
+                #pragma unroll
+                for (int p = 0; p < 3; ++p) {
+                    const float4 xv4 =
+                        *reinterpret_cast<const float4*>(S.xr + t[0] + p * sw + 4 * q);
+                    const float xv[4] = {xv4.x, xv4.y, xv4.z, xv4.w};
+                    float acc[4];
+                    if (!a.bloom_on) {
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) m[p][v] = xv[v];
+                        continue;
+                    }
+                    if (r == 0) {  // a one-tap gaussian is the identity (the reference skips it)
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) acc[v] = knee(a, xv[v]);
+                    } else {
+                        const float* col = S.ring + p * sw + 4 * q;
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) acc[v] = 0.0f;
+                        if (inner) {
+                            if constexpr (RT > 0) {
+                                #pragma unroll
+                                for (int k = 0; k < 2 * RT + 1; ++k)
+                                    add4(acc, a.taps[k], col + t[1 + k]);
+                            } else {
+                                for (int k = 0; k < kt; ++k) add4(acc, a.taps[k], col + t[1 + k]);
+                            }
+                        } else {
+                            for (int k = 0; k < kt; ++k) {
+                                const int sy = y + k - r;
+                                if (sy >= 0 && sy < h) add4(acc, a.taps[k], col + t[1 + k]);
+                            }
+                            // the tap rows clamp to the frame: rows 0 and H - 1
+                            if (y < r) add4(acc, a.edge_l[y], col + t[1 + r - y]);
+                            if (h - 1 - y < r)
+                                add4(acc, a.edge_r[h - 1 - y], col + t[1 + (h - 1 - y) + r]);
+                        }
+                    }
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) m[p][v] = clip01(xv[v] + a.strength * acc[v]);
+                }
+                float gr[4];
+                if (it == tid) {
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
+                } else {
+                    load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                }
+                epilogue4(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
+            }
+        } else {
+            // ---- 2. half-res rows: down rows, then down columns ----
+            for (int it = tid; it < (he - nh) * 3 * nhw; it += NT) {
+                const int ip = div_nhw(it), jj = it - ip * nhw;
+                const int ii = ip / 3, p = ip - 3 * ii;
+                const int4 t = __ldg(reinterpret_cast<const int4*>(a.halftab) + nh + ii);
+                const float* rl = S.ring + t.x + p * a.win - win0 + ksh;
+                const float* rh = S.ring + t.y + p * a.win - win0 + ksh;
+                const float fy = __int_as_float(t.w);
+                const int xl = S.hx_lo[jj], xh = min(xl + 1, w - 1);
+                const float dl = lerp_taps(rl[xl], rh[xl], fy);
+                const float dh = lerp_taps(rl[xh], rh[xh], fy);
+                S.half[t.z + p * a.hwin + jj] = lerp_taps(dl, dh, S.hx_f[jj]);
+            }
+            __syncthreads();
 
-    for (int i = tid; i < fy.n * fx.n; i += NT) {
-        const int ly = i / fx.n, lx = i - ly * fx.n;
-        float x[3];
-        prologue(a, bi, fy.s0 + ly, fx.s0 + lx, x);
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) S[(p * SR + ly) * SC + lx] = x[p];
-    }
-    __syncthreads();
-    for (int i = tid; i < fy.nh * fx.n; i += NT) {
-        const int li = i / fx.n, lx = i - li * fx.n;
-        const int lo = a.fd_ylo[fy.i0 + li];
-        const int hi = min(lo + 1, h - 1);
-        const float f = a.fd_yf[fy.i0 + li];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p)
-            D1[(p * HR + li) * SC + lx] = lerp_taps(
-                knee(a, S[(p * SR + lo - fy.s0) * SC + lx]),
-                knee(a, S[(p * SR + hi - fy.s0) * SC + lx]), f);
-    }
-    __syncthreads();
-    for (int i = tid; i < fy.nh * fx.nh; i += NT) {
-        const int li = i / fx.nh, lj = i - li * fx.nh;
-        const int lo = a.fd_xlo[fx.i0 + lj];
-        const int hi = min(lo + 1, w - 1);
-        const float f = a.fd_xf[fx.i0 + lj];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            const float* row = D1 + (p * HR + li) * SC - fx.s0;
-            D2[(p * HR + li) * HC + lj] = lerp_taps(row[lo], row[hi], f);
+            // ---- 3. up rows, up columns, composite, epilogue ----
+            for (int it = tid; it < (ye - nxt) * nq; it += NT) {
+                const int yy = div_nq(it), q = it - yy * nq;
+                const int y = nxt + yy, gx = x0 + 4 * q;
+                const int4 t = __ldg(reinterpret_cast<const int4*>(a.rowtab) + y);
+                const float uf = __int_as_float(t.w);
+                float m[3][4];
+                #pragma unroll
+                for (int p = 0; p < 3; ++p) {
+                    const float* hl = S.half + t.y + p * a.hwin - j0;
+                    const float* hh = S.half + t.z + p * a.hwin - j0;
+                    const float* xr = xsep ? S.xr + t.x + p * sw + 4 * q
+                                           : S.ring + t.x + p * a.win + cofs + ksh + 4 * q;
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) {
+                        const int lx = min(4 * q + v, ncen - 1);  // past the frame: not stored
+                        const int ul = S.ux_lo[lx], uh = min(ul + 1, a.w2 - 1);
+                        const float bl = lerp_taps(lerp_taps(hl[ul], hh[ul], uf),
+                                                   lerp_taps(hl[uh], hh[uh], uf), S.ux_f[lx]);
+                        m[p][v] = clip01(xr[v] + a.strength * bl);
+                    }
+                }
+                float gr[4];
+                if (it == tid) {
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
+                } else {
+                    load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                }
+                epilogue4(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
+            }
+            nh = he;
         }
-    }
-    __syncthreads();
-    const int nty = ty1 - y0 + 1;
-    for (int i = tid; i < nty * fx.nh; i += NT) {
-        const int ly = i / fx.nh, lj = i - ly * fx.nh;
-        const int lo = a.fu_ylo[y0 + ly];
-        const int hi = min(lo + 1, a.h2 - 1);
-        const float f = a.fu_yf[y0 + ly];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p)
-            U1[(p * TY + ly) * HC + lj] = lerp_taps(
-                D2[(p * HR + lo - fy.i0) * HC + lj], D2[(p * HR + hi - fy.i0) * HC + lj], f);
-    }
-    __syncthreads();
-    for (int i = tid; i < TY * TX; i += NT) {
-        const int ly = i / TX, lx = i - ly * TX;
-        const int gy = y0 + ly, gx = x0 + lx;
-        if (gy >= h || gx >= w) continue;
-        const int lo = a.fu_xlo[gx];
-        const int hi = min(lo + 1, a.w2 - 1);
-        const float f = a.fu_xf[gx];
-        float m[3];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            const float* row = U1 + (p * TY + ly) * HC - fx.i0;
-            const float blur = lerp_taps(row[lo], row[hi], f);
-            const float xv = S[(p * SR + gy - fy.s0) * SC + gx - fx.s0];
-            m[p] = clip01(xv + a.strength * blur);
-        }
-        epilogue(a, bi, gy, gx, m);
+        nxt = ye;
     }
 }
 
 }  // namespace
 
-static int fused_smem_bytes(const FusedArgs* a) {
-    if (a->bloom_on && a->fast_on) {
-        const int SR = a->fs_rows, SC = a->fs_cols, HR = a->fh_rows, HC = a->fh_cols;
-        return (int)sizeof(float) * 3 * (SR * SC + HR * SC + HR * HC + TY * HC);
-    }
-    const int r = a->bloom_on ? a->r : 0;
-    const int rh = TY + 2 * r, sp = TX + 2 * r + 1;
-    return (int)sizeof(float) * (3 * rh * sp + (r > 0 ? 3 * rh * TX : 0));
-}
-
 extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
     if (a->r < 0 || 2 * a->r + 1 > MAXK) return (int)cudaErrorInvalidValue;
+    if (smem_layout(*a, nullptr).total != a->smem) return (int)cudaErrorInvalidValue;
     const bool fast = a->bloom_on && a->fast_on;
-    void (*kern)(const FusedArgs) = fast ? fused_fast_kernel : fused_kernel;
-    const int smem = fused_smem_bytes(a);
+    const bool f32 = !a->pre_on;
+    void (*kern)(const FusedArgs);
+    if (fast)
+        kern = f32 ? fused_strip_kernel<FAST, 0, true> : fused_strip_kernel<FAST, 0, false>;
+    else if (a->bloom_on && a->r == 4)
+        kern = f32 ? fused_strip_kernel<GAUSS, 4, true> : fused_strip_kernel<GAUSS, 4, false>;
+    else
+        kern = f32 ? fused_strip_kernel<GAUSS, -1, true> : fused_strip_kernel<GAUSS, -1, false>;
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((a->w + TX - 1) / TX, (a->h + TY - 1) / TY, a->b);
-    kern<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+    dim3 grid((a->w + a->sw - 1) / a->sw, (a->h + a->run - 1) / a->run, a->b);
+    kern<<<grid, NT, a->smem, static_cast<cudaStream_t>(stream)>>>(*a);
     return (int)cudaGetLastError();
 }
 

@@ -296,10 +296,8 @@ class CRTEngine:
                 sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
                 threshold=float(p.bloom_threshold))
             self.bloom2_tables = kbloom2.bloom2_tables(self.bloom_spec, dev)
-        own_fc = kfused.fused_consts(self.spec, dev)
-        self.fused_tables = own_fc._replace(
-            y_map=c["pix_y"].to(torch.int32).contiguous(),
-            x_maps=c["pix_x"][list(pc)].to(torch.int32).contiguous())
+        self.fused_tables = kfused.fused_consts(self.spec, dev, y_map=c["pix_y"],
+                                                x_maps=c["pix_x"][list(pc)])
         self._tri = (c["triad"].t()[list(pc)].contiguous().float()
                      if p.triad_on else None)  # (3, W) in plane order
         if p.warp_on:

@@ -21,6 +21,13 @@ stand-alone bloom kernel between them, shares its op order.
 tensors. The spec keeps the JAX kernel's parameter names; the TPU's
 stripe height, VMEM sizing and pixel-size/shape gates have no
 counterpart here (the CUDA kernel takes any H, W and pixel size).
+
+The kernel walks column strips down runs of rows (csrc/fused.cu).
+``fused_plan`` computes on the host what it needs for that: the strip
+width, the rows per run and per chunk, the ring depths, the staged
+column segments of each strip and the distinct-row tables, and
+``plan_chunks`` replays the kernel's walk so that the ring depths are
+the ones the walk needs (tests/test_torch_fused_plan.py checks it).
 """
 
 from __future__ import annotations
@@ -41,7 +48,14 @@ from . import _build
 launches = 0  # CUDA launches made by fused_pipeline
 
 MAX_TAPS = 63  # csrc/fused.cu MAXK
-TILE = 32  # csrc/fused.cu TX, TY: the output tile of one block
+TILE = 32  # csrc/bloom3.cu TX, TY: the tile the fast extents are sized by
+SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
+STRIP_WIDTHS = (128, 64, 32)  # output columns per block, widest that fits first
+# distinct source rows per chunk and output rows per block, by core and
+# input: the fastest of scripts/port_fused_ab.py --sweep on an H100
+# (PERF.md)
+WALK = {("gaussian", True): (8, 64), ("gaussian", False): (8, 64),
+        ("fast", True): (12, 128), ("fast", False): (6, 128)}
 
 
 @dataclass(frozen=True)
@@ -126,8 +140,258 @@ class FusedConsts(NamedTuple):
     # bilinear_taps
     fast_taps: Optional[tuple] = None
     # fast core: the largest per-tile (rows, columns, half rows, half
-    # columns) the kernel holds in shared memory
+    # columns) of the stand-alone bloom's tiles (kernels/bloom3.py)
     fast_extent: Optional[tuple] = None
+    # the CUDA kernel's walk (fused_plan) and its device tables (ydist,
+    # ysrc, segs)
+    plan: Optional["FusedPlan"] = None
+    plan_tables: Optional[tuple] = None
+
+
+@dataclass(eq=False)
+class FusedPlan:
+    """How csrc/fused.cu walks a batch: one block per strip of ``sw``
+    output columns and run of ``run`` output rows of one frame, walking
+    down the run in chunks of ``step`` distinct source rows.
+
+    ``depth`` is the ring of distinct source rows (gaussian: the
+    horizontally filtered rows and the pre-knee strip; fast: the knee'd
+    window rows and the pre-knee strip), ``hdepth`` the fast core's ring
+    of half-res rows. ``win`` and ``hwin`` are the row pitches of the
+    full-res and half-res column windows, ``seg_pitch`` the staged row
+    pitch per plane in elements (uint8, or f32 when not ``pre``),
+    ``gran`` the element alignment of the staged segments and ``smem``
+    the block's shared memory in bytes. ``runtab``, ``rowtab`` and
+    ``halftab`` are the kernel's tables: the walk's schedule per run, and
+    the ring offsets of each output row's and half-res row's operands."""
+    fast: bool
+    pre: bool
+    knee: bool
+    r: int
+    h: int
+    w: int
+    sw: int
+    step: int
+    run: int
+    depth: int
+    hdepth: int
+    win: int
+    hwin: int
+    seg_pitch: int
+    gran: int
+    smem: int
+    ydist: np.ndarray    # (H,) distinct-row index of each row (equal y_map, equal index)
+    ysrc: np.ndarray     # (ND,) source row of each distinct row
+    segs: np.ndarray     # (strips, 3, 4) staged segments (a0, n0, a1, n1) per plane
+    windows: np.ndarray  # (strips, 4) full-res columns [c0, c1), half-res [j0, j1]
+    runtab: np.ndarray = None   # (runs, 3 + 2 * chunks): d_lo, d_hi, nh, then (he, ye) per chunk
+    rowtab: np.ndarray = None   # (H, 4) fast / (H, 2r + 2) gaussian ring offsets
+    halftab: np.ndarray = None  # (H2, 4) fast core: ring offsets of the half-res rows
+
+    @property
+    def strips(self) -> int:
+        return -(-self.w // self.sw)
+
+    @property
+    def runs(self) -> int:
+        return -(-self.h // self.run)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def distinct_rows(y_map: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(ydist (H,), ysrc (ND,)): rows with the y_map entry of the row
+    above share its distinct index, and ysrc holds each index's row."""
+    y = np.asarray(y_map, np.int64)
+    new = np.ones(len(y), bool)
+    new[1:] = y[1:] != y[:-1]
+    return (np.cumsum(new) - 1).astype(np.int32), y[new].astype(np.int32)
+
+
+def strip_windows(w: int, sw: int, r: int, fast_taps=None) -> np.ndarray:
+    """(strips, 4): the full-res columns [c0, c1) a strip's block reads
+    and, for the fast core, the half-res columns [j0, j1] it computes
+    (csrc/fused.cu computes the same at block start)."""
+    x0 = np.arange(0, w, sw)
+    xe = np.minimum(x0 + sw, w)
+    if fast_taps is None:
+        return np.stack([np.maximum(0, x0 - r), np.minimum(w, xe + r),
+                         np.zeros_like(x0), np.full_like(x0, -1)], 1)
+    fd_xlo, fu_xlo = np.asarray(fast_taps[2]), np.asarray(fast_taps[6])
+    j0 = fu_xlo[x0]
+    j1 = np.minimum(fu_xlo[xe - 1] + 1, len(fd_xlo) - 1)
+    c0 = np.minimum(fd_xlo[j0], x0)
+    c1 = np.maximum(np.minimum(fd_xlo[j1] + 1, w - 1), xe - 1) + 1
+    return np.stack([c0, c1, j0, j1], 1)
+
+
+def staged_segments(x_maps, windows: np.ndarray, pre: bool, gran: int):
+    """Per strip and plane, the source columns the window reads as at
+    most two ranges (a0, n0, a1, n1), starts and lengths aligned to
+    ``gran`` elements: the aberration roll wraps (``% w``), so the
+    window of the R and B planes at the frame's edges holds columns of
+    the far edge. A map with more than one wrap gets one range over all
+    its columns. Returns (segs, row pitch in elements)."""
+    segs = np.zeros((len(windows), 3, 4), np.int32)
+    for s, (c0, c1, _, _) in enumerate(windows):
+        for p in range(3):
+            v = np.asarray(x_maps[p][c0:c1], np.int64) if pre else np.arange(c0, c1)
+            down = np.nonzero(np.diff(v) < 0)[0]
+            parts = [v[:down[0] + 1], v[down[0] + 1:]] if len(down) == 1 else [v]
+            for k, part in enumerate(parts):
+                a0 = int(part.min()) // gran * gran
+                segs[s, p, 2 * k:2 * k + 2] = a0, _round_up(int(part.max()) + 1 - a0, gran)
+    return segs, _round_up(int((segs[..., 1] + segs[..., 3]).max()), 16)
+
+
+def plan_chunks(plan: FusedPlan, y0: int, fast_taps=None) -> list:
+    """Replay csrc/fused.cu's walk of the run that starts at output row
+    y0: one tuple per chunk, (d, e, nh, he, nxt, ye, alive, halive):
+    distinct source rows [d, e) produced, then half-res rows [nh, he)
+    (fast core), then output rows [nxt, ye) written; ``alive`` and
+    ``halive`` are the oldest distinct source row and half-res row still
+    needed when the chunk starts (what the rings must keep)."""
+    h, r, dist = plan.h, plan.r, plan.ydist
+    y1 = min(y0 + plan.run, h)
+    if plan.fast:
+        fd_ylo, fu_ylo = np.asarray(fast_taps[0]), np.asarray(fast_taps[4])
+        h2 = len(fd_ylo)
+        i0, i1 = int(fu_ylo[y0]), min(int(fu_ylo[y1 - 1]) + 1, h2 - 1)
+        pa = min(int(fd_ylo[i0]), y0)
+        pb = max(min(int(fd_ylo[i1]) + 1, h - 1), y1 - 1)
+    else:
+        i0 = i1 = 0
+        pa, pb = max(0, y0 - r), min(h - 1, y1 - 1 + r)
+    d_hi = int(dist[pb]) + 1
+    nh, nxt, chunks = i0, y0, []
+    for d in range(int(dist[pa]), d_hi, plan.step):
+        e = min(d + plan.step, d_hi)
+        if plan.fast:
+            alive = int(dist[nxt])
+            if nh <= i1:
+                alive = min(alive, int(dist[fd_ylo[nh]]))
+            halive = int(fu_ylo[nxt])
+            he = nh
+            while he <= i1 and dist[min(fd_ylo[he] + 1, h - 1)] < e:
+                he += 1
+            ye = nxt
+            while ye < y1 and min(fu_ylo[ye] + 1, h2 - 1) < he and dist[ye] < e:
+                ye += 1
+        else:
+            alive, halive, he = int(dist[max(0, nxt - r)]), 0, nh
+            ye = nxt
+            while ye < y1 and dist[min(h - 1, ye + r)] < e:
+                ye += 1
+        chunks.append((d, e, nh, he, nxt, ye, alive, halive))
+        nh, nxt = he, ye
+    if nxt != y1:
+        raise RuntimeError(f"fused plan: the walk of rows {y0}..{y1} stopped at {nxt}")
+    return chunks
+
+
+def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hdepth: int,
+              win: int, hwin: int, seg_pitch: int, knee: bool) -> int:
+    """Shared memory of one block in bytes: csrc/fused.cu's smem_layout
+    (the fast core without a knee reads the pre-knee strip from its
+    knee'd ring)."""
+    def a16(n):
+        return _round_up(n, 16)
+    n = a16(2 * step * 3 * seg_pitch * (1 if pre else 4))  # staged rows, two buffers
+    if fast:
+        n += a16(depth * 3 * win * 4) + a16(hdepth * 3 * hwin * 4) + a16((hwin + sw) * 8)
+    elif r > 0:
+        n += a16(step * 3 * win * 4) + a16(depth * 3 * sw * 4)
+    if not fast or knee:
+        n += a16(depth * 3 * sw * 4)  # the pre-knee strip
+    n += a16(3 * win * 2) + a16((win + 1) * 2) + a16(3 * win * 2)  # offsets, leaders
+    n += a16((2 * 1028 + 4 * sw) * 4)  # triad tables, the strip's triad and vignette rows
+    return n + 64  # the strip's staged ranges
+
+
+def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None, *, sw: Optional[int] = None,
+               step: Optional[int] = None, run: Optional[int] = None) -> FusedPlan:
+    """The kernel's walk for ``spec`` over the index maps it is given
+    (``fast_taps``: the numpy bilinear_taps of fast_tables): the widest
+    strip of STRIP_WIDTHS (or ``sw``) whose block fits in shared memory,
+    and the ring depths the walk needs; chunk and run sizes from WALK
+    (``step`` and ``run`` override)."""
+    h, w = spec.h, spec.w
+    fast = bool(spec.bloom and spec.fast)
+    r = spec.r if spec.bloom and not fast else 0
+    if spec.pre:
+        ydist, ysrc = distinct_rows(y_map)
+        gran = 16 if w % 16 == 0 else 4 if w % 4 == 0 else 1
+    else:
+        ydist = ysrc = np.arange(h, dtype=np.int32)
+        gran = 4 if w % 4 == 0 else 1
+    walk_step, walk_run = WALK["fast" if fast else "gaussian", bool(spec.pre)]
+    step, run = step or walk_step, min(run or walk_run, h)
+    knee = bool(spec.bloom and spec.threshold > 0.0)
+    plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran, 0,
+                     ydist, ysrc, np.zeros((0, 3, 4), np.int32), np.zeros((0, 4), np.int64))
+    depth = hdepth = 1
+    sched = []
+    for y0 in range(0, h, run):
+        chunks = plan_chunks(plan, y0, fast_taps)
+        sched.append([chunks[0][0], chunks[-1][1], chunks[0][2]]
+                     + [v for c in chunks for v in (c[3], c[5])])
+        for d, e, nh, he, nxt, ye, alive, halive in chunks:
+            depth = max(depth, e - alive)
+            hdepth = max(hdepth, he - halive)
+    for cand in (sw,) if sw else STRIP_WIDTHS:
+        windows = strip_windows(w, cand, r, fast_taps if fast else None)
+        segs, pitch = staged_segments(x_maps, windows, spec.pre, gran)
+        # the fast core shifts its window by up to 3 columns (csrc/fused.cu ksh)
+        win = _round_up(int((windows[:, 1] - windows[:, 0]).max()) + 3 * fast, 4)
+        hwin = _round_up(int((windows[:, 3] - windows[:, 2] + 1).max()), 4) if fast else 0
+        smem = plan_smem(fast, spec.pre, r, cand, step, depth, hdepth, win, hwin, pitch,
+                         knee)
+        if smem <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"fused plan: {smem} bytes of shared memory exceed {SMEM_MAX}")
+    plan.sw, plan.depth, plan.hdepth, plan.win, plan.hwin = cand, depth, hdepth, win, hwin
+    plan.seg_pitch, plan.smem, plan.segs, plan.windows = pitch, smem, segs, windows
+    plan.runtab = np.zeros((len(sched), max(map(len, sched))), np.int32)
+    for i, row in enumerate(sched):
+        plan.runtab[i, :len(row)] = row
+    plan.rowtab, plan.halftab = _ring_tables(plan, fast_taps)
+    return plan
+
+
+def _ring_tables(plan: FusedPlan, fast_taps) -> tuple:
+    """Per output row, the ring offsets (in floats) of its operands: the
+    fast core's pre-knee strip row, its two half-res rows and its up-row
+    fraction's bits; the gaussian core's pre-knee strip row and each
+    tap's filtered row (clamped to the frame: rows 0 and H - 1 are also
+    the border fold's samples). Per half-res row (fast core), its two
+    source rows' offsets in the knee'd ring (less the strip's first
+    window column), its own slot and its down-row fraction's bits. The
+    fast core without a knee reads the pre-knee strip from its knee'd
+    ring (the same values)."""
+    h, r, dist = plan.h, plan.r, plan.ydist.astype(np.int64)
+    y = np.arange(h)
+    # the pre-knee strip: its own ring, or the fast core's knee'd ring
+    pitch = plan.win if plan.fast and not plan.knee else plan.sw
+    strip = dist % plan.depth * 3 * pitch
+    if not plan.fast:
+        taps = [dist[np.clip(y + k - r, 0, h - 1)] % plan.depth * 3 * plan.sw
+                for k in range(2 * r + 1)]
+        return np.stack([strip, *taps], 1).astype(np.int32), np.zeros((1, 4), np.int32)
+    fd_ylo, fd_yf, fu_ylo, fu_yf = (np.asarray(fast_taps[i]) for i in (0, 1, 4, 5))
+    h2 = len(fd_ylo)
+    ulo = fu_ylo.astype(np.int64)
+    rows = np.stack([strip, ulo % plan.hdepth * 3 * plan.hwin,
+                     np.minimum(ulo + 1, h2 - 1) % plan.hdepth * 3 * plan.hwin,
+                     fu_yf.astype(np.float32).view(np.int32)], 1)
+    lo = fd_ylo.astype(np.int64)
+    half = np.stack([dist[lo] % plan.depth * 3 * plan.win,
+                     dist[np.minimum(lo + 1, h - 1)] % plan.depth * 3 * plan.win,
+                     np.arange(h2) % plan.hdepth * 3 * plan.hwin,
+                     fd_yf.astype(np.float32).view(np.int32)], 1)
+    return rows.astype(np.int32), half.astype(np.int32)
 
 
 def _tile_extents(up_lo: np.ndarray, dn_lo: np.ndarray, full: int, half: int):
@@ -155,17 +419,34 @@ def fast_tables(h: int, w: int) -> tuple[tuple, tuple]:
     return taps, (rows, cols, hrows, hcols)
 
 
-def fused_consts(spec: FusedSpec, device="cpu") -> FusedConsts:
-    y_map, x_maps = oresize.plane_index_maps(spec.h, spec.w, spec.px, spec.ab, spec.corder)
+def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> FusedConsts:
+    """The spec's device tables and the kernel's plan, over the given
+    index maps ((H,) and (3, W) in plane order; by default the spec's
+    own plane_index_maps)."""
+    if y_map is None:
+        y_map, x_maps = oresize.plane_index_maps(spec.h, spec.w, spec.px, spec.ab, spec.corder)
+    y_map, x_maps = (np.ascontiguousarray(torch.as_tensor(m).cpu().numpy(), np.int32)
+                     for m in (y_map, x_maps))
     fwd = fin = None
     if spec.triad and not ocolor.triad_is_multiply(spec.triad_gamma, spec.triad_luma):
         fwd, fin = ocolor.triad_tables(spec.triad_gamma, device)
     taps = extent = None
     if spec.bloom and spec.fast:
         taps, extent = fast_tables(spec.h, spec.w)
-        taps = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in taps)
-    return FusedConsts(torch.from_numpy(y_map).to(device),
-                       torch.from_numpy(x_maps).to(device), fwd, fin, taps, extent)
+    plan = fused_plan(spec, y_map, x_maps, taps)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32 if a.dtype.kind == "i"
+                                                     else np.float32)).to(device)
+    return FusedConsts(dev(y_map), dev(x_maps), fwd, fin,
+                       None if taps is None else tuple(dev(a) for a in taps), extent,
+                       plan, plan_tables(plan, device))
+
+
+def plan_tables(plan: FusedPlan, device) -> tuple:
+    """The plan's device tables: ysrc, segs, runtab, rowtab, halftab."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
+                 for t in (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab))
 
 
 def knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
@@ -246,7 +527,7 @@ class _FusedArgs(ctypes.Structure):
     """Mirror of FusedArgs in csrc/fused.cu (checked by size at launch)."""
     _fields_ = [
         ("img", ctypes.c_void_p), ("imgf", ctypes.c_void_p), ("out", ctypes.c_void_p),
-        ("ymap", ctypes.c_void_p), ("xmap", ctypes.c_void_p),
+        ("xmap", ctypes.c_void_p),
         ("grain", ctypes.c_void_p), ("sl", ctypes.c_void_p),
         ("vy2", ctypes.c_void_p), ("vx2", ctypes.c_void_p),
         ("tri", ctypes.c_void_p), ("flicker", ctypes.c_void_p),
@@ -255,6 +536,8 @@ class _FusedArgs(ctypes.Structure):
         ("fd_xlo", ctypes.c_void_p), ("fd_xf", ctypes.c_void_p),
         ("fu_ylo", ctypes.c_void_p), ("fu_yf", ctypes.c_void_p),
         ("fu_xlo", ctypes.c_void_p), ("fu_xf", ctypes.c_void_p),
+        ("ysrc", ctypes.c_void_p), ("segs", ctypes.c_void_p), ("runtab", ctypes.c_void_p),
+        ("rowtab", ctypes.c_void_p), ("halftab", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
         ("emit_u8", ctypes.c_int32), ("pre_on", ctypes.c_int32),
         ("inv255", ctypes.c_float),
@@ -271,8 +554,12 @@ class _FusedArgs(ctypes.Structure):
         ("edge_l", ctypes.c_float * MAX_TAPS),
         ("edge_r", ctypes.c_float * MAX_TAPS),
         ("fast_on", ctypes.c_int32), ("h2", ctypes.c_int32), ("w2", ctypes.c_int32),
-        ("fs_rows", ctypes.c_int32), ("fs_cols", ctypes.c_int32),
-        ("fh_rows", ctypes.c_int32), ("fh_cols", ctypes.c_int32),
+        ("sw", ctypes.c_int32), ("step", ctypes.c_int32), ("run", ctypes.c_int32),
+        ("depth", ctypes.c_int32), ("hdepth", ctypes.c_int32),
+        ("win", ctypes.c_int32), ("hwin", ctypes.c_int32),
+        ("seg_pitch", ctypes.c_int32), ("copy_bytes", ctypes.c_int32),
+        ("run_stride", ctypes.c_int32),
+        ("vec_ok", ctypes.c_int32), ("smem", ctypes.c_int32),
         ("triad_mode", ctypes.c_int32), ("luma_on", ctypes.c_int32),
         ("sl_on", ctypes.c_int32), ("vig_on", ctypes.c_int32),
         ("vig_strength", ctypes.c_float),
@@ -322,8 +609,14 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
         a.img = _check("img", img, (b, 3, s.h, s.w), torch.uint8, dev)
     else:
         a.imgf = _check("img", img, (b, 3, s.h, s.w), torch.float32, dev)
-    a.ymap = _check("y_map", consts.y_map, (s.h,), torch.int32, dev)
+    plan = consts.plan
+    if plan is None or (plan.h, plan.w, plan.pre) != (s.h, s.w, s.pre):
+        raise ValueError("fused_pipeline: consts.plan is not this spec's (fused_consts)")
     a.xmap = _check("x_maps", consts.x_maps, (3, s.w), torch.int32, dev)
+    a.ysrc, a.segs, a.runtab, a.rowtab, a.halftab = (
+        _check(n, t, tuple(ref.shape), torch.int32, dev) for n, t, ref in zip(
+            ("ysrc", "segs", "runtab", "rowtab", "halftab"), consts.plan_tables,
+            (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab)))
     if s.noise:
         a.grain = _check("grain", grain, (b, s.h, s.w), torch.float32, dev)
     if s.scanlines:
@@ -369,7 +662,6 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
         for i, (name, n) in enumerate(zip(names, lens)):
             setattr(a, name, _check(name, consts.fast_taps[i], (n,),
                                     torch.int32 if i % 2 == 0 else torch.float32, dev))
-        a.fs_rows, a.fs_cols, a.fh_rows, a.fh_cols = consts.fast_extent
     elif s.bloom:
         left, right = oblur.edge_coefs(s.taps)
         a.taps[:len(s.taps)] = [float(np.float32(t)) for t in s.taps]
@@ -379,6 +671,16 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     a.vig_strength = np.float32(s.vig_strength)
     a.flicker_on = int(s.flicker)
     a.noise_on, a.noise_scale = int(s.noise), np.float32(s.noise_scale)
+    a.sw, a.step, a.run = plan.sw, plan.step, plan.run
+    a.depth, a.hdepth, a.win, a.hwin = plan.depth, plan.hdepth, plan.win, plan.hwin
+    a.seg_pitch, a.smem = plan.seg_pitch, plan.smem
+    a.run_stride = plan.runtab.shape[1]
+    # staged copies of gran elements where the frame pointer allows them
+    gb = plan.gran * (1 if s.pre else 4)
+    ptr = a.img if s.pre else a.imgf
+    a.copy_bytes = gb if ptr % gb == 0 else (4 if gb >= 4 and ptr % 4 == 0 else 1)
+    # four values per thread for the grain loads and the stores
+    a.vec_ok = int(s.w % 4 == 0 and all(p % 16 == 0 for p in (a.out, a.grain) if p))
     _build.launch("crt_fused_launch", a, torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out
