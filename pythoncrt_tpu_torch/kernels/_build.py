@@ -6,7 +6,9 @@ together, and the objects are linked into one shared library under
 ``pythoncrt_tpu_torch/_build/<hash>/``, keyed by a hash of the sources,
 the headers they include and the flags, and loaded with ``ctypes``. Nothing is built when the
 package is imported: the CPU tests import every module on hosts without
-``nvcc``.
+``nvcc``. nvcc's output (ptxas's registers, stack and spill per kernel)
+is kept beside the library as ``build.log`` and read back with it, so
+``build_log`` holds it whether or not this process built the library.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded,
 as the reference's f32 chain is (the triad's 1024-bin quantize turns a
@@ -39,7 +41,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""       # nvcc's output of the build this process made
+build_log = ""       # nvcc's output of the build of the loaded library
 build_seconds = 0.0  # 0.0 when the library was already built
 
 
@@ -69,8 +71,10 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         out_dir = BUILD_ROOT / _digest()
-        so = out_dir / "libcrt_kernels.so"
-        if not so.exists():
+        so, log = out_dir / "libcrt_kernels.so", out_dir / "build.log"
+        if so.exists() and log.exists():
+            build_log = log.read_text()
+        else:
             out_dir.mkdir(parents=True, exist_ok=True)
             nvcc, tag = find_nvcc(), os.getpid()
             objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
@@ -91,7 +95,10 @@ def library() -> ctypes.CDLL:
             build_log += res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+            tmp_log = out_dir / f"build.{tag}.tmp.log"
+            tmp_log.write_text(build_log)
             os.replace(tmp, so)
+            os.replace(tmp_log, log)  # after the library: a log means a whole build
             for obj in objs:
                 obj.unlink()
         lib = ctypes.CDLL(str(so))

@@ -52,8 +52,8 @@ TILE = 32  # csrc/bloom3.cu TX, TY: the tile the fast extents are sized by
 SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
 STRIP_WIDTHS = (128, 64, 32)  # output columns per block, widest that fits first
 # distinct source rows per chunk and output rows per block, by core and
-# input: the fastest of scripts/port_fused_ab.py --sweep on an H100
-# (PERF.md)
+# input: the fastest of a sweep of strips, chunks and runs on an H100
+# (PERF.md, the fused kernel's redesign)
 WALK = {("gaussian", True): (8, 64), ("gaussian", False): (8, 64),
         ("fast", True): (12, 128), ("fast", False): (6, 128)}
 
@@ -196,6 +196,11 @@ class FusedPlan:
     def runs(self) -> int:
         return -(-self.h // self.run)
 
+    @property
+    def key(self) -> tuple:
+        """The plan_key of the specs this plan serves."""
+        return (self.h, self.w, self.pre, self.fast, self.r, self.knee)
+
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
@@ -310,25 +315,28 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
     return n + 64  # the strip's staged ranges
 
 
-def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None, *, sw: Optional[int] = None,
-               step: Optional[int] = None, run: Optional[int] = None) -> FusedPlan:
+def plan_key(spec: "FusedSpec") -> tuple:
+    """What of a spec its plan is made for: (H, W, pre, fast core,
+    gaussian radius, knee). Taps of one radius share a plan."""
+    fast = bool(spec.bloom and spec.fast)
+    return (spec.h, spec.w, bool(spec.pre), fast, spec.r if spec.bloom and not fast else 0,
+            bool(spec.bloom and spec.threshold > 0.0))
+
+
+def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     """The kernel's walk for ``spec`` over the index maps it is given
     (``fast_taps``: the numpy bilinear_taps of fast_tables): the widest
-    strip of STRIP_WIDTHS (or ``sw``) whose block fits in shared memory,
-    and the ring depths the walk needs; chunk and run sizes from WALK
-    (``step`` and ``run`` override)."""
-    h, w = spec.h, spec.w
-    fast = bool(spec.bloom and spec.fast)
-    r = spec.r if spec.bloom and not fast else 0
+    strip of STRIP_WIDTHS whose block fits in shared memory, and the ring
+    depths the walk needs; chunk and run sizes from WALK."""
+    h, w, _, fast, r, knee = plan_key(spec)
     if spec.pre:
         ydist, ysrc = distinct_rows(y_map)
         gran = 16 if w % 16 == 0 else 4 if w % 4 == 0 else 1
     else:
         ydist = ysrc = np.arange(h, dtype=np.int32)
         gran = 4 if w % 4 == 0 else 1
-    walk_step, walk_run = WALK["fast" if fast else "gaussian", bool(spec.pre)]
-    step, run = step or walk_step, min(run or walk_run, h)
-    knee = bool(spec.bloom and spec.threshold > 0.0)
+    step, run = WALK["fast" if fast else "gaussian", bool(spec.pre)]
+    run = min(run, h)
     plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran, 0,
                      ydist, ysrc, np.zeros((0, 3, 4), np.int32), np.zeros((0, 4), np.int64))
     depth = hdepth = 1
@@ -340,7 +348,7 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None, *, sw: Optional
         for d, e, nh, he, nxt, ye, alive, halive in chunks:
             depth = max(depth, e - alive)
             hdepth = max(hdepth, he - halive)
-    for cand in (sw,) if sw else STRIP_WIDTHS:
+    for cand in STRIP_WIDTHS:
         windows = strip_windows(w, cand, r, fast_taps if fast else None)
         segs, pitch = staged_segments(x_maps, windows, spec.pre, gran)
         # the fast core shifts its window by up to 3 columns (csrc/fused.cu ksh)
@@ -441,6 +449,18 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
     return FusedConsts(dev(y_map), dev(x_maps), fwd, fin,
                        None if taps is None else tuple(dev(a) for a in taps), extent,
                        plan, plan_tables(plan, device))
+
+
+def check_plan(spec: FusedSpec, consts: FusedConsts) -> FusedPlan:
+    """The plan of ``consts``, if it was made for ``spec`` (plan_key):
+    the kernel sizes its rings, tables and shared memory by the plan and
+    its taps and knee by the spec, so the two must agree."""
+    plan = consts.plan
+    if plan is None or plan.key != plan_key(spec):
+        raise ValueError("fused_pipeline: consts.plan was not made for this spec "
+                         f"({None if plan is None else plan.key} vs {plan_key(spec)}); "
+                         "build consts with fused_consts(spec)")
+    return plan
 
 
 def plan_tables(plan: FusedPlan, device) -> tuple:
@@ -580,64 +600,25 @@ def _check(name: str, t, shape, dtype, device) -> int:
     return t.data_ptr()
 
 
-def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
-                   grain=None, sl=None, vy2=None, vx2=None, tri=None,
-                   flicker=None) -> torch.Tensor:
-    """Run stages 1-11.
-
-    img: (B, 3, H, W) uint8 planar frames, plane i holding colour
-    spec.corder[i], or the f32 image after stages 1-5 when spec.pre is
-    False. grain: (B, H, W) f32 unscaled noise field [noise];
-    sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
-    f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
-    order [triad]; flicker: (B,) f32 [flicker]. Returns (B, 3, H, W)
-    f32 in [0, 1], or uint8 when spec.emit == "u8".
-
-    CPU tensors run the plain twin; CUDA tensors launch the kernel.
-    """
-    global launches
-    if img.device.type == "cpu":
-        return fused_pipeline_ref(img, spec, consts, grain=grain, sl=sl, vy2=vy2,
-                                  vx2=vx2, tri=tri, flicker=flicker)
-    if img.device.type != "cuda":
-        raise ValueError(f"fused_pipeline: unsupported device {img.device}")
-    s = spec
-    b = img.shape[0]
-    dev = img.device
+def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
+    """The kernel arguments that follow from the spec and its consts
+    alone (the plan, the tables, the grade, bloom and epilogue fields),
+    each operand checked."""
     a = _FusedArgs()
-    if s.pre:
-        a.img = _check("img", img, (b, 3, s.h, s.w), torch.uint8, dev)
-    else:
-        a.imgf = _check("img", img, (b, 3, s.h, s.w), torch.float32, dev)
-    plan = consts.plan
-    if plan is None or (plan.h, plan.w, plan.pre) != (s.h, s.w, s.pre):
-        raise ValueError("fused_pipeline: consts.plan is not this spec's (fused_consts)")
+    plan = check_plan(s, consts)
     a.xmap = _check("x_maps", consts.x_maps, (3, s.w), torch.int32, dev)
     a.ysrc, a.segs, a.runtab, a.rowtab, a.halftab = (
         _check(n, t, tuple(ref.shape), torch.int32, dev) for n, t, ref in zip(
             ("ysrc", "segs", "runtab", "rowtab", "halftab"), consts.plan_tables,
             (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab)))
-    if s.noise:
-        a.grain = _check("grain", grain, (b, s.h, s.w), torch.float32, dev)
-    if s.scanlines:
-        a.sl = _check("sl", sl, (b, s.h), torch.float32, dev)
-    if s.vignette:
-        a.vy2 = _check("vy2", vy2, (s.h,), torch.float32, dev)
-        a.vx2 = _check("vx2", vx2, (s.w,), torch.float32, dev)
-    if s.flicker:
-        a.flicker = _check("flicker", flicker, (b,), torch.float32, dev)
     a.triad_mode = 0
     if s.triad:
-        a.tri = _check("tri", tri, (3, s.w), torch.float32, dev)
         a.triad_mode = 1 if ocolor.triad_is_multiply(s.triad_gamma, s.triad_luma) else 2
         if a.triad_mode == 2:
             a.lut_fwd = _check("lut_fwd", consts.lut_fwd, (1025,), torch.float32, dev)
             a.lut_fin = _check("lut_fin", consts.lut_fin, (1025,), torch.float32, dev)
         a.luma_on = int(s.triad_luma)
-    out = torch.empty((b, 3, s.h, s.w), device=dev,
-                      dtype=torch.uint8 if s.emit == "u8" else torch.float32)
-    a.out = out.data_ptr()
-    a.b, a.h, a.w = b, s.h, s.w
+    a.h, a.w = s.h, s.w
     a.emit_u8 = int(s.emit == "u8")
     a.pre_on = int(s.pre)
     a.inv255 = np.float32(1.0 / 255.0)
@@ -675,8 +656,72 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     a.depth, a.hdepth, a.win, a.hwin = plan.depth, plan.hdepth, plan.win, plan.hwin
     a.seg_pitch, a.smem = plan.seg_pitch, plan.smem
     a.run_stride = plan.runtab.shape[1]
+    return a
+
+
+STATIC_CACHE = 16  # (spec, consts, device) triples whose static arguments are kept
+_static: dict = {}  # (id(spec), id(consts), device) -> (spec, consts, _FusedArgs)
+
+
+def static_args(spec: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
+    """A copy of _static_args for (spec, consts, device), built once and
+    kept (an entry holds its spec and consts, so their ids stay theirs
+    while it lives): a call checks and fills only its own operands."""
+    key = (id(spec), id(consts), dev)
+    hit = _static.get(key)
+    if hit is None:
+        if len(_static) >= STATIC_CACHE:
+            _static.pop(next(iter(_static)))  # the oldest
+        hit = _static[key] = (spec, consts, _static_args(spec, consts, dev))
+    return _FusedArgs.from_buffer_copy(hit[2])
+
+
+def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
+                   grain=None, sl=None, vy2=None, vx2=None, tri=None,
+                   flicker=None) -> torch.Tensor:
+    """Run stages 1-11.
+
+    img: (B, 3, H, W) uint8 planar frames, plane i holding colour
+    spec.corder[i], or the f32 image after stages 1-5 when spec.pre is
+    False. grain: (B, H, W) f32 unscaled noise field [noise];
+    sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
+    f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
+    order [triad]; flicker: (B,) f32 [flicker]. Returns (B, 3, H, W)
+    f32 in [0, 1], or uint8 when spec.emit == "u8".
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    """
+    global launches
+    if img.device.type == "cpu":
+        return fused_pipeline_ref(img, spec, consts, grain=grain, sl=sl, vy2=vy2,
+                                  vx2=vx2, tri=tri, flicker=flicker)
+    if img.device.type != "cuda":
+        raise ValueError(f"fused_pipeline: unsupported device {img.device}")
+    s = spec
+    b = img.shape[0]
+    dev = img.device
+    a = static_args(s, consts, dev)
+    if s.pre:
+        a.img = _check("img", img, (b, 3, s.h, s.w), torch.uint8, dev)
+    else:
+        a.imgf = _check("img", img, (b, 3, s.h, s.w), torch.float32, dev)
+    if s.noise:
+        a.grain = _check("grain", grain, (b, s.h, s.w), torch.float32, dev)
+    if s.scanlines:
+        a.sl = _check("sl", sl, (b, s.h), torch.float32, dev)
+    if s.vignette:
+        a.vy2 = _check("vy2", vy2, (s.h,), torch.float32, dev)
+        a.vx2 = _check("vx2", vx2, (s.w,), torch.float32, dev)
+    if s.flicker:
+        a.flicker = _check("flicker", flicker, (b,), torch.float32, dev)
+    if s.triad:
+        a.tri = _check("tri", tri, (3, s.w), torch.float32, dev)
+    out = torch.empty((b, 3, s.h, s.w), device=dev,
+                      dtype=torch.uint8 if s.emit == "u8" else torch.float32)
+    a.out = out.data_ptr()
+    a.b = b
     # staged copies of gran elements where the frame pointer allows them
-    gb = plan.gran * (1 if s.pre else 4)
+    gb = consts.plan.gran * (1 if s.pre else 4)
     ptr = a.img if s.pre else a.imgf
     a.copy_bytes = gb if ptr % gb == 0 else (4 if gb >= 4 and ptr % 4 == 0 else 1)
     # four values per thread for the grain loads and the stores

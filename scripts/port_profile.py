@@ -16,6 +16,9 @@ planar gbrp frames already on the card:
   pre-bloom, the post-bloom with the 2-D mask, the text composite): 5
   repeats of 20 calls timed with CUDA events on the step's own
   operands, median ms per call;
+- the fused kernel's wrapper on the host: microseconds per
+  fused_pipeline call, 200 calls issued back to back (the kernels queue
+  behind them; c5: 40), median of 5;
 - a torch.profiler trace of 4 batches: device time per kernel name, the
   sum, and the profiled loop's wall time, from which the device's idle
   share of the loop follows;
@@ -114,6 +117,23 @@ def events_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
+def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds per call of fn, the calls issued back to back
+    without waiting for the card, median of the repeats."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def device_split(loop) -> tuple:
     """torch.profiler over one run of loop: (wall ms, device ms, the top
     kernels' device ms by name)."""
@@ -135,7 +155,7 @@ def device_split(loop) -> tuple:
     return prof_wall * 1e3, sum(by_kernel.values()), top
 
 
-def timing(name, shape, frames, loop, kernels) -> dict:
+def timing(name, shape, frames, loop, kernels, host=None) -> dict:
     """Engine fps over 5 repeats of loop, the profiled split, the card."""
     loop()
     fps = []
@@ -148,7 +168,7 @@ def timing(name, shape, frames, loop, kernels) -> dict:
     return dict(
         config=name, shape=shape, frames=frames, card=smi("name,power.limit"),
         engine_fps_median=statistics.median(fps), engine_fps_min=min(fps),
-        engine_fps_max=max(fps), kernel_ms_per_call=kernels,
+        engine_fps_max=max(fps), kernel_ms_per_call=kernels, host_us_per_call=host or {},
         profiled_loop_wall_ms=prof_wall, device_ms_in_loop=device_ms,
         device_idle_share_of_profiled_loop=1.0 - device_ms / prof_wall,
         unprofiled_loop_wall_ms=wall, device_idle_share_of_unprofiled_loop=1.0 - device_ms / wall,
@@ -184,6 +204,8 @@ def profile_c5(params: dict) -> dict:
     kw = eng.fused_operands(aux)
     kernels = {"fused_pipeline": events_ms(
         lambda: kfused.fused_pipeline(flat, eng.spec, eng.fused_tables, **kw), iters=5)}
+    host = {"fused_pipeline": host_us(
+        lambda: kfused.fused_pipeline(flat, eng.spec, eng.fused_tables, **kw), calls=40)}
     f = kfused.fused_pipeline(flat, eng.spec, eng.fused_tables, **kw)
     off, seg = eng.glitch_offsets(aux), eng.consts["glitch_seg_index"]
     kernels["glitch_shear"] = events_ms(
@@ -197,7 +219,7 @@ def profile_c5(params: dict) -> dict:
     kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
         lambda: eng._grain_field(aux), iters=2)
     del f, states, kw
-    return timing("c5", [CLIPS * B, 3, H4, W4], 2 * CLIPS * B, loop, kernels)
+    return timing("c5", [CLIPS * B, 3, H4, W4], 2 * CLIPS * B, loop, kernels, host)
 
 
 def profile(name: str, params: dict, xs) -> dict:
@@ -227,7 +249,7 @@ def profile(name: str, params: dict, xs) -> dict:
     aux = eng.make_aux(np.arange(B))
     kw = eng.fused_operands(aux)
     x = xs[:B]
-    kernels = {}
+    kernels, host = {}, {}
     feed = x
     if eng._staged or not eng.spec.pre:
         kernels["pre-bloom (torch ops)"] = events_ms(lambda: eng._pre_bloom(x), iters=5)
@@ -259,6 +281,8 @@ def profile(name: str, params: dict, xs) -> dict:
     else:
         kernels["fused_pipeline"] = events_ms(
             lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw))
+        host["fused_pipeline"] = host_us(
+            lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw))
         f = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
     if eng._text_after:
         kernels["text composite after the warp (torch ops)"] = events_ms(
@@ -280,7 +304,7 @@ def profile(name: str, params: dict, xs) -> dict:
     kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
         lambda: eng._grain_field(aux), iters=5)
 
-    return timing(name, [B, 3, H, W], N, loop, kernels)
+    return timing(name, [B, 3, H, W], N, loop, kernels, host)
 
 
 def main() -> int:

@@ -252,15 +252,24 @@ def test_plan_smem_is_the_kernels_layout():
     assert (p.sw, p.step, p.run, p.depth, p.win, p.gran) == (128, 8, 64, 12, 136, 16)
 
 
-@pytest.mark.parametrize("sw,step,run", [(32, 4, 16), (64, 8, 64), (128, 16, 135)])
-def test_plan_overrides_walk_every_row(sw, step, run):
-    """The sizes the tuning sweeps try keep the walk complete."""
-    spec = kfused.build_fused_spec(45, 251, fast=True, strength=0.25, px=2, ab=1)
-    consts = kfused.fused_consts(spec)
-    y_map, x_maps = consts.y_map.numpy(), consts.x_maps.numpy()
-    plan = kfused.fused_plan(spec, y_map, x_maps, taps_np(consts), sw=sw, step=step, run=run)
-    assert row_reads(plan, consts, y_map) == ref_rows(plan, consts, y_map)
-    assert col_reads(plan, consts, x_maps) == ref_cols(plan, consts, x_maps)
+@pytest.mark.parametrize("other", [
+    dict(), dict(sigma=31 / 3), dict(sigma=4.0, fast=True),
+    dict(sigma=4.0, threshold=0.35), dict(sigma=4.0, pre=False), dict(sigma=4.0, h=44)])
+def test_plan_is_checked_against_the_spec(other):
+    """The wrapper launches only with a plan made for the spec's frame,
+    input, core, radius and knee (the kernel takes its taps and knee from
+    the spec and its ring sizes from the plan); another spec's consts are
+    refused, and taps of the same radius share a plan."""
+    spec = kfused.build_fused_spec(45, 251, sigma=4.0, strength=0.25, px=2, ab=1)
+    kw = dict(dict(sigma=3.9, h=45), **other)  # sigma 3.9: radius 12 as well
+    consts = kfused.fused_consts(kfused.build_fused_spec(
+        kw.pop("h"), 251, strength=0.25, px=2, ab=1, **kw))
+    if other:
+        with pytest.raises(ValueError, match="not made for this spec"):
+            kfused.check_plan(spec, consts)
+    else:
+        assert kfused.check_plan(spec, consts) is consts.plan
+        assert consts.plan.key == kfused.plan_key(spec)
 
 
 def test_cpu_tensors_run_the_twin():
@@ -328,3 +337,30 @@ def test_staged_ranges_cover_every_map(shape, px, ab):
                 assert off.min() >= 0 and off.max() < plan.seg_pitch
                 assert np.array_equal(decode(plan.segs[s, p], off), sx)
         assert np.array_equal(plan.ysrc[plan.ydist], consts.y_map.numpy())
+
+
+@pytest.mark.parametrize("core", ["r4", "r31", "fast", "fast_knee", "off"])
+def test_static_args_are_built_once_and_copied(core):
+    """The wrapper fills the arguments that follow from the spec and its
+    consts once per (spec, consts, device) and hands each call a copy:
+    what a call sets does not reach the next, the copy holds the plan's
+    sizes and the tables' pointers, and the kept entries stay bounded."""
+    spec, consts = make("odd", core, "px2_ab1")
+    cpu = torch.device("cpu")
+    a = kfused.static_args(spec, consts, cpu)
+    a.b, a.img = 8, 1234
+    b = kfused.static_args(spec, consts, cpu)
+    assert (b.b, b.img) == (0, None) and a is not b
+    p = consts.plan
+    assert (b.h, b.w, b.sw, b.step, b.run, b.depth, b.hdepth, b.smem) == (
+        p.h, p.w, p.sw, p.step, p.run, p.depth, p.hdepth, p.smem)
+    assert b.rowtab == consts.plan_tables[3].data_ptr()
+    assert b.xmap == consts.x_maps.data_ptr()
+    assert (b.r, b.fast_on, b.knee_on) == (p.r, int(p.fast), int(p.knee))
+    for _ in range(kfused.STATIC_CACHE + 3):
+        other = kfused.fused_consts(spec)
+        kfused.static_args(spec, other, cpu)
+    assert len(kfused._static) <= kfused.STATIC_CACHE
+    with pytest.raises(ValueError, match="not made for this spec"):
+        kfused.static_args(kfused.build_fused_spec(45, 251, sigma=0.4, strength=0.25,
+                                                   px=2, ab=1), consts, cpu)
