@@ -7,7 +7,10 @@ Phases (each must pass; any failure exits non-zero):
 1. The card (nvidia-smi name and power limit), torch/CUDA/nvcc versions,
    and which codec backends (ffmpeg, cv2) the host has.
 2. Build the CUDA kernels from pythoncrt_tpu_torch/csrc (one nvcc per
-   source, all started together, sm_90a).
+   source, all started together, sm_90a); ptxas's registers, stack frame
+   and spill of each instantiation of the fused kernel and of the
+   stand-alone blooms' row walk (csrc/bloom_walk.cu), none of which may
+   use local memory.
 3. Each kernel against its plain PyTorch twin on the card, at 1080p with
    a batch of 8 and the operands the main paths give it: the fused
    kernel with the c3 spec (gaussian core) and the CLI-default spec (fast
@@ -21,7 +24,12 @@ Phases (each must pass; any failure exits non-zero):
    stripe bloom on c3-stripe); at 3840x2160 on c5's flat batch of 4
    clips x 8 frames, the fused kernel (c4 spec, fast core; its twin
    clip by clip), the glitch shear in place and, on the effects' output,
-   the persistence kernel's multi-clip mode.
+   the persistence kernel's multi-clip mode. Then every gaussian route at
+   sigma 11 and 20 (radius 33 and 60, past the 63 taps of the launch
+   arguments) at 1080p: the fused kernel (the CLI defaults with
+   --no-fast-bloom), bloom3 (defaults-angled with the gaussian bloom),
+   the stripe and bloom2 (c3's pre-bloom image).
+   The row walk's rows are bit for bit their twins.
    Max abs error, CUDA-event time per call of the kernel,
    of the twin and, where one PyTorch call computes the same function,
    of that call; the least time the card could take (bytes over the
@@ -32,7 +40,9 @@ Phases (each must pass; any failure exits non-zero):
    carried; the text paths with a seeded synthetic overlay; the bloom
    opt-ins c3-bloom2, c3-stripe (two frames) and defaults-bloom2 (four);
    c5 on 4 clips x 8 frames in two steps against the oracle clip by
-   clip. <= 1 uint8 LSB, fewer than 1e-3 of values off. The 2-D scanline
+   clip; the fused route (the CLI defaults with --no-fast-bloom) and the
+   bloom3 route (defaults-angled with the gaussian bloom) at sigma 11 on
+   two frames. <= 1 uint8 LSB, fewer than 1e-3 of values off. The 2-D scanline
    mask against the oracle's (its NumPy f32 sin and pow are not
    correctly rounded). At 3840x2160, c5 (4 clips x 16 frames, two
    steps) equal bit for bit to four single-clip CRTEngine runs.
@@ -42,9 +52,12 @@ Phases (each must pass; any failure exits non-zero):
    (angle 5, thickness 1.5, text after the warp) on 16, the bloom
    opt-ins c3-bloom2 (c3 + PCRT_BLOOM2_GAUSS=1) and c3-stripe (c3 +
    PCRT_PALLAS_BLOOM=1) on 16 and defaults-bloom2 (PCRT_BLOOM2_FAST=1)
-   on 32, the variable set for that run only, each through
-   ``pythoncrt_tpu_torch.cli.main`` on a synthetic clip when a codec
-   backend exists, else through ``render_stream`` with in-memory frames.
+   on 32, the variable set for that run only, the CLI defaults with
+   ``--no-fast-bloom --bloom-sigma 11`` on 32 (the fused kernel at radius
+   33), each through ``pythoncrt_tpu_torch.cli.main`` on a synthetic clip
+   when a codec backend exists, else through ``render_stream`` with
+   in-memory frames; and the CLI defaults with aberration 8 on 32
+   frames 1080x8 (the roll mod W) through ``render_stream``.
    Then c5: ``cli.main(["--batch-manifest", ...])`` with the c4 flags on
    4 synthetic 3840x2160 clips of 16, 16, 12 and 9 frames (needs cv2),
    every clip's frame count checked, then a second run that resumes all
@@ -58,7 +71,8 @@ Phases (each must pass; any failure exits non-zero):
    line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
-exits 2 and prints no result.
+exits 2 and prints no result; without the port's package beside it (the
+script alone in a directory) it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -118,6 +132,9 @@ DEF_ANGLED_FLAGS = ["--scanline-angle", "12", "--scanline-thickness", "2"]
 C4_TEXT = dict(text="PLAY", size=48, after=False)
 C4_TEXT_FLAGS = [*C4_FLAGS, "--text", "PLAY", "--text-size", "48"]
 FUSED_TOL = 2e-6  # f32, same op order on both sides (-fmad=false)
+SIGMAS = {"s11": 11.0, "s20": 20.0}  # radius 33 and 60: past the launch arguments' 63 taps
+S11_FLAGS = ["--no-fast-bloom", "--bloom-sigma", "11"]
+AB_W = 8  # the aberration render's width: the aberration (8) is the whole width
 LSB_TOL = 1
 # f32 operations per output value, estimated from the kernels' sources for
 # the stages these specs turn on (rounded up; the FP64 grade pow of c3 is
@@ -127,7 +144,12 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "bloom3_planar": 45, "bloom3_fast_planar": 16, "bloom2_planar": 45,
                  "bloom2_planar_fast": 30, "bloom2_planar_pipelined": 45, "bloom_stripe": 45,
                  "persistence_scan_multiclip": 6, "glitch_shear_band": 0,
-                 "fused_pipeline_c5": 40, "glitch_shear_c5": 0}
+                 "fused_pipeline_c5": 40, "glitch_shear_c5": 0,
+                 # 2 x (2r + 1) multiply-adds and the composite
+                 "fused_pipeline_s11": 300, "fused_pipeline_s20": 520,
+                 "bloom3_planar_s11": 272, "bloom3_planar_s20": 490,
+                 "bloom_stripe_s11": 272, "bloom_stripe_s20": 490,
+                 "bloom2_planar_s11": 272, "bloom2_planar_s20": 490}
 
 
 def fail(msg: str) -> None:
@@ -213,7 +235,8 @@ def fused_instances(log: str) -> list:
             if "fused_strip_kernel" in line:
                 core, radius, f32 = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)E", line).groups()
                 cur = dict(core="fast" if core == "1" else "gaussian",
-                           radius="runtime" if radius.startswith("n") else int(radius),
+                           radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
+                                   "memory)"}.get(radius) or int(radius),
                            input="f32" if f32 == "1" else "uint8", registers=None, stack=None,
                            spill_stores=None, spill_loads=None, static_smem=0)
                 out.append(cur)
@@ -227,9 +250,52 @@ def fused_instances(log: str) -> list:
                 cur["registers"] = int(m.group(1))
                 m = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(m.group(1)) if m else 0
-    if len(out) != 6 or any(i["registers"] is None or i["stack"] is None for i in out):
-        fail(f"ptxas reported {len(out)} fused instantiations, expected 6: {out}")
+    if len(out) != 8 or any(i["registers"] is None or i["stack"] is None for i in out):
+        fail(f"ptxas reported {len(out)} fused instantiations, expected 8: {out}")
     return out
+
+
+WALK_SOURCES = {"0": "fold (bloom3)", "1": "clamp (stripe)", "2": "table (bloom2)"}
+
+
+def walk_instances(log: str) -> list:
+    """ptxas's lines for each instance of csrc/bloom_walk.cu (the row walk
+    per weight source and band, the scratch route's two passes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            m = re.search(r"(bloom_walk|bloom_hpass|bloom_vpass)_kernelILi(\d)E(?:Li(n?\d+)E)?",
+                          line)
+            if m:
+                kind, src, band = m.groups()
+                cur = dict(kernel=f"{kind}_kernel", source=WALK_SOURCES[src],
+                           band=None if band is None else
+                           ("runtime" if band.startswith("n") else f"-{band}..{band}"),
+                           registers=None, stack=None, spill_stores=None, spill_loads=None)
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and cur["stack"] is None:
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    if len(out) != 13 or any(i["registers"] is None or i["stack"] is None for i in out):
+        fail(f"ptxas reported {len(out)} row-walk instances, expected 13: {out}")
+    return out
+
+
+def walk_note(h: int, w: int, src: int, bands: tuple) -> str:
+    """The row walk's plan for a plane (kernels/bloom_walk.py walk_plan)."""
+    from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
+
+    p = kwalk.walk_plan(src, h, w, *bands)
+    if p.scratch:
+        return "; the scratch route (two passes through a device buffer)"
+    return (f"; strips of {p.sw} columns, runs of {p.run} rows, chunks of {p.step} rows, rings "
+            f"{p.depth} + {p.xdepth} rows, {p.smem} bytes of shared memory per block")
 
 
 def plan_note(tables) -> str:
@@ -260,8 +326,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi: no output"
-    from pythoncrt_tpu_torch.io import video as vio
-    from pythoncrt_tpu_torch.kernels import _build
+    try:
+        from pythoncrt_tpu_torch.io import video as vio
+        from pythoncrt_tpu_torch.kernels import _build
+    except ImportError as e:  # the script alone, without the port beside it
+        print(f"chip_smoke: the port's package is not importable ({e}); run this script from "
+              "the root of a checkout", file=sys.stderr)
+        return 1
 
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[-1]
@@ -305,12 +376,21 @@ def main() -> int:
               f"the plan's, in [3])")
         if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
             fail(f"fused instantiation {inst} uses local memory")
+    for inst in walk_instances(_build.build_log):
+        band = f", band {inst['band']}" if inst["band"] else ""
+        print(f"[2] row-walk instance {inst['kernel']}, {inst['source']}{band}: "
+              f"{inst['registers']} registers, {inst['stack']} bytes stack frame, "
+              f"{inst['spill_stores']} + {inst['spill_loads']} bytes spill (stores + loads); "
+              f"shared memory: the plan's, in [3]")
+        if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
+            fail(f"row-walk instance {inst} uses local memory")
     sys.stdout.flush()
 
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, oracle
     from pythoncrt_tpu_torch.kernels import bloom as kbloom
     from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
+    from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
@@ -323,7 +403,11 @@ def main() -> int:
                "defaults-angled": EffectParams(**DEF_ANGLED),
                "c4-text": EffectParams(**C4, text=TextParams(**C4_TEXT)),
                "c3-bloom2": EffectParams(**C3), "defaults-bloom2": EffectParams(),
-               "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4)}
+               "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4),
+               "defaults-s11": EffectParams(fast_bloom=False, bloom_sigma=11.0),
+               "defaults-angled-s11": EffectParams(**DEF_ANGLED, fast_bloom=False,
+                                                   bloom_sigma=11.0),
+               "ab8-w8": EffectParams(aberration_px=8)}
     ov_synth = synth_overlay(H, W, seed=4)  # the parity phases need no font
     table = {}
 
@@ -475,6 +559,7 @@ def main() -> int:
                 fail(f"{cfg} does not take the staged step")
             spec = eng.bloom3_spec
             src = "pythoncrt_tpu_torch/csrc/bloom3.cu"
+            tol = FUSED_TOL
             if spec.fast:
                 tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
                 run = functools.partial(kbloom3.bloom3_fast_planar, feed, spec, tabs)
@@ -485,15 +570,19 @@ def main() -> int:
                 run = functools.partial(kbloom3.bloom3_planar, feed, spec)
                 twin = functools.partial(kbloom3.bloom3_planar_ref, feed, spec)
                 repl, extra = "pythoncrt_tpu/kernels/bloom3.py:274", []
-                note = f" (c3-angled: sigma 1.2, {len(spec.taps)} taps)"
+                src, tol = "pythoncrt_tpu_torch/csrc/bloom_walk.cu", 0.0
+                note = (f" (c3-angled: sigma 1.2, {len(spec.taps)} taps; the row walk's fold"
+                        f"{walk_note(H, W, kwalk.FOLD, (-spec.r, spec.r) * 2)})")
         got, want = run(), twin()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"{kname}: non-finite output")
+        if kname == "fused_pipeline_f32in":
+            tol = FUSED_TOL
         row(kname, src, repl, (got - want).abs().max().item(),
             (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
             time_ms(run), time_ms(twin, iters=3), None, nbytes(feed, got, *extra), got.numel(),
-            note=note)
+            tol=tol, note=note)
         del feed, got, want, run, twin
 
     # the opt-in blooms, each on the pre-bloom image of its path
@@ -507,24 +596,28 @@ def main() -> int:
         feed, spec = eng._pre_bloom(x), eng.bloom_spec
         runs = []
         if cfg == "c3-stripe":
-            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom2.cu",
+            r = spec.radius
+            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom_walk.cu",
                          "pythoncrt_tpu/kernels/bloom.py:142", (),
                          functools.partial(kbloom.bloom_planar, feed, spec),
                          functools.partial(kbloom.bloom_planar_ref, feed, spec),
                          f" (c3-stripe: sigma 1.2, {len(spec.taps)} taps, the oracle's "
-                         "pad-then-sum)"))
+                         f"pad-then-sum; the row walk's clamp"
+                         f"{walk_note(H, W, kwalk.CLAMP, (-r, r, -r, r))})"))
         else:
             tabs = eng.bloom2_tables
-            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom2.cu",
+            bands = (spec.hd0, spec.hd1, spec.vd0, spec.vd1)
+            runs.append((kname, "pythoncrt_tpu_torch/csrc/bloom_walk.cu",
                          "pythoncrt_tpu/kernels/bloom2.py:334", tabs,
                          functools.partial(kbloom2.bloom2_planar, feed, spec, tabs),
                          functools.partial(kbloom2.bloom2_planar_ref, feed, spec, tabs),
                          f" ({cfg}: {spec.variant}, bands {spec.hd0}..{spec.hd1} x "
-                         f"{spec.vd0}..{spec.vd1})"))
+                         f"{spec.vd0}..{spec.vd1}; the row walk's table"
+                         f"{walk_note(H, W, kwalk.TABLE, bands)})"))
         if cfg == "c3-bloom2":  # the pipelined entry: limbs 3, 2, 1
             for limbs in (3, 2, 1):
                 lt = kbloom2.bloom2_tables(spec, dev, limbs)
-                runs.append(("bloom2_planar_pipelined", "pythoncrt_tpu_torch/csrc/bloom2.cu",
+                runs.append(("bloom2_planar_pipelined", "pythoncrt_tpu_torch/csrc/bloom_walk.cu",
                              "pythoncrt_tpu/kernels/bloom2.py:455", lt,
                              functools.partial(kbloom2.bloom2_planar_pipelined, feed, spec,
                                                limbs, lt),
@@ -540,16 +633,80 @@ def main() -> int:
             if name_ in table:  # the pipelined entry's row keeps limbs 3's time, the worst error
                 print(f"[3] {name_}{note}: max |kernel - twin| {err:.3g}, kernel "
                       f"{time_ms(run):.4f} ms/call on {card}", flush=True)
-                if err > FUSED_TOL:
+                if err > 0.0:
                     fail(f"{name_}{note} disagrees with its twin: {err:.3g}")
                 table[name_]["max_abs_err"] = max(table[name_]["max_abs_err"], err)
             else:
                 row(name_, src, repl, err,
                     (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
                     time_ms(run), time_ms(twin, iters=3), None, nbytes(feed, got, *tabs),
-                    got.numel(), note=note)
+                    got.numel(), tol=0.0, note=note)
             del got, want
         del feed, runs
+
+    # every gaussian route past the launch arguments' 63 taps: the fused
+    # kernel on the CLI defaults with --no-fast-bloom (taps from a device
+    # table in shared memory), and the row walk's fold (bloom3, on
+    # defaults-angled's pre-bloom image), clamp (the stripe) and table
+    # (bloom2) on c3's
+    for tag, sigma in SIGMAS.items():
+        eng = CRTEngine(EffectParams(fast_bloom=False, bloom_sigma=sigma), H, W, FPS,
+                        rng="host", layout="planar", channel_order="gbr", device=dev)
+        if eng._staged or eng.spec.fast or eng.spec.r != round(3 * sigma):
+            fail(f"sigma {sigma}: the CLI defaults do not take the fused gaussian core")
+        if eng.spec.emit != "f32":
+            fail(f"sigma {sigma}: the CLI defaults' fused kernel does not emit f32")
+        kw = eng.fused_operands(eng.make_aux(np.arange(B)))
+        got = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+        want = kfused.fused_pipeline_ref(x, eng.spec, eng.fused_tables, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"fused_pipeline_{tag}: non-finite output")
+        row(f"fused_pipeline_{tag}", "pythoncrt_tpu_torch/csrc/fused.cu",
+            "pythoncrt_tpu/kernels/fused.py:680", (got - want).abs().max().item(),
+            (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+            time_ms(lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)),
+            time_ms(lambda: kfused.fused_pipeline_ref(x, eng.spec, eng.fused_tables, **kw),
+                    iters=2), None, nbytes(x, got, *kw.values()), got.numel(),
+            note=f" (the CLI defaults with --no-fast-bloom --bloom-sigma {sigma:g}: radius "
+                 f"{eng.spec.r}{plan_note(eng.fused_tables)})")
+        del got, want, kw
+        ang = CRTEngine(EffectParams(**DEF_ANGLED, fast_bloom=False, bloom_sigma=sigma), H, W,
+                        FPS, rng="host", layout="planar", channel_order="gbr", device=dev)
+        c3e = CRTEngine(EffectParams(**C3), H, W, FPS, rng="host", layout="planar",
+                        channel_order="gbr", device=dev)
+        if not ang._staged or ang.bloom3_spec.r != eng.spec.r:
+            fail(f"sigma {sigma}: defaults-angled does not take bloom3's gaussian")
+        feed3, feedc = ang._pre_bloom(x), c3e._pre_bloom(x)
+        b3 = ang.bloom3_spec
+        st = kbloom.build_bloom_spec(H, W, sigma, 0.25, 0.0)
+        b2 = kbloom2.build_bloom2_spec(H, W, variant="gaussian", sigma=sigma, strength=0.25)
+        t2 = kbloom2.bloom2_tables(b2, dev)
+        r = b3.r
+        for kname, src_id, repl, feed, run, twin, extra, bands in (
+                (f"bloom3_planar_{tag}", kwalk.FOLD, "pythoncrt_tpu/kernels/bloom3.py:274", feed3,
+                 functools.partial(kbloom3.bloom3_planar, feed3, b3),
+                 functools.partial(kbloom3.bloom3_planar_ref, feed3, b3), (), (-r, r, -r, r)),
+                (f"bloom_stripe_{tag}", kwalk.CLAMP, "pythoncrt_tpu/kernels/bloom.py:142", feedc,
+                 functools.partial(kbloom.bloom_planar, feedc, st),
+                 functools.partial(kbloom.bloom_planar_ref, feedc, st), (), (-r, r, -r, r)),
+                (f"bloom2_planar_{tag}", kwalk.TABLE, "pythoncrt_tpu/kernels/bloom2.py:334",
+                 feedc, functools.partial(kbloom2.bloom2_planar, feedc, b2, t2),
+                 functools.partial(kbloom2.bloom2_planar_ref, feedc, b2, t2), t2,
+                 (b2.hd0, b2.hd1, b2.vd0, b2.vd1))):
+            got, want = run(), twin()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"{kname}: non-finite output")
+            row(kname, "pythoncrt_tpu_torch/csrc/bloom_walk.cu", repl,
+                (got - want).abs().max().item(),
+                (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+                time_ms(run), time_ms(twin, iters=2), None, nbytes(feed, got, *extra),
+                got.numel(), tol=0.0,
+                note=f" (sigma {sigma:g}, radius {r}; the row walk's "
+                     f"{kwalk.SRC_NAMES[src_id]}{walk_note(H, W, src_id, bands)})")
+            del got, want
+        del feed3, feedc, t2, eng, ang, c3e
     del x
 
     # c5's kernels at 3840x2160 on its operands: 4 clips x 8 frames flat
@@ -659,7 +816,8 @@ def main() -> int:
 
     for cfg, n, nb in (("c3", 2, 1), ("defaults", 4, 2), ("c4", 4, 2), ("c3-angled", 2, 1),
                        ("defaults-angled", 4, 2), ("c4-text", 4, 2), ("c3-bloom2", 2, 1),
-                       ("c3-stripe", 2, 1), ("defaults-bloom2", 4, 2)):
+                       ("c3-stripe", 2, 1), ("defaults-bloom2", 4, 2), ("defaults-s11", 2, 1),
+                       ("defaults-angled-s11", 2, 1)):
         p = configs[cfg]
         clip = synth(n, H, W, seed=2)
         ov = ov_synth if p.text.enabled else None
@@ -768,7 +926,14 @@ def main() -> int:
         ("defaults-bloom2", [], configs["defaults-bloom2"], N_MAIN,
          ("bloom2", "persistence_scan")),
         ("c3-stripe", C3_FLAGS, configs["c3-stripe"], N_C3, ("bloom", "warp_planar")),
+        ("defaults-s11", S11_FLAGS, configs["defaults-s11"], N_MAIN,
+         ("fused_pipeline", "persistence_scan")),
+        # frames as wide as the aberration, in memory (no codec takes 8 columns)
+        ("ab8-w8", None, configs["ab8-w8"], N_MAIN, ("fused_pipeline", "persistence_scan")),
     )
+
+    def size(pname):
+        return (H, AB_W) if pname == "ab8-w8" else (H, W)
 
     def overlay(p):
         """The overlay a render of p composites: PIL's, or the synthetic one."""
@@ -791,7 +956,7 @@ def main() -> int:
             if p.text.enabled:
                 text = (f"; text rasterized by {pil}" if pil else
                         "; text: a seeded synthetic overlay (no PIL on this host)")
-            if cv2_ver and (pil or not p.text.enabled):
+            if flags is not None and cv2_ver and (pil or not p.text.enabled):
                 from pythoncrt_tpu_torch import cli
 
                 outp = os.path.join(tmp, f"out_{pname}.mp4")
@@ -807,13 +972,15 @@ def main() -> int:
             else:
                 from pythoncrt_tpu_torch.pipeline import render_stream
 
+                ph, pw = size(pname)
+
                 class Reader:
-                    out_h, out_w, i = H, W, 0
+                    out_h, out_w, i = ph, pw, 0
 
                     def read_into(self, buf):
                         if self.i >= n:
                             return False
-                        buf[...] = clip[self.i]
+                        buf[...] = clip[self.i, :ph, :pw]
                         self.i += 1
                         return True
 
@@ -833,13 +1000,15 @@ def main() -> int:
                 wtr = Writer()
                 t0 = time.perf_counter()
                 with optin_env(pname):
-                    eng_r = CRTEngine(p, H, W, FPS, device=dev, text_rgba=overlay(p))
+                    eng_r = CRTEngine(p, ph, pw, FPS, device=dev, text_rgba=overlay(p))
                 n_out = render_stream(Reader(), wtr, eng_r, batch_size=B)
                 wall = time.perf_counter() - t0
                 out_arr = np.stack(wtr.frames)
-                if not (out_arr.shape == (n, H, W, 3) and out_arr.std() > 0):
+                if not (out_arr.shape == (n, ph, pw, 3) and out_arr.std() > 0):
                     fail(f"render_stream ({pname}) output has the wrong shape or is constant")
-                how = "render_stream (in-memory frames: no codec backend or no PIL)"
+                how = (f"render_stream ({pw}x{ph} in-memory frames, aberration "
+                       f"{p.aberration_px}: the roll taken mod W)" if flags is None else
+                       "render_stream (in-memory frames: no codec backend or no PIL)")
             got = read_counts()
             for k, v in got.items():
                 launches[k][pname] = v
@@ -906,11 +1075,13 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # device-side throughput of the same steps (no codecs): batches of 8
-    xs = planar_gbr(synth(N_MAIN, H, W, seed=3))
+    xs_full = planar_gbr(synth(N_MAIN, H, W, seed=3))
     for pname, _, p, n, _ in paths:
+        ph, pw = size(pname)
+        xs = xs_full[..., :ph, :pw].contiguous()
         with optin_env(pname):
-            eng_dev = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev,
-                                text_rgba=overlay(p))
+            eng_dev = CRTEngine(p, ph, pw, FPS, layout="planar", channel_order="gbr",
+                                device=dev, text_rgba=overlay(p))
         st = None
         _, st = eng_dev.process(xs[:B], np.arange(B), st)
         torch.cuda.synchronize()
@@ -919,9 +1090,9 @@ def main() -> int:
             _, st = eng_dev.process(xs[k:k + B], np.arange(k, k + B), st)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"[5] engine step alone, {pname} (frames already on the card): "
+        print(f"[5] engine step alone, {pname} ({pw}x{ph}, frames already on the card): "
               f"{N_MAIN / dt:.2f} fps on {card}", flush=True)
-    del xs
+    del xs, xs_full
     mc = MultiClipEngine(CRTEngine(configs["c5"], H4, W4, FPS, layout="planar",
                                    channel_order="gbr", device=dev))
     x4k = torch.randint(0, 256, (C5_CLIPS, B, 3, H4, W4), generator=gen, device=dev,
@@ -961,7 +1132,12 @@ def main() -> int:
         "bloom2_planar_fast": ("bloom2", ("defaults-bloom2",)),
         "bloom2_planar_pipelined": ("bloom2", ()),
         "bloom_stripe": ("bloom", ("c3-stripe",)),
+        "fused_pipeline_s11": ("fused_pipeline", ("defaults-s11",)),
+        "fused_pipeline_s20": ("fused_pipeline", ()),
     }
+    for tag in SIGMAS:  # the stand-alone routes at large radii: on no main path
+        runs_on.update({f"{k}_{tag}": (c, ()) for k, c in (
+            ("bloom3_planar", "bloom3"), ("bloom_stripe", "bloom"), ("bloom2_planar", "bloom2"))})
     for kname, entry in table.items():
         counter, on = runs_on[kname]
         by_path = {pn: v for pn, v in launches[counter].items() if on is None or pn in on}

@@ -1,32 +1,25 @@
-// Stand-alone bloom for Hopper (sm_90a): stage 6 on an f32 image,
-// clip(x + strength * blur(knee(x))), plane by plane.
+// Stand-alone fast bloom for Hopper (sm_90a): stage 6 on an f32 image,
+// clip(x + strength * up(down(knee(x)))), plane by plane.
 //
 // Replaces: pythoncrt_tpu/kernels/bloom3.py, the Pallas TPU row-stripe
-// kernels bloom3_planar / _bloom3_kernel (the exact gaussian) and
-// bloom3_fast_cmajor / _bloom3_fast_kernel (the half-res bilinear down and
-// up). The engine runs them where its fused kernel cannot take the whole
-// chain: 2-D scanlines, whose per-pixel mask runs after the bloom in
-// plain torch ops.
+// kernel bloom3_fast_cmajor / _bloom3_fast_kernel (the half-res bilinear
+// down and up). The engine runs it where its fused kernel cannot take the
+// whole chain: 2-D scanlines, whose per-pixel mask runs after the bloom in
+// plain torch ops. (bloom3's exact gaussian, _bloom3_kernel, is the FOLD
+// instance of csrc/bloom_walk.cu.)
 //
 // What bounds it on the card: bytes. A 1080p frame is 24.9 MB of f32 read
-// and 24.9 MB written; the taps (at most 2 x 63 multiply-adds per value,
-// 19 at sigma 1.2) and the four 2-tap resize passes are small beside that.
+// and 24.9 MB written; the four 2-tap resize passes are small beside that.
 //
 // Design: the blur is per colour plane, so the (B, 3, H, W) batch is read
-// as B*3 planes and one block owns a 32x32 output tile of one plane (the
-// fused kernel's blocks hold three planes because its saturation and luma
-// mix them). The block loads its tile plus a halo into shared memory with
-// the knee applied, runs both passes out of shared memory, and composites
-// with the pre-knee value read from device memory. The TPU kernels' stripe
+// as B*3 planes and one block owns a 32x32 output tile of one plane. The
+// block loads its source extent into shared memory with the knee applied,
+// runs the oracle's resize_bilinear down to (H/2, W/2) and back, rows then
+// columns in each pass, lo*(1-f) + hi*f, from its bilinear_taps tables, and
+// composites with the pre-knee value read from device memory. Each block
+// reads its source and half-res extents from the tables
+// (crt::fast_window), so odd H and W work too. The TPU kernel's stripe
 // heights, DMA ring, sublane rolls and parity masks have no counterpart.
-// - Gaussian: an r-pixel halo read with clamped coordinates (any H, W and
-//   radius up to 31). Horizontal taps in tap order, out-of-frame taps
-//   adding nothing, then edge_l, then edge_r times the edge sample; then
-//   the vertical pass the same way (ops/blur.py, fused.cu's core).
-// - Fast: the oracle's resize_bilinear down to (H/2, W/2) and back, rows
-//   then columns in each pass, lo*(1-f) + hi*f, from its bilinear_taps
-//   tables; each block reads its source and half-res extents from the
-//   tables (crt::fast_window), so odd H and W work too.
 // Built with -fmad=false: every multiply and add rounds separately, in the
 // order of the plain PyTorch twin (kernels/bloom3.py).
 
@@ -41,7 +34,6 @@ constexpr int TX = 32;       // output tile width (kernels/fused.py TILE: the fa
                              // tables' per-tile extents are computed for it)
 constexpr int TY = 32;       // output tile height
 constexpr int NT = 256;      // threads per block
-constexpr int MAXK = 63;     // taps (radius <= 31)
 
 }  // namespace
 
@@ -55,12 +47,8 @@ struct Bloom3Args {
     const int32_t* fu_ylo; const float* fu_yf;   // (H,)  up, rows
     const int32_t* fu_xlo; const float* fu_xf;   // (W,)  up, columns
     int32_t n, h, w;
-    int32_t fast_on, r;
     int32_t knee_on; float thr, rden;
     float strength;
-    float taps[MAXK];
-    float edge_l[MAXK];      // edge_l[d]: summed taps clipped off the left/top at distance d
-    float edge_r[MAXK];      // edge_r[d]: same for the right/bottom edge
     int32_t h2, w2;
     // largest per-tile extents of the fast tables (shared memory sizing):
     // full-res rows/columns, half-res rows/columns
@@ -71,73 +59,6 @@ namespace {
 
 __device__ __forceinline__ float knee(const Bloom3Args& a, float v) {
     return crt::knee(a.knee_on, a.thr, a.rden, v);
-}
-
-__global__ void __launch_bounds__(NT)
-bloom3_gauss_kernel(const Bloom3Args a) {
-    extern __shared__ float smem[];
-    const int r = a.r;
-    const int k = 2 * r + 1;
-    const int rh = TY + 2 * r;          // rows held (tile + halo)
-    const int rw = TX + 2 * r;          // columns held
-    const int sp = rw + 1;              // padded pitch
-    float* S = smem;                    // [rh][sp] knee'd source
-    float* Hs = smem + rh * sp;         // [rh][TX] horizontal pass
-
-    const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-    const int tid = threadIdx.x;
-    const int h = a.h, w = a.w;
-    const size_t plane = (size_t)h * w;
-    const float* src = a.img + blockIdx.z * plane;
-    float* dst = a.out + blockIdx.z * plane;
-
-    for (int i = tid; i < rh * rw; i += NT) {
-        const int ly = i / rw, lx = i - ly * rw;
-        const int gy = min(max(y0 - r + ly, 0), h - 1);
-        const int gx = min(max(x0 - r + lx, 0), w - 1);
-        S[ly * sp + lx] = knee(a, src[(size_t)gy * w + gx]);
-    }
-    __syncthreads();
-
-    if (r > 0) {
-        for (int i = tid; i < rh * TX; i += NT) {
-            const int ly = i / TX, lx = i - ly * TX;
-            const int gx = x0 + lx;
-            if (gx >= w) continue;
-            const float* row = S + ly * sp;
-            float acc = 0.0f;
-            for (int t = 0; t < k; ++t) {
-                const int sx = gx + t - r;
-                if (sx >= 0 && sx < w) acc = acc + a.taps[t] * row[lx + t];
-            }
-            const int dl = gx, dr = w - 1 - gx;
-            if (dl < r) acc = acc + a.edge_l[dl] * row[r - x0];
-            if (dr < r) acc = acc + a.edge_r[dr] * row[(w - 1) - x0 + r];
-            Hs[ly * TX + lx] = acc;
-        }
-        __syncthreads();
-    }
-
-    for (int i = tid; i < TY * TX; i += NT) {
-        const int ly = i / TX, lx = i - ly * TX;
-        const int gy = y0 + ly, gx = x0 + lx;
-        if (gy >= h || gx >= w) continue;
-        // a one-tap gaussian is the identity (the reference skips it)
-        float acc = S[(ly + r) * sp + lx + r];
-        if (r > 0) {
-            const float* col = Hs + lx;
-            acc = 0.0f;
-            for (int t = 0; t < k; ++t) {
-                const int sy = gy + t - r;
-                if (sy >= 0 && sy < h) acc = acc + a.taps[t] * col[(ly + t) * TX];
-            }
-            const int dt = gy, db = h - 1 - gy;
-            if (dt < r) acc = acc + a.edge_l[dt] * col[(r - y0) * TX];
-            if (db < r) acc = acc + a.edge_r[db] * col[((h - 1) - y0 + r) * TX];
-        }
-        const size_t o = (size_t)gy * w + gx;
-        dst[o] = crt::clip01(src[o] + a.strength * acc);
-    }
 }
 
 // resize_bilinear(resize_bilinear(knee(x), H/2, W/2), H, W), composited.
@@ -206,22 +127,13 @@ bloom3_fast_kernel(const Bloom3Args a) {
 
 extern "C" int crt_bloom3_launch(const Bloom3Args* a, void* stream) {
     if (a->n < 1 || a->n > 65535) return (int)cudaErrorInvalidValue;
-    const bool fast = a->fast_on != 0;
-    if (!fast && (a->r < 0 || 2 * a->r + 1 > MAXK)) return (int)cudaErrorInvalidValue;
-    void (*kern)(const Bloom3Args) = fast ? bloom3_fast_kernel : bloom3_gauss_kernel;
-    int smem;
-    if (fast) {
-        const int SR = a->fs_rows, SC = a->fs_cols, HR = a->fh_rows, HC = a->fh_cols;
-        smem = (int)sizeof(float) * (SR * SC + HR * SC + HR * HC + TY * HC);
-    } else {
-        const int rh = TY + 2 * a->r, sp = TX + 2 * a->r + 1;
-        smem = (int)sizeof(float) * (rh * sp + rh * TX);
-    }
+    const int SR = a->fs_rows, SC = a->fs_cols, HR = a->fh_rows, HC = a->fh_cols;
+    const int smem = (int)sizeof(float) * (SR * SC + HR * SC + HR * HC + TY * HC);
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bloom3_fast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((a->w + TX - 1) / TX, (a->h + TY - 1) / TY, a->n);
-    kern<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+    bloom3_fast_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(*a);
     return (int)cudaGetLastError();
 }
 

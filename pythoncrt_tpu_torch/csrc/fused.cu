@@ -51,8 +51,12 @@
 //    vertical tap sum over the ring, then the composite with the
 //    pre-knee value and the epilogue. The radius of the CLI default
 //    sigma 1.2 (r = 4) is a template with unrolled taps; other radii up
-//    to 31 take a loop. Strips (rows) away from the frame's edges run
-//    the taps without bounds tests.
+//    to 31 take a loop over the taps in the launch arguments, and larger
+//    radii (BIG) the same loop over the taps and border coefficients of
+//    a device table, staged in shared memory once per block (the plan
+//    narrows the strip as the rings grow; kernels/fused.py). Strips
+//    (rows) away from the frame's edges run the taps without bounds
+//    tests.
 //    Fast core: a ring of knee'd source rows and a ring of half-res rows;
 //    each half-res row (down rows, then down columns) is computed once
 //    per block as soon as its two source rows are in the ring; each
@@ -88,8 +92,10 @@ namespace {
 
 constexpr int NT = 256;      // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int MAXK = 63;     // taps (radius <= 31)
+constexpr int MAXK = 63;     // taps carried in the launch arguments (radius <= MAXR)
+constexpr int MAXR = MAXK / 2;
 constexpr int GAUSS = 0, FAST = 1;
+constexpr int BIG = -2;      // gaussian radius above MAXR: taps from shared memory
 constexpr int LUTP = 1028;   // pitch of the two 1025-entry triad tables in shared memory
 
 }  // namespace
@@ -120,6 +126,7 @@ struct FusedArgs {
                              // then (he, ye) per chunk: the walk's schedule
     const int32_t* rowtab;   // (H, 4 or 2r + 2) ring offsets of each output row's operands
     const int32_t* halftab;  // (H2, 4) fast core: ring offsets of each half-res row's rows
+    const float* tapdev;     // radius above MAXR: (4r + 1,) taps, edge_l, edge_r; else null
     int32_t b, h, w;
     int32_t emit_u8;
     int32_t pre_on;          // 1: stages 1-4 from img; 0: read imgf as it is
@@ -178,6 +185,7 @@ struct Smem {
     float* tri;            // [3][sw] the strip's triad rows
     float* vx;             // [sw] the strip's vignette nx^2
     int* misc;             // [12] this strip's staged ranges, [12] the leader count
+    float* taps;           // radius above MAXR: [4r + 1] taps, edge_l, edge_r
     int total;
 };
 
@@ -213,6 +221,10 @@ __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* b
     s.vx = s.tri + 3 * a.sw;
     o += a16h((2 * LUTP + 4 * a.sw) * 4);
     s.misc = (int*)(base + o); o += 64;
+    s.taps = nullptr;
+    if (!fast && r > MAXR) {
+        s.taps = (float*)(base + o); o += a16h((4 * r + 1) * 4);
+    }
     s.total = o;
     return s;
 }
@@ -439,11 +451,28 @@ __device__ __forceinline__ void add4(float acc[4], float c, const float* row) {
     acc[3] = acc[3] + c * t.w;
 }
 
+// The gaussian's tap t and border coefficients at distance d: the launch
+// arguments, or for BIG the block's copy of the device table.
+template <int RT>
+__device__ __forceinline__ float tapw(const FusedArgs& a, const Smem& S, int t) {
+    if constexpr (RT == BIG) return S.taps[t]; else return a.taps[t];
+}
+
+template <int RT>
+__device__ __forceinline__ float edgel(const FusedArgs& a, const Smem& S, int d) {
+    if constexpr (RT == BIG) return S.taps[2 * a.r + 1 + d]; else return a.edge_l[d];
+}
+
+template <int RT>
+__device__ __forceinline__ float edger(const FusedArgs& a, const Smem& S, int d) {
+    if constexpr (RT == BIG) return S.taps[3 * a.r + 1 + d]; else return a.edge_r[d];
+}
+
 // Horizontal taps of four adjacent outputs from a knee'd window row.
 // `row` points at the window column of frame column gx - r.
 template <int RT>
-__device__ __forceinline__ void htaps_interior(const FusedArgs& a, const float* row, int r,
-                                               float acc[4]) {
+__device__ __forceinline__ void htaps_interior(const FusedArgs& a, const Smem& S,
+                                               const float* row, int r, float acc[4]) {
     #pragma unroll
     for (int v = 0; v < 4; ++v) acc[v] = 0.0f;
     if constexpr (RT > 0) {
@@ -462,7 +491,7 @@ __device__ __forceinline__ void htaps_interior(const FusedArgs& a, const float* 
         }
     } else {
         for (int t = 0; t < 2 * r + 1; ++t) {
-            const float tp = a.taps[t];
+            const float tp = tapw<RT>(a, S, t);
             #pragma unroll
             for (int v = 0; v < 4; ++v) acc[v] = acc[v] + tp * row[v + t];
         }
@@ -483,6 +512,9 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     const int x0 = blockIdx.x * sw, xe = min(x0 + sw, w), ncen = xe - x0;
     const int y0 = blockIdx.y * a.run, y1 = min(y0 + a.run, h);
     const int r = CORE == FAST ? 0 : (RT >= 0 ? RT : (a.bloom_on ? a.r : 0));
+    if constexpr (RT == BIG) {
+        for (int i = tid; i < 4 * r + 1; i += NT) S.taps[i] = __ldg(a.tapdev + i);
+    }
 
     // ---- the strip's windows: full-res [win0, win1), half-res [j0, j1] ----
     int win0, win1, j0 = 0, j1 = -1;
@@ -651,7 +683,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                     const int gx = x0 + 4 * q;
                     float acc[4];
                     if (interior) {
-                        htaps_interior<RT>(a, row + (gx - r - win0), r, acc);
+                        htaps_interior<RT>(a, S, row + (gx - r - win0), r, acc);
                     } else {
                         #pragma unroll
                         for (int v = 0; v < 4; ++v) {
@@ -660,10 +692,12 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                             if (x < w) {
                                 for (int t = 0; t < kt; ++t) {
                                     const int sx = x + t - r;
-                                    if (sx >= 0 && sx < w) s = s + a.taps[t] * row[sx - win0];
+                                    if (sx >= 0 && sx < w)
+                                        s = s + tapw<RT>(a, S, t) * row[sx - win0];
                                 }
-                                if (x < r) s = s + a.edge_l[x] * row[0 - win0];
-                                if (w - 1 - x < r) s = s + a.edge_r[w - 1 - x] * row[w - 1 - win0];
+                                if (x < r) s = s + edgel<RT>(a, S, x) * row[0 - win0];
+                                if (w - 1 - x < r)
+                                    s = s + edger<RT>(a, S, w - 1 - x) * row[w - 1 - win0];
                             }
                             acc[v] = s;
                         }
@@ -706,17 +740,19 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                                 for (int k = 0; k < 2 * RT + 1; ++k)
                                     add4(acc, a.taps[k], col + t[1 + k]);
                             } else {
-                                for (int k = 0; k < kt; ++k) add4(acc, a.taps[k], col + t[1 + k]);
+                                for (int k = 0; k < kt; ++k)
+                                    add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
                             }
                         } else {
                             for (int k = 0; k < kt; ++k) {
                                 const int sy = y + k - r;
-                                if (sy >= 0 && sy < h) add4(acc, a.taps[k], col + t[1 + k]);
+                                if (sy >= 0 && sy < h) add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
                             }
                             // the tap rows clamp to the frame: rows 0 and H - 1
-                            if (y < r) add4(acc, a.edge_l[y], col + t[1 + r - y]);
+                            if (y < r) add4(acc, edgel<RT>(a, S, y), col + t[1 + r - y]);
                             if (h - 1 - y < r)
-                                add4(acc, a.edge_r[h - 1 - y], col + t[1 + (h - 1 - y) + r]);
+                                add4(acc, edger<RT>(a, S, h - 1 - y),
+                                     col + t[1 + (h - 1 - y) + r]);
                         }
                     }
                     #pragma unroll
@@ -787,7 +823,8 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
 }  // namespace
 
 extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
-    if (a->r < 0 || 2 * a->r + 1 > MAXK) return (int)cudaErrorInvalidValue;
+    if (a->r < 0 || (a->bloom_on && !a->fast_on && a->r > MAXR && !a->tapdev))
+        return (int)cudaErrorInvalidValue;
     if (smem_layout(*a, nullptr).total != a->smem) return (int)cudaErrorInvalidValue;
     const bool fast = a->bloom_on && a->fast_on;
     const bool f32 = !a->pre_on;
@@ -796,6 +833,8 @@ extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
         kern = f32 ? fused_strip_kernel<FAST, 0, true> : fused_strip_kernel<FAST, 0, false>;
     else if (a->bloom_on && a->r == 4)
         kern = f32 ? fused_strip_kernel<GAUSS, 4, true> : fused_strip_kernel<GAUSS, 4, false>;
+    else if (a->bloom_on && a->r > MAXR)
+        kern = f32 ? fused_strip_kernel<GAUSS, BIG, true> : fused_strip_kernel<GAUSS, BIG, false>;
     else
         kern = f32 ? fused_strip_kernel<GAUSS, -1, true> : fused_strip_kernel<GAUSS, -1, false>;
     cudaError_t e = cudaFuncSetAttribute(

@@ -15,12 +15,13 @@ result. That is not the border fold of ops/blur.py and the bloom3 kernel
 (the out-of-frame taps summed into one coefficient), so the twin is its
 own function; the two agree only to an ulp at the borders.
 
-``bloom_planar`` launches csrc/bloom2.cu's tile kernel with constant taps
-(band -r..r on both axes, the index clamped: the oracle's replicate
-padding) for CUDA tensors and runs ``bloom_planar_ref`` for CPU tensors.
+``bloom_planar`` launches the CLAMP instance of csrc/bloom_walk.cu (the
+row walk, kernels/bloom_walk.py: constant taps over the band -r..r on
+both axes, the index clamped: the oracle's replicate padding) for CUDA
+tensors and runs ``bloom_planar_ref`` for CPU tensors.
 ``build_bloom_spec`` keeps the JAX name; the TPU's gates and stripe
 geometry (H%8, W%128, ``ty``, ``sy``, ``wtot``) have no counterpart: any
-H and W, radius up to 31.
+H, W and radius.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ import numpy as np
 import torch
 
 from ..ops import blur as oblur
-from .bloom2 import tile_launch
-from .fused import MAX_TAPS, knee_consts
+from . import bloom_walk as kwalk
+from .fused import knee_consts
 
 launches = 0  # CUDA launches made by bloom_planar
 
@@ -52,12 +53,9 @@ class BloomSpec:
 
 def build_bloom_spec(h: int, w: int, sigma: float, strength: float,
                      threshold: float) -> BloomSpec:
-    """Taps of oracle.ops.gaussian_kernel_1d (k = round(3 sigma) * 2 + 1)."""
-    taps = oblur.gaussian_taps(sigma)
-    if len(taps) > MAX_TAPS:
-        raise NotImplementedError(
-            f"bloom radius {len(taps) // 2} exceeds the kernel's 31 (ROADMAP.md queue 2)")
-    return BloomSpec(h=int(h), w=int(w), taps=taps, strength=float(strength),
+    """Taps of oracle.ops.gaussian_kernel_1d (k = round(3 sigma) * 2 + 1;
+    any radius)."""
+    return BloomSpec(h=int(h), w=int(w), taps=oblur.gaussian_taps(sigma), strength=float(strength),
                      threshold=float(min(0.99, max(0.0, threshold))))
 
 
@@ -93,7 +91,8 @@ def bloom_planar(imgs: torch.Tensor, spec: BloomSpec) -> torch.Tensor:
     if imgs.device.type == "cpu":
         return bloom_planar_ref(imgs, spec)
     r = spec.radius
-    out = tile_launch(imgs, spec.h, spec.w, "bloom_planar", bands=(-r, r, -r, r),
-                      strength=spec.strength, threshold=spec.threshold, taps=spec.taps)
+    out = kwalk.walk_launch(imgs, spec.h, spec.w, "bloom_planar", src=kwalk.CLAMP,
+                            bands=(-r, r, -r, r), strength=spec.strength,
+                            threshold=spec.threshold, taps=spec.taps)
     launches += 1
     return out

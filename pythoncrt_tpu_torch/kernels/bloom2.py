@@ -29,19 +29,16 @@ the f32 product (``limbs=3``). The pipelined entry's ``limbs=2`` rounds
 the value to bf16 against the hi + lo weight, ``limbs=1`` rounds value
 and weight to bf16: one rounding each, what the TPU's reduced settings
 compute. The lane pre-pad, lane masks, the bf16 mask pair and the DMA
-ring are TPU forms with no counterpart; any H and W, band offsets within
-[-31, 31].
+ring are TPU forms with no counterpart; any H, W and band.
 
-``bloom2_planar`` and ``bloom2_planar_pipelined`` launch csrc/bloom2.cu
-for CUDA tensors and run their twins (``bloom2_planar_ref``,
-``bloom2_planar_pipelined_ref``) for CPU tensors. ``tile_launch`` is the
-kernel's one launcher; the stripe bloom (kernels/bloom.py) calls it with
-constant taps in place of the tables.
+``bloom2_planar`` and ``bloom2_planar_pipelined`` launch the TABLE
+instance of csrc/bloom_walk.cu (the row walk, kernels/bloom_walk.py) for
+CUDA tensors and run their twins (``bloom2_planar_ref``,
+``bloom2_planar_pipelined_ref``) for CPU tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -49,11 +46,10 @@ import numpy as np
 import torch
 
 from ..oracle.ops import bilinear_taps, gaussian_kernel_1d
-from . import _build
+from . import bloom_walk as kwalk
 from .fused import knee_consts
 
 launches = 0  # CUDA launches made by bloom2_planar and bloom2_planar_pipelined
-MAX_REACH = 31  # csrc/bloom2.cu MAXR
 
 
 def _gaussian_matrix(n: int, sigma: float) -> np.ndarray:
@@ -129,10 +125,6 @@ def build_bloom2_spec(h: int, w: int, *, variant: str, sigma: float = 0.0,
         raise ValueError(f"unknown bloom variant {variant!r}")
     hd0, hd1, hw = _band(hm)
     vd0, vd1, vw = _band(vm)
-    if max(-hd0, hd1, -vd0, vd1) > MAX_REACH:
-        raise NotImplementedError(
-            f"bloom2 band reach {max(-hd0, hd1, -vd0, vd1)} exceeds the kernel's "
-            f"{MAX_REACH} (ROADMAP.md queue 2)")
     return Bloom2Spec(h=int(h), w=int(w), variant=variant, strength=float(strength),
                       threshold=float(min(0.99, max(0.0, threshold))),
                       hd0=hd0, hd1=hd1, vd0=vd0, vd1=vd1, hw=hw, vw=vw)
@@ -187,66 +179,15 @@ def bloom2_planar_pipelined_ref(imgs: torch.Tensor, spec: Bloom2Spec, limbs: int
     return _ref(imgs, spec, tables, limbs)
 
 
-class _Bloom2Args(ctypes.Structure):
-    """Mirror of Bloom2Args in csrc/bloom2.cu (checked by size at launch)."""
-    _fields_ = [
-        ("img", ctypes.c_void_p), ("out", ctypes.c_void_p),
-        ("hw", ctypes.c_void_p), ("vw", ctypes.c_void_p),
-        ("n", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
-        ("hd0", ctypes.c_int32), ("hd1", ctypes.c_int32),
-        ("vd0", ctypes.c_int32), ("vd1", ctypes.c_int32),
-        ("knee_on", ctypes.c_int32), ("thr", ctypes.c_float), ("rden", ctypes.c_float),
-        ("strength", ctypes.c_float), ("limbs", ctypes.c_int32),
-        ("taps", ctypes.c_float * (2 * MAX_REACH + 1)),
-    ]
-
-
-def tile_launch(imgs: torch.Tensor, h: int, w: int, name: str, *, bands: tuple,
-                strength: float, threshold: float, tables=None, taps=None,
-                limbs: int = 3) -> torch.Tensor:
-    """Launch csrc/bloom2.cu's tile kernel on a (B, 3, h, w) f32 CUDA
-    tensor. ``bands`` is (hd0, hd1, vd0, vd1); the weights come from
-    ``tables`` (hw, vw), per position, or from ``taps``, constant and the
-    same on both axes. Counts no launch: each entry counts its own."""
-    if imgs.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {imgs.device}")
-    if (imgs.ndim != 4 or imgs.shape[1] != 3 or tuple(imgs.shape[2:]) != (h, w)
-            or imgs.dtype != torch.float32 or not imgs.is_contiguous()):
-        raise ValueError(f"{name}: imgs must be a contiguous f32 (B, 3, {h}, {w}) "
-                         f"tensor, got {imgs.dtype} {tuple(imgs.shape)}")
-    out = torch.empty_like(imgs)
-    a = _Bloom2Args()
-    a.img, a.out = imgs.data_ptr(), out.data_ptr()
-    if tables is not None:
-        hd0, hd1, vd0, vd1 = bands
-        for tname, t, shape in (("hw", tables[0], (hd1 - hd0 + 1, w)),
-                                ("vw", tables[1], (vd1 - vd0 + 1, h))):
-            if (t.device != imgs.device or t.dtype != torch.float32
-                    or tuple(t.shape) != shape or not t.is_contiguous()):
-                raise ValueError(f"{name}: table {tname} must be a contiguous f32 {shape} "
-                                 f"tensor on {imgs.device}")
-        a.hw, a.vw = tables[0].data_ptr(), tables[1].data_ptr()
-    else:
-        a.taps[:len(taps)] = [float(np.float32(t)) for t in taps]
-    a.n, a.h, a.w = imgs.shape[0] * 3, h, w
-    a.hd0, a.hd1, a.vd0, a.vd1 = bands
-    a.knee_on = int(threshold > 0.0)
-    if a.knee_on:
-        a.thr, a.rden = knee_consts(threshold)
-    a.strength = np.float32(strength)
-    a.limbs = limbs
-    _build.launch("crt_bloom2_launch", a, torch.cuda.current_stream(imgs.device).cuda_stream)
-    return out
-
-
 def _launch(imgs: torch.Tensor, spec: Bloom2Spec, tables, limbs: int,
             name: str) -> torch.Tensor:
     global launches
     if tables is None and imgs.device.type == "cuda":
         tables = bloom2_tables(spec, imgs.device, limbs)
-    out = tile_launch(imgs, spec.h, spec.w, name, bands=(spec.hd0, spec.hd1, spec.vd0, spec.vd1),
-                      strength=spec.strength, threshold=spec.threshold, tables=tables,
-                      limbs=limbs)
+    out = kwalk.walk_launch(imgs, spec.h, spec.w, name, src=kwalk.TABLE,
+                            bands=(spec.hd0, spec.hd1, spec.vd0, spec.vd1),
+                            strength=spec.strength, threshold=spec.threshold, tables=tables,
+                            limbs=limbs)
     launches += 1
     return out
 

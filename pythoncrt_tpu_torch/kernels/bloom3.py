@@ -11,11 +11,12 @@ the whole chain (2-D scanlines); the twins are the fused kernel's stage
 6 (kernels/fused.py ``bloom_core_ref``), so the two paths agree bit for
 bit.
 
-``bloom3_planar`` and ``bloom3_fast_planar`` launch csrc/bloom3.cu for
-CUDA tensors and run their plain twins (``bloom3_planar_ref``,
+``bloom3_planar`` launches the FOLD instance of csrc/bloom_walk.cu (the
+row walk, kernels/bloom_walk.py) and ``bloom3_fast_planar`` csrc/bloom3.cu
+for CUDA tensors; both run their plain twins (``bloom3_planar_ref``,
 ``bloom3_fast_planar_ref``) for CPU tensors. The specs keep the JAX
 names; the TPU's shape gates (H%8, W%128, radius < 8, even sizes for the
-fast variant) have no counterpart: any H and W, radius up to 31.
+fast variant) have no counterpart: any H, W and radius.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 
 from ..ops import blur as oblur
 from . import _build
-from .fused import MAX_TAPS, bloom_core_ref, fast_tables, knee_consts
+from . import bloom_walk as kwalk
+from .fused import bloom_core_ref, fast_tables, knee_consts
 
 launches = 0  # CUDA launches made by bloom3_planar and bloom3_fast_planar
 
@@ -50,12 +52,9 @@ class Bloom3Spec:
 
 def build_bloom3_spec(h: int, w: int, sigma: float, strength: float,
                       threshold: float) -> Bloom3Spec:
-    """The gaussian variant: taps of oracle.ops.gaussian_kernel_1d."""
-    taps = oblur.gaussian_taps(sigma)
-    if len(taps) > MAX_TAPS:
-        raise NotImplementedError(
-            f"bloom radius {len(taps) // 2} exceeds the kernel's 31 (ROADMAP.md queue 2)")
-    return Bloom3Spec(h=int(h), w=int(w), taps=taps, strength=float(strength),
+    """The gaussian variant: taps of oracle.ops.gaussian_kernel_1d (any
+    radius)."""
+    return Bloom3Spec(h=int(h), w=int(w), taps=oblur.gaussian_taps(sigma), strength=float(strength),
                       threshold=float(threshold))
 
 
@@ -87,7 +86,8 @@ def bloom3_fast_planar_ref(imgs: torch.Tensor, spec: Bloom3Spec,
 
 
 class _Bloom3Args(ctypes.Structure):
-    """Mirror of Bloom3Args in csrc/bloom3.cu (checked by size at launch)."""
+    """Mirror of Bloom3Args in csrc/bloom3.cu, the fast kernel's arguments
+    (checked by size at launch)."""
     _fields_ = [
         ("img", ctypes.c_void_p), ("out", ctypes.c_void_p),
         ("fd_ylo", ctypes.c_void_p), ("fd_yf", ctypes.c_void_p),
@@ -95,27 +95,22 @@ class _Bloom3Args(ctypes.Structure):
         ("fu_ylo", ctypes.c_void_p), ("fu_yf", ctypes.c_void_p),
         ("fu_xlo", ctypes.c_void_p), ("fu_xf", ctypes.c_void_p),
         ("n", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
-        ("fast_on", ctypes.c_int32), ("r", ctypes.c_int32),
         ("knee_on", ctypes.c_int32), ("thr", ctypes.c_float), ("rden", ctypes.c_float),
         ("strength", ctypes.c_float),
-        ("taps", ctypes.c_float * MAX_TAPS),
-        ("edge_l", ctypes.c_float * MAX_TAPS),
-        ("edge_r", ctypes.c_float * MAX_TAPS),
         ("h2", ctypes.c_int32), ("w2", ctypes.c_int32),
         ("fs_rows", ctypes.c_int32), ("fs_cols", ctypes.c_int32),
         ("fh_rows", ctypes.c_int32), ("fh_cols", ctypes.c_int32),
     ]
 
 
-def _launch(imgs: torch.Tensor, spec: Bloom3Spec, tables) -> torch.Tensor:
+def _launch_fast(imgs: torch.Tensor, spec: Bloom3Spec, tables) -> torch.Tensor:
     global launches
-    name = "bloom3_fast_planar" if spec.fast else "bloom3_planar"
     if imgs.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {imgs.device}")
+        raise ValueError(f"bloom3_fast_planar: unsupported device {imgs.device}")
     if (imgs.ndim != 4 or imgs.shape[1] != 3 or tuple(imgs.shape[2:]) != (spec.h, spec.w)
             or imgs.dtype != torch.float32 or not imgs.is_contiguous()):
-        raise ValueError(f"{name}: imgs must be a contiguous f32 (B, 3, {spec.h}, {spec.w}) "
-                         f"tensor, got {imgs.dtype} {tuple(imgs.shape)}")
+        raise ValueError(f"bloom3_fast_planar: imgs must be a contiguous f32 (B, 3, {spec.h}, "
+                         f"{spec.w}) tensor, got {imgs.dtype} {tuple(imgs.shape)}")
     a = _Bloom3Args()
     out = torch.empty_like(imgs)
     a.img, a.out = imgs.data_ptr(), out.data_ptr()
@@ -124,28 +119,30 @@ def _launch(imgs: torch.Tensor, spec: Bloom3Spec, tables) -> torch.Tensor:
     if a.knee_on:
         a.thr, a.rden = knee_consts(spec.threshold)
     a.strength = np.float32(spec.strength)
-    if spec.fast:
-        a.fast_on = 1
-        a.h2, a.w2 = max(1, spec.h // 2), max(1, spec.w // 2)
-        taps, extent = tables or fast_taps(spec.h, spec.w, imgs.device)
-        names = ("fd_ylo", "fd_yf", "fd_xlo", "fd_xf", "fu_ylo", "fu_yf", "fu_xlo", "fu_xf")
-        lens = (a.h2, a.h2, a.w2, a.w2, spec.h, spec.h, spec.w, spec.w)
-        for i, (tname, n) in enumerate(zip(names, lens)):
-            t = taps[i]
-            dt = torch.int32 if i % 2 == 0 else torch.float32
-            if t.device != imgs.device or t.dtype != dt or tuple(t.shape) != (n,) \
-                    or not t.is_contiguous():
-                raise ValueError(f"{name}: table {tname} must be a contiguous {dt} ({n},) "
-                                 f"tensor on {imgs.device}")
-            setattr(a, tname, t.data_ptr())
-        a.fs_rows, a.fs_cols, a.fh_rows, a.fh_cols = extent
-    else:
-        a.r = spec.r
-        left, right = oblur.edge_coefs(spec.taps)
-        a.taps[:len(spec.taps)] = [float(np.float32(t)) for t in spec.taps]
-        a.edge_l[:len(left)] = [float(v) for v in left]
-        a.edge_r[:len(right)] = [float(v) for v in right]
+    a.h2, a.w2 = max(1, spec.h // 2), max(1, spec.w // 2)
+    taps, extent = tables or fast_taps(spec.h, spec.w, imgs.device)
+    names = ("fd_ylo", "fd_yf", "fd_xlo", "fd_xf", "fu_ylo", "fu_yf", "fu_xlo", "fu_xf")
+    lens = (a.h2, a.h2, a.w2, a.w2, spec.h, spec.h, spec.w, spec.w)
+    for i, (tname, n) in enumerate(zip(names, lens)):
+        t = taps[i]
+        dt = torch.int32 if i % 2 == 0 else torch.float32
+        if t.device != imgs.device or t.dtype != dt or tuple(t.shape) != (n,) \
+                or not t.is_contiguous():
+            raise ValueError(f"bloom3_fast_planar: table {tname} must be a contiguous {dt} "
+                             f"({n},) tensor on {imgs.device}")
+        setattr(a, tname, t.data_ptr())
+    a.fs_rows, a.fs_cols, a.fh_rows, a.fh_cols = extent
     _build.launch("crt_bloom3_launch", a, torch.cuda.current_stream(imgs.device).cuda_stream)
+    launches += 1
+    return out
+
+
+def _launch_gauss(imgs: torch.Tensor, spec: Bloom3Spec) -> torch.Tensor:
+    global launches
+    r = spec.r
+    out = kwalk.walk_launch(imgs, spec.h, spec.w, "bloom3_planar", src=kwalk.FOLD,
+                            bands=(-r, r, -r, r), strength=spec.strength,
+                            threshold=spec.threshold, taps=spec.taps)
     launches += 1
     return out
 
@@ -157,7 +154,7 @@ def bloom3_planar(imgs: torch.Tensor, spec: Bloom3Spec) -> torch.Tensor:
         raise ValueError("bloom3_planar: the spec is the fast variant's")
     if imgs.device.type == "cpu":
         return bloom3_planar_ref(imgs, spec)
-    return _launch(imgs, spec, None)
+    return _launch_gauss(imgs, spec)
 
 
 def bloom3_fast_planar(imgs: torch.Tensor, spec: Bloom3Spec,
@@ -170,4 +167,4 @@ def bloom3_fast_planar(imgs: torch.Tensor, spec: Bloom3Spec,
         raise ValueError("bloom3_fast_planar: the spec is the gaussian variant's")
     if imgs.device.type == "cpu":
         return bloom3_fast_planar_ref(imgs, spec, tables)
-    return _launch(imgs, spec, tables)
+    return _launch_fast(imgs, spec, tables)

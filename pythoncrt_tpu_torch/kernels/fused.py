@@ -28,11 +28,22 @@ width, the rows per run and per chunk, the ring depths, the staged
 column segments of each strip and the distinct-row tables, and
 ``plan_chunks`` replays the kernel's walk so that the ring depths are
 the ones the walk needs (tests/test_torch_fused_plan.py checks it).
+
+Any gaussian radius: above 31 the taps and border coefficients come from
+a device table (``FusedConsts.tapdev``) that the kernel stages in shared
+memory, and the plan narrows the strip as the rings grow. Where no strip
+fits a block (``FusedPlan.split``), ``fused_pipeline`` runs the chain as
+three launches of hand-written kernels with the same bits: the fused
+kernel's prologue alone (f32 out), the stand-alone bloom
+(kernels/bloom3.py, the row walk of csrc/bloom_walk.cu), and the fused
+kernel's epilogue on that f32 image.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -47,10 +58,11 @@ from . import _build
 
 launches = 0  # CUDA launches made by fused_pipeline
 
-MAX_TAPS = 63  # csrc/fused.cu MAXK
+MAX_TAPS = 63  # csrc/fused.cu MAXK: taps carried in the launch arguments
+MAX_R = MAX_TAPS // 2  # above this radius the taps come from a device table
 TILE = 32  # csrc/bloom3.cu TX, TY: the tile the fast extents are sized by
 SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
-STRIP_WIDTHS = (128, 64, 32)  # output columns per block, widest that fits first
+STRIP_WIDTHS = (128, 64, 32, 16, 8, 4)  # output columns per block, widest that fits first
 # distinct source rows per chunk and output rows per block, by core and
 # input: the fastest of a sweep of strips, chunks and runs on an H100
 # (PERF.md, the fused kernel's redesign)
@@ -104,9 +116,10 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
     """Build a spec from the arguments of the JAX package's
     build_fused_spec (kernels/fused.py:168). ``pre`` False takes the f32
     image (the prologue's fields then describe the caller's prologue);
-    the triad is always LUT-exact. Any H and W: the TPU kernel's shape
-    gates (H%8, W%128, even sizes for the fast core) have no
-    counterpart."""
+    the triad is always LUT-exact. Any H, W and radius: the TPU kernel's
+    shape gates (H%8, W%128, even sizes for the fast core) have no
+    counterpart. An aberration of W columns or more is taken mod W (the
+    roll wraps: the same index maps)."""
     if not lut_exact:
         raise NotImplementedError(
             "the port's fused kernel always runs the LUT-exact triad "
@@ -117,12 +130,11 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
         kw.pop(tpu_only, None)  # the TPU's in-kernel grain upsample forms
     fast = bool(bloom and fast)
     taps = oblur.gaussian_taps(sigma) if bloom and not fast else ()
-    if len(taps) > MAX_TAPS:
-        raise NotImplementedError(
-            f"bloom radius {len(taps) // 2} exceeds the fused kernel's 31 "
-            "(ROADMAP.md queue 2: bloom3)")
-    if int(kw.get("px", 1)) < 1 or abs(int(kw.get("ab", 0))) >= w:
-        raise ValueError("pixel size must be >= 1 and |aberration| < width")
+    if int(kw.get("px", 1)) < 1:
+        raise ValueError("pixel size must be >= 1")
+    ab = int(kw.get("ab", 0))
+    if abs(ab) >= w:
+        kw["ab"] = int(math.fmod(ab, w))
     return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps, fast=fast,
                      strength=float(strength), threshold=float(threshold), pre=bool(pre),
                      **kw)
@@ -146,6 +158,12 @@ class FusedConsts(NamedTuple):
     # ysrc, segs)
     plan: Optional["FusedPlan"] = None
     plan_tables: Optional[tuple] = None
+    # radius above MAX_R: (k + 2r,) f32 taps, edge_l, edge_r on the device
+    tapdev: Optional[torch.Tensor] = None
+    # a plan that fits no block (plan.split): (prologue spec or None,
+    # its consts, the stand-alone bloom's Bloom3Spec, epilogue spec, its
+    # consts)
+    split: Optional[tuple] = None
 
 
 @dataclass(eq=False)
@@ -163,7 +181,9 @@ class FusedPlan:
     ``gran`` the element alignment of the staged segments and ``smem``
     the block's shared memory in bytes. ``runtab``, ``rowtab`` and
     ``halftab`` are the kernel's tables: the walk's schedule per run, and
-    the ring offsets of each output row's and half-res row's operands."""
+    the ring offsets of each output row's and half-res row's operands.
+    ``split``: no strip fits a block (the three-launch route of
+    ``fused_pipeline``; the walk's sizes and tables are then unset)."""
     fast: bool
     pre: bool
     knee: bool
@@ -187,6 +207,7 @@ class FusedPlan:
     runtab: np.ndarray = None   # (runs, 3 + 2 * chunks): d_lo, d_hi, nh, then (he, ye) per chunk
     rowtab: np.ndarray = None   # (H, 4) fast / (H, 2r + 2) gaussian ring offsets
     halftab: np.ndarray = None  # (H2, 4) fast core: ring offsets of the half-res rows
+    split: bool = False
 
     @property
     def strips(self) -> int:
@@ -300,7 +321,8 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
               win: int, hwin: int, seg_pitch: int, knee: bool) -> int:
     """Shared memory of one block in bytes: csrc/fused.cu's smem_layout
     (the fast core without a knee reads the pre-knee strip from its
-    knee'd ring)."""
+    knee'd ring; a radius above MAX_R adds its taps and border
+    coefficients, 4r + 1 floats, at the end)."""
     def a16(n):
         return _round_up(n, 16)
     n = a16(2 * step * 3 * seg_pitch * (1 if pre else 4))  # staged rows, two buffers
@@ -312,7 +334,10 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
         n += a16(depth * 3 * sw * 4)  # the pre-knee strip
     n += a16(3 * win * 2) + a16((win + 1) * 2) + a16(3 * win * 2)  # offsets, leaders
     n += a16((2 * 1028 + 4 * sw) * 4)  # triad tables, the strip's triad and vignette rows
-    return n + 64  # the strip's staged ranges
+    n += 64  # the strip's staged ranges
+    if not fast and r > MAX_R:
+        n += a16((4 * r + 1) * 4)  # the taps, edge_l and edge_r
+    return n
 
 
 def plan_key(spec: "FusedSpec") -> tuple:
@@ -327,7 +352,8 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     """The kernel's walk for ``spec`` over the index maps it is given
     (``fast_taps``: the numpy bilinear_taps of fast_tables): the widest
     strip of STRIP_WIDTHS whose block fits in shared memory, and the ring
-    depths the walk needs; chunk and run sizes from WALK."""
+    depths the walk needs (never more than the frame's distinct rows);
+    chunk and run sizes from WALK. A plan that fits no strip is ``split``."""
     h, w, _, fast, r, knee = plan_key(spec)
     if spec.pre:
         ydist, ysrc = distinct_rows(y_map)
@@ -348,6 +374,7 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
         for d, e, nh, he, nxt, ye, alive, halive in chunks:
             depth = max(depth, e - alive)
             hdepth = max(hdepth, he - halive)
+    depth = min(depth, len(ysrc))  # a ring of every distinct row never evicts one
     for cand in STRIP_WIDTHS:
         windows = strip_windows(w, cand, r, fast_taps if fast else None)
         segs, pitch = staged_segments(x_maps, windows, spec.pre, gran)
@@ -359,7 +386,8 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
         if smem <= SMEM_MAX:
             break
     else:
-        raise ValueError(f"fused plan: {smem} bytes of shared memory exceed {SMEM_MAX}")
+        plan.split, plan.depth, plan.hdepth = True, depth, hdepth
+        return plan
     plan.sw, plan.depth, plan.hdepth, plan.win, plan.hwin = cand, depth, hdepth, win, hwin
     plan.seg_pitch, plan.smem, plan.segs, plan.windows = pitch, smem, segs, windows
     plan.runtab = np.zeros((len(sched), max(map(len, sched))), np.int32)
@@ -446,9 +474,35 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32 if a.dtype.kind == "i"
                                                      else np.float32)).to(device)
+    tapdev = split = None
+    if plan.split:
+        split = _split_route(spec, device, y_map, x_maps)
+    elif plan.r > MAX_R:
+        left, right = oblur.edge_coefs(spec.taps)
+        tapdev = dev(np.concatenate([np.asarray(spec.taps, np.float32), left, right]))
     return FusedConsts(dev(y_map), dev(x_maps), fwd, fin,
                        None if taps is None else tuple(dev(a) for a in taps), extent,
-                       plan, plan_tables(plan, device))
+                       plan, plan_tables(plan, device), tapdev, split)
+
+
+def _split_route(spec: FusedSpec, device, y_map, x_maps) -> tuple:
+    """The three launches of a spec whose plan fits no block: the
+    prologue alone (stages 1-4, f32 out; none when the input is already
+    the f32 image), the stand-alone gaussian bloom (kernels/bloom3.py),
+    and the epilogue on the f32 image (stages 7-11, the spec's emit). The
+    specs and consts of the two fused launches, and the bloom's spec."""
+    from .bloom3 import Bloom3Spec  # bloom3 imports this module
+
+    none = dict(bloom=False, taps=(), fast=False, strength=0.0, threshold=0.0)
+    pre = pre_consts = None
+    if spec.pre:
+        pre = dataclasses.replace(spec, **none, triad=False, scanlines=False, vignette=False,
+                                  flicker=False, noise=False, emit="f32")
+        pre_consts = fused_consts(pre, device, y_map, x_maps)
+    post = dataclasses.replace(spec, **none, pre=False)
+    bloom = Bloom3Spec(h=spec.h, w=spec.w, taps=spec.taps, strength=spec.strength,
+                       threshold=spec.threshold)
+    return pre, pre_consts, bloom, post, fused_consts(post, device, y_map, x_maps)
 
 
 def check_plan(spec: FusedSpec, consts: FusedConsts) -> FusedPlan:
@@ -464,7 +518,10 @@ def check_plan(spec: FusedSpec, consts: FusedConsts) -> FusedPlan:
 
 
 def plan_tables(plan: FusedPlan, device) -> tuple:
-    """The plan's device tables: ysrc, segs, runtab, rowtab, halftab."""
+    """The plan's device tables: ysrc, segs, runtab, rowtab, halftab (none
+    for a split plan)."""
+    if plan.split:
+        return ()
     return tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
                  for t in (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab))
 
@@ -558,6 +615,7 @@ class _FusedArgs(ctypes.Structure):
         ("fu_xlo", ctypes.c_void_p), ("fu_xf", ctypes.c_void_p),
         ("ysrc", ctypes.c_void_p), ("segs", ctypes.c_void_p), ("runtab", ctypes.c_void_p),
         ("rowtab", ctypes.c_void_p), ("halftab", ctypes.c_void_p),
+        ("tapdev", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
         ("emit_u8", ctypes.c_int32), ("pre_on", ctypes.c_int32),
         ("inv255", ctypes.c_float),
@@ -643,6 +701,8 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
         for i, (name, n) in enumerate(zip(names, lens)):
             setattr(a, name, _check(name, consts.fast_taps[i], (n,),
                                     torch.int32 if i % 2 == 0 else torch.float32, dev))
+    elif s.bloom and s.r > MAX_R:
+        a.tapdev = _check("tapdev", consts.tapdev, (4 * s.r + 1,), torch.float32, dev)
     elif s.bloom:
         left, right = oblur.edge_coefs(s.taps)
         a.taps[:len(s.taps)] = [float(np.float32(t)) for t in s.taps]
@@ -697,6 +757,10 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
                                   vx2=vx2, tri=tri, flicker=flicker)
     if img.device.type != "cuda":
         raise ValueError(f"fused_pipeline: unsupported device {img.device}")
+    if consts.plan is not None and consts.plan.split:
+        check_plan(spec, consts)
+        return _split_pipeline(img, spec, consts, grain=grain, sl=sl, vy2=vy2, vx2=vx2,
+                               tri=tri, flicker=flicker)
     s = spec
     b = img.shape[0]
     dev = img.device
@@ -729,3 +793,15 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     _build.launch("crt_fused_launch", a, torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out
+
+
+def _split_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts,
+                    **operands) -> torch.Tensor:
+    """A split plan's chain (fused_consts): the fused kernel's prologue,
+    the stand-alone bloom, the fused kernel's epilogue. Each launch counts
+    in its own module."""
+    from .bloom3 import bloom3_planar  # bloom3 imports this module
+
+    pre, pre_consts, bloom, post, post_consts = consts.split
+    x = fused_pipeline(img, pre, pre_consts) if pre is not None else img
+    return fused_pipeline(bloom3_planar(x, bloom), post, post_consts, **operands)

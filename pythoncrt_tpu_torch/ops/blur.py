@@ -27,17 +27,17 @@ def gaussian_taps(sigma: float) -> tuple[float, ...]:
 def edge_coefs(taps) -> tuple[np.ndarray, np.ndarray]:
     """(left, right) folded border coefficients, indexed by the distance
     d < r of a pixel from the left (top) or right (bottom) edge: the f32
-    sum, in tap order, of the taps that fall outside the frame."""
-    k = len(taps)
-    r = k // 2
+    sum, in tap order, of the taps that fall outside the frame. Each sum
+    runs sequentially from 0; the distances are summed side by side (one
+    vector add per tap), so a radius in the thousands costs O(r) numpy
+    adds, not O(r^2) Python ones."""
+    t = np.asarray(taps, np.float32)
+    r = len(t) // 2
     left = np.zeros(max(r, 1), np.float32)
     right = np.zeros(max(r, 1), np.float32)
-    for d in range(r):
-        for i, t in enumerate(taps):
-            if d + i - r < 0:
-                left[d] += np.float32(t)
-            if i - r > d:
-                right[d] += np.float32(t)
+    for j in range(r):
+        left[:r - j] += t[j]           # tap j lies left of pixels d < r - j
+        right[:r - j] += t[r + 1 + j:]  # tap r + d + 1 + j, the j-th outside of pixel d
     return left, right
 
 

@@ -1,0 +1,212 @@
+"""The stand-alone blooms' kernels timed on one GPU, for an A/B of two trees.
+
+    python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep]
+
+``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
+built (default: this script's own; an earlier commit unpacked with
+``git archive`` into a git-ignored directory runs its own kernels). At
+1920x1080 with a batch of 8, on the pre-bloom images of the smoke's paths
+(``engine._pre_bloom`` of seeded uint8 frames, planar gbrp):
+
+- bloom3_planar (c3-angled, sigma 1.2), bloom2_planar gaussian
+  (c3-bloom2) and fast (defaults-bloom2), bloom2's pipelined entry at
+  limbs 3, 2 and 1 (c3-bloom2), the stripe bloom (c3-stripe);
+- the gaussian ones again at radius 31 (sigma 31/3), sigma 11 and sigma
+  20 (a tree that refuses a radius records the refusal).
+
+Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
+per frame, the bytes bound (input and output f32 once, tables once, at
+3.35 TB/s) and a sha256 of the output, so that two trees' outputs can be
+held bit for bit. ``--sweep`` also times this tree's row walk
+(kernels/bloom_walk.py) at other strip widths, chunk and run lengths on
+the bloom3 and bloom2-fast cases. Prints one JSON object and writes it to
+--out. Imports nothing of JAX; exits 2 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H, W, B = 1080, 1920, 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
+          bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
+          vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
+          warp_strength=0.15, flicker_strength=0.2, flicker_hz=2.0, brightness=0.02,
+          contrast=1.05, gamma=1.1, saturation=0.9, temperature=0.1)
+PATHS = {  # path -> (params, opt-in variables)
+    "c3-angled": (dict(C3, scanline_angle=5.0, scanline_thickness=1.5), {}),
+    "c3-bloom2": (C3, {"PCRT_BLOOM2_GAUSS": "1"}),
+    "defaults-bloom2": ({}, {"PCRT_BLOOM2_FAST": "1"}),
+    "c3-stripe": (C3, {"PCRT_PALLAS_BLOOM": "1"}),
+}
+OPTIN_VARS = ("PCRT_BLOOM2_GAUSS", "PCRT_BLOOM2_FAST", "PCRT_PALLAS_BLOOM")
+SIGMAS = {"r31": 31 / 3, "s11": 11.0, "s20": 20.0}
+
+
+@contextlib.contextmanager
+def optin_env(env: dict):
+    saved = {k: os.environ.pop(k, None) for k in OPTIN_VARS}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in OPTIN_VARS:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def events_ms(fn, repeats: int = 5, calls: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(calls):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / calls)
+    return statistics.median(times)
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--tag", default="this")
+    ap.add_argument("--out", default="port_bloom_ab.json")
+    ap.add_argument("--sweep", action="store_true")
+    a = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(a.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_bloom_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch.kernels import _build
+    from pythoncrt_tpu_torch.kernels import bloom as kbloom
+    from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
+    from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    _build.library()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, (B, 3, H, W), dtype=np.uint8)).cuda()
+    feeds = {}
+    for path, (params, env) in PATHS.items():
+        with optin_env(env):
+            eng = CRTEngine(EffectParams(**params), H, W, 24.0, layout="planar",
+                            channel_order="gbr", device="cuda")
+        feeds[path] = (eng, eng._pre_bloom(x).contiguous())
+    bound_ms = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3  # noqa: E731
+
+    def case(fn, feed, extra_bytes=0):
+        out = fn()
+        torch.cuda.synchronize()
+        ms = events_ms(fn)
+        bms = bound_ms(2 * feed.numel() * 4 + extra_bytes)
+        return dict(ms=ms, ms_per_frame=ms / B, bound_ms_per_frame=bms / B,
+                    share_of_bound=bms / ms, sha256=digest(out))
+
+    results = {}
+
+    def run(name, make):
+        try:
+            results[name] = make()
+        except (NotImplementedError, ValueError) as e:
+            results[name] = dict(refused=f"{type(e).__name__}: {e}")
+        print(f"{a.tag} {name}: {results[name]}", flush=True)
+
+    def bloom3_case(sigma):
+        eng, feed = feeds["c3-angled"]
+        spec = eng.bloom3_spec if sigma is None else kbloom3.build_bloom3_spec(
+            H, W, sigma, eng.bloom3_spec.strength, eng.bloom3_spec.threshold)
+        return case(lambda: kbloom3.bloom3_planar(feed, spec), feed)
+
+    def bloom2_case(path, sigma=None, limbs=None):
+        eng, feed = feeds[path]
+        spec = eng.bloom_spec
+        if sigma is not None:
+            spec = kbloom2.build_bloom2_spec(H, W, variant="gaussian", sigma=sigma,
+                                             strength=spec.strength, threshold=spec.threshold)
+        tabs = kbloom2.bloom2_tables(spec, "cuda", limbs or 3)
+        extra = sum(t.numel() * 4 for t in tabs)
+        if limbs is None:
+            return case(lambda: kbloom2.bloom2_planar(feed, spec, tabs), feed, extra)
+        return case(lambda: kbloom2.bloom2_planar_pipelined(feed, spec, limbs, tabs), feed, extra)
+
+    def stripe_case(sigma=None):
+        eng, feed = feeds["c3-stripe"]
+        spec = eng.bloom_spec if sigma is None else kbloom.build_bloom_spec(
+            H, W, sigma, eng.bloom_spec.strength, eng.bloom_spec.threshold)
+        return case(lambda: kbloom.bloom_planar(feed, spec), feed)
+
+    run("bloom3_planar", lambda: bloom3_case(None))
+    run("bloom2_planar", lambda: bloom2_case("c3-bloom2"))
+    run("bloom2_planar_fast", lambda: bloom2_case("defaults-bloom2"))
+    for limbs in (3, 2, 1):
+        run(f"bloom2_planar_pipelined_limbs{limbs}", lambda: bloom2_case("c3-bloom2", limbs=limbs))
+    run("bloom_stripe", lambda: stripe_case())
+    for tag, sigma in SIGMAS.items():
+        run(f"bloom3_planar_{tag}", lambda: bloom3_case(sigma))
+        run(f"bloom2_planar_{tag}", lambda: bloom2_case("c3-bloom2", sigma=sigma))
+        run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
+
+    sweep = []
+    if a.sweep:
+        from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
+
+        keep = (kwalk.STRIP_WIDTHS, kwalk.STEPS, kwalk.RUN)
+        for sw in (128, 64):
+            for step in (8, 16, 32):
+                for run_rows in (32, 64, 128, 256):
+                    kwalk.STRIP_WIDTHS = tuple(v for v in keep[0] if v <= sw)
+                    kwalk.STEPS = tuple(sorted({step, *keep[1]}, reverse=True))
+                    kwalk.STEPS = tuple(v for v in kwalk.STEPS if v <= step)
+                    kwalk.RUN = run_rows
+                    kwalk.walk_plan.cache_clear()
+                    row = dict(sw=sw, step=step, run=run_rows)
+                    for name, fn in (("bloom3_planar", lambda: bloom3_case(None)),
+                                     ("bloom2_planar_fast",
+                                      lambda: bloom2_case("defaults-bloom2"))):
+                        r = fn()
+                        row[name] = r["ms_per_frame"]
+                        row[name + "_same"] = r["sha256"] == results[name]["sha256"]
+                    print(f"{a.tag} sweep {row}", flush=True)
+                    sweep.append(row)
+        kwalk.STRIP_WIDTHS, kwalk.STEPS, kwalk.RUN = keep
+        kwalk.walk_plan.cache_clear()
+
+    out = dict(tag=a.tag, tree=os.path.abspath(a.tree), card=card, build_s=built,
+               torch=torch.__version__, results=results, sweep=sweep)
+    os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+    with open(a.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -202,11 +202,32 @@ def test_stripe_is_the_tile_with_constant_taps(shape, thr):
     assert torch.equal(tbloom2.bloom2_planar_ref(x, tile), tbloom.bloom_planar_ref(x, spec))
 
 
-def test_specs_and_wrappers_refuse_what_they_do_not_take():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbloom.build_bloom_spec(48, 64, 12.0, STRENGTH, 0.0)  # radius 36
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbloom2.build_bloom2_spec(96, 96, variant="gaussian", sigma=11.0)  # reach 33
+@pytest.mark.parametrize("thr", [0.0, 0.4])
+def test_specs_and_wrappers_refuse_what_they_do_not_take(thr):
+    """The stripe at radius 36 and bloom2 at reach 33, once refused, build:
+    the stripe's taps are the oracle's and its twin the oracle's bloom,
+    bloom2's bands are the JAX package's bits and its twin within 1e-5 of
+    the oracle's, on frames smaller than the band. The specs and wrappers
+    still refuse an unknown variant, a bad limbs setting and a device they
+    do not take."""
+    imgs = imgs_for(48, 64, seed=33)
+    stripe = tbloom.build_bloom_spec(48, 64, 12.0, STRENGTH, thr)  # radius 36
+    assert stripe.radius == 36
+    assert stripe.taps == tuple(float(t) for t in oops.gaussian_kernel_1d(73, 12.0))
+    got = nhwc(tbloom.bloom_planar(planar(imgs), stripe))
+    ref = oracle_bloom(imgs, thr, gauss_blur(12.0))
+    if thr == 0.0:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= 1e-6
+    spec = tbloom2.build_bloom2_spec(48, 64, variant="gaussian", sigma=11.0,
+                                     strength=STRENGTH, threshold=thr)  # reach 33
+    for n, d0, d1, wts in ((64, spec.hd0, spec.hd1, spec.hw), (48, spec.vd0, spec.vd1, spec.vw)):
+        jd0, jd1, jw = jbloom2._band(jbloom2._gaussian_matrix(n, 11.0))
+        assert (d0, d1) == (jd0, jd1) and max(-d0, d1) == min(33, n - 1)
+        np.testing.assert_array_equal(wts, jw)
+    got = nhwc(tbloom2.bloom2_planar(planar(imgs), spec))
+    assert np.abs(got - oracle_bloom(imgs, thr, gauss_blur(11.0))).max() <= 1e-5
     with pytest.raises(ValueError):
         tbloom2.build_bloom2_spec(8, 8, variant="box")
     x = torch.zeros((1, 3, 8, 8))

@@ -106,9 +106,23 @@ def test_twins_are_the_fused_bloom_core(fast):
     assert torch.equal(got, want)
 
 
-def test_specs_and_wrappers_refuse_what_they_do_not_take():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tb3.build_bloom3_spec(48, 64, 12.0, STRENGTH, 0.0)  # radius 36
+@pytest.mark.parametrize("sigma,thr", [(12.0, 0.0), (12.0, 0.4)])
+def test_specs_and_wrappers_refuse_what_they_do_not_take(sigma, thr):
+    """Radius 36 (sigma 12), once refused, builds: its taps are the
+    oracle's, and its twin matches the JAX XLA fold and the oracle's
+    pad-then-sum bloom on a frame smaller than the band. The wrappers
+    still refuse the other variant's spec and a device they do not take."""
+    spec = tb3.build_bloom3_spec(48, 64, sigma, STRENGTH, thr)
+    taps = tuple(float(t) for t in joops.gaussian_kernel_1d(73, sigma))
+    assert spec.r == 36 and spec.taps == taps
+    imgs = imgs_for(48, 64, seed=36)
+    got = nhwc(tb3.bloom3_planar(planar(imgs), spec))
+    want = np.stack([xla_bloom(im, thr, lambda src: jblur.gaussian_blur_replicate(
+        src, taps, taps)) for im in imgs])
+    np.testing.assert_allclose(got, want, atol=1.5e-7, rtol=0)
+    oracle = np.stack([xla_bloom(im, thr, lambda src: joops.gaussian_blur_replicate(
+        np.asarray(src), 73, 73, sigma, sigma)) for im in imgs])
+    assert np.abs(got - oracle).max() <= 1e-6
     x = torch.zeros((1, 3, 8, 8))
     with pytest.raises(ValueError):
         tb3.bloom3_planar(x, tb3.build_bloom3_fast_spec(8, 8, STRENGTH, 0.0))

@@ -9,9 +9,10 @@ Operands are the ones the engine's step hands each kernel (c3, the CLI
 defaults, c4 and variants; the angled-scanline and text paths), at small
 shapes (an odd one included) and at 1080p. Both sides keep one f32 op
 order (the kernels build with -fmad=false and round pow once from
-double, as the twins do), so fused and bloom f32 outputs agree to 2e-6
-and uint8 outputs to 1 LSB; the persistence scan (its multi-clip mode
-too) and the glitch shear are bitwise."""
+double, as the twins do), so fused f32 outputs agree to 2e-6 and uint8
+outputs to 1 LSB; the stand-alone blooms' row walk (csrc/bloom_walk.cu:
+bloom3's gaussian, the stripe, bloom2), the persistence scan (its
+multi-clip mode too) and the glitch shear are bitwise."""
 
 import numpy as np
 import pytest
@@ -47,6 +48,9 @@ VARIANTS = {
     "fast_knee_px3": {"bloom_threshold": 0.35, "pixel_size": 3, "grain_size": 2},
     "r31": {**C3, "bloom_sigma": 10.3},
     "ab_neg2_px3": {"aberration_px": -2, "pixel_size": 3},
+    # above the 63 taps of the launch arguments: taps from a device table
+    "s11": {**C3, "bloom_sigma": 11.0},
+    "s20_knee": {**C3, "bloom_sigma": 20.0, "bloom_threshold": 0.3},
 }
 SHAPES = [(2, 48, 200), (2, 45, 251), (8, 1080, 1920)]
 SHAPE_IDS = ["small", "odd", "1080p"]
@@ -67,10 +71,7 @@ def cuda_dev():
 
 def engine(name, h, w, dev):
     kw = dict(layout="planar", channel_order="gbr") if name.endswith("_gbr") else {}
-    p = VARIANTS[name]
-    if w <= abs(p.get("aberration_px", 1)):  # the roll needs |aberration| < W
-        p = {**p, "aberration_px": 0}
-    return CRTEngine(EffectParams(**p), h, w, 24.0, rng="host", device=dev, **kw)
+    return CRTEngine(EffectParams(**VARIANTS[name]), h, w, 24.0, rng="host", device=dev, **kw)
 
 
 def assert_fused_close(got, twin, b, u8):
@@ -113,6 +114,53 @@ def test_fused_kernel_matches_twin(cuda_dev, name, shape):
             x[i:j], eng.spec, eng.fused_tables,
             **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
     assert_fused_close(got, twin, b, eng.spec.emit == "u8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("ab", [8, -8])
+@pytest.mark.parametrize("name", ["c3", "defaults"])
+def test_fused_kernel_takes_aberration_wider_than_the_frame(cuda_dev, name, ab, w):
+    """Frames 1-8 columns wide with the aberration at its clamp: the roll
+    is taken mod W, and the kernel's staged ranges hold the wrapped
+    columns."""
+    p = EffectParams(**{**VARIANTS[name], "aberration_px": ab})
+    eng = CRTEngine(p, 16, w, 24.0, rng="host", device=cuda_dev)
+    assert abs(eng.spec.ab) < w
+    x = frames(2, 16, w, cuda_dev)
+    kw = eng.fused_operands(eng.make_aux(np.arange(2)))
+    got = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    torch.cuda.synchronize()
+    want = kfused.fused_pipeline_ref(x, eng.spec, eng.fused_tables, **kw)
+    assert_fused_close(got, lambda i, j: want[i:j], 2, eng.spec.emit == "u8")
+
+
+# the first radius that fits no strip at the smallest frame (uint8, f32
+# input; tests/test_torch_fused_plan.py): the three-launch split route
+SPLIT_R = {True: 13923, False: 13779}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [True, False])
+def test_fused_split_route_matches_twin(cuda_dev, pre):
+    r = SPLIT_R[pre]
+    spec = kfused.build_fused_spec(1, 1, sigma=r / 3, strength=0.6, threshold=0.2, px=1, ab=1,
+                                   pre=pre, triad=True, scanlines=True, noise=True,
+                                   noise_scale=0.01, emit="u8", corder=(1, 2, 0))
+    consts = kfused.fused_consts(spec, cuda_dev)
+    assert consts.plan.split and spec.r == r
+    g = torch.Generator(device=cuda_dev).manual_seed(17)
+    x = (torch.randint(0, 256, (3, 3, 1, 1), generator=g, device=cuda_dev, dtype=torch.uint8)
+         if pre else torch.rand((3, 3, 1, 1), generator=g, device=cuda_dev))
+    kw = dict(grain=torch.randn((3, 1, 1), generator=g, device=cuda_dev),
+              sl=torch.rand((3, 1), generator=g, device=cuda_dev),
+              tri=torch.ones((3, 1), device=cuda_dev))
+    n0 = (kfused.launches, kbloom3.launches)
+    got = kfused.fused_pipeline(x, spec, consts, **kw)
+    torch.cuda.synchronize()
+    assert (kfused.launches - n0[0], kbloom3.launches - n0[1]) == (2 if pre else 1, 1)
+    want = kfused.fused_pipeline_ref(x, spec, consts, **kw)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -235,13 +283,22 @@ BLOOM3 = {  # variant -> (fast, sigma, threshold)
     "gaussian_wide_knee": (False, 4.0, 0.3),
     "fast": (True, 0.0, 0.0),
     "fast_knee": (True, 0.0, 0.35),
+    "gaussian_s10.5": (False, 10.5, 0.0),
+    "gaussian_s11_knee": (False, 11.0, 0.3),
+    "gaussian_s20": (False, 20.0, 0.0),  # radius 60: past H and W of the small shapes
 }
+# the walk's edges: a row, a column, W % 4 != 0, a frame narrower than a
+# strip and shorter than a run
+WALK_SHAPES = SHAPES + [(1, 7, 9), (2, 1, 300), (2, 40, 1), (2, 33, 130)]
+WALK_IDS = SHAPE_IDS + ["tiny", "row", "column", "ragged"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(1, 7, 9)], ids=SHAPE_IDS + ["tiny"])
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=WALK_IDS)
 @pytest.mark.parametrize("variant", sorted(BLOOM3))
 def test_bloom3_kernel_matches_twin(cuda_dev, variant, shape):
+    """bloom3's gaussian (the walk's FOLD instances) bit for bit its twin,
+    the fast kernel within 2e-6."""
     b, h, w = shape
     fast, sigma, thr = BLOOM3[variant]
     spec = (kbloom3.build_bloom3_fast_spec(h, w, 0.25, thr) if fast
@@ -257,11 +314,14 @@ def test_bloom3_kernel_matches_twin(cuda_dev, variant, shape):
         want = kbloom3.bloom3_planar_ref(imgs, spec)
     torch.cuda.synchronize()
     assert kbloom3.launches == n0 + 1
-    assert (got - want).abs().max().item() <= 2e-6
+    if fast:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert torch.equal(got, want)
 
 
 TEXT_BEFORE = {"c4_text": VARIANTS["c4"], "c3_text": C3, "r31_text": VARIANTS["r31"],
-               "ab_neg2_text": VARIANTS["ab_neg2_px3"]}
+               "ab_neg2_text": VARIANTS["ab_neg2_px3"], "s20_text": VARIANTS["s20_knee"]}
 
 
 @pytest.mark.cuda
@@ -272,10 +332,7 @@ def test_fused_f32_input_matches_twin(cuda_dev, name, shape):
     1-5 with a text overlay composited before the bloom)."""
     b, h, w = shape
     ov = np.random.default_rng(4).integers(0, 256, (h, w, 4), dtype=np.uint8)
-    over = TEXT_BEFORE[name]
-    if w <= abs(over.get("aberration_px", 1)):  # the roll needs |aberration| < W
-        over = {**over, "aberration_px": 0}
-    p = EffectParams(**over, text=TextParams(text="T", after=False))
+    p = EffectParams(**TEXT_BEFORE[name], text=TextParams(text="T", after=False))
     eng = CRTEngine(p, h, w, 24.0, rng="host", layout="planar", channel_order="gbr",
                     device=cuda_dev, text_rgba=ov)
     assert not eng.spec.pre
@@ -334,16 +391,23 @@ OPTIN_BLOOMS = {  # kernel -> (variant, sigma, threshold, limbs)
     "bloom2_pipelined_1": ("gaussian", 1.2, 0.2, 1),
     "bloom2_pipelined_2": ("fast", 0.0, 0.2, 2),
     "bloom2_pipelined_3": ("gaussian", 1.2, 0.2, "3p"),
+    # past the 63 taps of the launch arguments, and past H and W (radius 60)
+    "stripe_s10.5": (None, 10.5, 0.0, None),
+    "stripe_s20_knee": (None, 20.0, 0.3, None),
+    "bloom2_gauss_s11": ("gaussian", 11.0, 0.0, 3),
+    "bloom2_gauss_s20_knee": ("gaussian", 20.0, 0.3, 3),
+    "bloom2_pipelined_1_s11": ("gaussian", 11.0, 0.2, 1),
 }
-OPTIN_SHAPES = [(8, 1080, 1920), (2, 45, 250), (1, 7, 9), (2, 1, 5)]
+OPTIN_SHAPES = [(8, 1080, 1920), (2, 45, 250), (1, 7, 9), (2, 1, 5), (2, 40, 1)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", OPTIN_SHAPES, ids=["1080p", "odd", "tiny", "row"])
+@pytest.mark.parametrize("shape", OPTIN_SHAPES, ids=["1080p", "odd", "tiny", "row", "column"])
 @pytest.mark.parametrize("name", sorted(OPTIN_BLOOMS))
 def test_optin_bloom_kernels_match_twins(cuda_dev, name, shape):
     """The stripe bloom, bloom2 (both variants) and bloom2's pipelined
-    entry (limbs 1-3) against their twins: 2e-6."""
+    entry (limbs 1-3), the walk's CLAMP and TABLE instances, bit for bit
+    their twins."""
     b, h, w = shape
     variant, sigma, thr, limbs = OPTIN_BLOOMS[name]
     g = torch.Generator(device=cuda_dev).manual_seed(13)
@@ -365,7 +429,41 @@ def test_optin_bloom_kernels_match_twins(cuda_dev, name, shape):
             want = kbloom2.bloom2_planar_pipelined_ref(imgs, spec, lb, tabs)
     torch.cuda.synchronize()
     assert mod.launches == n0 + 1
-    assert (got - want).abs().max().item() <= 2e-6
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["fold", "clamp", "table"])
+def test_walk_scratch_route_matches_twins(cuda_dev, src):
+    """A band too wide for a block even at 4-column strips (the first
+    reach of each source at one pixel, tests/test_torch_walk_plan.py):
+    the two passes through a device buffer, bit for bit the twins."""
+    from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
+
+    g = torch.Generator(device=cuda_dev).manual_seed(19)
+    imgs = torch.rand((2, 3, 1, 1), generator=g, device=cuda_dev)
+    if src == "table":
+        r = 7262
+        rng = np.random.default_rng(1)
+        hw, vw = (rng.random((2 * r + 1, 1), np.float32) / (2 * r + 1) for _ in range(2))
+        spec = kbloom2.Bloom2Spec(h=1, w=1, variant="gaussian", strength=0.25, threshold=0.3,
+                                  hd0=-r, hd1=r, vd0=-r, vd1=r, hw=hw, vw=vw)
+        run, twin, mod = kbloom2.bloom2_planar, kbloom2.bloom2_planar_ref, kbloom2
+    elif src == "clamp":
+        r = 29048
+        spec = kbloom.build_bloom_spec(1, 1, r / 3, 0.25, 0.3)
+        run, twin, mod = kbloom.bloom_planar, kbloom.bloom_planar_ref, kbloom
+    else:
+        r = 14524
+        spec = kbloom3.build_bloom3_spec(1, 1, r / 3, 0.25, 0.3)
+        run, twin, mod = kbloom3.bloom3_planar, kbloom3.bloom3_planar_ref, kbloom3
+    code = {"fold": kwalk.FOLD, "clamp": kwalk.CLAMP, "table": kwalk.TABLE}[src]
+    assert kwalk.walk_plan(code, 1, 1, -r, r, -r, r).scratch
+    n0 = mod.launches
+    got = run(imgs, spec)
+    torch.cuda.synchronize()
+    assert mod.launches == n0 + 1
+    assert torch.equal(got, twin(imgs, spec))
 
 
 @pytest.mark.cuda

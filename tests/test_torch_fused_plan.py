@@ -24,7 +24,9 @@ SHAPES = {"small": (48, 200), "odd": (45, 251), "tiny": (7, 9), "short": (5, 200
           "1080p": (1080, 1920), "4k": (2160, 3840)}
 CORES = {"off": dict(bloom=False), "r4": dict(sigma=4 / 3), "r12": dict(sigma=4.0),
          "r31": dict(sigma=31 / 3), "fast": dict(fast=True),
-         "fast_knee": dict(fast=True, threshold=0.35)}
+         "fast_knee": dict(fast=True, threshold=0.35),
+         # above the launch arguments' 63 taps: the CLI's sigma 10.5, 11, 20
+         "r32": dict(sigma=10.5), "r33": dict(sigma=11.0), "r60": dict(sigma=20.0)}
 MAPS = {"px1_ab0": (1, 0), "px2_ab1": (2, 1), "px3_abm2": (3, -2)}
 
 
@@ -364,3 +366,118 @@ def test_static_args_are_built_once_and_copied(core):
     with pytest.raises(ValueError, match="not made for this spec"):
         kfused.static_args(kfused.build_fused_spec(45, 251, sigma=0.4, strength=0.25,
                                                    px=2, ab=1), consts, cpu)
+
+
+@pytest.mark.parametrize("shape", ["1080p", "4k"])
+@pytest.mark.parametrize("pre", [True, False])
+def test_shared_memory_fits_large_radii(shape, pre):
+    """The radii of sigma 10.5, 11 and 20 (32, 33, 60) fit a block's
+    227 KB at 1080p and at 4K, their taps and border coefficients (4r + 1
+    floats) in shared memory, the strip narrowed as the rings grow."""
+    h, w = SHAPES[shape]
+    widths = []
+    for sigma, r in ((10.5, 32), (11.0, 33), (20.0, 60)):
+        spec = kfused.build_fused_spec(h, w, sigma=sigma, strength=0.25, px=2, ab=1, pre=pre)
+        assert spec.r == r
+        consts = kfused.fused_consts(spec)
+        p = consts.plan
+        assert not p.split and p.smem <= kfused.SMEM_MAX, (r, p.smem)
+        assert p.smem == kfused.plan_smem(False, pre, r, p.sw, p.step, p.depth, p.hdepth, p.win,
+                                          p.hwin, p.seg_pitch, False)
+        assert p.depth <= min(2 * r + p.step, len(p.ysrc))
+        assert tuple(consts.tapdev.shape) == (4 * r + 1,)
+        np.testing.assert_array_equal(consts.tapdev[:2 * r + 1].numpy(),
+                                      np.asarray(spec.taps, np.float32))
+        widths.append(p.sw)
+    assert widths == sorted(widths, reverse=True) and widths[-1] < 128
+
+
+@pytest.mark.parametrize("shape", ["tiny", "short", "row", "h_mod_px", "small"])
+@pytest.mark.parametrize("pre", [True, False])
+def test_ring_is_capped_at_the_frames_rows(shape, pre):
+    """A radius at least the frame's height: the ring never holds more
+    rows than the frame's distinct rows, and the walk still reads what the
+    twin reads."""
+    h, w = SHAPES[shape]
+    r = max(h, w) + 2
+    spec = kfused.build_fused_spec(h, w, sigma=r / 3, strength=0.25, px=2, ab=1, pre=pre,
+                                   corder=(1, 2, 0))
+    assert spec.r == r
+    consts = kfused.fused_consts(spec)
+    plan = consts.plan
+    assert not plan.split and plan.depth <= len(plan.ysrc) <= h
+    y_map = consts.y_map.numpy() if pre else np.arange(h)
+    assert row_reads(plan, consts, y_map) == ref_rows(plan, consts, y_map)
+    xm = consts.x_maps.numpy() if pre else np.tile(np.arange(w), (3, 1))
+    assert col_reads(plan, consts, xm) == ref_cols(plan, consts, xm)
+
+
+# the first radius that fits no strip, at 3840x2160 (pixel size 1: every
+# row distinct) and at the smallest frames
+SPLIT_AT = {((2160, 3840), True): 424, ((2160, 3840), False): 269,
+            ((1, 1), True): 13923, ((1, 1), False): 13779}
+
+
+@pytest.mark.parametrize("key", sorted(SPLIT_AT), ids=lambda k: f"{k[0][0]}x{k[0][1]}_{k[1]}")
+def test_radius_that_fits_no_strip_splits(key):
+    """Above these radii no strip fits a block (the rings, the staged
+    window and the taps grow with the radius): the plan is split, and
+    fused_pipeline runs the prologue, the stand-alone bloom and the
+    epilogue as three launches. One radius less still fits."""
+    (h, w), pre = key
+    r = SPLIT_AT[key]
+    maps = kfused.oresize.plane_index_maps(h, w, 1, 1)
+    for rr, split in ((r - 1, False), (r, True)):
+        spec = kfused.build_fused_spec(h, w, sigma=rr / 3, strength=0.25, px=1, ab=1, pre=pre)
+        assert spec.r == rr
+        plan = kfused.fused_plan(spec, *maps)
+        assert plan.split == split and (split or plan.smem <= kfused.SMEM_MAX)
+
+
+@pytest.mark.parametrize("pre", [True, False])
+def test_split_route_is_the_fused_twin(pre):
+    """The split route's three twins (prologue alone, stand-alone bloom,
+    epilogue on the f32 image) give the fused twin's bits, at the smallest
+    frame that splits."""
+    from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
+
+    r = SPLIT_AT[((1, 1), pre)]
+    spec = kfused.build_fused_spec(1, 1, sigma=r / 3, strength=0.6, threshold=0.2, px=1,
+                                   ab=1, pre=pre, triad=True, scanlines=True, vignette=True,
+                                   vig_strength=0.25, noise=True, noise_scale=0.01,
+                                   emit="u8", corder=(1, 2, 0))
+    consts = kfused.fused_consts(spec)
+    assert consts.plan.split and consts.tapdev is None
+    pre_spec, pre_consts, bloom, post, post_consts = consts.split
+    assert (pre_spec is not None) == pre and not post.pre and not post.bloom
+    assert bloom.taps == spec.taps and bloom.r == r
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 3, 1, 1), np.uint8)) if pre else \
+        torch.from_numpy(rng.random((2, 3, 1, 1), np.float32))
+    kw = dict(grain=torch.from_numpy(rng.standard_normal((2, 1, 1), np.float32)),
+              sl=torch.from_numpy(rng.random((2, 1), np.float32)),
+              vy2=torch.zeros(1), vx2=torch.zeros(1), tri=torch.ones(3, 1))
+    want = kfused.fused_pipeline_ref(x, spec, consts, **kw)
+    mid = kfused.fused_pipeline_ref(x, pre_spec, pre_consts) if pre else x
+    got = kfused.fused_pipeline_ref(kbloom3.bloom3_planar_ref(mid, bloom), post, post_consts,
+                                    **kw)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert torch.equal(kfused.fused_pipeline(x, spec, consts, **kw), want)
+
+
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("ab", [8, -8])
+def test_aberration_of_the_width_or_more_is_taken_mod_w(w, ab):
+    """|aberration| >= W builds: the roll is taken mod W, which gives the
+    maps of the unreduced roll, and the walk reads what the twin reads."""
+    h = 16
+    spec = kfused.build_fused_spec(h, w, sigma=1.2, strength=0.25, px=1, ab=ab,
+                                   corder=(1, 2, 0))
+    assert abs(spec.ab) < w and (spec.ab - ab) % w == 0
+    consts = kfused.fused_consts(spec)
+    xm = consts.x_maps.numpy()
+    by_color = ((np.arange(w) - ab) % w, np.arange(w), (np.arange(w) + ab) % w)
+    np.testing.assert_array_equal(xm, np.stack([by_color[c] for c in (1, 2, 0)]))
+    plan, y_map = consts.plan, consts.y_map.numpy()
+    assert row_reads(plan, consts, y_map) == ref_rows(plan, consts, y_map)
+    assert col_reads(plan, consts, xm) == ref_cols(plan, consts, xm)

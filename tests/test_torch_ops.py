@@ -87,3 +87,39 @@ def test_bilinear_gather_is_the_oracle(rng):
 def test_to_uint8_rounds_half_to_even():
     x = torch.tensor([0.5 / 255, 1.5 / 255, 2.5 / 255, -0.1, 1.2], dtype=torch.float32)
     np.testing.assert_array_equal(color.to_uint8(x).numpy(), oracle.ops.to_uint8(x.numpy()))
+
+
+def sequential_edge_coefs(taps):
+    """The border coefficients one f32 add at a time, tap by tap and
+    distance by distance: the form that ops/blur.py edge_coefs sums side
+    by side."""
+    r = len(taps) // 2
+    left = np.zeros(max(r, 1), np.float32)
+    right = np.zeros(max(r, 1), np.float32)
+    for d in range(r):
+        for i, t in enumerate(taps):
+            if d + i - r < 0:
+                left[d] += np.float32(t)
+            if i - r > d:
+                right[d] += np.float32(t)
+    return left, right
+
+
+@pytest.mark.parametrize("sigma", [0.2, 0.5, 1.2, 4.0, 10.3, 10.5, 11.0, 20.0])
+def test_edge_coefs_are_the_sequential_sums(sigma):
+    """The border fold's coefficients, summed side by side over the
+    distances, are bit for bit the sequential f32 sums, at radii up to 60
+    (a radius in the thousands then costs O(r) vector adds)."""
+    taps = blur.gaussian_taps(sigma)
+    for got, want in zip(blur.edge_coefs(taps), sequential_edge_coefs(taps)):
+        assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
+
+
+def test_edge_coefs_at_every_radius_to_60():
+    """The same at every radius the card tests and the smoke reach (0-60,
+    sigma r / 3), so that the fold's coefficients are the parent's bits."""
+    for r in range(61):
+        taps = blur.gaussian_taps(r / 3)
+        assert len(taps) == 2 * r + 1
+        for got, want in zip(blur.edge_coefs(taps), sequential_edge_coefs(taps)):
+            assert got.tobytes() == want.tobytes(), r
