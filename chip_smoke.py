@@ -8,13 +8,14 @@ Phases (each must pass; any failure exits non-zero):
    and which codec backends (ffmpeg, cv2) the host has.
 2. Build the CUDA kernels from pythoncrt_tpu_torch/csrc (one nvcc per
    source, all started together, sm_90a); ptxas's registers, stack frame
-   and spill of each instantiation of the fused kernel and of the
-   stand-alone blooms' row walk (csrc/bloom_walk.cu), none of which may
-   use local memory.
+   and spill of each instantiation of the fused kernel, of the
+   stand-alone blooms' row walk (csrc/bloom_walk.cu, its fast source too)
+   and of the warp (csrc/warp.cu), none of which may use local memory.
 3. Each kernel against its plain PyTorch twin on the card, at 1080p with
    a batch of 8 and the operands the main paths give it: the fused
    kernel with the c3 spec (gaussian core) and the CLI-default spec (fast
-   core), the warp, the persistence scan (stream head and carried
+   core), the warp (c3's strength and 1.0, the widest source
+   footprints), the persistence scan (stream head and carried
    state) and the glitch shear (the c4 band, export and preview offsets,
    both entries); the stand-alone bloom (gaussian on the c3-angled
    pre-bloom image, fast on the defaults-angled one) and the fused
@@ -29,7 +30,8 @@ Phases (each must pass; any failure exits non-zero):
    arguments) at 1080p: the fused kernel (the CLI defaults with
    --no-fast-bloom), bloom3 (defaults-angled with the gaussian bloom),
    the stripe and bloom2 (c3's pre-bloom image).
-   The row walk's rows are bit for bit their twins.
+   The row walk's rows (the fast bloom's too) and the warp's are bit for
+   bit their twins.
    Max abs error, CUDA-event time per call of the kernel,
    of the twin and, where one PyTorch call computes the same function,
    of that call; the least time the card could take (bytes over the
@@ -140,6 +142,7 @@ LSB_TOL = 1
 # the stages these specs turn on (rounded up; the FP64 grade pow of c3 is
 # not counted). At these counts every kernel is bound by bytes.
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
+                 "warp_planar_strength1": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
                  "bloom3_planar": 45, "bloom3_fast_planar": 16, "bloom2_planar": 45,
                  "bloom2_planar_fast": 30, "bloom2_planar_pipelined": 45, "bloom_stripe": 45,
@@ -224,21 +227,18 @@ def bound(name: str, bytes_moved: int, values_out: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fused_instances(log: str) -> list:
-    """ptxas's lines for each instantiation of csrc/fused.cu's template
-    (core, radius, input): registers, stack frame, spill and static
-    shared memory bytes."""
+def ptxas_instances(log: str, match, what: str, count: int) -> list:
+    """ptxas's lines for each kernel entry that ``match`` names (it returns
+    the entry's identity as a dict, or None): registers, stack frame,
+    spill and static shared memory bytes. Fails unless ``count`` entries
+    were found, each with its lines."""
     out, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            cur = None
-            if "fused_strip_kernel" in line:
-                core, radius, f32 = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)E", line).groups()
-                cur = dict(core="fast" if core == "1" else "gaussian",
-                           radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
-                                   "memory)"}.get(radius) or int(radius),
-                           input="f32" if f32 == "1" else "uint8", registers=None, stack=None,
-                           spill_stores=None, spill_loads=None, static_smem=0)
+            cur = match(line)
+            if cur is not None:
+                cur.update(registers=None, stack=None, spill_stores=None, spill_loads=None,
+                           static_smem=0)
                 out.append(cur)
         elif cur is not None:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -250,41 +250,57 @@ def fused_instances(log: str) -> list:
                 cur["registers"] = int(m.group(1))
                 m = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(m.group(1)) if m else 0
-    if len(out) != 8 or any(i["registers"] is None or i["stack"] is None for i in out):
-        fail(f"ptxas reported {len(out)} fused instantiations, expected 8: {out}")
+    if len(out) != count or any(i["registers"] is None or i["stack"] is None for i in out):
+        fail(f"ptxas reported {len(out)} {what}, expected {count}: {out}")
     return out
+
+
+def fused_instances(log: str) -> list:
+    """Each instantiation of csrc/fused.cu's template (core, radius, input)."""
+    def match(line):
+        if "fused_strip_kernel" not in line:
+            return None
+        core, radius, f32 = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)E", line).groups()
+        return dict(core="fast" if core == "1" else "gaussian",
+                    radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
+                            "memory)"}.get(radius) or int(radius),
+                    input="f32" if f32 == "1" else "uint8")
+    return ptxas_instances(log, match, "fused instantiations", 8)
 
 
 WALK_SOURCES = {"0": "fold (bloom3)", "1": "clamp (stripe)", "2": "table (bloom2)"}
 
 
 def walk_instances(log: str) -> list:
-    """ptxas's lines for each instance of csrc/bloom_walk.cu (the row walk
-    per weight source and band, the scratch route's two passes)."""
-    out, cur = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            cur = None
-            m = re.search(r"(bloom_walk|bloom_hpass|bloom_vpass)_kernelILi(\d)E(?:Li(n?\d+)E)?",
-                          line)
-            if m:
-                kind, src, band = m.groups()
-                cur = dict(kernel=f"{kind}_kernel", source=WALK_SOURCES[src],
-                           band=None if band is None else
-                           ("runtime" if band.startswith("n") else f"-{band}..{band}"),
-                           registers=None, stack=None, spill_stores=None, spill_loads=None)
-                out.append(cur)
-        elif cur is not None:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-            if m and cur["stack"] is None:
-                cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
-    if len(out) != 13 or any(i["registers"] is None or i["stack"] is None for i in out):
-        fail(f"ptxas reported {len(out)} row-walk instances, expected 13: {out}")
-    return out
+    """Each instance of csrc/bloom_walk.cu: the row walk per weight source
+    and band, the scratch route's two passes, the fast source's kernel."""
+    def match(line):
+        if "bloom_fast_walk_kernel" in line:
+            return dict(kernel="bloom_fast_walk_kernel", source="fast (bloom3)", band=None)
+        m = re.search(r"(bloom_walk|bloom_hpass|bloom_vpass)_kernelILi(\d)E(?:Li(n?\d+)E)?",
+                      line)
+        if not m:
+            return None
+        kind, src, band = m.groups()
+        return dict(kernel=f"{kind}_kernel", source=WALK_SOURCES[src],
+                    band=None if band is None else
+                    ("runtime" if band.startswith("n") else f"-{band}..{band}"))
+    return ptxas_instances(log, match, "row-walk instances", 14)
+
+
+def warp_instances(log: str) -> list:
+    """Each instance of csrc/warp.cu (one per emit)."""
+    def match(line):
+        m = re.search(r"warp_kernelILb(\d)E", line)
+        return dict(emit="uint8" if m.group(1) == "1" else "f32") if m else None
+    return ptxas_instances(log, match, "warp instances", 2)
+
+
+def fast_note(plan) -> str:
+    """The fast source's walk for a plane (kernels/bloom_walk.py fast_plan)."""
+    return (f"; the row walk's fast source: strips of {plan.sw} columns, runs of {plan.run} rows, "
+            f"chunks of {plan.step} rows, rings {plan.depth} staged + {plan.xdepth} pre-knee + "
+            f"{plan.hdepth} half-res rows, {plan.smem} bytes of shared memory per block")
 
 
 def walk_note(h: int, w: int, src: int, bands: tuple) -> str:
@@ -384,6 +400,12 @@ def main() -> int:
               f"shared memory: the plan's, in [3]")
         if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
             fail(f"row-walk instance {inst} uses local memory")
+    for inst in warp_instances(_build.build_log):
+        print(f"[2] warp instance, {inst['emit']} emit: "
+              f"{inst['registers']} registers, {inst['stack']} bytes stack frame, "
+              f"{inst['spill_stores']} + {inst['spill_loads']} bytes spill (stores + loads)")
+        if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
+            fail(f"warp instance {inst} uses local memory")
     sys.stdout.flush()
 
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, oracle
@@ -412,7 +434,7 @@ def main() -> int:
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
-            tol=FUSED_TOL, note="", frames=B, res=(H, W)):
+            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL):
         bms, by = bound(kname, bytes_moved, values_out)
         lib = f"{lib_ms:.4f} ms/call" if lib_ms is not None else "none (no one PyTorch call)"
         print(f"[3] {kname}{note}: max |kernel - twin| {err:.3g}, max {int(lsb)} LSB; "
@@ -421,7 +443,7 @@ def main() -> int:
               f"bound {bms:.4f} ms/call ({bms / frames:.4f} ms/frame; {by}: "
               f"{bytes_moved / 1e6:.1f} MB; {100 * bms / ms:.1f}% of the bound reached) at "
               f"{frames} frames {res[0]}x{res[1]} on {card}", flush=True)
-        if err > tol or lsb > LSB_TOL:
+        if err > tol or lsb > lsb_tol:
             fail(f"{kname}{note} disagrees with its twin: {err:.3g} abs, {lsb} LSB")
         table[kname] = dict(name=kname, route="cuda", source=src, replaces=repl, launches=0,
                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
@@ -452,28 +474,36 @@ def main() -> int:
         fused_out[cfg] = (eng, got)
         del want
 
+    # the warp on c3's fused output: c3's tables (strength 0.15) and
+    # strength 1.0, the clamp's end (the widest source footprints)
     eng3, fz = fused_out["c3"]
-    wp = kwarp.warp_planar(fz, eng3.warp_tables, emit_u8=True)
-    wp_ref = kwarp.warp_planar_ref(fz, eng3.warp_tables, emit_u8=True)
-    wpf = kwarp.warp_planar(fz, eng3.warp_tables)
-    wpf_ref = kwarp.warp_planar_ref(fz, eng3.warp_tables)
-    map_x, map_y = oracle.barrel_warp_maps(H, W, C3["warp_strength"])
-    grid = torch.from_numpy(np.stack([map_x * (2.0 / (W - 1)) - 1.0,
-                                      map_y * (2.0 / (H - 1)) - 1.0], -1)).float().cuda()
-    grid = grid[None].expand(B, H, W, 2).contiguous()
-    gs = torch.nn.functional.grid_sample(fz, grid, mode="bilinear", padding_mode="zeros",
-                                         align_corners=True)
-    torch.cuda.synchronize()
-    print(f"[3] warp_planar: grid_sample (the library call) vs the oracle's taps: max "
-          f"{(gs - wpf_ref).abs().max().item():.3g} abs (f32 coordinates renormalized)")
-    row("warp_planar", "pythoncrt_tpu_torch/csrc/warp.cu", "pythoncrt_tpu/kernels/warp.py:545",
-        (wpf - wpf_ref).abs().max().item(), (wp.int() - wp_ref.int()).abs().max().item(),
-        time_ms(lambda: kwarp.warp_planar(fz, eng3.warp_tables, emit_u8=True)),
-        time_ms(lambda: kwarp.warp_planar_ref(fz, eng3.warp_tables, emit_u8=True), iters=3),
-        time_ms(lambda: torch.nn.functional.grid_sample(
-            fz, grid, mode="bilinear", padding_mode="zeros", align_corners=True)),
-        nbytes(fz, wp, *eng3.warp_tables), wp.numel())
-    del wp, wp_ref, wpf, wpf_ref, gs, grid
+    s1_tables = kwarp.build_warp_tables(H, W, 1.0, dev)
+    for kname, strength, tabs in (("warp_planar", C3["warp_strength"], eng3.warp_tables),
+                                  ("warp_planar_strength1", 1.0, s1_tables)):
+        wp = kwarp.warp_planar(fz, tabs, emit_u8=True)
+        wp_ref = kwarp.warp_planar_ref(fz, tabs, emit_u8=True)
+        wpf = kwarp.warp_planar(fz, tabs)
+        wpf_ref = kwarp.warp_planar_ref(fz, tabs)
+        map_x, map_y = oracle.barrel_warp_maps(H, W, strength)
+        grid = torch.from_numpy(np.stack([map_x * (2.0 / (W - 1)) - 1.0,
+                                          map_y * (2.0 / (H - 1)) - 1.0], -1)).float().cuda()
+        grid = grid[None].expand(B, H, W, 2).contiguous()
+        gs = torch.nn.functional.grid_sample(fz, grid, mode="bilinear", padding_mode="zeros",
+                                             align_corners=True)
+        torch.cuda.synchronize()
+        print(f"[3] {kname}: grid_sample (the library call) vs the oracle's taps: max "
+              f"{(gs - wpf_ref).abs().max().item():.3g} abs (f32 coordinates renormalized)")
+        row(kname, "pythoncrt_tpu_torch/csrc/warp.cu", "pythoncrt_tpu/kernels/warp.py:545",
+            (wpf - wpf_ref).abs().max().item(), (wp.int() - wp_ref.int()).abs().max().item(),
+            time_ms(lambda: kwarp.warp_planar(fz, tabs, emit_u8=True)),
+            time_ms(lambda: kwarp.warp_planar_ref(fz, tabs, emit_u8=True), iters=3),
+            time_ms(lambda: torch.nn.functional.grid_sample(
+                fz, grid, mode="bilinear", padding_mode="zeros", align_corners=True)),
+            nbytes(fz, wp, *tabs), wp.numel(), tol=0.0, lsb_tol=0,
+            note=f" (strength {strength}, uint8 emit; one thread per four outputs, the tables "
+                 "read once per batch)")
+        del wp, wp_ref, wpf, wpf_ref, gs, grid
+    del s1_tables
 
     _, fd = fused_out["defaults"]
     p_def = configs["defaults"].persistence
@@ -558,19 +588,17 @@ def main() -> int:
             if not eng._staged or eng.bloom3_spec is None:
                 fail(f"{cfg} does not take the staged step")
             spec = eng.bloom3_spec
-            src = "pythoncrt_tpu_torch/csrc/bloom3.cu"
-            tol = FUSED_TOL
+            src, tol = "pythoncrt_tpu_torch/csrc/bloom_walk.cu", 0.0
             if spec.fast:
-                tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
+                tabs = eng.bloom3_tables
                 run = functools.partial(kbloom3.bloom3_fast_planar, feed, spec, tabs)
                 twin = functools.partial(kbloom3.bloom3_fast_planar_ref, feed, spec, tabs)
-                repl, extra = "pythoncrt_tpu/kernels/bloom3.py:495", list(tabs[0])
-                note = " (defaults-angled: half-res down and up)"
+                repl, extra = "pythoncrt_tpu/kernels/bloom3.py:495", list(tabs.taps)
+                note = f" (defaults-angled: half-res down and up{fast_note(tabs.plan)})"
             else:
                 run = functools.partial(kbloom3.bloom3_planar, feed, spec)
                 twin = functools.partial(kbloom3.bloom3_planar_ref, feed, spec)
                 repl, extra = "pythoncrt_tpu/kernels/bloom3.py:274", []
-                src, tol = "pythoncrt_tpu_torch/csrc/bloom_walk.cu", 0.0
                 note = (f" (c3-angled: sigma 1.2, {len(spec.taps)} taps; the row walk's fold"
                         f"{walk_note(H, W, kwalk.FOLD, (-spec.r, spec.r) * 2)})")
         got, want = run(), twin()
@@ -1120,6 +1148,7 @@ def main() -> int:
         "fused_pipeline_c5": ("fused_pipeline", ("c5",)),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
         "warp_planar": ("warp_planar", None),
+        "warp_planar_strength1": ("warp_planar", ()),
         "persistence_scan": ("persistence_scan", ("defaults", "c4", "defaults-angled",
                                                   "c4-text", "defaults-bloom2")),
         "persistence_scan_multiclip": ("persistence_multiclip", ("c5",)),

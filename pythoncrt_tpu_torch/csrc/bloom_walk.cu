@@ -1,8 +1,8 @@
-// Stand-alone separable blooms for Hopper (sm_90a): stage 6 on an f32
-// image, clip(x + strength * V(H(knee(x)))), plane by plane, where H and V
-// are 1-D passes over a band of offsets d0..d1. One row-walk template
-// serves three TPU kernels; only where a tap's weight comes from differs
-// (the template parameter SRC):
+// Stand-alone blooms for Hopper (sm_90a): stage 6 on an f32 image,
+// clip(x + strength * blur(knee(x))), plane by plane. One row walk serves
+// four TPU kernels. For the separable blooms blur = V(H(.)), 1-D passes
+// over a band of offsets d0..d1, and only where a tap's weight comes from
+// differs (the template parameter SRC):
 //
 // - FOLD: constant gaussian taps, out-of-frame taps adding nothing, then
 //   the summed left (top) and right (bottom) border coefficients times the
@@ -16,6 +16,11 @@
 //   pythoncrt_tpu/kernels/bloom2.py, bloom2_nhwc / _bloom2_kernel and
 //   bloom2_nhwc_pipelined / _bloom2_pipe_kernel: `limbs` 1 and 2 round the
 //   knee'd value to bf16 (the host rounds the weights), 3 keeps f32.
+// The fourth source, FAST, is bloom3's fast bloom, blur = up(down(.)):
+// the oracle's resize_bilinear to (H/2, W/2) and back, rows then columns
+// in each pass, lo * (1 - f) + hi * f from its bilinear_taps tables.
+// Replaces pythoncrt_tpu/kernels/bloom3.py, bloom3_fast_cmajor /
+// _bloom3_fast_kernel (bloom_fast_walk_kernel below).
 // Each sum runs in offset order, the first term its start (FOLD: 0 plus
 // the first in-frame term), so the outputs are the plain twins' bits
 // (kernels/bloom3.py, bloom.py, bloom2.py). The TPU forms (bf16 MXU limbs,
@@ -25,7 +30,8 @@
 //
 // What bounds it on the card: bytes. A 1080p frame is 24.9 MB of f32 read
 // and 24.9 MB written (0.0149 ms at 3.35 TB/s); the taps are 2 x 9
-// multiply-adds per value at sigma 1.2.
+// multiply-adds per value at sigma 1.2, the fast source's four resize
+// passes about 16 operations per value.
 //
 // Design: a block owns a strip of SW output columns of one plane (the blur
 // is per plane) and walks down a run of rows; the host plans the walk
@@ -51,7 +57,10 @@
 // A band whose block exceeds the card's shared memory at the narrowest
 // strip (kernels/bloom_walk.py) takes the scratch route: a horizontal pass
 // into a device buffer, then a vertical pass from it, both plain loops
-// over global memory in the same order. Built with -fmad=false.
+// over global memory in the same order. The FAST source walks the same
+// strips and runs with rings of its own (bloom_fast_walk_kernel;
+// kernels/bloom_walk.py fast_plan, replayed by fast_chunks). Built with
+// -fmad=false.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +73,7 @@ namespace {
 constexpr int NT = 256;      // threads per block
 constexpr int NWARP = NT / 32;
 constexpr int MAXK = 63;     // taps carried in the launch arguments
-constexpr int FOLD = 0, CLAMP = 1, TABLE = 2;
+constexpr int FOLD = 0, CLAMP = 1, TABLE = 2, FAST = 3;
 constexpr int RUNTIME = -1;  // the band's reach known only at run time
 
 }  // namespace
@@ -79,7 +88,7 @@ struct WalkArgs {
                              // device, when k > MAXK or on the scratch route; else null
     float* scratch;          // scratch route: (N, H, W) horizontal pass
     int32_t n, h, w;
-    int32_t src;             // FOLD, CLAMP or TABLE
+    int32_t src;             // FOLD, CLAMP, TABLE or FAST
     int32_t hd0, hd1, vd0, vd1;
     int32_t knee_on; float thr, rden;
     float strength;
@@ -91,6 +100,17 @@ struct WalkArgs {
     int32_t sw, lg_nq, step, run, depth, xdepth, win, smem;
     int32_t copy16, vec_ok;
     int32_t scratch_on;
+    // FAST (kernels/bloom_walk.py fast_plan): the oracle's bilinear_taps of
+    // the down columns (W2,) and up columns (W,); per strip the staged
+    // columns and half-res columns (a0, n, j0, nh); per run the schedule;
+    // per output row and half-res row the ring offsets and fractions
+    const int32_t* fd_xlo; const float* fd_xf;
+    const int32_t* fu_xlo; const float* fu_xf;
+    const int32_t* fwin;
+    const int32_t* fsched;
+    const int4* frow;        // (H,) pre-knee offset, half-res lo / hi offsets, up fraction bits
+    const int4* fhalf;       // (H2,) source lo / hi offsets, own offset, down fraction bits
+    int32_t w2, hdepth, hwin, sched_stride;
     float taps[MAXK];        // FOLD, CLAMP: taps[d + r], when k <= MAXK
     float edge_l[MAXK];      // FOLD: summed taps clipped off the left/top at distance d
     float edge_r[MAXK];      // FOLD: same for the right/bottom edge
@@ -150,6 +170,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // Stage source rows [d, d + dn) of the plane, columns [a0, a0 + nst): one
 // warp per row.
@@ -514,6 +536,211 @@ __global__ void __launch_bounds__(NT) bloom_vpass_kernel(const WalkArgs a) {
     }
 }
 
+// ---- the fast source: up(down(knee(x))), the oracle's bilinear resizes ----
+
+struct FastSmem {
+    float* ring;   // [depth][win] staged source rows (knee'd in place)
+    float* xr;     // [xdepth][sw] the strip's pre-knee rows (a knee on; else none)
+    float* half;   // [hdepth][hwin] half-res rows
+    int* hx_lo; float* hx_f;  // [hwin] the down-column taps of the strip's half-res columns
+    int total;
+};
+
+// kernels/bloom_walk.py fast_smem computes the same total.
+__host__ __device__ inline FastSmem fast_layout(const WalkArgs& a, unsigned char* base) {
+    FastSmem s;
+    int o = 0;
+    s.ring = (float*)(base + o); o += a16(a.depth * a.win * 4);
+    s.xr = (float*)(base + o); o += a16(a.xdepth * a.sw * 4);
+    s.half = (float*)(base + o); o += a16(a.hdepth * a.hwin * 4);
+    s.hx_lo = (int*)(base + o); o += a16(a.hwin * 4);
+    s.hx_f = (float*)(base + o); o += a16(a.hwin * 4);
+    s.total = o;
+    return s;
+}
+
+// Stage source rows [d, d + dn) of the plane, columns [a0, a0 + nst),
+// into the ring slots from `slot` on (one wrap at most): one warp per row.
+__device__ __forceinline__ void stage_ring(const WalkArgs& a, float* ring, int slot,
+                                           const float* src, int d, int dn, int a0, int nst) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int k = warp; k < dn; k += NWARP) {
+        const int sl = slot + k < a.depth ? slot + k : slot + k - a.depth;
+        const float* row = src + (size_t)(d + k) * a.w + a0;
+        float* dst = ring + sl * a.win;
+        if (a.copy16) {
+            for (int g = lane * 4; g < nst; g += 32 * 4) cp_async<16>(dst + g, row + g);
+        } else {
+            for (int g = lane; g < nst; g += 32) cp_async<4>(dst + g, row + g);
+        }
+    }
+}
+
+// A block owns a strip of sw output columns of one plane and walks down a
+// run of output rows in chunks of step source rows (the schedule and the
+// rings' offsets: kernels/bloom_walk.py fast_plan). Per chunk:
+// 1. once every thread is done with the last chunk, the next chunk's raw
+//    rows are copied (cp.async) straight into their ring slots, which the
+//    plan keeps free, while this chunk is read;
+// 2. where a knee is on, the strip's pre-knee values go to their ring,
+//    then the knee is applied in place, once per staged value (without a
+//    knee the composite reads the staged ring, which the plan then sizes
+//    to keep each row until its output row is written);
+// 3. each half-res row whose two source rows are now staged: down rows,
+//    then down columns (lo * (1 - f) + hi * f), into the half-res ring;
+// 4. each output row whose two half-res rows are in that ring: up rows,
+//    then up columns, the composite with its pre-knee value, a float4
+//    store where W % 4 == 0.
+// The order of every lerp is the oracle's resize_bilinear, rows then
+// columns, so the output is the plain twin's, bit for bit. Four blocks
+// per SM: 64 registers a thread, with no spill (left to itself ptxas
+// also took 64 registers, but spilled).
+__global__ void __launch_bounds__(NT, 4)
+bloom_fast_walk_kernel(const __grid_constant__ WalkArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const FastSmem S = fast_layout(a, smem);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int h = a.h, w = a.w, sw = a.sw, step = a.step;
+    const int depth = a.depth, xdepth = a.xdepth;
+    const int lg = a.lg_nq, nq = 1 << lg;
+    const int x0 = blockIdx.x * sw, xe = min(x0 + sw, w), ncen = xe - x0;
+    const int ncq = (ncen + 3) >> 2;
+    const int y0 = blockIdx.y * a.run;
+    const size_t plane = (size_t)h * w;
+    const float* src = a.img + blockIdx.z * plane;
+    float* dst = a.out + blockIdx.z * plane;
+    const int4 win = __ldg(reinterpret_cast<const int4*>(a.fwin) + blockIdx.x);
+    const int a0 = win.x, nst = win.y, j0 = win.z, nhw = win.w;
+    for (int j = tid; j < nhw; j += NT) {
+        S.hx_lo[j] = __ldg(a.fd_xlo + j0 + j);
+        S.hx_f[j] = __ldg(a.fd_xf + j0 + j);
+    }
+    // NT is a multiple of nq: a thread's four output columns are the same
+    // in every row, and so are their up-column taps
+    const int q = tid & (nq - 1), lx = 4 * q;
+    int ul[4];
+    float uf[4];
+    #pragma unroll
+    for (int v = 0; v < 4; ++v) {
+        const int c = x0 + min(lx + v, ncen - 1);  // past the frame: not stored
+        ul[v] = __ldg(a.fu_xlo + c);
+        uf[v] = __ldg(a.fu_xf + c);
+    }
+    // the pre-knee strip: its own ring with a knee, else the staged ring
+    const bool xsep = a.knee_on;
+    const float* xbase = xsep ? S.xr + lx : S.ring + (x0 - a0) + lx;
+    const int* sched = a.fsched + blockIdx.y * a.sched_stride;
+    const int pa = __ldg(sched), pe = __ldg(sched + 1);  // the run's source rows [pa, pe)
+    int nh = __ldg(sched + 2);
+    int rs = pa % depth, xs = xsep ? pa % xdepth : 0;  // the ring slots of source row d
+    stage_ring(a, S.ring, rs, src, pa, min(step, pe - pa), a0, nst);
+    cp_commit();
+    const bool vec = (w & 3) == 0;  // the window and the strip start 16-byte words
+    int nxt = y0;
+
+    for (int d = pa, ci = 0; d < pe; d += step, ++ci) {
+        const int dn = min(step, pe - d), e = d + dn;
+        const int re = rs + dn < depth ? rs + dn : rs + dn - depth;  // slot of row e
+        // this chunk's rows are staged and every thread is done with the
+        // last chunk, whose output rows may read the staged ring: only now
+        // may the next chunk's copies overwrite the slots the plan frees
+        cp_wait_all();
+        __syncthreads();
+        if (e < pe) {
+            stage_ring(a, S.ring, re, src, e, min(step, pe - e), a0, nst);
+            cp_commit();
+        }
+
+        // ---- the pre-knee strip, and the knee in place ----
+        for (int k = warp; xsep && k < dn; k += NWARP) {
+            float* row = S.ring + (rs + k < depth ? rs + k : rs + k - depth) * a.win;
+            float* xrow = S.xr + (xs + k < xdepth ? xs + k : xs + k - xdepth) * sw;
+            if (vec) {
+                for (int c = lane * 4; c < nst; c += 32 * 4) {
+                    float4 v = *reinterpret_cast<float4*>(row + c);
+                    const int lc = c + a0 - x0;
+                    if (lc >= 0 && lc < ncen) *reinterpret_cast<float4*>(xrow + lc) = v;
+                    v.x = crt::knee(1, a.thr, a.rden, v.x);
+                    v.y = crt::knee(1, a.thr, a.rden, v.y);
+                    v.z = crt::knee(1, a.thr, a.rden, v.z);
+                    v.w = crt::knee(1, a.thr, a.rden, v.w);
+                    *reinterpret_cast<float4*>(row + c) = v;
+                }
+            } else {
+                for (int c = lane; c < nst; c += 32) {
+                    const float v = row[c];
+                    const int lc = c + a0 - x0;
+                    if (lc >= 0 && lc < ncen) xrow[lc] = v;
+                    row[c] = crt::knee(1, a.thr, a.rden, v);
+                }
+            }
+        }
+        if (xsep) __syncthreads();
+
+        // ---- the half-res rows whose two source rows are staged ----
+        const int he = __ldg(sched + 3 + 2 * ci), ye = __ldg(sched + 4 + 2 * ci);
+        for (int ii = nh + warp; ii < he; ii += NWARP) {
+            const int4 t = __ldg(a.fhalf + ii);
+            const float* rl = S.ring + t.x - a0;
+            const float* rh = S.ring + t.y - a0;
+            const float fy = __int_as_float(t.w);
+            float* hrow = S.half + t.z;
+            for (int j = lane; j < nhw; j += 32) {
+                const int xl = S.hx_lo[j], xh = min(xl + 1, w - 1);
+                const float dl = crt::lerp_taps(rl[xl], rh[xl], fy);
+                const float dh = crt::lerp_taps(rl[xh], rh[xh], fy);
+                hrow[j] = crt::lerp_taps(dl, dh, S.hx_f[j]);
+            }
+        }
+        __syncthreads();
+
+        // ---- the output rows whose two half-res rows are in the ring ----
+        for (int yy = tid >> lg; q < ncq && yy < ye - nxt; yy += NT >> lg) {
+            const int y = nxt + yy;
+            const int4 t = __ldg(a.frow + y);
+            const float* hl = S.half + t.y - j0;
+            const float* hh = S.half + t.z - j0;
+            const float fy = __int_as_float(t.w);
+            float xa[4];
+            if (xsep || vec) {  // 16-byte aligned (kernels/bloom_walk.py fast_windows)
+                const float4 xv = *reinterpret_cast<const float4*>(xbase + t.x);
+                xa[0] = xv.x; xa[1] = xv.y; xa[2] = xv.z; xa[3] = xv.w;
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) xa[v] = xbase[t.x + min(v, ncen - 1 - lx)];
+            }
+            float o[4];
+            #pragma unroll
+            for (int v = 0; v < 4; ++v) {
+                const int uh = min(ul[v] + 1, a.w2 - 1);
+                const float bl = crt::lerp_taps(crt::lerp_taps(hl[ul[v]], hh[ul[v]], fy),
+                                                crt::lerp_taps(hl[uh], hh[uh], fy), uf[v]);
+                o[v] = clip01(xa[v] + a.strength * bl);
+            }
+            float* op = dst + (size_t)y * w + x0 + lx;
+            if (a.vec_ok && lx + 4 <= ncen) {
+                *reinterpret_cast<float4*>(op) = make_float4(o[0], o[1], o[2], o[3]);
+            } else {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) if (lx + v < ncen) op[v] = o[v];
+            }
+        }
+        nh = he;
+        nxt = ye;
+        rs = re;
+        if (xsep) xs = xs + dn < xdepth ? xs + dn : xs + dn - xdepth;
+    }
+}
+
+int launch_fast(const WalkArgs* a, cudaStream_t stream) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bloom_fast_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((a->w + a->sw - 1) / a->sw, (a->h + a->run - 1) / a->run, a->n);
+    bloom_fast_walk_kernel<<<grid, NT, a->smem, stream>>>(*a);
+    return (int)cudaGetLastError();
+}
+
 template <int SRC, int RT>
 int launch_walk(const WalkArgs* a, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -551,8 +778,17 @@ int launch_scratch(const WalkArgs* a, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int crt_walk_launch(const WalkArgs* a, void* stream) {
-    if (a->n < 1 || a->n > 65535 || a->h < 1 || a->w < 1 || a->src < FOLD || a->src > TABLE)
+    if (a->n < 1 || a->n > 65535 || a->h < 1 || a->w < 1 || a->src < FOLD || a->src > FAST)
         return (int)cudaErrorInvalidValue;
+    if (a->src == FAST) {
+        if (!a->fd_xlo || !a->fd_xf || !a->fu_xlo || !a->fu_xf || !a->fwin || !a->fsched
+                || !a->frow || !a->fhalf || a->sw < 4 || a->sw != 4 << a->lg_nq || a->step < 1
+                || a->run < 1 || a->depth < 1 || (a->knee_on && a->xdepth < 1) || a->hdepth < 1
+                || a->win % 4 || a->hwin < 1 || a->w2 != (a->w / 2 > 1 ? a->w / 2 : 1)
+                || fast_layout(*a, nullptr).total != a->smem)
+            return (int)cudaErrorInvalidValue;
+        return launch_fast(a, static_cast<cudaStream_t>(stream));
+    }
     if (a->hd0 > 0 || a->hd1 < 0 || a->vd0 > 0 || a->vd1 < 0 || a->limbs < 1 || a->limbs > 3)
         return (int)cudaErrorInvalidValue;
     if (a->src == TABLE) {

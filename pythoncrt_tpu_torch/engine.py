@@ -68,6 +68,7 @@ from . import oracle
 from .kernels import bloom as kbloom
 from .kernels import bloom2 as kbloom2
 from .kernels import bloom3 as kbloom3
+from .kernels import bloom_walk as kwalk
 from .kernels import fused as kfused
 from .kernels import glitch as kglitch
 from .kernels import persist as kpersist
@@ -285,6 +286,9 @@ class CRTEngine:
                 if p.fast_bloom else
                 kbloom3.build_bloom3_spec(h, w, float(p.bloom_sigma), float(p.bloom_strength),
                                           float(p.bloom_threshold)))
+        self.bloom3_tables = None  # the fast variant's row-walk tables, made once
+        if self.bloom_route == "bloom3" and self.bloom3_spec.fast:
+            self.bloom3_tables = kwalk.fast_tables(h, w, self.bloom3_spec.threshold, dev)
         self.bloom_spec = self.bloom2_tables = None  # an opt-in's stage 6
         if self.bloom_route == "stripe":
             self.bloom_spec = kbloom.build_bloom_spec(h, w, float(p.bloom_sigma),
@@ -513,9 +517,7 @@ class CRTEngine:
             img = kbloom2.bloom2_planar(img, self.bloom_spec, self.bloom2_tables)
         elif self.bloom3_spec is not None:
             if self.bloom3_spec.fast:
-                ft = self.fused_tables
-                img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec,
-                                                 (ft.fast_taps, ft.fast_extent))
+                img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec, self.bloom3_tables)
             else:
                 img = kbloom3.bloom3_planar(img, self.bloom3_spec)
         return kfused.epilogue_ref(img, self.spec, self.fused_tables,

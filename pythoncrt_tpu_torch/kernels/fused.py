@@ -60,7 +60,6 @@ launches = 0  # CUDA launches made by fused_pipeline
 
 MAX_TAPS = 63  # csrc/fused.cu MAXK: taps carried in the launch arguments
 MAX_R = MAX_TAPS // 2  # above this radius the taps come from a device table
-TILE = 32  # csrc/bloom3.cu TX, TY: the tile the fast extents are sized by
 SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
 STRIP_WIDTHS = (128, 64, 32, 16, 8, 4)  # output columns per block, widest that fits first
 # distinct source rows per chunk and output rows per block, by core and
@@ -151,9 +150,6 @@ class FusedConsts(NamedTuple):
     # columns (W2,), up rows (H,) and up columns (W,): the oracle's
     # bilinear_taps
     fast_taps: Optional[tuple] = None
-    # fast core: the largest per-tile (rows, columns, half rows, half
-    # columns) of the stand-alone bloom's tiles (kernels/bloom3.py)
-    fast_extent: Optional[tuple] = None
     # the CUDA kernel's walk (fused_plan) and its device tables (ydist,
     # ysrc, segs)
     plan: Optional["FusedPlan"] = None
@@ -430,29 +426,13 @@ def _ring_tables(plan: FusedPlan, fast_taps) -> tuple:
     return rows.astype(np.int32), half.astype(np.int32)
 
 
-def _tile_extents(up_lo: np.ndarray, dn_lo: np.ndarray, full: int, half: int):
-    """Largest full-res and half-res extents over the tiles of one axis,
-    by csrc/fused.cu's fast_window: the half-res range the up pass reads,
-    the source range the down pass reads, and the tile itself."""
-    t0 = np.arange(0, full, TILE)
-    t1 = np.minimum(t0 + TILE, full) - 1
-    i0 = up_lo[t0]
-    i1 = np.minimum(up_lo[t1] + 1, half - 1)
-    s0 = np.minimum(dn_lo[i0], t0)
-    s1 = np.maximum(np.minimum(dn_lo[i1] + 1, full - 1), t1)
-    return int((s1 - s0 + 1).max()), int((i1 - i0 + 1).max())
-
-
-def fast_tables(h: int, w: int) -> tuple[tuple, tuple]:
+def fast_tables(h: int, w: int) -> tuple:
     """The fast core's taps, the oracle's resize_bilinear to (H//2, W//2)
-    and back (oracle/engine.py apply_effects, stage 6), and the per-tile
-    extents they give."""
+    and back (oracle/engine.py apply_effects, stage 6): (lo int32, frac
+    f32) for the down rows, down columns, up rows and up columns."""
     h2, w2 = max(1, h // 2), max(1, w // 2)
-    taps = (*oracle.ops.bilinear_taps(h, h2), *oracle.ops.bilinear_taps(w, w2),
+    return (*oracle.ops.bilinear_taps(h, h2), *oracle.ops.bilinear_taps(w, w2),
             *oracle.ops.bilinear_taps(h2, h), *oracle.ops.bilinear_taps(w2, w))
-    rows, hrows = _tile_extents(taps[4], taps[0], h, h2)
-    cols, hcols = _tile_extents(taps[6], taps[2], w, w2)
-    return taps, (rows, cols, hrows, hcols)
 
 
 def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> FusedConsts:
@@ -466,9 +446,9 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
     fwd = fin = None
     if spec.triad and not ocolor.triad_is_multiply(spec.triad_gamma, spec.triad_luma):
         fwd, fin = ocolor.triad_tables(spec.triad_gamma, device)
-    taps = extent = None
+    taps = None
     if spec.bloom and spec.fast:
-        taps, extent = fast_tables(spec.h, spec.w)
+        taps = fast_tables(spec.h, spec.w)
     plan = fused_plan(spec, y_map, x_maps, taps)
 
     def dev(a):
@@ -481,7 +461,7 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
         left, right = oblur.edge_coefs(spec.taps)
         tapdev = dev(np.concatenate([np.asarray(spec.taps, np.float32), left, right]))
     return FusedConsts(dev(y_map), dev(x_maps), fwd, fin,
-                       None if taps is None else tuple(dev(a) for a in taps), extent,
+                       None if taps is None else tuple(dev(a) for a in taps),
                        plan, plan_tables(plan, device), tapdev, split)
 
 

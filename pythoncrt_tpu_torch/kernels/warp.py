@@ -7,6 +7,10 @@ coordinates and f32 fractions; the kernel gathers four taps per output
 pixel directly. The TPU kernel's one-hot matmul masks and window-row
 classes are MXU workarounds and have no counterpart here.
 
+csrc/warp.cu reads the tables once per batch: one thread owns four
+adjacent outputs, loads their tables once and loops over the batch's
+planes.
+
 ``warp_planar`` launches csrc/warp.cu for CUDA tensors and runs
 ``warp_planar_ref`` (plain PyTorch) for CPU tensors.
 """
@@ -56,7 +60,7 @@ class _WarpArgs(ctypes.Structure):
         ("y0", ctypes.c_void_p), ("x0", ctypes.c_void_p),
         ("fy", ctypes.c_void_p), ("fx", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("h", ctypes.c_int32), ("w", ctypes.c_int32),
-        ("emit_u8", ctypes.c_int32),
+        ("emit_u8", ctypes.c_int32), ("vec", ctypes.c_int32),
     ]
 
 
@@ -87,6 +91,7 @@ def warp_planar(img: torch.Tensor, tables: WarpTables, *,
     a.out = out.data_ptr()
     a.b, a.h, a.w = b, h, w
     a.emit_u8 = int(emit_u8)
+    a.vec = int(w % 4 == 0 and all(p % 16 == 0 for p in (a.out, a.y0, a.x0, a.fy, a.fx)))
     _build.launch("crt_warp_launch", a, torch.cuda.current_stream(img.device).cuda_stream)
     launches += 1
     return out

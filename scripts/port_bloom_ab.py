@@ -1,6 +1,7 @@
-"""The stand-alone blooms' kernels timed on one GPU, for an A/B of two trees.
+"""The stand-alone blooms' and the warp's kernels timed on one GPU, for an
+A/B of two trees.
 
-    python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep]
+    python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep [walk|fast]]
 
 ``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
 built (default: this script's own; an earlier commit unpacked with
@@ -8,19 +9,26 @@ built (default: this script's own; an earlier commit unpacked with
 1920x1080 with a batch of 8, on the pre-bloom images of the smoke's paths
 (``engine._pre_bloom`` of seeded uint8 frames, planar gbrp):
 
-- bloom3_planar (c3-angled, sigma 1.2), bloom2_planar gaussian
-  (c3-bloom2) and fast (defaults-bloom2), bloom2's pipelined entry at
-  limbs 3, 2 and 1 (c3-bloom2), the stripe bloom (c3-stripe);
+- bloom3_planar (c3-angled, sigma 1.2), bloom3_fast_planar
+  (defaults-angled), bloom2_planar gaussian (c3-bloom2) and fast
+  (defaults-bloom2), bloom2's pipelined entry at limbs 3, 2 and 1
+  (c3-bloom2), the stripe bloom (c3-stripe);
 - the gaussian ones again at radius 31 (sigma 31/3), sigma 11 and sigma
-  20 (a tree that refuses a radius records the refusal).
+  20 (a tree that refuses a radius records the refusal);
+- warp_planar on c3's fused output (uint8 emit) and on c3-angled's
+  staged output with text after the warp (f32 emit), each with the
+  engine's own tables, the uint8 emit again at strength 1.0, and
+  grid_sample on c3's operands (the library call).
 
 Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
-per frame, the bytes bound (input and output f32 once, tables once, at
+per frame, the bytes bound (inputs and outputs once, tables once, at
 3.35 TB/s) and a sha256 of the output, so that two trees' outputs can be
-held bit for bit. ``--sweep`` also times this tree's row walk
+held bit for bit. ``--sweep`` (``walk``) also times this tree's row walk
 (kernels/bloom_walk.py) at other strip widths, chunk and run lengths on
-the bloom3 and bloom2-fast cases. Prints one JSON object and writes it to
---out. Imports nothing of JAX; exits 2 without a CUDA device.
+the bloom3 and bloom2-fast cases; ``--sweep fast`` times its fast source
+at other chunk and run lengths (FAST_STEP, FAST_RUN). Prints one JSON
+object and writes it to --out. Imports nothing of JAX; exits 2 without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberra
           contrast=1.05, gamma=1.1, saturation=0.9, temperature=0.1)
 PATHS = {  # path -> (params, opt-in variables)
     "c3-angled": (dict(C3, scanline_angle=5.0, scanline_thickness=1.5), {}),
+    "defaults-angled": (dict(scanline_angle=12.0, scanline_thickness=2.0), {}),
     "c3-bloom2": (C3, {"PCRT_BLOOM2_GAUSS": "1"}),
     "defaults-bloom2": ({}, {"PCRT_BLOOM2_FAST": "1"}),
     "c3-stripe": (C3, {"PCRT_PALLAS_BLOOM": "1"}),
@@ -93,7 +102,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="port_bloom_ab.json")
-    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast"))
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
@@ -101,11 +110,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("port_bloom_ab: no CUDA device available", file=sys.stderr)
         return 2
-    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams
     from pythoncrt_tpu_torch.kernels import _build
     from pythoncrt_tpu_torch.kernels import bloom as kbloom
     from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
+    from pythoncrt_tpu_torch.kernels import fused as kfused
+    from pythoncrt_tpu_torch.kernels import warp as kwarp
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
@@ -122,11 +133,12 @@ def main() -> int:
         feeds[path] = (eng, eng._pre_bloom(x).contiguous())
     bound_ms = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3  # noqa: E731
 
-    def case(fn, feed, extra_bytes=0):
+    def case(fn, feed, extra_bytes=0, out_bytes=None):
         out = fn()
         torch.cuda.synchronize()
         ms = events_ms(fn)
-        bms = bound_ms(2 * feed.numel() * 4 + extra_bytes)
+        bms = bound_ms(feed.numel() * 4 + (feed.numel() * 4 if out_bytes is None else out_bytes)
+                       + extra_bytes)
         return dict(ms=ms, ms_per_frame=ms / B, bound_ms_per_frame=bms / B,
                     share_of_bound=bms / ms, sha256=digest(out))
 
@@ -157,6 +169,54 @@ def main() -> int:
             return case(lambda: kbloom2.bloom2_planar(feed, spec, tabs), feed, extra)
         return case(lambda: kbloom2.bloom2_planar_pipelined(feed, spec, limbs, tabs), feed, extra)
 
+    def bloom3_fast_case():
+        eng, feed = feeds["defaults-angled"]
+        tabs = getattr(eng, "bloom3_tables", None)  # the parent: the fused consts' taps
+        if tabs is None:
+            tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
+            extra = sum(t.numel() * 4 for t in tabs[0])
+        else:
+            extra = sum(t.numel() * 4 for t in tabs.taps)
+        return case(lambda: kbloom3.bloom3_fast_planar(feed, eng.bloom3_spec, tabs), feed, extra)
+
+    # the warp's operands: c3's fused output (uint8 emit), c3-angled's
+    # staged output with text after the warp (f32 emit)
+    warps = {}
+    aux_idx = np.arange(B)
+    eng = CRTEngine(EffectParams(**C3), H, W, 24.0, layout="planar", channel_order="gbr",
+                    device="cuda")
+    kw = eng.fused_operands(eng.make_aux(aux_idx))
+    warps["u8"] = (eng, kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))
+    rng_t = np.random.default_rng(4)
+    ov = np.zeros((H, W, 4), np.uint8)
+    ov[H // 10:H // 10 + H // 8, W // 10:W // 10 + W // 3] = rng_t.integers(
+        0, 256, (H // 8, W // 3, 4), dtype=np.uint8)
+    eng = CRTEngine(EffectParams(**PATHS["c3-angled"][0], text=TextParams(text="CH 3", size=48,
+                                                                          after=True)),
+                    H, W, 24.0, layout="planar", channel_order="gbr", device="cuda",
+                    text_rgba=ov)
+    warps["f32"] = (eng, eng._staged_stages(x, eng.make_aux(aux_idx)).contiguous())
+
+    def warp_case(emit, strength=None):
+        eng, f = warps[emit]
+        tabs = (eng.warp_tables if strength is None
+                else kwarp.build_warp_tables(H, W, strength, "cuda"))
+        u8 = eng._warp_u8
+        return case(lambda: kwarp.warp_planar(f, tabs, emit_u8=u8), f,
+                    sum(t.numel() * 4 for t in tabs), out_bytes=f.numel() * (1 if u8 else 4))
+
+    def grid_sample_case():
+        from pythoncrt_tpu_torch import oracle
+
+        _, f = warps["u8"]
+        map_x, map_y = oracle.barrel_warp_maps(H, W, C3["warp_strength"])
+        grid = torch.from_numpy(np.stack([map_x * (2.0 / (W - 1)) - 1.0,
+                                          map_y * (2.0 / (H - 1)) - 1.0], -1)).float().cuda()
+        grid = grid[None].expand(B, H, W, 2).contiguous()
+        return case(lambda: torch.nn.functional.grid_sample(
+            f, grid, mode="bilinear", padding_mode="zeros", align_corners=True), f,
+            grid.numel() * 4)
+
     def stripe_case(sigma=None):
         eng, feed = feeds["c3-stripe"]
         spec = eng.bloom_spec if sigma is None else kbloom.build_bloom_spec(
@@ -164,6 +224,11 @@ def main() -> int:
         return case(lambda: kbloom.bloom_planar(feed, spec), feed)
 
     run("bloom3_planar", lambda: bloom3_case(None))
+    run("bloom3_fast_planar", bloom3_fast_case)
+    run("warp_planar", lambda: warp_case("u8"))
+    run("warp_planar_f32", lambda: warp_case("f32"))
+    run("warp_planar_strength1", lambda: warp_case("u8", strength=1.0))
+    run("grid_sample", grid_sample_case)
     run("bloom2_planar", lambda: bloom2_case("c3-bloom2"))
     run("bloom2_planar_fast", lambda: bloom2_case("defaults-bloom2"))
     for limbs in (3, 2, 1):
@@ -175,7 +240,27 @@ def main() -> int:
         run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
 
     sweep = []
-    if a.sweep:
+    if a.sweep == "fast":
+        from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
+
+        eng, feed = feeds["defaults-angled"]
+        keep = (kwalk.STEPS, kwalk.FAST_STEP, kwalk.FAST_RUN)
+        for step in (8, 16, 32):
+            for run_rows in (32, 64, 128, 256):
+                kwalk.STEPS = tuple(sorted({step, *keep[0]}, reverse=True))
+                kwalk.FAST_STEP, kwalk.FAST_RUN = step, run_rows
+                kwalk.fast_plan.cache_clear()
+                tabs = kwalk.fast_tables(H, W, eng.bloom3_spec.threshold, "cuda")
+                r = case(lambda: kbloom3.bloom3_fast_planar(feed, eng.bloom3_spec, tabs), feed)
+                row = dict(step=step, run=run_rows, depth=tabs.plan.depth,
+                           bloom3_fast_planar=r["ms_per_frame"],
+                           bloom3_fast_planar_same=r["sha256"]
+                           == results["bloom3_fast_planar"]["sha256"])
+                print(f"{a.tag} sweep {row}", flush=True)
+                sweep.append(row)
+        kwalk.STEPS, kwalk.FAST_STEP, kwalk.FAST_RUN = keep
+        kwalk.fast_plan.cache_clear()
+    if a.sweep == "walk":
         from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
 
         keep = (kwalk.STRIP_WIDTHS, kwalk.STEPS, kwalk.RUN)

@@ -265,7 +265,7 @@ def profile(name: str, params: dict, xs) -> dict:
         f = eng._staged_stages(x, aux)
     elif eng._staged:
         spec = eng.bloom3_spec
-        tabs = (eng.fused_tables.fast_taps, eng.fused_tables.fast_extent)
+        tabs = eng.bloom3_tables
         if spec.fast:
             kernels["bloom3_fast_planar"] = events_ms(
                 lambda: kbloom3.bloom3_fast_planar(feed, spec, tabs))

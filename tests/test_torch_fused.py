@@ -169,11 +169,3 @@ def test_fast_core_twin_matches_the_oracle(shape, threshold):
     d = np.abs(got.transpose(0, 2, 3, 1).astype(np.int32) - want.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, f"{shape}: max {d.max()} LSB"
 
-
-def test_fast_tile_extents_cover_the_tables():
-    """The shared-memory extents the kernel is sized by: the 2-pixel halo
-    of a 2x ratio at 1080p, a little more on odd sizes."""
-    _, ext = tfused.fast_tables(1080, 1920)
-    assert ext == (36, 36, 18, 18)
-    _, ext = tfused.fast_tables(45, 251)
-    assert all(e <= 40 for e in ext[:2]) and all(e <= 20 for e in ext[2:])
