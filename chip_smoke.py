@@ -8,9 +8,10 @@ Phases (each must pass; any failure exits non-zero):
    and which codec backends (ffmpeg, cv2) the host has.
 2. Build the CUDA kernels from pythoncrt_tpu_torch/csrc (one nvcc per
    source, all started together, sm_90a); ptxas's registers, stack frame
-   and spill of each instantiation of the fused kernel, of the
-   stand-alone blooms' row walk (csrc/bloom_walk.cu, its fast source too)
-   and of the warp (csrc/warp.cu), none of which may use local memory.
+   and spill of each instantiation of the fused kernel (LUT-exact and
+   direct-pow triad), of the stand-alone blooms' row walk
+   (csrc/bloom_walk.cu, its fast source too) and of the warp
+   (csrc/warp.cu), none of which may use local memory.
 3. Each kernel against its plain PyTorch twin on the card, at 1080p with
    a batch of 8 and the operands the main paths give it: the fused
    kernel with the c3 spec (gaussian core) and the CLI-default spec (fast
@@ -29,13 +30,19 @@ Phases (each must pass; any failure exits non-zero):
    sigma 11 and 20 (radius 33 and 60, past the 63 taps of the launch
    arguments) at 1080p: the fused kernel (the CLI defaults with
    --no-fast-bloom), bloom3 (defaults-angled with the gaussian bloom),
-   the stripe and bloom2 (c3's pre-bloom image).
+   the stripe and bloom2 (c3's pre-bloom image). Then the fused kernel's
+   direct-pow triad (``--precision fast``, triad_mode 3) on the CLI
+   defaults, c3, c4-text and sigma 11, each with the LUT-exact mode timed
+   in turn on the same operands; its FP64 operations per value are
+   counted by running its two sites, compiled alone and instrumented at
+   each basic block, on values over (0, 1].
    The row walk's rows (the fast bloom's too) and the warp's are bit for
    bit their twins.
    Max abs error, CUDA-event time per call of the kernel,
    of the twin and, where one PyTorch call computes the same function,
-   of that call; the least time the card could take (bytes over the
-   memory rate, or operations over the f32 rate).
+   of that call; the least time the card could take (the largest of the
+   bytes over the memory rate, the f32 operations over the f32 rate and
+   the FP64 operations over the FP64 rate).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
@@ -44,12 +51,14 @@ Phases (each must pass; any failure exits non-zero):
    c5 on 4 clips x 8 frames in two steps against the oracle clip by
    clip; the fused route (the CLI defaults with --no-fast-bloom) and the
    bloom3 route (defaults-angled with the gaussian bloom) at sigma 11 on
-   two frames. <= 1 uint8 LSB, fewer than 1e-3 of values off. The 2-D scanline
+   two frames; the CLI defaults (four frames) and c3 (two) with
+   ``precision="fast"``. <= 1 uint8 LSB, fewer than 1e-3 of values off
+   (precision fast: the JAX package's max 16 LSB, mean 0.5 LSB). The 2-D scanline
    mask against the oracle's (its NumPy f32 sin and pow are not
    correctly rounded). At 3840x2160, c5 (4 clips x 16 frames, two
    steps) equal bit for bit to four single-clip CRTEngine runs.
 5. The main paths at 1080p with batch 8: the CLI defaults (no effect
-   flags), c4, defaults-angled (scanline angle 12, thickness 2) and
+   flags; 64 frames), c4, defaults-angled (scanline angle 12, thickness 2) and
    c4-text (text before the bloom) on 32 frames, c3 and c3-angled
    (angle 5, thickness 1.5, text after the warp) on 16, the bloom
    opt-ins c3-bloom2 (c3 + PCRT_BLOOM2_GAUSS=1) and c3-stripe (c3 +
@@ -59,7 +68,18 @@ Phases (each must pass; any failure exits non-zero):
    33), each through ``pythoncrt_tpu_torch.cli.main`` on a synthetic clip
    when a codec backend exists, else through ``render_stream`` with
    in-memory frames; and the CLI defaults with aberration 8 on 32
-   frames 1080x8 (the roll mod W) through ``render_stream``.
+   frames 1080x8 (the roll mod W) through ``render_stream``; the CLI
+   defaults with ``--precision fast``, ``--pipe-format yuv420p`` (the
+   OpenCV tier without an ffmpeg binary) on 32 and ``--decode-workers 2``
+   on 64 (two chunks, two workers; its encoder frames bit for bit the
+   single reader's, the CLI defaults' render, which runs on 64). Then
+   c4 with ``--segment-frames 16`` through ``process_video``: a straight
+   render, a render that fails as injected once 24 frames were dispatched,
+   and the same call again, which resumes at frame 16; the segments'
+   encoder frames bit for bit the straight render's, the persistence and
+   glitch kernels launched in both runs. ``--check-deps`` exits 0; the
+   native yuv420p converter on a 1080p buffer against a NumPy BT.601
+   reference, timed.
    Then c5: ``cli.main(["--batch-manifest", ...])`` with the c4 flags on
    4 synthetic 3840x2160 clips of 16, 16, 12 and 9 frames (needs cv2),
    every clip's frame count checked, then a second run that resumes all
@@ -95,12 +115,16 @@ import numpy as np
 
 H, W, B, FPS = 1080, 1920, 8, 24.0
 N_MAIN, N_C3 = 32, 16
+# the CLI defaults with and without --decode-workers 2: two chunks of the
+# parallel reader's default 4 batches, so that both workers decode
+N_DECODE = 64
 H4, W4, C5_CLIPS = 2160, 3840, 4   # c5: 4K clips in lockstep (bench.py:199-229)
 C5_LENGTHS = (16, 16, 12, 9)       # the manifest render's clips, ragged tails
 OPTINS = {"c3-bloom2": {"PCRT_BLOOM2_GAUSS": "1"}, "defaults-bloom2": {"PCRT_BLOOM2_FAST": "1"},
           "c3-stripe": {"PCRT_PALLAS_BLOOM": "1"}}  # the JAX engine's bloom opt-ins
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12      # H100 SXM FP64 outside the tensor cores (the same data sheet)
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
           bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
           vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
@@ -138,9 +162,21 @@ SIGMAS = {"s11": 11.0, "s20": 20.0}  # radius 33 and 60: past the launch argumen
 S11_FLAGS = ["--no-fast-bloom", "--bloom-sigma", "11"]
 AB_W = 8  # the aberration render's width: the aberration (8) is the whole width
 LSB_TOL = 1
+# --precision fast against the LUT-exact oracle: the JAX package's bounds
+# (tests/test_engine_vs_oracle.py test_fast_precision_close_not_exact)
+FAST_MAX_LSB, FAST_MEAN_LSB = 16, 0.5
+# --segment-frames on c4: segments of 16 frames; the injected failure comes
+# once 24 frames were dispatched (the first segment committed, the second
+# half written)
+SEG_FRAMES, SEG_CRASH = 16, 24
+CAPTURE = ("defaults", "defaults-decode2")  # paths whose encoder frames are compared
+PATH_KW = {"defaults-fast": dict(precision="fast"), "c3-fast": dict(precision="fast")}
 # f32 operations per output value, estimated from the kernels' sources for
 # the stages these specs turn on (rounded up; the FP64 grade pow of c3 is
-# not counted). At these counts every kernel is bound by bytes.
+# not counted). At these counts every kernel is bound by bytes. The
+# direct-pow triad's rows (precision fast) take DIRECT_F32_LESS fewer: the
+# tables' multiply, convert and two integer clamps at each of the two
+# sites, less the f32 multiply of the final site.
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
                  "warp_planar_strength1": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
@@ -153,6 +189,7 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "bloom3_planar_s11": 272, "bloom3_planar_s20": 490,
                  "bloom_stripe_s11": 272, "bloom_stripe_s20": 490,
                  "bloom2_planar_s11": 272, "bloom2_planar_s20": 490}
+DIRECT_F32_LESS = 7
 
 
 def fail(msg: str) -> None:
@@ -218,13 +255,141 @@ def nbytes(*ts) -> int:
     return sum(int(t.numel() * t.element_size()) for t in ts if t is not None)
 
 
-def bound(name: str, bytes_moved: int, values_out: int) -> tuple[float, str]:
+def bound(name: str, bytes_moved: int, values_out: int, f64_per_value: float = 0) -> tuple:
     """Least time for the work: bytes (each input read once, each output
-    written once) over the memory rate, or f32 operations over the f32
-    rate, whichever is larger."""
+    written once) over the memory rate, the f32 operations over the f32
+    rate, or the FP64 operations (the direct-pow triad's) over the FP64
+    rate, whichever is largest: the card runs the three side by side."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_VALUE[name] * values_out / F32_OPS_PER_S * 1e3
+    direct = name.endswith("_direct")
+    f32_ops = OPS_PER_VALUE[name.removesuffix("_direct")] - (DIRECT_F32_LESS if direct else 0)
+    t_ops = max(f32_ops / F32_OPS_PER_S, f64_per_value / F64_OPS_PER_S) * values_out * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the direct-pow triad's two sites as csrc/fused.cu computes them, compiled
+# alone with its flags to count their FP64 operations per value
+DIRECT_TRIAD_CU = r"""
+__device__ unsigned long long f64_count;
+extern "C" __global__ void triad_sites(const float* x, float* y, float g, float e, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float lin = (float)exp2((double)g * log2((double)x[i]));
+    const float t = (float)log2((double)lin);
+    y[i] = (float)exp2((double)(t * e));
+}
+"""
+F64_PTX = re.compile(r"^\s*(@!?%p\d+\s+)?(fma|add|sub|mul)(\.r[nzmp])?\.f64\b")
+F64_SASS = re.compile(r"\b(DFMA|DADD|DMUL)\b")
+
+
+def direct_triad_build(nvcc: str, flags: tuple, d: str) -> tuple:
+    """The sites' SASS, and their PTX with a count of FP64 operations
+    (FMA as two) added to ``f64_count`` where each basic block starts and
+    before each predicated FP64 operation, built into a cubin."""
+    src, ptx = os.path.join(d, "t.cu"), os.path.join(d, "t.ptx")
+    with open(src, "w") as f:
+        f.write(DIRECT_TRIAD_CU)
+    subprocess.run([nvcc, *flags, "-cubin", "-o", os.path.join(d, "t.cubin"), src], check=True,
+                   capture_output=True, timeout=300)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                           os.path.join(d, "t.cubin")],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    subprocess.run([nvcc, *flags, "-ptx", "-o", ptx, src], check=True, capture_output=True,
+                   timeout=300)
+    lines = open(ptx).read().splitlines()
+    entry = next(i for i, ln in enumerate(lines) if ".entry triad_sites" in ln)
+    body = next(i for i in range(entry, len(lines)) if lines[i].strip() == "{") + 1
+    end = max(i for i, ln in enumerate(lines) if ln.strip() == "}")
+    first = next(i for i in range(body, end)
+                 if lines[i].strip() and not lines[i].strip().startswith((".", "//")))
+
+    def add(n: int, pred: str = "") -> str:
+        return (f"{{ .reg .u64 %f64n; mov.u64 %f64n, {n}; "
+                f"{pred}red.global.add.u64 [f64_count], %f64n; }}")
+
+    def weight(m) -> int:
+        return 2 if m.group(2) == "fma" else 1
+
+    # a block starts at the body's first instruction, at a label and after
+    # a branch; its count is added where it starts (after its label)
+    label = [bool(re.match(r"^\$\w+:", lines[i].strip())) for i in range(len(lines))]
+    starts = sorted({first} | {i for i in range(first, end) if label[i]}
+                    | {i + 1 for i in range(first, end - 1)
+                       if re.search(r"\b(bra(\.uni)?|ret|exit)\b", lines[i]) and not label[i + 1]})
+    out, static = lines[:first], 0
+    for k, start in enumerate(starts):
+        block = lines[start:starts[k + 1] if k + 1 < len(starts) else end]
+        head = [block.pop(0)] if label[start] else []
+        ops = [(F64_PTX.match(ln), ln) for ln in block]
+        static += sum(weight(m) for m, _ in ops if m)
+        out += head + [add(sum(weight(m) for m, _ in ops if m and not m.group(1)))]
+        for m, ln in ops:
+            if m and m.group(1):
+                out.append(add(weight(m), m.group(1)))
+            out.append(ln)
+    out += lines[end:]
+    with open(ptx, "w") as f:
+        f.write("\n".join(out) + "\n")
+    cubin = os.path.join(d, "counted.cubin")
+    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, ptx], check=True, capture_output=True,
+                   timeout=300)
+    sass_ops = sum(2 if op == "DFMA" else 1 for op in F64_SASS.findall(sass))
+    return sass_ops, static, open(cubin, "rb").read()
+
+
+def fp64_ops_on_path(nvcc: str, flags: tuple, gammas, n: int = 1 << 16) -> dict:
+    """FP64 operations per value that the direct-pow triad's two sites
+    execute on the card, for each triad gamma: the mean over ``n`` values
+    evenly spread over (0, 1] (the clipped values the kernel feeds
+    them), counted by the instrumented sites. Also the counts of every
+    path in their SASS and in their PTX (the special cases too), which
+    the run's values do not all take."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    with tempfile.TemporaryDirectory() as d:
+        sass_ops, ptx_ops, image = direct_triad_build(nvcc, flags, d)
+    ctx, mod, fn = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+    dptr, size = ctypes.c_uint64(), ctypes.c_size_t()
+
+    def check(rc, what):
+        if rc != 0:
+            fail(f"the FP64 count's {what} returned CUDA driver error {rc}")
+
+    dev = ctypes.c_int()
+    torch.cuda.init()
+    check(cu.cuDeviceGet(ctypes.byref(dev), torch.cuda.current_device()), "device")
+    check(cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev), "context")
+    check(cu.cuCtxPushCurrent_v2(ctx), "context push")
+    try:
+        check(cu.cuModuleLoadData(ctypes.byref(mod), image), "module load")
+        check(cu.cuModuleGetFunction(ctypes.byref(fn), mod, b"triad_sites"), "function")
+        check(cu.cuModuleGetGlobal_v2(ctypes.byref(dptr), ctypes.byref(size), mod,
+                                      b"f64_count"), "counter")
+        x = torch.arange(1, n + 1, device="cuda", dtype=torch.float64).div(n).float()
+        y = torch.empty_like(x)
+        torch.cuda.synchronize()
+        per_value = {}
+        for g in gammas:
+            check(cu.cuMemsetD8_v2(dptr, ctypes.c_ubyte(0), ctypes.c_size_t(8)), "counter reset")
+            args = [ctypes.c_uint64(x.data_ptr()), ctypes.c_uint64(y.data_ptr()),
+                    ctypes.c_float(g), ctypes.c_float(1.0 / g), ctypes.c_int(n)]
+            params = (ctypes.c_void_p * len(args))(*[ctypes.addressof(v) for v in args])
+            check(cu.cuLaunchKernel(fn, (n + 255) // 256, 1, 1, 256, 1, 1, 0, None, params,
+                                    None), "launch")
+            check(cu.cuCtxSynchronize(), "run")
+            count = ctypes.c_uint64()
+            check(cu.cuMemcpyDtoH_v2(ctypes.byref(count), dptr, ctypes.c_size_t(8)),
+                  "counter read")
+            per_value[float(g)] = count.value / n
+        check(cu.cuModuleUnload(mod), "module unload")
+    finally:
+        cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+        cu.cuDevicePrimaryCtxRelease_v2(dev)
+    return dict(per_value=per_value, sass_all_paths=sass_ops, ptx_all_paths=ptx_ops)
 
 
 def ptxas_instances(log: str, match, what: str, count: int) -> list:
@@ -256,16 +421,19 @@ def ptxas_instances(log: str, match, what: str, count: int) -> list:
 
 
 def fused_instances(log: str) -> list:
-    """Each instantiation of csrc/fused.cu's template (core, radius, input)."""
+    """Each instantiation of csrc/fused.cu's template (core, radius, input,
+    triad)."""
     def match(line):
         if "fused_strip_kernel" not in line:
             return None
-        core, radius, f32 = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)E", line).groups()
+        core, radius, f32, direct = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)ELb(\d)E",
+                                              line).groups()
         return dict(core="fast" if core == "1" else "gaussian",
                     radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
                             "memory)"}.get(radius) or int(radius),
-                    input="f32" if f32 == "1" else "uint8")
-    return ptxas_instances(log, match, "fused instantiations", 8)
+                    input="f32" if f32 == "1" else "uint8",
+                    triad="direct pow (precision fast)" if direct == "1" else "LUT-exact")
+    return ptxas_instances(log, match, "fused instantiations", 16)
 
 
 WALK_SOURCES = {"0": "fold (bloom3)", "1": "clamp (stripe)", "2": "table (bloom2)"}
@@ -320,6 +488,62 @@ def plan_note(tables) -> str:
     return (f"; strips of {p.sw} columns, runs of {p.run} rows, chunks of {p.step} distinct "
             f"rows, ring {p.depth}{f' + {p.hdepth} half-res' if p.fast else ''} rows, "
             f"{p.smem} bytes of shared memory per block")
+
+
+@contextlib.contextmanager
+def capture_writers(vio, on: bool = True):
+    """The frames handed to every writer the port opens, per destination
+    (a destination opened again starts over), while the context lasts."""
+    frames: dict = {}
+    real = vio.open_writer
+
+    def open_writer(dst, *a, **k):
+        wtr, gpu = real(dst, *a, **k)
+        rec = frames[str(dst)] = []
+
+        class Rec:
+            def write_frame(self, f):
+                rec.append(f.copy())
+                wtr.write_frame(f)
+
+            def close(self):
+                wtr.close()
+        return Rec(), gpu
+    if on:
+        vio.open_writer = open_writer
+    try:
+        yield frames
+    finally:
+        vio.open_writer = real
+
+
+@contextlib.contextmanager
+def record_readers(vio):
+    """(workers, chunks) of every parallel reader the port opens while the
+    context lasts."""
+    seen, real = [], vio.ChunkedParallelReader
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append((self.workers, self.n_chunks))
+    vio.ChunkedParallelReader = Recorded
+    try:
+        yield seen
+    finally:
+        vio.ChunkedParallelReader = real
+
+
+def bt601(src: bytes, w: int, h: int) -> np.ndarray:
+    """Planar YUV 4:2:0 -> (h, w, 3) RGB, BT.601 limited range, in int64."""
+    a = np.frombuffer(src, np.uint8).astype(np.int64)
+    y = a[:w * h].reshape(h, w)
+    u = a[w * h:w * h * 5 // 4].reshape(h // 2, w // 2).repeat(2, 0).repeat(2, 1) - 128
+    v = a[w * h * 5 // 4:].reshape(h // 2, w // 2).repeat(2, 0).repeat(2, 1) - 128
+    c = 298 * (y - 16)
+    return np.stack([np.clip((c + 409 * v + 128) >> 8, 0, 255),
+                     np.clip((c - 100 * u - 208 * v + 128) >> 8, 0, 255),
+                     np.clip((c + 516 * u + 128) >> 8, 0, 255)], -1).astype(np.uint8)
 
 
 def planar_gbr(frames: np.ndarray):
@@ -386,7 +610,8 @@ def main() -> int:
             print(f"[2] ptxas: {line.strip()}")
     for inst in fused_instances(_build.build_log):
         print(f"[2] fused instantiation {inst['core']}, radius {inst['radius']}, "
-              f"{inst['input']} input: {inst['registers']} registers, {inst['stack']} bytes "
+              f"{inst['input']} input, {inst['triad']} triad: {inst['registers']} registers, "
+              f"{inst['stack']} bytes "
               f"stack frame, {inst['spill_stores']} + {inst['spill_loads']} bytes spill "
               f"(stores + loads), {inst['static_smem']} bytes static shared memory (dynamic: "
               f"the plan's, in [3])")
@@ -429,13 +654,14 @@ def main() -> int:
                "defaults-s11": EffectParams(fast_bloom=False, bloom_sigma=11.0),
                "defaults-angled-s11": EffectParams(**DEF_ANGLED, fast_bloom=False,
                                                    bloom_sigma=11.0),
-               "ab8-w8": EffectParams(aberration_px=8)}
+               "ab8-w8": EffectParams(aberration_px=8),
+               "defaults-fast": EffectParams(), "c3-fast": EffectParams(**C3)}
     ov_synth = synth_overlay(H, W, seed=4)  # the parity phases need no font
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
-            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL):
-        bms, by = bound(kname, bytes_moved, values_out)
+            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL, f64=0):
+        bms, by = bound(kname, bytes_moved, values_out, f64)
         lib = f"{lib_ms:.4f} ms/call" if lib_ms is not None else "none (no one PyTorch call)"
         print(f"[3] {kname}{note}: max |kernel - twin| {err:.3g}, max {int(lsb)} LSB; "
               f"kernel {ms:.4f} ms/call ({ms / frames:.4f} ms/frame), plain twin "
@@ -735,6 +961,51 @@ def main() -> int:
                      f"{kwalk.SRC_NAMES[src_id]}{walk_note(H, W, src_id, bands)})")
             del got, want
         del feed3, feedc, t2, eng, ang, c3e
+
+    # --precision fast: the fused kernel's direct-pow triad (triad_mode 3,
+    # its own instantiations) on the CLI defaults (fast core), c3
+    # (gaussian), c4-text (f32 input) and sigma 11 (taps in shared
+    # memory), each beside the LUT-exact mode timed in turn on the same
+    # operands
+    direct = (("defaults", "fused_pipeline"), ("c3", "fused_pipeline_gaussian"),
+              ("c4-text", "fused_pipeline_f32in"), ("defaults-s11", "fused_pipeline_s11"))
+    f64 = fp64_ops_on_path(_build.find_nvcc(), _build.NVCC_FLAGS,
+                           sorted({configs[cfg].triad_gamma for cfg, _ in direct}))
+    print(f"[3] the direct-pow triad's two sites compiled alone with the kernels' flags, "
+          f"instrumented and run on 65536 values over (0, 1]: FP64 operations per value (FMA as "
+          f"two) by triad gamma {f64['per_value']}; every path of their code, special cases "
+          f"included: {f64['ptx_all_paths']} in the PTX, {f64['sass_all_paths']} in the SASS",
+          flush=True)
+    for cfg, base in direct:
+        ov = ov_synth if configs[cfg].text.enabled else None
+        engs = {prec: CRTEngine(configs[cfg], H, W, FPS, rng="host", precision=prec,
+                                layout="planar", channel_order="gbr", device=dev, text_rgba=ov)
+                for prec in ("fast", "exact")}
+        eng = engs["fast"]
+        if kfused.triad_mode(eng.spec) != 3 or eng._staged:
+            fail(f"{cfg} with precision fast does not take the fused direct-pow triad")
+        feed = x if eng.spec.pre else eng._pre_bloom(x)
+        kw = eng.fused_operands(eng.make_aux(np.arange(B)))
+        run = {prec: functools.partial(kfused.fused_pipeline, feed, e.spec, e.fused_tables, **kw)
+               for prec, e in engs.items()}
+        twin = functools.partial(kfused.fused_pipeline_ref, feed, eng.spec, eng.fused_tables, **kw)
+        got, want = run["fast"](), twin()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{base}_direct: non-finite output")
+        exact_ms = time_ms(run["exact"])
+        ms = time_ms(run["fast"])
+        row(f"{base}_direct", "pythoncrt_tpu_torch/csrc/fused.cu",
+            "pythoncrt_tpu/kernels/fused.py:680", (got - want).abs().max().item(),
+            (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+            ms, time_ms(twin, iters=2), None, nbytes(feed, got, *kw.values()), got.numel(),
+            f64=f64["per_value"][configs[cfg].triad_gamma],
+            note=f" ({cfg} spec with precision fast: the JAX kernel's lut_exact=False branch, "
+                 f"fused.py:601-631; the LUT-exact mode {exact_ms:.4f} ms/call "
+                 f"({exact_ms / B:.4f} ms/frame) in turn, the direct mode {ms / exact_ms:.2f}x"
+                 f"{plan_note(eng.fused_tables)})")
+        table[f"{base}_direct"]["exact_ms"] = exact_ms
+        del got, want, feed, kw, run, twin, engs, eng
     del x
 
     # c5's kernels at 3840x2160 on its operands: 4 clips x 8 frames flat
@@ -845,12 +1116,13 @@ def main() -> int:
     for cfg, n, nb in (("c3", 2, 1), ("defaults", 4, 2), ("c4", 4, 2), ("c3-angled", 2, 1),
                        ("defaults-angled", 4, 2), ("c4-text", 4, 2), ("c3-bloom2", 2, 1),
                        ("c3-stripe", 2, 1), ("defaults-bloom2", 4, 2), ("defaults-s11", 2, 1),
-                       ("defaults-angled-s11", 2, 1)):
+                       ("defaults-angled-s11", 2, 1), ("defaults-fast", 4, 2), ("c3-fast", 2, 1)):
         p = configs[cfg]
         clip = synth(n, H, W, seed=2)
         ov = ov_synth if p.text.enabled else None
         with optin_env(cfg):
-            eng = CRTEngine(p, H, W, FPS, rng="host", device=dev, text_rgba=ov)
+            eng = CRTEngine(p, H, W, FPS, rng="host", device=dev, text_rgba=ov,
+                            **PATH_KW.get(cfg, {}))
         outs, st = [], None
         for k in range(nb):
             idx = np.arange(k * n // nb, (k + 1) * n // nb)
@@ -862,9 +1134,14 @@ def main() -> int:
                    - oracle_stream(eng, clip, np.arange(n), ov).astype(np.int32))
         frac = (d > 0).mean()
         print(f"[4] engine vs oracle, {cfg} ({eng.bloom_route} bloom), {n} frames {H}x{W} in "
-              f"{nb} batch(es), state carried: max {d.max()} LSB, {frac:.3e} of values off",
-              flush=True)
-        if d.max() > LSB_TOL or frac >= 1e-3 or got.shape != (n, H, W, 3):
+              f"{nb} batch(es), state carried: max {d.max()} LSB, {frac:.3e} of values off, "
+              f"mean {d.mean():.4f} LSB", flush=True)
+        if got.shape != (n, H, W, 3):
+            fail(f"engine output of {cfg} has shape {got.shape}")
+        if eng.precision == "fast":  # the direct-pow triad: the JAX test's documented bounds
+            if d.max() > FAST_MAX_LSB or d.mean() > FAST_MEAN_LSB:
+                fail(f"precision fast drifted from the oracle on {cfg}")
+        elif d.max() > LSB_TOL or frac >= 1e-3:
             fail(f"engine disagrees with the oracle on {cfg}")
         if p.scanlines_on and not p.scanlines_1d:
             mask = eng._scanline_mask_2d(aux.phase).cpu().numpy()
@@ -941,7 +1218,7 @@ def main() -> int:
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     paths = (  # name, flags, params, frames, kernels that must launch
-        ("defaults", [], configs["defaults"], N_MAIN, ("fused_pipeline", "persistence_scan")),
+        ("defaults", [], configs["defaults"], N_DECODE, ("fused_pipeline", "persistence_scan")),
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
          ("fused_pipeline", "glitch_shear", "persistence_scan")),
         ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar")),
@@ -958,7 +1235,17 @@ def main() -> int:
          ("fused_pipeline", "persistence_scan")),
         # frames as wide as the aberration, in memory (no codec takes 8 columns)
         ("ab8-w8", None, configs["ab8-w8"], N_MAIN, ("fused_pipeline", "persistence_scan")),
+        # the CLI defaults with the flags of this slice: the direct-pow triad,
+        # the yuv420p pipe (the OpenCV tier without an ffmpeg binary), two
+        # decode workers (frames checked against the defaults' below)
+        ("defaults-fast", ["--precision", "fast"], configs["defaults-fast"], N_MAIN,
+         ("fused_pipeline", "persistence_scan")),
+        ("defaults-yuv420p", ["--pipe-format", "yuv420p"], configs["defaults"], N_MAIN,
+         ("fused_pipeline", "persistence_scan")),
+        ("defaults-decode2", ["--decode-workers", "2"], configs["defaults"], N_DECODE,
+         ("fused_pipeline", "persistence_scan")),
     )
+    captured = {}  # path -> the frames its writer was handed (CAPTURE paths)
 
     def size(pname):
         return (H, AB_W) if pname == "ab8-w8" else (H, W)
@@ -968,12 +1255,12 @@ def main() -> int:
         if not p.text.enabled:
             return None
         return ptext.overlay_for(W, H, p.text) if pil else ov_synth
-    clip = synth(N_MAIN, H, W, seed=3)
+    clip = synth(N_DECODE, H, W, seed=3)
     launches = {k: {} for k in counters}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if cv2_ver:  # io.video.probe_clip reads clips through cv2
-            for n in sorted({N_MAIN, N_C3}):
+            for n in sorted({N_MAIN, N_C3, N_DECODE}):
                 wr, _ = vio.open_writer(os.path.join(tmp, f"in{n}.mp4"), W, H, FPS)
                 for f in clip[:n]:
                     wr.write_frame(f)
@@ -989,12 +1276,19 @@ def main() -> int:
 
                 outp = os.path.join(tmp, f"out_{pname}.mp4")
                 t0 = time.perf_counter()
-                with optin_env(pname):
+                with optin_env(pname), capture_writers(vio, pname in CAPTURE) as cap, \
+                        record_readers(vio) as readers:
                     rc = cli.main(["--input", os.path.join(tmp, f"in{n}.mp4"), "--output", outp,
                                    *flags, "--batch-size", str(B), "--device", "cuda"])
                 wall = time.perf_counter() - t0
+                if pname in CAPTURE:
+                    captured[pname] = np.stack(cap[outp])
                 if rc != 0:
                     fail(f"cli.main ({pname}) exited {rc}")
+                if pname == "defaults-decode2":
+                    print(f"[5] {pname}: parallel readers (workers, chunks) {readers}", flush=True)
+                    if [w for w, c in readers if w == 2 and c >= 2] != [2]:
+                        fail(f"{pname} did not decode with two workers: {readers}")
                 n_out = vio.probe_clip(outp).frame_count
                 how = f"cli.main ({'ffmpeg' if ffmpeg else 'cv2'} codecs)"
             else:
@@ -1028,7 +1322,8 @@ def main() -> int:
                 wtr = Writer()
                 t0 = time.perf_counter()
                 with optin_env(pname):
-                    eng_r = CRTEngine(p, ph, pw, FPS, device=dev, text_rgba=overlay(p))
+                    eng_r = CRTEngine(p, ph, pw, FPS, device=dev, text_rgba=overlay(p),
+                                      **PATH_KW.get(pname, {}))
                 n_out = render_stream(Reader(), wtr, eng_r, batch_size=B)
                 wall = time.perf_counter() - t0
                 out_arr = np.stack(wtr.frames)
@@ -1048,6 +1343,91 @@ def main() -> int:
             if missing:
                 fail(f"main path {pname}: kernels never launched: {missing}")
         del clip
+        if not cv2_ver:
+            fail("the renders of this slice's flags need a codec backend (cv2); this host has none")
+        same = np.array_equal(captured["defaults"], captured["defaults-decode2"])
+        print(f"[5] --decode-workers 2 (two workers, two chunks) vs one reader, the CLI "
+              f"defaults on {N_DECODE} frames: the "
+              f"frames handed to the encoder are {'bit for bit equal' if same else 'DIFFERENT'}",
+              flush=True)
+        if not same:
+            fail("--decode-workers 2 changed the frames")
+        del captured
+
+        # c4 with --segment-frames: a straight render, then a render that
+        # fails once the first segment is committed and the second half
+        # written, then the same call again, which resumes; the frames the
+        # segment writers were handed are the straight render's
+        from pythoncrt_tpu_torch.pipeline import process_video
+
+        src, seg_out = os.path.join(tmp, f"in{N_MAIN}.mp4"), os.path.join(tmp, "c4_seg.mp4")
+        straight_out = os.path.join(tmp, "c4_straight.mp4")
+        seg_kw = dict(batch_size=B, device="cuda", report=False)
+        runs = {}
+        with capture_writers(vio) as cap:
+            process_video(src, straight_out, configs["c4"], **seg_kw)
+            for attempt in ("crash", "resume"):
+                zero_counts()
+                t0 = time.perf_counter()
+                crashed = False
+                try:
+                    process_video(src, seg_out, configs["c4"], segment_frames=SEG_FRAMES,
+                                  _fail_after_frames=SEG_CRASH if attempt == "crash" else 0,
+                                  **seg_kw)
+                except RuntimeError as e:
+                    if "injected failure" not in str(e):
+                        raise
+                    crashed = True
+                runs[attempt] = (read_counts(), crashed, time.perf_counter() - t0)
+            straight = np.stack(cap[straight_out])
+            segs = [np.stack(cap[k]) for k in sorted(cap) if os.sep + "seg-" in k]
+        for attempt, (got, crashed, wall) in runs.items():
+            for k, v in got.items():
+                launches[k][f"c4-segments-{attempt}"] = v
+            print(f"[5] main path c4 --segment-frames {SEG_FRAMES}, {attempt} "
+                  f"({'failed as injected' if crashed else 'completed'}): launches {got}; "
+                  f"{wall:.2f}s on {card}", flush=True)
+            missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_scan")
+                       if got[k] < 1]
+            if missing or crashed != (attempt == "crash"):
+                fail(f"c4 --segment-frames {attempt}: crashed {crashed}, never launched {missing}")
+        resumed = runs["resume"][0]["fused_pipeline"] * B
+        same = (len(segs) == N_MAIN // SEG_FRAMES
+                and np.array_equal(np.concatenate(segs), straight))
+        print(f"[5] c4 --segment-frames {SEG_FRAMES}: the resume rendered {resumed} of {N_MAIN} "
+              f"frames; the segments' frames ({[len(x) for x in segs]}) are "
+              f"{'bit for bit' if same else 'NOT'} the straight render's; the output holds "
+              f"{vio.probe_clip(seg_out).frame_count} frames", flush=True)
+        if not same or resumed != N_MAIN - SEG_FRAMES \
+                or vio.probe_clip(seg_out).frame_count != N_MAIN:
+            fail("the crash-resumed --segment-frames render differs from the straight one")
+        del straight, segs, cap
+
+        from pythoncrt_tpu_torch import cli, native
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--check-deps"])
+        print(f"[5] --check-deps: exit {rc}: {' / '.join(buf.getvalue().strip().splitlines())}",
+              flush=True)
+        if rc != 0:
+            fail(f"--check-deps exited {rc}")
+        yuv = np.random.default_rng(6).integers(0, 256, W * H * 3 // 2, dtype=np.uint8).tobytes()
+        native.yuv420p_to_rgb24(yuv, W, H)  # builds the C module at first use
+        t0 = time.perf_counter()
+        for _ in range(10):
+            rgb = native.yuv420p_to_rgb24(yuv, W, H)
+        conv_ms = (time.perf_counter() - t0) / 10 * 1e3
+        same = np.array_equal(rgb, bt601(yuv, W, H))
+        print(f"[5] yuv420p -> rgb24 on a {W}x{H} buffer ("
+              f"{'the C module' if native.get() else 'the NumPy fallback: no C compiler'}): "
+              f"{'equal to' if same else 'DIFFERENT from'} the NumPy BT.601 reference, "
+              f"{conv_ms:.3f} ms per frame on the host's CPU; "
+              + ("ffmpeg pipes it" if ffmpeg else "no ffmpeg binary on this host: nothing pipes "
+                 "yuv420p here, and --pipe-format yuv420p decoded through the OpenCV tier"),
+              flush=True)
+        if not same:
+            fail("the yuv420p converter disagrees with the BT.601 reference")
 
         # c5: a manifest of 4 clips at 3840x2160 through the CLI, the c4
         # flags, batch 8; then the same command resumes all 4
@@ -1105,10 +1485,13 @@ def main() -> int:
     # device-side throughput of the same steps (no codecs): batches of 8
     xs_full = planar_gbr(synth(N_MAIN, H, W, seed=3))
     for pname, _, p, n, _ in paths:
+        if pname in ("defaults-yuv420p", "defaults-decode2"):
+            continue  # the defaults' step: only the host side differs
         ph, pw = size(pname)
         xs = xs_full[..., :ph, :pw].contiguous()
         with optin_env(pname):
             eng_dev = CRTEngine(p, ph, pw, FPS, layout="planar", channel_order="gbr",
+                                **PATH_KW.get(pname, {}),
                                 device=dev, text_rgba=overlay(p))
         st = None
         _, st = eng_dev.process(xs[:B], np.arange(B), st)
@@ -1144,15 +1527,20 @@ def main() -> int:
     # single-stream persistence row leaves out c5's multi-clip launches.
     runs_on = {
         "fused_pipeline_gaussian": ("fused_pipeline", ("c3",)),
-        "fused_pipeline": ("fused_pipeline", ("defaults", "c4")),
+        "fused_pipeline": ("fused_pipeline", ("defaults", "c4", "defaults-yuv420p",
+                                              "defaults-decode2", "c4-segments-crash",
+                                              "c4-segments-resume")),
         "fused_pipeline_c5": ("fused_pipeline", ("c5",)),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
         "warp_planar": ("warp_planar", None),
         "warp_planar_strength1": ("warp_planar", ()),
         "persistence_scan": ("persistence_scan", ("defaults", "c4", "defaults-angled",
-                                                  "c4-text", "defaults-bloom2")),
+                                                  "c4-text", "defaults-bloom2", "defaults-fast",
+                                                  "defaults-yuv420p", "defaults-decode2",
+                                                  "c4-segments-crash", "c4-segments-resume")),
         "persistence_scan_multiclip": ("persistence_multiclip", ("c5",)),
-        "glitch_shear": ("glitch_shear", ("c4", "c4-text")),
+        "glitch_shear": ("glitch_shear", ("c4", "c4-text", "c4-segments-crash",
+                                          "c4-segments-resume")),
         "glitch_shear_c5": ("glitch_shear", ("c5",)),
         "glitch_shear_band": ("glitch_shear", ()),
         "bloom3_planar": ("bloom3", ("c3-angled",)),
@@ -1163,6 +1551,10 @@ def main() -> int:
         "bloom_stripe": ("bloom", ("c3-stripe",)),
         "fused_pipeline_s11": ("fused_pipeline", ("defaults-s11",)),
         "fused_pipeline_s20": ("fused_pipeline", ()),
+        "fused_pipeline_direct": ("fused_pipeline", ("defaults-fast",)),
+        "fused_pipeline_gaussian_direct": ("fused_pipeline", ()),
+        "fused_pipeline_f32in_direct": ("fused_pipeline", ()),
+        "fused_pipeline_s11_direct": ("fused_pipeline", ()),
     }
     for tag in SIGMAS:  # the stand-alone routes at large radii: on no main path
         runs_on.update({f"{k}_{tag}": (c, ()) for k, c in (

@@ -19,7 +19,7 @@ def __getattr__(name):
     # import) for --help and preset tooling.
     import importlib
 
-    if name in ("CRTEngine", "FrameAux", "unsupported"):
+    if name in ("CRTEngine", "FrameAux"):
         return getattr(importlib.import_module(".engine", __name__), name)
     if name in ("process_video", "render_stream"):
         return getattr(importlib.import_module(".pipeline", __name__), name)

@@ -6,11 +6,12 @@ package's additions included), plus ``--device``. The clamp semantics of
 the reference driver (:1225-1266) apply through EffectParams.clamped.
 ``--batch-manifest`` renders a JSON manifest of clips (batch.render_batch:
 lockstep groups through multiclip.process_videos, journal resume,
-per-clip retry), as pythoncrt_tpu/cli.py's ``_run_batch`` does. Flags
-whose machinery is not ported yet exit with status 2 and name the
-ROADMAP.md item that brings them, in manifest runs too; so do effect
-configurations outside the port (engine.unsupported). Nothing falls back
-to another path.
+per-clip retry), as pythoncrt_tpu/cli.py's ``_run_batch`` does.
+``--check-deps`` prints the dependency report and exits 0 or 4 before
+any other work. Flags whose machinery is not ported yet (``--gui``,
+``--devices`` above 1, ``--steps-per-call`` above 1) exit with status 2
+and name the ROADMAP.md item that brings them, in manifest runs too.
+Nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -200,14 +201,8 @@ def _refusal(a) -> str:
     """The first flag the port does not run yet, as a message, or ''."""
     todo = [
         (a.gui, "--gui", "queue 1, GUI"),
-        (a.segment_frames > 0, "--segment-frames", "queue 1, pipeline: segment resume"),
         (a.devices > 1, "--devices", "queue 1, multiclip: multi-GPU"),
-        (a.precision == "fast", "--precision fast", "queue 1, precision fast"),
-        (a.decode_workers > 1, "--decode-workers", "queue 1, pipeline: parallel decode"),
-        (a.pipe_format == "yuv420p", "--pipe-format yuv420p",
-         "queue 1, pipeline: yuv420p decode"),
-        (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline"),
-        (a.check_deps, "--check-deps", "queue 1, pipeline"),
+        (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline: steps per call"),
     ]
     for hit, flag, item in todo:
         if hit:
@@ -260,6 +255,10 @@ def _run_batch(a: argparse.Namespace, argv) -> int:
     )
     # options outside the lockstep surface send the job down the
     # sequential per-clip path (batch.MULTI_CLIP_KWARGS)
+    if a.segment_frames > 0:
+        kwargs["segment_frames"] = int(a.segment_frames)
+    if a.decode_workers > 1:
+        kwargs["decode_workers"] = int(a.decode_workers)
     if a.assoc_scan:
         kwargs["assoc_scan"] = True
     if a.profile:
@@ -328,6 +327,12 @@ def _no_cuda(device: str) -> bool:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     a = build_parser().parse_args(argv)
+    if a.check_deps:
+        from .bootstrap import check_deps
+
+        rep = check_deps()
+        print(rep.render())
+        return 0 if rep.ok else 4
     msg = _refusal(a)
     if msg:
         print(msg, file=sys.stderr)
@@ -345,41 +350,33 @@ def main(argv=None) -> int:
         return 2
     out = Path(a.output) if a.output else inp.with_name(inp.stem + "_crt.mp4")
     params = params_from_args(a, provided_flags(argv))
-    from .engine import unsupported
-
-    why = unsupported(params)
-    if why:
-        print(why, file=sys.stderr)
-        return 2
     if _no_cuda(a.device):
         return 2
     from .pipeline import process_video
 
-    try:
-        used_gpu = process_video(
-            inp, out, params,
-            width=a.width if a.width > 0 else None,
-            height=a.height if a.height > 0 else None,
-            fps=a.fps if a.fps > 0 else None,
-            crf=int(max(12, min(28, a.crf))),
-            target_bitrate_kbps=int(max(0, a.bitrate)),
-            gpu=bool(a.gpu),
-            nvenc_preset=str(a.nvenc_preset),
-            encoder_preference=str(a.encoder),
-            decoder_preference=str(a.decoder),
-            batch_size=max(1, int(a.batch_size)),
-            engine_mode=str(a.engine_mode),
-            rng=str(a.rng),
-            seed=int(a.seed),
-            assoc_scan=bool(a.assoc_scan),
-            precision=str(a.precision),
-            pipe_format=str(a.pipe_format),
-            device=a.device,
-            profile_dir=a.profile or None,
-        )
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
-        return 2
+    used_gpu = process_video(
+        inp, out, params,
+        width=a.width if a.width > 0 else None,
+        height=a.height if a.height > 0 else None,
+        fps=a.fps if a.fps > 0 else None,
+        crf=int(max(12, min(28, a.crf))),
+        target_bitrate_kbps=int(max(0, a.bitrate)),
+        gpu=bool(a.gpu),
+        nvenc_preset=str(a.nvenc_preset),
+        encoder_preference=str(a.encoder),
+        decoder_preference=str(a.decoder),
+        batch_size=max(1, int(a.batch_size)),
+        engine_mode=str(a.engine_mode),
+        rng=str(a.rng),
+        seed=int(a.seed),
+        assoc_scan=bool(a.assoc_scan),
+        precision=str(a.precision),
+        pipe_format=str(a.pipe_format),
+        decode_workers=max(1, int(a.decode_workers)),
+        segment_frames=max(0, int(a.segment_frames)),
+        device=a.device,
+        profile_dir=a.profile or None,
+    )
     print("Hardware encoder used" if used_gpu else "CPU encoder used")
     print(f"elapsed {time.perf_counter() - t0:.3f}s")
     return 0

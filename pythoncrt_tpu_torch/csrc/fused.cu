@@ -7,7 +7,13 @@
 // fused.py:453-477, op for op with bloom3._bloom3_fast_kernel) and
 // bloom off; and its two inputs: the uint8 frame (`pre`, stages 1-4 in
 // the kernel) or the engine's pre-processed f32 image (`pre=False`,
-// fused.py:325-326: text composited before the bloom), read as it is.
+// fused.py:325-326: text composited before the bloom), read as it is;
+// and its two triads: the LUT-exact one and the direct-pow one of
+// `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3).
+// The direct-pow triad costs two FP64 transcendental chains per value
+// (three per pixel) where the tables cost two shared-memory reads: on
+// this card, whose FP64 rate is a fraction of its f32 rate, "fast" is
+// not expected to be the faster mode (PERF.md).
 //
 // What bounds it on the card: on paper, bytes. A 1080p frame is 6.2 MB of
 // uint8 in (24.9 MB of f32 in the f32-input mode), plus the 8.3 MB f32
@@ -75,7 +81,8 @@
 // -fmad=false (no multiply-add contraction); divisions are IEEE (nvcc's
 // default -prec-div=true); the grade pow is computed in double and rounded
 // once to float; the triad's two pow sites read 1025-entry tables the host
-// builds with the same rounding. The tap sums are sequential f32
+// builds with the same rounding, or (triad_mode 3) are computed in double
+// and rounded once, as the twin computes them. The tap sums are sequential f32
 // multiply-adds in tap order, on purpose not on the tensor cores: a TF32
 // or bf16 product, or a reordered sum, moves values across the triad's
 // quantize steps. Gaussian border taps follow the fold the JAX paths
@@ -155,11 +162,13 @@ struct FusedArgs {
     int32_t run_stride;
     int32_t vec_ok, smem;
     // epilogue (stages 7-11)
-    int32_t triad_mode;  // 0 off, 1 multiply only, 2 LUT-exact
+    int32_t triad_mode;  // 0 off, 1 multiply only, 2 LUT-exact, 3 direct pow (precision fast)
     int32_t luma_on;
     int32_t sl_on, vig_on; float vig_strength;
     int32_t flicker_on;
     int32_t noise_on; float noise_scale;
+    // last, so that the other fields keep their offsets
+    float tri_g, tri_e;  // triad_mode 3: f32(gamma), f32(1 / gamma)
 };
 
 namespace {
@@ -181,7 +190,7 @@ struct Smem {
     short* offs;           // [3][win] staged offset of each window column
     short* lead;           // [win + 1] first column of each run of equal map columns
     short* loffs;          // [3][win] the staged offset of each leader column
-    float* lut;            // [2][LUTP] the triad's tables (LUT-exact triad)
+    float* lut;            // [2][LUTP] the triad's tables (triad_mode 2; none in mode 3)
     float* tri;            // [3][sw] the strip's triad rows
     float* vx;             // [sw] the strip's vignette nx^2
     int* misc;             // [12] this strip's staged ranges, [12] the leader count
@@ -191,6 +200,9 @@ struct Smem {
 
 __host__ __device__ __forceinline__ int a16h(int n) { return (n + 15) & ~15; }
 
+// DIRECT: the direct-pow triad's layout, which holds no tables; a template
+// argument, so that the LUT-exact instantiations test nothing at run time.
+template <bool DIRECT>
 __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* base) {
     Smem s;
     const bool fast = a.bloom_on && a.fast_on;
@@ -216,10 +228,11 @@ __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* b
     s.offs = (short*)(base + o); o += a16h(3 * a.win * 2);
     s.lead = (short*)(base + o); o += a16h((a.win + 1) * 2);
     s.loffs = (short*)(base + o); o += a16h(3 * a.win * 2);
+    const int luts = DIRECT ? 0 : 2 * LUTP;
     s.lut = (float*)(base + o);
-    s.tri = s.lut + 2 * LUTP;
+    s.tri = s.lut + luts;
     s.vx = s.tri + 3 * a.sw;
-    o += a16h((2 * LUTP + 4 * a.sw) * 4);
+    o += a16h((luts + 4 * a.sw) * 4);
     s.misc = (int*)(base + o); o += 64;
     s.taps = nullptr;
     if (!fast && r > MAXR) {
@@ -275,11 +288,46 @@ __device__ __forceinline__ void grade(const FusedArgs& a, float x[3]) {
     }
 }
 
+// The triad's final pow site, exp2(e * log2(x)) for x >= 0, each
+// transcendental in double rounded once to float (ops/color.py pow_final).
+__device__ __forceinline__ float pow_final(float x, float e) {
+    const float t = (float)log2((double)x);
+    return (float)exp2((double)(t * e));
+}
+
+// The direct-pow triad (triad_mode 3) on one pixel: the JAX kernel's
+// lut_exact=False branch (fused.py:601-631), the two pow sites on the
+// clipped values, no quantize. The forward site is pow(x, g) computed in
+// double as exp2(g * log2(x)) and rounded once to float (libdevice's pow
+// keeps more FP64 temporaries live: the fast core's f32-input instance
+// spilled with it at 128 registers).
+__device__ __forceinline__ void triad_direct(const FusedArgs& a, float m[3], const float tri[3]) {
+    float lin[3], ol[3];
+    #pragma unroll
+    for (int p = 0; p < 3; ++p) {
+        lin[p] = (float)exp2((double)a.tri_g * log2((double)clip01(m[p])));
+        ol[p] = lin[p] * tri[p];
+    }
+    if (a.luma_on) {
+        const float yb = luma3(a, lin);
+        const float ya = luma3(a, ol);
+        const float ratio = fminf(fmaxf(yb / fmaxf(ya, 1e-6f), 0.5f), 2.0f);
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) ol[p] = ol[p] * ratio;
+    }
+    #pragma unroll
+    for (int p = 0; p < 3; ++p) m[p] = clip01(pow_final(clip01(ol[p]), a.tri_e));
+}
+
 // Stages 7-11 for one composited pixel, given its per-column operands.
+// DIRECT: the instantiations of triad_mode 3, which hold no other triad.
+template <bool DIRECT>
 __device__ __forceinline__ void finish(const FusedArgs& a, const float* lut, float m[3],
                                        const float tri[3], float s, float vy2, float vx2, float f,
                                        float n) {
-    if (a.triad_mode == 1) {
+    if constexpr (DIRECT) {
+        triad_direct(a, m, tri);
+    } else if (a.triad_mode == 1) {
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * tri[p]);
     } else if (a.triad_mode == 2) {
@@ -340,6 +388,7 @@ __device__ __forceinline__ void load_grain(const FusedArgs& a, int bi, int gy, i
 // gx (column lx of the strip), given their grain: one store per plane
 // when vec. The triad tables and the strip's triad and vignette rows are
 // read from shared memory, a column at a time.
+template <bool DIRECT>
 __device__ __forceinline__ void epilogue4(const FusedArgs& a, const Smem& S, int bi, int gy,
                                           int gx, int lx, int nv, float m[3][4],
                                           const float gr[4]) {
@@ -357,7 +406,7 @@ __device__ __forceinline__ void epilogue4(const FusedArgs& a, const Smem& S, int
             t3[p] = S.tri[p * a.sw + c];
             px[p] = m[p][v];
         }
-        finish(a, S.lut, px, t3, s, vy, S.vx[c], f, gr[v]);
+        finish<DIRECT>(a, S.lut, px, t3, s, vy, S.vx[c], f, gr[v]);
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p][v] = px[p];
     }
@@ -500,12 +549,16 @@ __device__ __forceinline__ void htaps_interior(const FusedArgs& a, const Smem& S
 
 // Blocks per SM the registers must allow: the gaussian instantiations
 // take 80 registers a thread (3 blocks), the fast ones 64 (4 blocks),
-// which measured faster for each on an H100 (PERF.md).
-template <int CORE, int RT, bool F32IN>
-__global__ void __launch_bounds__(NT, CORE == FAST ? 4 : 3)
+// which measured faster for each on an H100 (PERF.md). The direct-pow
+// triad (DIRECT, triad_mode 3) is its own instantiation of each, with the
+// registers of 2 blocks (up to 128): its FP64 log2 and exp2 chains, four
+// pixels at a time, spilled at 64 and 80, and the LUT-exact
+// instantiations keep their code and caps.
+template <int CORE, int RT, bool F32IN, bool DIRECT>
+__global__ void __launch_bounds__(NT, DIRECT ? 2 : (CORE == FAST ? 4 : 3))
 fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem S = smem_layout(a, smem);
+    const Smem S = smem_layout<DIRECT>(a, smem);
     const int tid = threadIdx.x;
     const int h = a.h, w = a.w, bi = blockIdx.z;
     const int sw = a.sw, step = a.step, depth = a.depth;
@@ -765,7 +818,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                 } else {
                     load_grain(a, bi, y, gx, min(4, xe - gx), gr);
                 }
-                epilogue4(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
+                epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
             }
         } else {
             // ---- 2. half-res rows: down rows, then down columns ----
@@ -812,7 +865,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                 } else {
                     load_grain(a, bi, y, gx, min(4, xe - gx), gr);
                 }
-                epilogue4(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
+                epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
             }
             nh = he;
         }
@@ -820,23 +873,33 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     }
 }
 
+// The instantiation for a launch: core, radius, input, triad.
+template <bool DIRECT>
+void (*pick_kernel(const FusedArgs& a))(const FusedArgs) {
+    const bool f32 = !a.pre_on;
+    if (a.bloom_on && a.fast_on)
+        return f32 ? fused_strip_kernel<FAST, 0, true, DIRECT>
+                   : fused_strip_kernel<FAST, 0, false, DIRECT>;
+    if (a.bloom_on && a.r == 4)
+        return f32 ? fused_strip_kernel<GAUSS, 4, true, DIRECT>
+                   : fused_strip_kernel<GAUSS, 4, false, DIRECT>;
+    if (a.bloom_on && a.r > MAXR)
+        return f32 ? fused_strip_kernel<GAUSS, BIG, true, DIRECT>
+                   : fused_strip_kernel<GAUSS, BIG, false, DIRECT>;
+    return f32 ? fused_strip_kernel<GAUSS, -1, true, DIRECT>
+               : fused_strip_kernel<GAUSS, -1, false, DIRECT>;
+}
+
 }  // namespace
 
 extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
     if (a->r < 0 || (a->bloom_on && !a->fast_on && a->r > MAXR && !a->tapdev))
         return (int)cudaErrorInvalidValue;
-    if (smem_layout(*a, nullptr).total != a->smem) return (int)cudaErrorInvalidValue;
-    const bool fast = a->bloom_on && a->fast_on;
-    const bool f32 = !a->pre_on;
-    void (*kern)(const FusedArgs);
-    if (fast)
-        kern = f32 ? fused_strip_kernel<FAST, 0, true> : fused_strip_kernel<FAST, 0, false>;
-    else if (a->bloom_on && a->r == 4)
-        kern = f32 ? fused_strip_kernel<GAUSS, 4, true> : fused_strip_kernel<GAUSS, 4, false>;
-    else if (a->bloom_on && a->r > MAXR)
-        kern = f32 ? fused_strip_kernel<GAUSS, BIG, true> : fused_strip_kernel<GAUSS, BIG, false>;
-    else
-        kern = f32 ? fused_strip_kernel<GAUSS, -1, true> : fused_strip_kernel<GAUSS, -1, false>;
+    const bool direct = a->triad_mode == 3;
+    const int total = direct ? smem_layout<true>(*a, nullptr).total
+                             : smem_layout<false>(*a, nullptr).total;
+    if (total != a->smem) return (int)cudaErrorInvalidValue;
+    void (*kern)(const FusedArgs) = direct ? pick_kernel<true>(*a) : pick_kernel<false>(*a);
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem);
     if (e != cudaSuccess) return (int)e;

@@ -51,9 +51,12 @@ flicker gain, noise, glitch offsets) are computed per batch from
 absolute frame indices, so every draw is a pure function of (seed, frame
 index): outputs do not depend on how frames are split into batches.
 
-Configs outside the port (``--precision fast``) raise
-NotImplementedError naming the ROADMAP.md item that will bring them;
-nothing computes them another way.
+``precision`` "fast" is the JAX engine's ``lut_exact=False``: the
+triad's two pow sites on the clipped values instead of the 1024-bin
+tables (the fused kernel's triad_mode 3, and the staged step's torch
+epilogue). The JAX package's other "fast" trade, single-pass bf16
+matmuls in its warp and blooms, has no counterpart: the port's warp and
+blooms are f32 gathers and sums with no matmul.
 """
 
 from __future__ import annotations
@@ -93,14 +96,6 @@ class FrameAux(NamedTuple):
     noise: Optional[np.ndarray] = None  # (B, gh, gw) f32 std-normal (rng="host")
     glitch_base: Optional[np.ndarray] = None  # (B, rows) f32 (rng="host")
     glitch_seg: Optional[np.ndarray] = None  # (B, rows, segs) f32 (rng="host", export)
-
-
-def unsupported(params: EffectParams, *, precision: str = "exact",
-                lut_exact: bool = True) -> Optional[str]:
-    """Why this configuration is outside the port, or None."""
-    if precision == "fast" or not lut_exact:
-        return "precision 'fast' is not ported yet: ROADMAP.md queue 1, precision fast"
-    return None
 
 
 def bloom_optin(params: EffectParams) -> Optional[str]:
@@ -153,9 +148,6 @@ class CRTEngine:
         if channel_order != "rgb" and layout == "nhwc":
             raise ValueError("channel_order requires layout 'planar'/'auto'")
         p = params.clamped()
-        why = unsupported(p, precision=precision, lut_exact=lut_exact)
-        if why:
-            raise NotImplementedError(why)
         self.params = p
         self.h, self.w = int(height), int(width)
         self.fps = float(fps)
@@ -163,7 +155,7 @@ class CRTEngine:
         self.rng = rng
         self.seed = int(seed)
         self.precision = precision
-        self.lut_exact = True
+        self.lut_exact = bool(lut_exact) and precision == "exact"
         self.assoc_scan = bool(assoc_scan)
         self.device = torch.device(device)
         self.layout = "planar" if layout == "auto" else layout
@@ -271,7 +263,7 @@ class CRTEngine:
             brightness=float(p.brightness), contrast=float(p.contrast),
             inv_gamma=(1.0 / float(p.gamma)) if (p.gamma != 1.0 and p.gamma > 0.0) else 1.0,
             triad=p.triad_on, triad_gamma=float(p.triad_gamma),
-            triad_luma=bool(p.triad_preserve_luma),
+            triad_luma=bool(p.triad_preserve_luma), lut_exact=self.lut_exact,
             scanlines=p.scanlines_on, vignette=p.vignette_on,
             vig_strength=float(p.vignette_strength),
             flicker=p.flicker_on, noise=p.noise_on,

@@ -13,17 +13,19 @@ selection). Two backends, probed at run time with tier-by-tier fallback
    (crt_filter.py:934-935).
 
 The port's own copy of the parts of pythoncrt_tpu/io/video.py its
-pipeline calls. Not here: the parallel chunked reader (--decode-workers),
-segment-resume seeks (--segment-frames) and the yuv420p decode pipe
-(--pipe-format yuv420p); the CLI refuses those flags (ROADMAP.md queue 1,
-pipeline).
+pipeline calls: the readers with their start-frame seeks (segment
+resume) and the yuv420p pipe, the parallel chunked reader
+(--decode-workers), the writers, the probes and the audio passthrough.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -178,21 +180,48 @@ class FFmpegRawReader:
     (3, H, W) frames in ffmpeg's G, B, R plane order, which the engine's
     planar layout takes untouched (CRTEngine(layout="planar",
     channel_order="gbr")). Both are 3 bytes per pixel; the caller's
-    read_into buffer decides the shape."""
+    read_into buffer decides the shape. "yuv420p" halves the pipe's bytes
+    (1.5 per pixel) and converts to (H, W, 3) RGB on the host with the
+    native BT.601 converter (the bytes differ slightly from ffmpeg's own
+    rgb24). Reads use the native GIL-released exact-read loop when it
+    builds (native/).
+
+    start_frame: first output frame to yield. With the output rate equal
+    to the source's, an accurate input seek (-ss) starts the decode
+    there; with a resampling -r the frames before it are decoded and
+    dropped (an input seek would rebase the -r grid). src_fps: the
+    source's rate when the caller has probed it already."""
 
     def __init__(self, src: str, out_w: int, out_h: int, fps: float,
-                 hwaccel: Optional[str] = None, pipe_format: str = "rgb24") -> None:
+                 hwaccel: Optional[str] = None, pipe_format: str = "rgb24",
+                 start_frame: int = 0, src_fps: Optional[float] = None) -> None:
         exe = find_ffmpeg()
         if not exe:
             raise RuntimeError("no ffmpeg binary available")
-        if pipe_format not in ("rgb24", "gbrp"):
+        if pipe_format not in ("rgb24", "yuv420p", "gbrp"):
             raise ValueError(f"unsupported pipe_format {pipe_format!r}")
         self.out_w, self.out_h = int(out_w), int(out_h)
+        self.pipe_format = pipe_format
         self.frame_shape = ((3, self.out_h, self.out_w) if pipe_format == "gbrp"
                             else (self.out_h, self.out_w, 3))
+        self._yuv_buf: Optional[bytearray] = None
         cmd = [exe, "-hide_banner", "-loglevel", "error"]
         if hwaccel and hwaccel != "auto":
             cmd += ["-hwaccel", hwaccel]
+        self._skip = 0
+        if start_frame > 0:
+            if src_fps is None:
+                try:
+                    src_fps = probe_clip(src).fps
+                except (OSError, RuntimeError):
+                    src_fps = 0.0
+            if abs(src_fps - float(fps)) < 1e-3:
+                # half a frame early: rounding the timestamp up past frame
+                # k's pts would make the accurate seek drop frame k
+                ts = max(0.0, (start_frame - 0.5) / float(fps))
+                cmd += ["-ss", f"{ts:.6f}"]
+            else:
+                self._skip = int(start_frame)
         cmd += ["-i", str(src), "-vf", f"scale={self.out_w}:{self.out_h}",
                 "-r", str(fps), "-f", "rawvideo", "-pix_fmt", pipe_format, "-"]
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -216,15 +245,27 @@ class FFmpegRawReader:
             out[...] = self._primed
             self._primed = None
             return True
-        view = memoryview(out).cast("B")
-        n = len(view)
-        got = 0
-        while got < n:
-            r = self.proc.stdout.readinto(view[got:])
-            if not r:
-                break
-            got += r
-        if got == n:
+        if self._skip > 0:
+            junk = np.empty(self.frame_shape, np.uint8)
+            while self._skip > 0:
+                self._skip -= 1
+                if not self._read_one(junk):
+                    return False
+        return self._read_one(out)
+
+    def _read_one(self, out: np.ndarray) -> bool:
+        from .. import native
+
+        w, h = self.out_w, self.out_h
+        if self.pipe_format == "yuv420p":
+            nbytes = w * h * 3 // 2
+            if self._yuv_buf is None:
+                self._yuv_buf = bytearray(nbytes)
+            if native.readinto_exact(self.proc.stdout, memoryview(self._yuv_buf)) < nbytes:
+                return self._eof_or_raise()
+            out[...] = native.yuv420p_to_rgb24(bytes(self._yuv_buf), w, h)
+            return True
+        if native.readinto_exact(self.proc.stdout, memoryview(out).cast("B")) == w * h * 3:
             return True
         return self._eof_or_raise()
 
@@ -241,7 +282,8 @@ class FFmpegRawReader:
         return False
 
     def close(self) -> None:
-        """Stop and reap the decoder child."""
+        """Stop and reap the decoder child (ChunkedParallelReader opens one
+        per chunk: an unreaped child per chunk would pile up)."""
         if self.proc.stdout:
             self.proc.stdout.close()
         self.proc.terminate()
@@ -254,9 +296,11 @@ class FFmpegRawReader:
 
 class CV2Reader:
     """OpenCV decoder with nearest-timestamp fps resampling and on-read
-    resize; yields (H, W, 3) RGB uint8 frames."""
+    resize; yields (H, W, 3) RGB uint8 frames from output frame
+    ``start_frame`` on."""
 
-    def __init__(self, src: str, out_w: int, out_h: int, fps: float) -> None:
+    def __init__(self, src: str, out_w: int, out_h: int, fps: float,
+                 start_frame: int = 0) -> None:
         import cv2
 
         self._cv2 = cv2
@@ -267,8 +311,21 @@ class CV2Reader:
         self.src_fps = float(self.cap.get(cv2.CAP_PROP_FPS) or fps)
         self.out_fps = float(fps)
         self._src_i = -1
-        self._out_i = 0
+        self._out_i = int(start_frame)
         self._frame = None
+        want0 = int(round(self._out_i * (self.src_fps / self.out_fps)))
+        if want0 > 0 and self.cap.set(cv2.CAP_PROP_POS_FRAMES, want0):
+            # a positioned read (O(remaining) resume), checked: a landing
+            # short of the source frame decodes forward to it; a landing
+            # past it, or none, reopens and decodes from frame 0
+            pos = int(self.cap.get(cv2.CAP_PROP_POS_FRAMES))
+            if 0 <= pos <= want0:
+                self._src_i = pos - 1
+            else:
+                self.cap.release()
+                self.cap = cv2.VideoCapture(str(src))
+                if not self.cap.isOpened():
+                    raise FileNotFoundError(f"cannot open video: {src}")
 
     def read_into(self, out: np.ndarray) -> bool:
         """Decode the next output frame into ``out`` ((H, W, 3) uint8);
@@ -293,14 +350,162 @@ class CV2Reader:
         self.cap.release()
 
 
+class ChunkedParallelReader:
+    """N seek-positioned decode workers over interleaved chunks of the
+    frame range, handing over whole batches in stream order
+    (pythoncrt_tpu/io/video.py ChunkedParallelReader, ``--decode-workers``).
+
+    Worker w decodes chunks w, w + N, w + 2N, ... (a chunk is
+    ``chunk_batches`` batches, fewer where a chunk would pass 256 MB),
+    each through its own reader opened at the chunk's first frame, and
+    ``iter_batches`` yields (absolute frame index, (<= B, *frame_shape)
+    uint8 view) strictly in order. ``total_frames`` is an estimate: the
+    last chunk reads on to the true end. An output rate that resamples
+    the source degrades to one sequential reader (a seek would rebase the
+    -r grid, and decode-and-discard per chunk would cost the whole prefix
+    per chunk)."""
+
+    def __init__(self, src: str, out_w: int, out_h: int, fps: float,
+                 total_frames: int, batch_size: int, *, workers: int = 2,
+                 chunk_batches: int = 4, decoder_preference: str = "auto",
+                 pipe_format: str = "rgb24", start_frame: int = 0) -> None:
+        self.src, self.out_w, self.out_h, self.fps = str(src), int(out_w), int(out_h), float(fps)
+        self.pref, self.pipe_format = decoder_preference, pipe_format
+        self.frame_shape = ((3, self.out_h, self.out_w) if pipe_format == "gbrp"
+                            else (self.out_h, self.out_w, 3))
+        self.batch = int(batch_size)
+        # each worker holds up to 3 chunks (queue of 2 + in flight)
+        frame_bytes = self.out_h * self.out_w * 3
+        cb = max(1, int(chunk_batches))
+        while cb > 1 and cb * self.batch * frame_bytes > 256 << 20:
+            cb -= 1
+        self.chunk = self.batch * cb
+        self.start = int(start_frame)
+        # a resume may have journaled more frames than a re-probe
+        # estimates: start past the total is a clean empty stream
+        self.total = max(int(total_frames), self.start)
+        self.n_chunks = max(1, -(-(self.total - self.start) // self.chunk))
+        try:
+            src_fps = probe_clip(src).fps
+        except (OSError, RuntimeError):
+            src_fps = float(fps)
+        self._src_fps = float(src_fps)
+        self._sequential = abs(src_fps - float(fps)) > 1e-3
+        self.workers = 1 if self._sequential else max(1, min(int(workers), self.n_chunks))
+        self._qs = [queue.Queue(maxsize=2) for _ in range(self.workers)]
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._worker, args=(w,), daemon=True)
+                         for w in range(self.workers)]
+        for t in self._threads:
+            t.start()
+
+    def _put(self, q: queue.Queue, item) -> bool:
+        """Blocking put that gives up once the consumer stopped."""
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _read(self, rdr, n: int) -> np.ndarray:
+        """Up to n frames of ``rdr`` into a new array (fewer at the end)."""
+        buf = np.empty((n, *self.frame_shape), np.uint8)
+        got = 0
+        while got < n and not self._stop.is_set() and rdr.read_into(buf[got]):
+            got += 1
+        return buf[:got]
+
+    def _worker(self, wid: int) -> None:
+        q = self._qs[wid]
+        seq = None
+        try:
+            if self._sequential:
+                seq = open_reader(self.src, self.out_w, self.out_h, self.fps, self.pref,
+                                  self.pipe_format, start_frame=self.start)
+            for ci in range(wid, self.n_chunks, self.workers):
+                if self._stop.is_set():
+                    break
+                f0 = self.start + ci * self.chunk
+                f1 = min(f0 + self.chunk, self.total)
+                rdr = seq or open_reader(self.src, self.out_w, self.out_h, self.fps,
+                                         self.pref, self.pipe_format, start_frame=f0,
+                                         src_fps=self._src_fps)
+                try:
+                    frames = self._read(rdr, f1 - f0)
+                    if not self._put(q, (ci, f0, frames)) or len(frames) < f1 - f0:
+                        break  # consumer gone, or the stream ended early
+                    if ci == self.n_chunks - 1:
+                        # past the estimate: chunk-sized continuation items
+                        # until the true end
+                        ext = self.n_chunks
+                        while not self._stop.is_set():
+                            more = self._read(rdr, self.chunk)
+                            ef0 = self.total + (ext - self.n_chunks) * self.chunk
+                            if len(more) and not self._put(q, (ext, ef0, more)):
+                                break
+                            if len(more) < self.chunk:
+                                break
+                            ext += 1
+                finally:
+                    if rdr is not seq:
+                        rdr.close()
+        except Exception as e:  # re-raised by iter_batches, never a fake end
+            self._err = e
+        finally:
+            if seq is not None:
+                with contextlib.suppress(Exception):
+                    seq.close()
+            self._put(q, None)
+
+    def iter_batches(self, batch_size: int):
+        """Yield (absolute frame index, (<= batch_size, *frame_shape)
+        uint8 view) in stream order."""
+        if batch_size != self.batch:
+            raise ValueError(f"iter_batches({batch_size}) on a reader of batch {self.batch}")
+        ci = 0
+        while True:
+            # continuation items come from the worker of the last chunk
+            item = self._qs[min(ci, self.n_chunks - 1) % self.workers].get()
+            if item is None:
+                if self._err is not None:
+                    raise RuntimeError("parallel decode worker failed") from self._err
+                return
+            got_ci, f0, frames = item
+            if got_ci != ci:
+                raise RuntimeError(f"parallel decode: chunk {got_ci} arrived for {ci}")
+            for b0 in range(0, frames.shape[0], self.batch):
+                yield f0 + b0, frames[b0:b0 + self.batch]
+            expect = self.chunk if ci >= self.n_chunks else min(self.chunk, self.total - f0)
+            if frames.shape[0] < expect:
+                return  # early end, or the last continuation
+            ci += 1
+
+    def close(self) -> None:
+        self._stop.set()
+        for q in self._qs:
+            with contextlib.suppress(queue.Empty):
+                while True:
+                    q.get_nowait()
+        for t in self._threads:
+            t.join(timeout=10)
+
+
 def open_reader(src: str, out_w: int, out_h: int, fps: float,
-                decoder_preference: str = "auto", pipe_format: str = "rgb24"):
+                decoder_preference: str = "auto", pipe_format: str = "rgb24",
+                start_frame: int = 0, src_fps: Optional[float] = None):
     """Tier-by-tier reader selection: hwaccel ffmpeg -> plain ffmpeg ->
-    OpenCV (the reference's fallback chain, crt_filter.py:1024-1036)."""
+    OpenCV (the reference's fallback chain, crt_filter.py:1024-1036).
+    Without an ffmpeg binary, "rgb24" and "yuv420p" both take the OpenCV
+    tier (RGB frames); "gbrp" needs the binary. start_frame: the first
+    output frame to yield (a decoder-side seek)."""
     accel = map_decoder_to_hwaccel(decoder_preference)
     if find_ffmpeg():
         try:
-            rd = FFmpegRawReader(src, out_w, out_h, fps, accel, pipe_format)
+            rd = FFmpegRawReader(src, out_w, out_h, fps, accel, pipe_format, start_frame,
+                                 src_fps)
             if accel:
                 # an unsupported -hwaccel exits nonzero only once decoding
                 # starts: prime one frame and fall to plain ffmpeg on failure
@@ -308,14 +513,15 @@ def open_reader(src: str, out_w: int, out_h: int, fps: float,
                     rd._prime()
                 except RuntimeError:
                     rd.close()
-                    rd = FFmpegRawReader(src, out_w, out_h, fps, None, pipe_format)
+                    rd = FFmpegRawReader(src, out_w, out_h, fps, None, pipe_format,
+                                         start_frame, src_fps)
             return rd
         except (OSError, RuntimeError):
             if pipe_format == "gbrp":
                 raise  # planar frames need the ffmpeg pipe; no cv2 shape
     elif pipe_format == "gbrp":
         raise RuntimeError("pipe_format 'gbrp' requires an ffmpeg binary")
-    return CV2Reader(src, out_w, out_h, fps)
+    return CV2Reader(src, out_w, out_h, fps, start_frame)
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,10 @@ The bloom core is the exact gaussian (H then V), the fast half-res
 down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
 tables), or off. With ``spec.pre`` False (the JAX kernel's ``pre=False``,
 text composited before the bloom) the input is the engine's f32 image
-after stages 1-5 and the kernel starts at the knee.
+after stages 1-5 and the kernel starts at the knee. The triad reads the
+1024-bin tables (the reference's bytes), or with ``spec.lut_exact``
+False (``--precision fast``, the JAX kernel's direct-pow branch) takes
+pow on the clipped values: csrc/fused.cu's direct-pow instantiations.
 
 The twin is split at the bloom (``prologue_ref``, ``bloom_ref``,
 ``epilogue_ref``) so that the engine's staged step, which runs the
@@ -95,6 +98,9 @@ class FusedSpec:
     triad: bool = False
     triad_gamma: float = 2.2
     triad_luma: bool = False
+    # the triad's two pow sites: the 1024-bin tables (the reference's
+    # bytes), or False (--precision fast) pow on the clipped values
+    lut_exact: bool = True
     scanlines: bool = False
     vignette: bool = False
     vig_strength: float = 0.0
@@ -114,15 +120,14 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
                      pre: bool = True, lut_exact: bool = True, **kw) -> FusedSpec:
     """Build a spec from the arguments of the JAX package's
     build_fused_spec (kernels/fused.py:168). ``pre`` False takes the f32
-    image (the prologue's fields then describe the caller's prologue);
-    the triad is always LUT-exact. Any H, W and radius: the TPU kernel's
-    shape gates (H%8, W%128, even sizes for the fast core) have no
-    counterpart. An aberration of W columns or more is taken mod W (the
-    roll wraps: the same index maps)."""
-    if not lut_exact:
-        raise NotImplementedError(
-            "the port's fused kernel always runs the LUT-exact triad "
-            "(precision fast: ROADMAP.md queue 1, precision fast)")
+    image (the prologue's fields then describe the caller's prologue).
+    ``lut_exact`` False is the JAX kernel's direct-pow triad (fused.py:
+    601-631), the whole of ``--precision fast`` here: the TPU's
+    single-pass bf16 matmuls have no counterpart in the port's f32
+    gathers and sums. Any H, W and radius: the TPU kernel's shape gates
+    (H%8, W%128, even sizes for the fast core) have no counterpart. An
+    aberration of W columns or more is taken mod W (the roll wraps: the
+    same index maps)."""
     if kw.get("emit", "f32") not in ("f32", "u8"):
         raise ValueError(f"unknown emit mode {kw.get('emit')!r}")
     for tpu_only in ("grain_g", "grain_off", "grain_frac", "grain_raw"):
@@ -136,7 +141,17 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
         kw["ab"] = int(math.fmod(ab, w))
     return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps, fast=fast,
                      strength=float(strength), threshold=float(threshold), pre=bool(pre),
-                     **kw)
+                     lut_exact=bool(lut_exact), **kw)
+
+
+def triad_mode(spec: FusedSpec) -> int:
+    """csrc/fused.cu's triad_mode: 0 off, 1 the clipped multiply, 2 the
+    1024-bin tables, 3 pow on the clipped values (--precision fast)."""
+    if not spec.triad:
+        return 0
+    if ocolor.triad_is_multiply(spec.triad_gamma, spec.triad_luma):
+        return 1
+    return 2 if spec.lut_exact else 3
 
 
 class FusedConsts(NamedTuple):
@@ -144,8 +159,8 @@ class FusedConsts(NamedTuple):
     fast core's resize taps."""
     y_map: torch.Tensor            # (H,) int32
     x_maps: torch.Tensor           # (3, W) int32, plane order
-    lut_fwd: Optional[torch.Tensor]  # (1025,) f32
-    lut_fin: Optional[torch.Tensor]  # (1025,) f32
+    lut_fwd: Optional[torch.Tensor]  # (1025,) f32 (triad_mode 2)
+    lut_fin: Optional[torch.Tensor]  # (1025,) f32 (triad_mode 2)
     # fast core: (lo int32, frac f32) for the down rows (H2,), down
     # columns (W2,), up rows (H,) and up columns (W,): the oracle's
     # bilinear_taps
@@ -179,7 +194,9 @@ class FusedPlan:
     ``halftab`` are the kernel's tables: the walk's schedule per run, and
     the ring offsets of each output row's and half-res row's operands.
     ``split``: no strip fits a block (the three-launch route of
-    ``fused_pipeline``; the walk's sizes and tables are then unset)."""
+    ``fused_pipeline``; the walk's sizes and tables are then unset).
+    ``direct``: the direct-pow triad (triad_mode 3), which stages no
+    tables."""
     fast: bool
     pre: bool
     knee: bool
@@ -204,6 +221,7 @@ class FusedPlan:
     rowtab: np.ndarray = None   # (H, 4) fast / (H, 2r + 2) gaussian ring offsets
     halftab: np.ndarray = None  # (H2, 4) fast core: ring offsets of the half-res rows
     split: bool = False
+    direct: bool = False
 
     @property
     def strips(self) -> int:
@@ -216,7 +234,7 @@ class FusedPlan:
     @property
     def key(self) -> tuple:
         """The plan_key of the specs this plan serves."""
-        return (self.h, self.w, self.pre, self.fast, self.r, self.knee)
+        return (self.h, self.w, self.pre, self.fast, self.r, self.knee, self.direct)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -314,11 +332,11 @@ def plan_chunks(plan: FusedPlan, y0: int, fast_taps=None) -> list:
 
 
 def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hdepth: int,
-              win: int, hwin: int, seg_pitch: int, knee: bool) -> int:
+              win: int, hwin: int, seg_pitch: int, knee: bool, direct: bool = False) -> int:
     """Shared memory of one block in bytes: csrc/fused.cu's smem_layout
     (the fast core without a knee reads the pre-knee strip from its
-    knee'd ring; a radius above MAX_R adds its taps and border
-    coefficients, 4r + 1 floats, at the end)."""
+    knee'd ring; the direct-pow triad has no tables; a radius above MAX_R
+    adds its taps and border coefficients, 4r + 1 floats, at the end)."""
     def a16(n):
         return _round_up(n, 16)
     n = a16(2 * step * 3 * seg_pitch * (1 if pre else 4))  # staged rows, two buffers
@@ -329,7 +347,7 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
     if not fast or knee:
         n += a16(depth * 3 * sw * 4)  # the pre-knee strip
     n += a16(3 * win * 2) + a16((win + 1) * 2) + a16(3 * win * 2)  # offsets, leaders
-    n += a16((2 * 1028 + 4 * sw) * 4)  # triad tables, the strip's triad and vignette rows
+    n += a16((2 * 1028 * (not direct) + 4 * sw) * 4)  # triad tables, triad and vignette rows
     n += 64  # the strip's staged ranges
     if not fast and r > MAX_R:
         n += a16((4 * r + 1) * 4)  # the taps, edge_l and edge_r
@@ -338,10 +356,11 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
 
 def plan_key(spec: "FusedSpec") -> tuple:
     """What of a spec its plan is made for: (H, W, pre, fast core,
-    gaussian radius, knee). Taps of one radius share a plan."""
+    gaussian radius, knee, direct-pow triad). Taps of one radius share a
+    plan."""
     fast = bool(spec.bloom and spec.fast)
     return (spec.h, spec.w, bool(spec.pre), fast, spec.r if spec.bloom and not fast else 0,
-            bool(spec.bloom and spec.threshold > 0.0))
+            bool(spec.bloom and spec.threshold > 0.0), triad_mode(spec) == 3)
 
 
 def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
@@ -350,7 +369,7 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     strip of STRIP_WIDTHS whose block fits in shared memory, and the ring
     depths the walk needs (never more than the frame's distinct rows);
     chunk and run sizes from WALK. A plan that fits no strip is ``split``."""
-    h, w, _, fast, r, knee = plan_key(spec)
+    h, w, _, fast, r, knee, direct = plan_key(spec)
     if spec.pre:
         ydist, ysrc = distinct_rows(y_map)
         gran = 16 if w % 16 == 0 else 4 if w % 4 == 0 else 1
@@ -360,7 +379,8 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     step, run = WALK["fast" if fast else "gaussian", bool(spec.pre)]
     run = min(run, h)
     plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran, 0,
-                     ydist, ysrc, np.zeros((0, 3, 4), np.int32), np.zeros((0, 4), np.int64))
+                     ydist, ysrc, np.zeros((0, 3, 4), np.int32), np.zeros((0, 4), np.int64),
+                     direct=direct)
     depth = hdepth = 1
     sched = []
     for y0 in range(0, h, run):
@@ -378,7 +398,7 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
         win = _round_up(int((windows[:, 1] - windows[:, 0]).max()) + 3 * fast, 4)
         hwin = _round_up(int((windows[:, 3] - windows[:, 2] + 1).max()), 4) if fast else 0
         smem = plan_smem(fast, spec.pre, r, cand, step, depth, hdepth, win, hwin, pitch,
-                         knee)
+                         knee, direct)
         if smem <= SMEM_MAX:
             break
     else:
@@ -444,7 +464,7 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
     y_map, x_maps = (np.ascontiguousarray(torch.as_tensor(m).cpu().numpy(), np.int32)
                      for m in (y_map, x_maps))
     fwd = fin = None
-    if spec.triad and not ocolor.triad_is_multiply(spec.triad_gamma, spec.triad_luma):
+    if triad_mode(spec) == 2:
         fwd, fin = ocolor.triad_tables(spec.triad_gamma, device)
     taps = None
     if spec.bloom and spec.fast:
@@ -557,7 +577,8 @@ def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     s = spec
     if s.triad:
         m = ocolor.apply_triad_planar(m, tri, s.triad_gamma, s.triad_luma, s.corder,
-                                      tables=(consts.lut_fwd, consts.lut_fin))
+                                      tables=(consts.lut_fwd, consts.lut_fin),
+                                      lut_exact=s.lut_exact)
     if s.scanlines:
         m = torch.clamp(m * (sl[:, None, :, None] if sl.ndim == 2 else sl[:, None]), 0.0, 1.0)
     if s.vignette:
@@ -623,6 +644,7 @@ class _FusedArgs(ctypes.Structure):
         ("vig_strength", ctypes.c_float),
         ("flicker_on", ctypes.c_int32),
         ("noise_on", ctypes.c_int32), ("noise_scale", ctypes.c_float),
+        ("tri_g", ctypes.c_float), ("tri_e", ctypes.c_float),
     ]
 
 
@@ -649,13 +671,14 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
         _check(n, t, tuple(ref.shape), torch.int32, dev) for n, t, ref in zip(
             ("ysrc", "segs", "runtab", "rowtab", "halftab"), consts.plan_tables,
             (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab)))
-    a.triad_mode = 0
-    if s.triad:
-        a.triad_mode = 1 if ocolor.triad_is_multiply(s.triad_gamma, s.triad_luma) else 2
-        if a.triad_mode == 2:
-            a.lut_fwd = _check("lut_fwd", consts.lut_fwd, (1025,), torch.float32, dev)
-            a.lut_fin = _check("lut_fin", consts.lut_fin, (1025,), torch.float32, dev)
-        a.luma_on = int(s.triad_luma)
+    a.triad_mode = triad_mode(s)
+    if a.triad_mode == 2:
+        a.lut_fwd = _check("lut_fwd", consts.lut_fwd, (1025,), torch.float32, dev)
+        a.lut_fin = _check("lut_fin", consts.lut_fin, (1025,), torch.float32, dev)
+    if a.triad_mode == 3:  # the exponents as ops/color.py's powf_rn and pow_final round them
+        a.tri_g = np.float32(s.triad_gamma)
+        a.tri_e = np.float32(1.0 / float(s.triad_gamma))
+    a.luma_on = int(s.triad and s.triad_luma)
     a.h, a.w = s.h, s.w
     a.emit_u8 = int(s.emit == "u8")
     a.pre_on = int(s.pre)

@@ -50,10 +50,10 @@ import numpy as np
 import torch
 
 from . import perf
-from .engine import CRTEngine, unsupported
+from .engine import CRTEngine
 from .io import video as vio
 from .params import EffectParams
-from .pipeline import _feeder, _get_or_stop, _put_or_stop, _writer_loop
+from .pipeline import _feeder, _get_or_stop, _put_or_stop, _writer_loop, planar_pipe_gate
 from .text import overlay_for
 
 OUT_POOL = 3  # pinned output batches per clip
@@ -189,12 +189,8 @@ def process_videos(
     Returns one ClipRenderResult per clip, in input order. A clip whose
     probe, decoder or encoder fails is marked failed without ending the
     others."""
-    why = unsupported(params, precision=precision)
-    if why:
-        raise NotImplementedError(why)
-    if pipe_format != "rgb24":
-        raise NotImplementedError(f"pipe_format {pipe_format!r} is not ported yet: "
-                                  "ROADMAP.md queue 1, pipeline: yuv420p decode")
+    if pipe_format not in ("rgb24", "yuv420p"):
+        raise ValueError(f"pipe_format must be 'rgb24' or 'yuv420p', got {pipe_format!r}")
     inputs = [Path(p) for p in inputs]
     outputs = [Path(p) for p in outputs]
     if len(inputs) != len(outputs):
@@ -233,7 +229,7 @@ def process_videos(
 
     perf.perf_reset()
     t_start = time.perf_counter()
-    planar = vio.find_ffmpeg() is not None
+    planar = planar_pipe_gate(pipe_format)  # the single-clip render's gate and layout
     text_rgba = overlay_for(out_w, out_h, params.text)
     with perf.timed("fx.compile"):
         from .parallel import MultiClipEngine
@@ -249,6 +245,7 @@ def process_videos(
         mc = MultiClipEngine(eng)
     dev, cuda = eng.device, eng.device.type == "cuda"
     fshape = eng._frame_shape()
+    pipe = "gbrp" if planar else pipe_format
     pix_fmt = "gbrp" if planar else "rgb24"
     depth = auto_steps_per_call(out_h, out_w, c, batch_size)  # decoded batches queued per clip
 
@@ -281,7 +278,7 @@ def process_videos(
                 # an unwritable output path fails this clip, not the batch
                 outp.parent.mkdir(parents=True, exist_ok=True)
                 readers[i] = vio.open_reader(str(inp), out_w, out_h, fps_out,
-                                             decoder_preference, pix_fmt)
+                                             decoder_preference, pipe)
             except Exception as e:
                 results[i].ok = False
                 results[i].error = f"open reader: {e}"

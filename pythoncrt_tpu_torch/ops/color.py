@@ -120,29 +120,39 @@ def triad_is_multiply(gamma: float, preserve_luma: bool) -> bool:
 
 
 def apply_triad_planar(imgs: torch.Tensor, mask: torch.Tensor, gamma: float,
-                       preserve_luma: bool, corder=(0, 1, 2),
-                       tables=None) -> torch.Tensor:
-    """LUT-exact triad on (B, 3, H, W) data. mask: (3, W), row i for
-    plane i. ``tables`` from ``triad_tables(gamma)`` (built when None)."""
+                       preserve_luma: bool, corder=(0, 1, 2), tables=None,
+                       lut_exact: bool = True) -> torch.Tensor:
+    """The triad on (B, 3, H, W) data. mask: (3, W), row i for plane i.
+
+    ``lut_exact`` True reads the 1024-bin tables (``tables`` from
+    ``triad_tables(gamma)``, built when None), the reference's bytes;
+    False is ``--precision fast``: both pow sites on the clipped values
+    themselves (``powf_rn``, then ``pow_final``), as the JAX package's
+    ``apply_triad(lut_exact=False)``."""
     m = mask[None, :, None, :]
     if triad_is_multiply(gamma, preserve_luma):
         return torch.clamp(imgs * m, 0.0, 1.0)
-    fwd, fin = tables if tables is not None else triad_tables(gamma, imgs.device)
-    lin = fwd[_quantize_index(imgs)]
+    if lut_exact:
+        fwd, fin = tables if tables is not None else triad_tables(gamma, imgs.device)
+        lin = fwd[_quantize_index(imgs)]
+    else:
+        lin = powf_rn(torch.clamp(imgs, 0.0, 1.0), gamma)
     out_lin = lin * m
     if preserve_luma:
         ratio = torch.clamp(rec709_luma(lin, corder, 1)
                             / torch.clamp(rec709_luma(out_lin, corder, 1), min=np.float32(1e-6)),
                             0.5, 2.0)
         out_lin = out_lin * ratio[:, None]
-    return torch.clamp(fin[_quantize_index(out_lin)], 0.0, 1.0)
+    if lut_exact:
+        return torch.clamp(fin[_quantize_index(out_lin)], 0.0, 1.0)
+    return torch.clamp(pow_final(torch.clamp(out_lin, 0.0, 1.0), 1.0 / float(gamma)), 0.0, 1.0)
 
 
 def apply_triad(img: torch.Tensor, mask: torch.Tensor, gamma: float,
-                preserve_luma: bool, tables=None) -> torch.Tensor:
+                preserve_luma: bool, tables=None, lut_exact: bool = True) -> torch.Tensor:
     """apply_triad_planar on (B, H, W, 3) data with a (W, 3) mask."""
     out = apply_triad_planar(img.permute(0, 3, 1, 2), mask.t(), gamma,
-                             preserve_luma, tables=tables)
+                             preserve_luma, tables=tables, lut_exact=lut_exact)
     return out.permute(0, 2, 3, 1)
 
 

@@ -13,20 +13,28 @@ an input buffer returns to its pool once the device has copied it, an
 output buffer once the encoder has written it.
 
 ``render_stream`` is the loop over any reader (``read_into(buf) ->
-bool``, ``out_h``, ``out_w``, optional ``frame_shape``, ``close()``) and
-writer (``write_frame(frame)``, ``close()``), the protocols of io/video.py;
-``process_video`` opens the codec ends around it.
+bool``, or ``iter_batches(B)`` as io/video.py's ChunkedParallelReader
+yields them; ``out_h``, ``out_w``, optional ``frame_shape``,
+``close()``) and writer (``write_frame(frame)``, ``close()``), the
+protocols of io/video.py; ``process_video`` opens the codec ends around
+it. With ``--segment-frames`` the encode thread writes segment files
+and journals each one with the persistence carry after its last batch
+(segments.py), and a later call resumes there: the reader seeks to the
+first frame not rendered and the stream continues from the snapshot,
+bit for bit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import queue
 import threading
 import time
 from collections import deque
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -34,9 +42,10 @@ import numpy as np
 import torch
 
 from . import perf
-from .engine import CRTEngine, unsupported
+from .engine import CRTEngine
 from .io import video as vio
 from .params import EffectParams
+from .segments import SegmentStore
 from .text import overlay_for
 
 DEFAULT_BATCH = 16
@@ -66,11 +75,15 @@ def _get_or_stop(q: queue.Queue, stop: threading.Event):
 
 def _feeder(reader, free: queue.Queue, out_q: queue.Queue, stop: threading.Event,
             start_idx: int, err: dict) -> None:
-    """Decode thread: fill free host batches frame by frame (read_into
-    writes straight into the pinned buffer) and hand them over in order
-    as (first frame index, buffer, frames filled). A decoder exception
-    is recorded in err["decode"], not turned into a fake end of stream."""
+    """Decode thread: fill free host batches and hand them over in order
+    as (first frame index, buffer, frames filled). A sequential reader's
+    read_into writes straight into the pinned buffer; a parallel reader's
+    batches (``iter_batches``, ChunkedParallelReader) are copied into it,
+    one host copy per batch, timed with the wait under io.decode. A
+    decoder exception is recorded in err["decode"], not turned into a
+    fake end of stream."""
     idx0 = start_idx
+    batches = None
     try:
         while not stop.is_set():
             buf = _get_or_stop(free, stop)
@@ -79,8 +92,17 @@ def _feeder(reader, free: queue.Queue, out_q: queue.Queue, stop: threading.Event
             arr = buf.numpy()
             got = 0
             with perf.timed("io.decode"):
-                while got < arr.shape[0] and reader.read_into(arr[got]):
-                    got += 1
+                if hasattr(reader, "iter_batches"):
+                    if batches is None:
+                        batches = reader.iter_batches(arr.shape[0])
+                    item = next(batches, None)
+                    if item is not None:
+                        idx0, frames = item
+                        got = frames.shape[0]
+                        arr[:got] = frames
+                else:
+                    while got < arr.shape[0] and reader.read_into(arr[got]):
+                        got += 1
             if got == 0 or not _put_or_stop(out_q, (idx0, buf, got), stop):
                 break
             idx0 += got
@@ -116,11 +138,92 @@ def _writer_loop(writer, in_q: queue.Queue, free: queue.Queue, progress,
         free.put(buf)
 
 
+@dataclass
+class SegmentRun:
+    """A segmented render's side of the encode thread (``--segment-frames``):
+    the store, the batch-aligned segment length, the first segment to
+    write and the frames already journaled, the segment writers' size,
+    rate and codec settings. ``box`` receives "segments" (the segments
+    committed) and "used_gpu"."""
+    store: SegmentStore
+    length: int
+    first: int
+    skip: int
+    w: int
+    h: int
+    fps: float
+    enc_kwargs: dict
+    box: dict = field(default_factory=dict)
+
+
+def _segment_writer_loop(seg: SegmentRun, in_q: queue.Queue, free: queue.Queue, progress,
+                         total_frames: int, err: dict) -> None:
+    """Encode thread, segment mode: a fresh segment writer every
+    seg.length frames; a completed segment commits (file close, then the
+    carry snapshot, then the journal line) before the next opens. Items
+    are (buffer, frames, snapshot or None); the sentinel ("eof",) commits
+    the partial tail, ("abort",) leaves it unjournaled for the resume to
+    render again."""
+    index, in_seg, written = seg.first, 0, seg.skip
+    cur = None
+
+    def close_seg(mark: bool, state=None) -> None:
+        nonlocal cur, index, in_seg
+        if cur is None:
+            return
+        cur.close()
+        if mark:
+            seg.store.mark_done(index, in_seg, state)
+            index += 1
+        cur, in_seg = None, 0
+
+    while True:
+        item = in_q.get()
+        if item is None or isinstance(item[0], str):
+            try:
+                close_seg(mark=item is not None and item[0] == "eof" and "encode" not in err)
+            except Exception as e:
+                err.setdefault("encode", e)
+            break
+        buf, got, snap = item
+        if "encode" not in err:
+            try:
+                with perf.timed("io.encode"):
+                    arr = buf.numpy()
+                    for i in range(got):
+                        if cur is None:
+                            cur, gpu = vio.open_writer(str(seg.store.seg_path(index)), seg.w,
+                                                       seg.h, seg.fps, **seg.enc_kwargs)
+                            seg.box.setdefault("used_gpu", gpu)
+                        cur.write_frame(arr[i])
+                        in_seg += 1
+                        written += 1
+                    # the length is batch-aligned: boundaries land on batch ends
+                    if in_seg >= seg.length:
+                        close_seg(True, None if snap is None else snap.numpy())
+                if progress is not None and total_frames > 0:
+                    progress(min(1.0, written / float(total_frames)))
+            except Exception as e:
+                err["encode"] = e
+        free.put(buf)
+    seg.box["segments"] = index
+
+
 def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAULT_BATCH,
                   start_idx: int = 0, total_frames: int = 0,
-                  progress_cb: Optional[Callable[[float], None]] = None) -> int:
+                  progress_cb: Optional[Callable[[float], None]] = None, state=None,
+                  segments: Optional[SegmentRun] = None, _fail_after_frames: int = 0) -> int:
     """Render every frame ``reader`` yields through ``engine`` into
-    ``writer`` (which the caller closes). Returns the frames rendered."""
+    ``writer`` (which the caller closes). Returns the frames rendered.
+
+    ``start_idx`` is the absolute index of the reader's first frame and
+    ``state`` the persistence carry before it (a segment resume: the
+    stream continues bit for bit). With ``segments`` the encode thread
+    writes segment files and journals them (``writer`` is unused), and
+    each batch that closes a segment carries a host copy of the state
+    after it, made on the stream before the next step runs.
+    ``_fail_after_frames`` is a test hook: the render fails once that
+    many frames were dispatched."""
     dev = engine.device
     cuda = dev.type == "cuda"
     fshape = tuple(getattr(reader, "frame_shape", (reader.out_h, reader.out_w, 3)))
@@ -142,15 +245,16 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
     err: dict = {}
     t_dec = threading.Thread(target=_feeder, daemon=True,
                              args=(reader, in_free, decode_q, stop, start_idx, err))
-    t_enc = threading.Thread(target=_writer_loop, daemon=True,
-                             args=(writer, encode_q, out_free, progress_cb,
-                                   total_frames, err))
+    loop, sink = (_writer_loop, writer) if segments is None else (_segment_writer_loop, segments)
+    t_enc = threading.Thread(target=loop, daemon=True,
+                             args=(sink, encode_q, out_free, progress_cb, total_frames, err))
     t_dec.start()
     t_enc.start()
     stream = torch.cuda.Stream(dev) if cuda else None
+    snapshots = segments is not None and engine.params.persistence_on
     pending: deque = deque()
     frames = 0
-    state = None
+    clean = False
 
     def check_encoder(running: bool = True):
         if "encode" in err:
@@ -159,13 +263,13 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
             raise RuntimeError("encoder thread died")
 
     def retire():
-        ev, buf, out_buf, got = pending.popleft()
+        ev, buf, out_buf, got, snap = pending.popleft()
         if ev is not None:
             with perf.timed("fx.device_wait"):
                 ev.synchronize()
         in_free.put(buf)
         check_encoder()
-        encode_q.put((out_buf, got))
+        encode_q.put((out_buf, got) if segments is None else (out_buf, got, snap))
 
     try:
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
@@ -185,25 +289,46 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
                     x = buf[:got].to(dev, non_blocking=True)
                     out, state = engine.process(x, np.arange(idx0, idx0 + got), state)
                     out_buf[:got].copy_(out, non_blocking=True)
+                    snap = None
+                    if snapshots and (idx0 + got) % segments.length == 0:
+                        # the carry after the batch that closes a segment,
+                        # copied before the next step can replace it
+                        snap = torch.empty(state.shape, dtype=state.dtype, pin_memory=cuda)
+                        snap.copy_(state, non_blocking=True)
                     ev = None
                     if cuda:
                         ev = torch.cuda.Event()
                         ev.record(stream)
-                pending.append((ev, buf, out_buf, got))
+                pending.append((ev, buf, out_buf, got, snap))
                 frames += got
                 if len(pending) > 1:
                     retire()
+                if _fail_after_frames and frames >= _fail_after_frames:
+                    raise RuntimeError("injected failure (test hook)")
             while pending:
                 retire()
+            clean = True
     finally:
         stop.set()
-        encode_q.put(None)
+        if segments is None:
+            encode_q.put(None)
+        else:
+            encode_q.put(("eof",) if clean else ("abort",))
         t_enc.join(timeout=120)
         t_dec.join(timeout=30)
     check_encoder(running=False)
     if "decode" in err:
         raise RuntimeError("decode failed") from err["decode"]
     return frames
+
+
+def planar_pipe_gate(pipe_format: str) -> bool:
+    """Whether ffmpeg pipes both ends as planar gbrp and the engine runs
+    planar (pythoncrt_tpu/pipeline.py planar_pipe_gate): an rgb24 request
+    with an ffmpeg binary present. process_video and
+    multiclip.process_videos take the same gate, so the batch path renders
+    in the single-clip path's layout. yuv420p runs NHWC."""
+    return pipe_format == "rgb24" and vio.find_ffmpeg() is not None
 
 
 def process_video(
@@ -227,24 +352,30 @@ def process_video(
     assoc_scan: bool = False,
     precision: str = "exact",
     pipe_format: str = "rgb24",
+    decode_workers: int = 1,
+    segment_frames: int = 0,
     device="cuda",
     progress_cb: Optional[Callable[[float], None]] = None,
     report: bool = True,
     profile_dir: Optional[str] = None,
+    _fail_after_frames: int = 0,
 ) -> bool:
     """Render ``input_path`` through the effect chain to ``output_path``.
 
     Arguments as the JAX package's process_video (crt_filter.py:864-912
     semantics: width/height/fps of None keep the source values). When an
     ffmpeg binary pipes both ends, frames travel as planar gbrp and the
-    engine runs in that layout (no host repack). Returns whether a
-    hardware encoder was used."""
-    why = unsupported(params, precision=precision)
-    if why:
-        raise NotImplementedError(why)
-    if pipe_format != "rgb24":
-        raise NotImplementedError(f"pipe_format {pipe_format!r} is not ported yet: "
-                                  "ROADMAP.md queue 1, pipeline: yuv420p decode")
+    engine runs in that layout (no host repack; planar_pipe_gate).
+    ``pipe_format`` "yuv420p" decodes a half-size pipe and converts on
+    the host (NHWC; without an ffmpeg binary the OpenCV tier decodes).
+    ``decode_workers`` above 1 decodes seek-positioned chunks in parallel
+    (io.video.ChunkedParallelReader). ``segment_frames`` above 0 writes
+    batch-aligned segments with a resume journal (segments.py) and
+    assembles them at the end; the same call after a crash resumes at the
+    first unfinished segment. ``_fail_after_frames`` is a test hook that
+    injects a crash. Returns whether a hardware encoder was used."""
+    if pipe_format not in ("rgb24", "yuv420p"):
+        raise ValueError(f"pipe_format must be 'rgb24' or 'yuv420p', got {pipe_format!r}")
     input_path, output_path = Path(input_path), Path(output_path)
     info = vio.probe_clip(input_path)
     out_w = int(width) if width else info.width
@@ -254,7 +385,7 @@ def process_video(
 
     perf.perf_reset()
     t_start = time.perf_counter()
-    planar = vio.find_ffmpeg() is not None
+    planar = planar_pipe_gate(pipe_format)
     text_rgba = overlay_for(out_w, out_h, params.text)
     with perf.timed("fx.compile"):
         eng = CRTEngine(params, out_h, out_w, fps_out, engine=engine_mode, rng=rng,
@@ -266,18 +397,47 @@ def process_video(
             from .kernels import _build
 
             _build.library()  # nvcc at first use, charged here
+    pipe = "gbrp" if planar else pipe_format
+    out_fmt = "gbrp" if planar else "rgb24"
+    enc = dict(encoder_preference=encoder_preference, gpu=gpu, crf=crf,
+               bitrate_kbps=target_bitrate_kbps, nvenc_preset=nvenc_preset)
     audio_path = vio.extract_audio(input_path)
     output_path.parent.mkdir(parents=True, exist_ok=True)
-    writer = reader = None
-    frames = 0
+    writer = reader = seg = state = None
+    used_gpu = False
+    skip = frames = 0
     try:
-        writer, used_gpu = vio.open_writer(
-            str(output_path), out_w, out_h, fps_out,
-            encoder_preference=encoder_preference, gpu=gpu, crf=crf,
-            bitrate_kbps=target_bitrate_kbps, nvenc_preset=nvenc_preset,
-            audio_path=audio_path, pix_fmt="gbrp" if planar else "rgb24")
-        reader = vio.open_reader(str(input_path), out_w, out_h, fps_out,
-                                 decoder_preference, "gbrp" if planar else "rgb24")
+        if segment_frames > 0:
+            # batch-aligned: boundaries land on batch ends, so the carry
+            # snapshot travels with the batch that closes a segment
+            seg_len = max(batch_size, -(-int(segment_frames) // batch_size) * batch_size)
+            # the JAX package's signature (the carry is in the engine's
+            # layout) and the package that wrote the journal: a journal of
+            # the JAX package starts afresh (its native rng draws others)
+            store = SegmentStore(output_path, {
+                "impl": "pythoncrt_tpu_torch", "w": out_w, "h": out_h, "fps": fps_out,
+                "seg": seg_len, "engine": engine_mode, "rng": rng, "seed": seed,
+                "precision": precision, "layout": eng.layout,
+                "params": dataclasses.asdict(params.clamped())})
+            first, skip, snap = store.resume()
+            store.begin(first)
+            state = None if snap is None else torch.from_numpy(snap)
+            # audio is muxed at the merge
+            seg = SegmentRun(store, seg_len, first, skip, out_w, out_h, fps_out,
+                             dict(enc, audio_path=None, pix_fmt=out_fmt))
+        else:
+            writer, used_gpu = vio.open_writer(str(output_path), out_w, out_h, fps_out,
+                                               audio_path=audio_path, pix_fmt=out_fmt, **enc)
+        # opened at the resume point: the decoder seeks to the first
+        # frame not yet rendered
+        if decode_workers > 1 and info.duration > 0:
+            reader = vio.ChunkedParallelReader(
+                str(input_path), out_w, out_h, fps_out, total_frames, batch_size,
+                workers=decode_workers, decoder_preference=decoder_preference,
+                pipe_format=pipe, start_frame=skip)
+        else:
+            reader = vio.open_reader(str(input_path), out_w, out_h, fps_out,
+                                     decoder_preference, pipe, start_frame=skip)
         prof = contextlib.nullcontext()
         if profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -285,11 +445,18 @@ def process_video(
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
         with prof:
-            frames = render_stream(reader, writer, eng, batch_size=batch_size,
-                                   total_frames=total_frames, progress_cb=progress_cb)
+            frames = render_stream(reader, writer, eng, batch_size=batch_size, start_idx=skip,
+                                   total_frames=total_frames, progress_cb=progress_cb,
+                                   state=state, segments=seg,
+                                   _fail_after_frames=_fail_after_frames)
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        if seg is not None:
+            with perf.timed("io.merge"):
+                seg.store.merge(seg.box.get("segments", seg.first), out_w, out_h, fps_out,
+                                audio_path=audio_path, enc_kwargs=enc)
+            used_gpu = bool(seg.box.get("used_gpu", False))
     finally:
         if reader is not None:
             reader.close()
@@ -299,6 +466,7 @@ def process_video(
             with contextlib.suppress(OSError):
                 os.unlink(audio_path)
     if report:
+        # the frames rendered by this call (a resume skips the journaled ones)
         perf.perf_report(total_frames=frames,
                          total_seconds=time.perf_counter() - t_start)
     if progress_cb is not None:

@@ -1,5 +1,5 @@
-"""The stand-alone blooms' and the warp's kernels timed on one GPU, for an
-A/B of two trees.
+"""The stand-alone blooms', the warp's and the fused kernels timed on one
+GPU, for an A/B of two trees.
 
     python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep [walk|fast]]
 
@@ -18,7 +18,16 @@ built (default: this script's own; an earlier commit unpacked with
 - warp_planar on c3's fused output (uint8 emit) and on c3-angled's
   staged output with text after the warp (f32 emit), each with the
   engine's own tables, the uint8 emit again at strength 1.0, and
-  grid_sample on c3's operands (the library call).
+  grid_sample on c3's operands (the library call);
+- the fused kernel on the engine's own operands (host rng) for the CLI
+  defaults (fast core), c3 (gaussian core, radius 4), c4-text (text
+  before the bloom: the f32-input mode) and the CLI defaults with
+  ``--no-fast-bloom --bloom-sigma 11`` (radius 33, taps from shared
+  memory), each with ``precision="exact"`` (the 1024-bin triad tables)
+  and ``"fast"`` (the direct-pow triad; a tree without it records the
+  refusal); and a digest of each fused instantiation's SASS (its
+  instructions, without the kernel's name and the encodings), so that
+  two trees' instantiations can be held equal.
 
 Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
 per frame, the bytes bound (inputs and outputs once, tables once, at
@@ -38,6 +47,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +71,11 @@ PATHS = {  # path -> (params, opt-in variables)
 }
 OPTIN_VARS = ("PCRT_BLOOM2_GAUSS", "PCRT_BLOOM2_FAST", "PCRT_PALLAS_BLOOM")
 SIGMAS = {"r31": 31 / 3, "s11": 11.0, "s20": 20.0}
+C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_strength=0.25,
+          fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
+          pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3, scanline_speed_px_s=120.0)
+FUSED = {"defaults": ({}, False), "c3": (C3, False), "c4-text": (C4, True),  # params, text
+         "defaults-s11": (dict(fast_bloom=False, bloom_sigma=11.0), False)}
 
 
 @contextlib.contextmanager
@@ -93,6 +108,25 @@ def events_ms(fn, repeats: int = 5, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+def fused_sass(lib_path: str, nvcc: str) -> dict:
+    """sha256 of each fused_strip_kernel instantiation's SASS in the
+    built library, keyed "core/radius/f32-input/direct" from its mangled
+    name (a tree without the direct-pow triad has no fourth argument)."""
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib_path],
+                          check=True, capture_output=True, text=True, timeout=300).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name, _, body = fn.partition("\n")
+        m = re.search(r"fused_strip_kernelILi(\d)ELi(n?\d+)ELb(\d)E(?:Lb(\d)E)?", name)
+        if m:
+            code = [ln.split("*/", 1)[1].split(";")[0].strip() for ln in body.splitlines()
+                    if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
+            key = "/".join((*m.groups()[:3], m.group(4) or "0"))
+            out[key] = dict(instructions=len(code), sha256=hashlib.sha256(
+                "\n".join(code).encode()).hexdigest()[:16])
+    return out
+
+
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
@@ -121,8 +155,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     built = time.perf_counter() - t0
+    sass = fused_sass(lib._name, _build.find_nvcc())
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 256, (B, 3, H, W), dtype=np.uint8)).cuda()
     feeds = {}
@@ -223,6 +258,22 @@ def main() -> int:
             H, W, sigma, eng.bloom_spec.strength, eng.bloom_spec.threshold)
         return case(lambda: kbloom.bloom_planar(feed, spec), feed)
 
+    def fused_case(params, text, precision):
+        p = EffectParams(**params, **(dict(text=TextParams(text="PLAY", size=48, after=False))
+                                      if text else {}))
+        eng = CRTEngine(p, H, W, 24.0, rng="host", precision=precision, layout="planar",
+                        channel_order="gbr", device="cuda", text_rgba=ov if text else None)
+        feed = x if eng.spec.pre else eng._pre_bloom(x).contiguous()
+        kw = eng.fused_operands(eng.make_aux(aux_idx))
+        fn = lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)  # noqa: E731
+        out = fn()
+        torch.cuda.synchronize()
+        ms = events_ms(fn)
+        return dict(ms=ms, ms_per_frame=ms / B, sha256=digest(out))
+
+    for cfg, (params, text) in FUSED.items():
+        for precision in ("exact", "fast"):
+            run(f"fused_{cfg}_{precision}", lambda: fused_case(params, text, precision))
     run("bloom3_planar", lambda: bloom3_case(None))
     run("bloom3_fast_planar", bloom3_fast_case)
     run("warp_planar", lambda: warp_case("u8"))
@@ -285,7 +336,7 @@ def main() -> int:
         kwalk.walk_plan.cache_clear()
 
     out = dict(tag=a.tag, tree=os.path.abspath(a.tree), card=card, build_s=built,
-               torch=torch.__version__, results=results, sweep=sweep)
+               torch=torch.__version__, results=results, sweep=sweep, fused_sass=sass)
     os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
     with open(a.out, "w") as f:
         json.dump(out, f, indent=1)

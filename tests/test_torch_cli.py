@@ -2,7 +2,8 @@
 refusals for what the port does not run, the render loop against
 CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
 CLI defaults and c4, export and preview; 2-D scanlines and text
-overlays)."""
+overlays; --precision fast, --segment-frames, --decode-workers,
+--pipe-format yuv420p and --check-deps in a fresh interpreter each)."""
 
 import os
 import subprocess
@@ -74,11 +75,40 @@ def test_port_imports_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,kw,item", [
-    ({}, dict(precision="fast"), "precision fast"),
+    ({}, dict(precision="medium"), "precision must be"),
 ])
 def test_out_of_slice_configs_raise(overrides, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Precision "fast" renders now (test_torch_precision.py); a precision
+    the JAX engine does not have is refused as it refuses it."""
+    with pytest.raises(ValueError, match=item):
         CRTEngine(identity_params(**overrides), H, W, FPS, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--precision", "fast"], ["--segment-frames", "2"], ["--decode-workers", "2"],
+    ["--pipe-format", "yuv420p"], ["--check-deps"],
+], ids=["precision_fast", "segment_frames", "decode_workers", "yuv420p", "check_deps"])
+def test_ported_flags_render_without_jax(tmp_path, flags):
+    """Each flag the port now runs renders 4 frames through cli.main (or,
+    --check-deps, reports and exits 0) in a fresh interpreter that loads
+    no module of JAX or of the JAX package."""
+    inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
+    write_clip(inp, n=4)
+    code = ("import sys, pythoncrt_tpu_torch.cli as c; "
+            f"rc = c.main(['--input', {str(inp)!r}, '--output', {str(out)!r}, *{flags!r}, "
+            "'--device', 'cpu', '--batch-size', '2', '--persistence', '0.5']); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'pythoncrt_tpu')); "
+            "print('rc', rc, 'loaded', bad); sys.exit(rc or (1 if bad else 0))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (flags, res.stdout + res.stderr)
+    assert "rc 0 loaded []" in res.stdout
+    if flags == ["--check-deps"]:
+        assert not out.exists()
+        assert "all dependencies present" in res.stdout or "missing (optional)" in res.stdout
+    else:
+        assert count_frames(out) == 4 and "perf frames 4" in res.stdout
 
 
 @pytest.mark.parametrize("overrides", [
@@ -99,8 +129,7 @@ def test_formerly_refused_configs_render(overrides):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--gui"], ["--segment-frames", "64"],
-    ["--precision", "fast"], ["--pipe-format", "yuv420p"], ["--decode-workers", "4"],
+    ["--devices", "2"], ["--gui"], ["--steps-per-call", "2"],
 ])
 def test_out_of_slice_flags_exit_2(flags, capsys):
     assert cli.main(["--input", "x.mp4", *flags]) == 2

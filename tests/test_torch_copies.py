@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's host modules (params,
 oracle, the CLI parser, io.video's helpers, the perf report, the text
-rasterizer, the batch journal and the multi-clip helpers) against the
+rasterizer, the batch journal, the multi-clip helpers, the segment
+store, the dependency report, the native host I/O and the parallel
+reader) against the
 originals: the same flags and defaults, the same fields, clamps and
 preset semantics, and equal results on seeded inputs (bitwise: the
 copies run the same NumPy code)."""
@@ -293,3 +295,82 @@ def test_multiclip_helpers_are_the_same():
         with pytest.raises(ValueError, match="differ"):
             mod._resolve_output_rate([SimpleNamespace(fps=24.0), SimpleNamespace(fps=25.0)],
                                      [0, 1], None)
+
+
+def seeded_store_ops(store_cls, root, seed):
+    """One seeded history of a segment journal, applied to a store of
+    ``store_cls``: segments committed (some with a carry snapshot), a
+    segment file removed, a torn last line; returns what resume() says."""
+    rng = np.random.default_rng(seed)
+    sig = {"w": 64, "params": {"persistence": float(rng.choice([0.0, 0.5]))}}
+    st = store_cls(root / "o.mp4", sig)
+    st.resume()
+    n = int(rng.integers(1, 6))
+    for i in range(n):
+        st.seg_path(i).write_bytes(b"x")
+        snap = rng.random((3, 4, 5), dtype=np.float32) if rng.integers(2) else None
+        st.mark_done(i, int(rng.integers(1, 9)), snap)
+    if rng.integers(2):
+        st.seg_path(int(rng.integers(n))).unlink()
+    if rng.integers(2):
+        with open(st.journal, "a") as f:
+            f.write('{"seg": ')
+    nxt, skip, state = store_cls(root / "o.mp4", sig).resume()
+    return nxt, skip, None if state is None else state.tolist()
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("module", ["segments", "bootstrap", "native", "parallel_reader"])
+def test_copied_host_modules_agree(tmp_path, module, seed):
+    """The port's copies of segments.py, bootstrap.py, native/ and io.video's
+    ChunkedParallelReader against the originals on seeded inputs: the
+    same resume of the same journal history, the same dependency report
+    (torch in place of jax), the same converted bytes, the same batches."""
+    rng = np.random.default_rng(seed)
+    if module == "segments":
+        from pythoncrt_tpu import segments as jseg
+        from pythoncrt_tpu_torch import segments as tseg
+
+        (tmp_path / "j").mkdir()
+        (tmp_path / "t").mkdir()
+        assert seeded_store_ops(tseg.SegmentStore, tmp_path / "t", seed) \
+            == seeded_store_ops(jseg.SegmentStore, tmp_path / "j", seed)
+    elif module == "bootstrap":
+        from pythoncrt_tpu import bootstrap as jboot
+        from pythoncrt_tpu_torch import bootstrap as tboot
+
+        assert tboot._OPTIONAL == jboot._OPTIONAL
+        assert [e if e[0] != "torch" else ("jax", "jax", "the TPU/XLA engine")
+                for e in tboot._CORE] == list(jboot._CORE)
+        pick = lambda entries: tuple(e for e in entries if rng.integers(2))  # noqa: E731
+        core, opt = pick(jboot._CORE[:1] + jboot._CORE[2:]), pick(jboot._OPTIONAL)
+        assert tboot.DepReport(core, opt).render() == jboot.DepReport(core, opt).render()
+        assert tboot.DepReport(core, opt).ok == jboot.DepReport(core, opt).ok
+    elif module == "native":
+        from pythoncrt_tpu import native as jnative
+        from pythoncrt_tpu_torch import native as tnative
+
+        w, h = 2 * int(rng.integers(1, 40)), 2 * int(rng.integers(1, 30))
+        src = rng.integers(0, 256, w * h * 3 // 2, dtype=np.uint8).tobytes()
+        np.testing.assert_array_equal(tnative.yuv420p_to_rgb24(src, w, h),
+                                      jnative.yuv420p_to_rgb24(src, w, h))
+    else:
+        pytest.importorskip("cv2")
+        frames = rng.integers(0, 256, (int(rng.integers(5, 14)), 32, 48, 3), dtype=np.uint8)
+        path = str(tmp_path / "c.mp4")
+        wr, _ = tvideo.open_writer(path, 48, 32, 24.0)
+        for f in frames:
+            wr.write_frame(f)
+        wr.close()
+        b, start = int(rng.integers(1, 5)), int(rng.integers(0, 6))
+        kw = dict(total_frames=len(frames) + int(rng.integers(-2, 3)), batch_size=b,
+                  workers=int(rng.integers(1, 4)), chunk_batches=int(rng.integers(1, 3)),
+                  start_frame=start)
+        got, want = [], []
+        for mod, out in ((tvideo, got), (jvideo, want)):
+            par = mod.ChunkedParallelReader(path, 48, 32, 24.0, **kw)
+            out += [(i, np.array(x)) for i, x in par.iter_batches(b)]
+            par.close()
+        assert [i for i, _ in got] == [i for i, _ in want]
+        assert all(np.array_equal(x, y) for (_, x), (_, y) in zip(got, want))
+        assert sum(len(x) for _, x in got) == len(frames) - start

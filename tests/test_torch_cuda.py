@@ -13,7 +13,10 @@ double, as the twins do), so fused f32 outputs agree to 2e-6 and uint8
 outputs to 1 LSB; the stand-alone blooms' row walk (csrc/bloom_walk.cu:
 bloom3's gaussian and fast bloom, the stripe, bloom2), the warp, the
 persistence scan (its multi-clip mode too) and the glitch shear are
-bitwise."""
+bitwise. The fused kernel's direct-pow triad (``--precision fast``,
+triad_mode 3) is held to the same 2e-6 / 1 LSB in every instantiation
+(gaussian at r = 4, a runtime radius and past 31; fast; f32 input) and
+the split route, and the whole step with it to the CPU step."""
 
 import numpy as np
 import pytest
@@ -558,3 +561,88 @@ def test_multiclip_engine_on_card(cuda_dev, layout):
     d = (og.int() - oc.int()).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
     assert (sg - sc).abs().max().item() <= 2e-6
+
+
+# --precision fast (triad_mode 3): every instantiation of the fused kernel
+# (GAUSS at r = 4, at a runtime radius and past 31; FAST; the f32-input
+# mode) and the split route, gamma 1.1 and 2.2, the triad luma on and off
+FAST_CORES = {"gauss_r4": C3, "gauss_r12": {**C3, "bloom_sigma": 4.0},
+              "gauss_big": VARIANTS["s11"], "fast": VARIANTS["c4"],
+              "fast_knee": VARIANTS["fast_knee_px3"],
+              # text before the bloom: the f32-input instantiations
+              "gauss_r4_f32": C3, "fast_f32": VARIANTS["c4"]}
+FAST_SHAPES = [(2, 45, 251), (1, 7, 9), (2, 33, 130), (8, 1080, 1920)]
+FAST_IDS = ["odd", "tiny", "ragged_strip", "1080p"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAST_SHAPES, ids=FAST_IDS)
+@pytest.mark.parametrize("luma", [False, True], ids=["luma_off", "luma_on"])
+@pytest.mark.parametrize("gamma", [1.1, 2.2])
+@pytest.mark.parametrize("core", sorted(FAST_CORES))
+def test_fused_direct_pow_triad_matches_twin(cuda_dev, core, gamma, luma, shape):
+    """triad_mode 3 against its twin: f32 within 2e-6, uint8 within 1 LSB
+    (the exact mode's contract), one launch."""
+    b, h, w = shape
+    over = {**FAST_CORES[core], "triad_gamma": gamma, "triad_preserve_luma": luma}
+    text = {}
+    if core.endswith("_f32"):
+        over["text"] = TextParams(text="T", after=False)
+        text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
+    eng = CRTEngine(EffectParams(**over), h, w, 24.0, rng="host", precision="fast",
+                    layout="planar", channel_order="gbr", device=cuda_dev, **text)
+    assert kfused.triad_mode(eng.spec) == 3 and eng.spec.pre == (not core.endswith("_f32"))
+    assert eng.fused_tables.lut_fwd is None and not eng.fused_tables.plan.split
+    x = frames(b, h, w, cuda_dev)
+    feed = x if eng.spec.pre else eng._pre_bloom(x)
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    n0 = kfused.launches
+    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    torch.cuda.synchronize()
+    assert kfused.launches == n0 + 1
+
+    def twin(i, j):
+        return kfused.fused_pipeline_ref(
+            feed[i:j], eng.spec, eng.fused_tables,
+            **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
+    assert_fused_close(got, twin, b, eng.spec.emit == "u8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [True, False])
+def test_fused_split_route_direct_pow(cuda_dev, pre):
+    """The three-launch route with the direct-pow triad: its epilogue
+    launch runs triad_mode 3, bit for bit the twin's one-pixel frames."""
+    spec = kfused.build_fused_spec(1, 1, sigma=15000 / 3, strength=0.6, threshold=0.2, px=1,
+                                   ab=1, pre=pre, triad=True, triad_luma=True, scanlines=True,
+                                   noise=True, noise_scale=0.01, emit="u8", corder=(1, 2, 0),
+                                   lut_exact=False)
+    consts = kfused.fused_consts(spec, cuda_dev)
+    assert consts.plan.split and kfused.triad_mode(consts.split[3]) == 3
+    g = torch.Generator(device=cuda_dev).manual_seed(17)
+    x = (torch.randint(0, 256, (3, 3, 1, 1), generator=g, device=cuda_dev, dtype=torch.uint8)
+         if pre else torch.rand((3, 3, 1, 1), generator=g, device=cuda_dev))
+    kw = dict(grain=torch.randn((3, 1, 1), generator=g, device=cuda_dev),
+              sl=torch.rand((3, 1), generator=g, device=cuda_dev),
+              tri=torch.rand((3, 1), generator=g, device=cuda_dev))
+    got = kfused.fused_pipeline(x, spec, consts, **kw)
+    torch.cuda.synchronize()
+    want = kfused.fused_pipeline_ref(x, spec, consts, **kw)
+    assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c3", "defaults", "c4", "luma_knee_px3"])
+def test_fast_engine_on_card_matches_cpu(cuda_dev, name):
+    """The whole step with precision fast on the card against the CPU step,
+    two batches, state carried: <= 1 LSB on fewer than 1e-3 of values."""
+    p = EffectParams(**VARIANTS[name])
+    x = np.random.default_rng(2).integers(0, 256, (6, 90, 250, 3), dtype=np.uint8)
+    outs = []
+    for dev in (cuda_dev, "cpu"):
+        eng = CRTEngine(p, 90, 250, 24.0, rng="host", precision="fast", device=dev)
+        a, st = eng.process(x[:3], np.arange(3))
+        b, st = eng.process(x[3:], np.arange(3, 6), st)
+        outs.append(torch.cat([a, b]).cpu().int())
+    d = (outs[0] - outs[1]).abs()
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3

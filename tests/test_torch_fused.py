@@ -109,11 +109,14 @@ def test_fused_u8_emit_matches_jax_kernel():
 
 
 def test_fused_spec_refuses_out_of_slice():
-    """precision fast (lut_exact=False) is still refused; the f32-input
+    """precision fast (lut_exact=False) builds the direct-pow triad
+    (triad_mode 3, no tables); an unknown emit is refused; the f32-input
     mode (pre=False, text before the bloom) builds and renders."""
     p = identity_params(**CASES["c4_fast"][0])
-    with pytest.raises(NotImplementedError, match="precision fast"):
-        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "lut_exact": False})
+    fast = tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "lut_exact": False})
+    assert tfused.triad_mode(fast) == 3 and tfused.fused_consts(fast).lut_fwd is None
+    with pytest.raises(ValueError, match="emit"):
+        tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "emit": "bf16_255"})
     spec = tfused.build_fused_spec(H, W, **{**spec_kwargs(p), "pre": False, "noise": False})
     assert spec.pre is False
     x = torch.rand((B, 3, H, W), generator=torch.Generator().manual_seed(1))

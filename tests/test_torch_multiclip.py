@@ -250,10 +250,18 @@ def test_process_videos_bad_clips_fail_alone(clip_set, tmp_path, monkeypatch):
 
 
 def test_process_videos_refusals(clip_set, tmp_path):
+    """yuv420p and precision fast render in lockstep now (yuv420p takes
+    the OpenCV tier without an ffmpeg binary); an unknown pipe format and
+    clips of different sizes without an explicit size are refused."""
     outs = [tmp_path / "r0.mp4", tmp_path / "r1.mp4"]
     for kw in (dict(pipe_format="yuv420p"), dict(precision="fast")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            process_videos(clip_set[:2], outs, params(), device="cpu", report=False, **kw)
+        res = process_videos(clip_set[:2], outs, params(), batch_size=4, device="cpu",
+                             report=False, **kw)
+        assert all(r.ok for r in res), [r.error for r in res]
+        assert [read_clip(o).shape[0] for o in outs] == list(LENGTHS[:2])
+    with pytest.raises(ValueError, match="pipe_format"):
+        process_videos(clip_set[:2], outs, params(), device="cpu", report=False,
+                       pipe_format="gbrp")
     b = write_clip(tmp_path / "b.mp4", synth_frames(3, 32, 48))
     with pytest.raises(ValueError, match="sizes differ"):
         process_videos([clip_set[0], b], outs, params(), device="cpu", report=False)
