@@ -35,7 +35,12 @@ Phases (each must pass; any failure exits non-zero):
    defaults, c3, c4-text and sigma 11, each with the LUT-exact mode timed
    in turn on the same operands; its FP64 operations per value are
    counted by running its two sites, compiled alone and instrumented at
-   each basic block, on values over (0, 1].
+   each basic block, on values over (0, 1]. Then the GUI preview's
+   kernels at its shapes (one frame at 960x540, the preview engine with
+   host rng, persistence zeroed, addressed by time): the fused kernel
+   (the CLI defaults' fast core, c3's gaussian core, c4-text's f32
+   input), the warp (c3), the glitch shear with the preview's offsets
+   (c4) and bloom3 (c3-angled gaussian, defaults-angled fast).
    The row walk's rows (the fast bloom's too) and the warp's are bit for
    bit their twins.
    Max abs error, CUDA-event time per call of the kernel,
@@ -87,8 +92,22 @@ Phases (each must pass; any failure exits non-zero):
    path's run (the counts are set to 0 just before it; c5 must launch
    the persistence kernel in its multi-clip mode). The text is
    rasterized by PIL when the host has it, else a seeded synthetic
-   overlay takes its place (the line says which). Then the engine step
-   alone per path (c5 at 3840x2160).
+   overlay takes its place (the line says which).
+   Then the GUI slice: ``gui_qt.render_preview_frame`` (the window's
+   preview call) on the card, 8 stateful ticks each of the CLI defaults,
+   c3, c4, c3-angled, defaults-angled and c4-text from 1920x1080 frames
+   (fitted to 960x540) and of c3 from 853x480 frames, each within 1 LSB
+   of the ``PCRT_PREVIEW_ENGINE=0`` oracle path with the fraction of
+   values off printed, and fewer than 1e-3 off on the ticks that blend
+   no uint8 frame (every tick without persistence, the first with it),
+   the preview kernels launched, ms per tick beside
+   the oracle's, and the first-tick, cache-miss, cache-hit,
+   persistence-slider and evicted-preset times; the window's export
+   worker (``gui_qt.run_render_job``, c4) and ``compat.process_video``
+   (the CLI defaults) each render 16 frames on the card; ``--gui``
+   exits 3 where PySide6 is absent (the window itself is tested under a
+   stub on the CPU). Then the engine step alone per path (c5 at
+   3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -100,6 +119,7 @@ script alone in a directory) it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -190,6 +210,19 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "bloom_stripe_s11": 272, "bloom_stripe_s20": 490,
                  "bloom2_planar_s11": 272, "bloom2_planar_s20": 490}
 DIRECT_F32_LESS = 7
+# the GUI's live preview: one frame per tick at the preview size of a
+# 1920x1080 source (960x540), and of an 853x480 (FWVGA) source, which the
+# fit leaves as it is (a 1280x720 source fits to 960x540 exactly); the
+# preview engine's fps (gui_qt); 8 stateful ticks of a 24 fps source
+PREVIEW_HW, PREVIEW_ODD, PREVIEW_FPS, N_TICKS = (540, 960), (480, 853), 30.0, 8
+# its configurations (scripts/port_preview_profile.py reads them too):
+# name -> (EffectParams kwargs, TextParams kwargs or None)
+PREVIEW_CONFIGS = {"defaults": ({}, None), "c3": (C3, None), "c4": (C4, None),
+                   "c3-angled": (C3_ANGLED, C3_ANGLED_TEXT),
+                   "defaults-angled": (DEF_ANGLED, None), "c4-text": (C4, C4_TEXT)}
+OPS_PER_VALUE.update({f"{k}_preview": OPS_PER_VALUE[k] for k in (
+    "fused_pipeline", "fused_pipeline_gaussian", "fused_pipeline_f32in", "warp_planar",
+    "bloom3_planar", "bloom3_fast_planar")}, glitch_shear_preview=0)
 
 
 def fail(msg: str) -> None:
@@ -645,10 +678,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    configs = {"defaults": EffectParams(), "c4": EffectParams(**C4), "c3": EffectParams(**C3),
-               "c3-angled": EffectParams(**C3_ANGLED, text=TextParams(**C3_ANGLED_TEXT)),
-               "defaults-angled": EffectParams(**DEF_ANGLED),
-               "c4-text": EffectParams(**C4, text=TextParams(**C4_TEXT)),
+    configs = {**{k: EffectParams(**kw, text=TextParams(**(text or {})))
+                  for k, (kw, text) in PREVIEW_CONFIGS.items()},
                "c3-bloom2": EffectParams(**C3), "defaults-bloom2": EffectParams(),
                "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4),
                "defaults-s11": EffectParams(fast_bloom=False, bloom_sigma=11.0),
@@ -1100,6 +1131,108 @@ def main() -> int:
     del imgs5, states5, got, gst, eng5
     torch.cuda.empty_cache()
 
+    # the GUI preview's kernels at its shapes: one frame at 960x540 (the
+    # fit of a 1080p source), the preview engine (host rng and the
+    # time-seeded grain, the preview glitch, persistence zeroed: the
+    # preview blends on the host), addressed by time
+    ph_, pw_ = PREVIEW_HW
+    xp = torch.from_numpy(np.ascontiguousarray(
+        synth(1, ph_, pw_, seed=8).transpose(0, 3, 1, 2))).to(dev)
+    ov_p, t_p = synth_overlay(ph_, pw_, seed=4), 0.4567
+
+    def preview_step(cfg):
+        """A preview engine of cfg and the per-frame inputs of one tick."""
+        p = dataclasses.replace(configs[cfg], persistence=0.0)
+        eng = CRTEngine(p, ph_, pw_, PREVIEW_FPS, engine="preview", rng="host", device=dev,
+                        text_rgba=ov_p if p.text.enabled else None)
+        noise = (np.random.default_rng(int(t_p * 1000)).standard_normal(
+            eng._grain_hw, dtype=np.float32)[None] if p.noise_on else None)
+        return eng, eng.make_aux_at([t_p], noise)
+
+    def diffs(a, b):
+        if a.dtype == torch.uint8:
+            d = (a.int() - b.int()).abs().max().item()
+            return float(d), d
+        return ((a - b).abs().max().item(),
+                (torch.round(a * 255) - torch.round(b * 255)).abs().max().item())
+
+    prow = []  # kname, src, repl, run, twin, library call, operands, tol, note
+    for cfg, kname in (("defaults", "fused_pipeline_preview"),
+                       ("c3", "fused_pipeline_gaussian_preview"),
+                       ("c4-text", "fused_pipeline_f32in_preview")):
+        eng, aux = preview_step(cfg)
+        feed = xp if eng.spec.pre else eng._pre_bloom(xp)
+        kw = eng.fused_operands(aux)
+        prow.append((kname, "pythoncrt_tpu_torch/csrc/fused.cu",
+                     "pythoncrt_tpu/kernels/fused.py:680",
+                     functools.partial(kfused.fused_pipeline, feed, eng.spec, eng.fused_tables,
+                                       **kw),
+                     functools.partial(kfused.fused_pipeline_ref, feed, eng.spec,
+                                       eng.fused_tables, **kw),
+                     None, [feed, *kw.values()], FUSED_TOL,
+                     f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core"
+                     f"{plan_note(eng.fused_tables)})"))
+        if cfg == "c3":  # the warp on c3's fused output, as the preview step runs it
+            fz = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+            tabs = eng.warp_tables
+            map_x, map_y = oracle.barrel_warp_maps(ph_, pw_, C3["warp_strength"])
+            grid = torch.from_numpy(np.stack([map_x * (2.0 / (pw_ - 1)) - 1.0,
+                                              map_y * (2.0 / (ph_ - 1)) - 1.0],
+                                             -1)).float().to(dev)[None]
+            prow.append(("warp_planar_preview", "pythoncrt_tpu_torch/csrc/warp.cu",
+                         "pythoncrt_tpu/kernels/warp.py:545",
+                         functools.partial(kwarp.warp_planar, fz, tabs, emit_u8=eng._warp_u8),
+                         functools.partial(kwarp.warp_planar_ref, fz, tabs,
+                                           emit_u8=eng._warp_u8),
+                         functools.partial(torch.nn.functional.grid_sample, fz, grid,
+                                           mode="bilinear", padding_mode="zeros",
+                                           align_corners=True),
+                         [fz, *tabs], 0.0, f" (c3, {'uint8' if eng._warp_u8 else 'f32'} emit)"))
+    eng, aux = preview_step("c4")
+    fz = kfused.fused_pipeline(xp, eng.spec, eng.fused_tables, **eng.fused_operands(aux))
+    off, seg = eng.glitch_offsets(aux), eng.consts["glitch_seg_index"]
+    y0, rows = eng._glitch_y0, eng._glitch_rows
+    band, work = fz[:, :, y0:].contiguous(), fz.clone()
+    gidx = torch.remainder(torch.arange(pw_, device=dev) + off.long()[:, :, seg.long()],
+                           pw_)[:, None].expand(1, 3, rows, pw_).contiguous()
+    prow.append(("glitch_shear_preview", "pythoncrt_tpu_torch/csrc/glitch.cu",
+                 "pythoncrt_tpu/kernels/glitch.py:194",
+                 lambda: kglitch.shear_planar_inplace(fz.clone(), y0, off, seg)[:, :, y0:],
+                 functools.partial(kglitch.shear_planar_ref, band, off, seg),
+                 functools.partial(torch.gather, band, 3, gidx), [band, off, seg], 0.0,
+                 f" (c4 band {y0}+{rows}, the preview's one offset per row, in place)"))
+    for cfg, kname in (("c3-angled", "bloom3_planar_preview"),
+                       ("defaults-angled", "bloom3_fast_planar_preview")):
+        eng, _ = preview_step(cfg)
+        feed, spec = eng._pre_bloom(xp), eng.bloom3_spec
+        if spec.fast:
+            run = functools.partial(kbloom3.bloom3_fast_planar, feed, spec, eng.bloom3_tables)
+            twin = functools.partial(kbloom3.bloom3_fast_planar_ref, feed, spec,
+                                     eng.bloom3_tables)
+            repl, ops = "pythoncrt_tpu/kernels/bloom3.py:495", [feed, *eng.bloom3_tables.taps]
+        else:
+            run = functools.partial(kbloom3.bloom3_planar, feed, spec)
+            twin = functools.partial(kbloom3.bloom3_planar_ref, feed, spec)
+            repl, ops = "pythoncrt_tpu/kernels/bloom3.py:274", [feed]
+        prow.append((kname, "pythoncrt_tpu_torch/csrc/bloom_walk.cu", repl, run, twin, None,
+                     ops, 0.0, f" ({cfg}: the staged step's stand-alone bloom)"))
+    for kname, src, repl, run, twin, lib, ops, tol, note in prow:
+        got, want = run(), twin()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{kname}: non-finite output")
+        err, lsb = diffs(got, want)
+        timed = time_ms(run)
+        if kname == "glitch_shear_preview":  # in place on a scratch frame, as the step runs it
+            timed = time_ms(lambda: kglitch.shear_planar_inplace(work, y0, off, seg))
+        row(kname, src, repl, err, lsb, timed, time_ms(twin, iters=3),
+            None if lib is None else time_ms(lib), nbytes(*ops, got), got.numel(), tol=tol,
+            lsb_tol=LSB_TOL if tol else 0,
+            note=f"{note}; the GUI preview: one frame, addressed by time", frames=1,
+            res=PREVIEW_HW)
+    del prow, xp, fz, band, work, gidx, got, want
+    torch.cuda.empty_cache()
+
     # ---- 4. end to end against the oracle ----
     def oracle_stream(eng, clip, idx, ov=None):
         """The oracle's frames for absolute indices idx of one stream."""
@@ -1479,6 +1612,155 @@ def main() -> int:
                       f"in {wall:.2f}s", flush=True)
                 if rc != 0 or f"({C5_CLIPS} resumed)" not in (said[-1] if said else ""):
                     fail(f"c5 resume: exit {rc}: {said[-4:]}")
+
+        # the GUI slice: the live preview (gui_qt.render_preview_frame, the
+        # window's call, stateful over N_TICKS ticks) against the
+        # PCRT_PREVIEW_ENGINE=0 oracle path, timed per tick; the window's
+        # export worker (run_render_job), compat.process_video and the
+        # --gui guard. The window itself needs PySide6, which this host
+        # lacks: it is tested under a stub on the CPU.
+        from pythoncrt_tpu_torch import compat, gui, gui_qt
+
+        if not pil:  # the preview rasterizes its overlay: a seeded one in its place
+            gui_qt.overlay_for = lambda w, h, t: synth_overlay(h, w, 4) if t.enabled else None
+        previews = [(cfg, (H, W)) for cfg in PREVIEW_CONFIGS]
+        previews.append(("c3", PREVIEW_ODD))
+        preview_needs = {"defaults": ("fused_pipeline",), "c3": ("fused_pipeline", "warp_planar"),
+                         "c4": ("fused_pipeline", "glitch_shear"),
+                         "c3-angled": ("bloom3", "warp_planar"), "defaults-angled": ("bloom3",),
+                         "c4-text": ("fused_pipeline", "glitch_shear")}
+        src = synth(N_TICKS, H, W, seed=9)
+        # the window's clock, a Python float: t += 1 / fps of a 24 fps source (a NumPy
+        # float64 time would turn the oracle's f32 phase math into f64)
+        ticks = [k / FPS for k in range(N_TICKS)]
+        gui_qt._PREVIEW_ENGINES.clear()
+        os.environ.pop("PCRT_PREVIEW_ENGINE", None)
+        first_ms, miss_ms, hit_ms = None, [], []
+
+        def tick_run(p, frames_p, oracle_path):
+            """(uint8 frames, ms per tick) of N_TICKS stateful ticks."""
+            if oracle_path:
+                os.environ["PCRT_PREVIEW_ENGINE"] = "0"
+            outs, st, ms = [], None, []
+            try:
+                for k in range(N_TICKS):
+                    t0 = time.perf_counter()
+                    out, st = gui_qt.render_preview_frame(frames_p[k], p, ticks[k], prev_img=st,
+                                                          stateful=True, device="cuda")
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    outs.append(out)
+            finally:
+                os.environ.pop("PCRT_PREVIEW_ENGINE", None)
+            return np.stack(outs), ms
+
+        for cfg, (sh, sw) in previews:
+            p = configs[cfg]
+            pw, ph = gui_qt._preview_size(sw, sh)
+            pname = f"preview-{cfg}" + ("" if (sh, sw) == (H, W) else f"-{pw}")
+            frames_p = np.ascontiguousarray(src[:, :sh, :sw])
+            zero_counts()
+            got, ms = tick_run(p, frames_p, False)
+            counts = read_counts()
+            for k, v in counts.items():
+                launches[k][pname] = v
+            want, oms = tick_run(p, frames_p, True)
+            d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            # the ticks that blend no uint8 frame: every tick without
+            # persistence, the first tick with it
+            plain = d if not p.persistence_on else d[:1]
+            frac_plain = (plain > 0).mean()
+            if first_ms is None:
+                first_ms = ms[0]
+            else:
+                miss_ms.append(ms[0])
+            hit_ms += ms[1:]
+            print(f"[5] preview {pname}: {N_TICKS} stateful ticks of a {sw}x{sh} source at "
+                  f"{pw}x{ph} (persistence {p.persistence}) vs the PCRT_PREVIEW_ENGINE=0 oracle "
+                  f"path: max {d.max()} LSB, {(d > 0).mean():.3e} of values off "
+                  f"({frac_plain:.3e} on the {len(plain)} unblended ticks), mean "
+                  f"{d.mean():.4f} LSB; engine {np.median(ms[1:]):.3f} ms per tick (median of "
+                  f"{N_TICKS - 1} cache hits; the first, with the engine's build, "
+                  f"{ms[0]:.1f} ms), oracle {np.mean(oms):.1f} ms per tick; launches {counts} "
+                  f"on {card}", flush=True)
+            # the blended ticks (persistence on) carry the engine's uint8
+            # frame into the host blend: 1 LSB, with no limit on the share off
+            if got.shape != (N_TICKS, ph, pw, 3) or d.max() > LSB_TOL or frac_plain >= 1e-3:
+                fail(f"preview {pname} disagrees with the oracle path: {got.shape}, "
+                     f"max {d.max()} LSB, {frac_plain:.3e} of the unblended values off")
+            missing = [k for k in preview_needs[cfg] if counts[k] < 1]
+            if missing:
+                fail(f"preview {pname}: kernels never launched: {missing}")
+        # a persistence-slider move is a hit; a preset evicted from the LRU of
+        # 4 (the defaults, 6 presets ago) builds again
+        slider = dataclasses.replace(configs["c4"], persistence=0.3)
+        n_eng = len(gui_qt._PREVIEW_ENGINES)
+        t0 = time.perf_counter()
+        gui_qt.render_preview_frame(src[0], slider, 0.5, device="cuda")
+        slider_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        gui_qt.render_preview_frame(src[0], configs["defaults"], 0.5, device="cuda")
+        evicted_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[5] preview ticks on {card}: first tick {first_ms:.1f} ms (the first engine "
+              f"build of the process, the kernels' library already loaded); cache miss "
+              f"(preset change: an engine build) median {np.median(miss_ms):.1f} ms "
+              f"({min(miss_ms):.1f}-{max(miss_ms):.1f}); cache hit median "
+              f"{np.median(hit_ms):.3f} ms ({min(hit_ms):.3f}-{max(hit_ms):.3f}), "
+              f"{1e3 / np.median(hit_ms):.1f} ticks/s; persistence-slider move {slider_ms:.3f} "
+              f"ms ({len(gui_qt._PREVIEW_ENGINES) - n_eng} engines built); an evicted preset "
+              f"{evicted_ms:.1f} ms", flush=True)
+        if len(gui_qt._PREVIEW_ENGINES) != n_eng:
+            fail("a persistence-slider move built a preview engine")
+
+        # the window's export: its worker's core with the kwargs CRTWindow
+        # builds (c4 set in the window, batch 8), and the reference's
+        # process_video through compat, the CLI defaults, on the card
+        clip16 = os.path.join(tmp, f"in{N_C3}.mp4")
+        for pname, needs in (("gui-export", ("fused_pipeline", "glitch_shear",
+                                             "persistence_scan")),
+                             ("compat", ("fused_pipeline", "persistence_scan"))):
+            outp = os.path.join(tmp, f"out_{pname}.mp4")
+            zero_counts()
+            t0 = time.perf_counter()
+            if pname == "gui-export":
+                prog, done = [], []
+                gui_qt.run_render_job(dict(
+                    input_path=clip16, output_path=outp, params=configs["c4"], width=None,
+                    height=None, fps=None, crf=18, target_bitrate_kbps=0, gpu=False,
+                    nvenc_preset="p4", encoder_preference="auto", decoder_preference="auto",
+                    batch_size=B, engine_mode="export", report=False, device="cuda"),
+                    prog.append, lambda ok, msg: done.append((ok, msg)))
+                ok = done and done[0][0] and prog and prog[-1] == 1.0
+                how = f"gui_qt.run_render_job: done {done}, progress {len(prog)} updates"
+            else:
+                d = EffectParams()
+                used = compat.process_video(
+                    clip16, outp, None, None, d.scanline_strength, d.triad_strength,
+                    d.triad_gamma, d.triad_preserve_luma, d.triad_softness, d.aberration_px,
+                    d.bloom_sigma, d.bloom_strength, d.noise_strength, d.vignette_strength,
+                    d.persistence, None, 18, 0, d.scanline_speed_px_s, d.scanline_period_px,
+                    d.fast_bloom, d.pixel_size, False, "p4")
+                ok = used is False
+                how = "compat.process_video (the reference's signature, positional)"
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            for k, v in counts.items():
+                launches[k][pname] = v
+            n_out = vio.probe_clip(outp).frame_count
+            print(f"[5] {pname}: {how}; {n_out} frames out of {N_C3}; {N_C3 / wall:.2f} fps wall "
+                  f"(codecs included); launches {counts} on {card}", flush=True)
+            missing = [k for k in needs if counts[k] < 1]
+            if not ok or n_out != N_C3 or missing:
+                fail(f"{pname}: ok {ok}, {n_out} frames, never launched {missing}")
+        if gui.qt_available():
+            print("[5] --gui: PySide6 is installed here; the window is not opened (no display)")
+        else:
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["--gui"])
+            said = err.getvalue().strip().splitlines()
+            print(f"[5] --gui without PySide6: exit {rc}: {said[0] if said else ''}", flush=True)
+            if rc != 3:
+                fail(f"--gui without PySide6 exited {rc}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1529,18 +1811,19 @@ def main() -> int:
         "fused_pipeline_gaussian": ("fused_pipeline", ("c3",)),
         "fused_pipeline": ("fused_pipeline", ("defaults", "c4", "defaults-yuv420p",
                                               "defaults-decode2", "c4-segments-crash",
-                                              "c4-segments-resume")),
+                                              "c4-segments-resume", "gui-export", "compat")),
         "fused_pipeline_c5": ("fused_pipeline", ("c5",)),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
-        "warp_planar": ("warp_planar", None),
+        "warp_planar": ("warp_planar", None),  # every path but the previews
         "warp_planar_strength1": ("warp_planar", ()),
         "persistence_scan": ("persistence_scan", ("defaults", "c4", "defaults-angled",
                                                   "c4-text", "defaults-bloom2", "defaults-fast",
                                                   "defaults-yuv420p", "defaults-decode2",
-                                                  "c4-segments-crash", "c4-segments-resume")),
+                                                  "c4-segments-crash", "c4-segments-resume",
+                                                  "gui-export", "compat")),
         "persistence_scan_multiclip": ("persistence_multiclip", ("c5",)),
         "glitch_shear": ("glitch_shear", ("c4", "c4-text", "c4-segments-crash",
-                                          "c4-segments-resume")),
+                                          "c4-segments-resume", "gui-export")),
         "glitch_shear_c5": ("glitch_shear", ("c5",)),
         "glitch_shear_band": ("glitch_shear", ()),
         "bloom3_planar": ("bloom3", ("c3-angled",)),
@@ -1555,13 +1838,23 @@ def main() -> int:
         "fused_pipeline_gaussian_direct": ("fused_pipeline", ()),
         "fused_pipeline_f32in_direct": ("fused_pipeline", ()),
         "fused_pipeline_s11_direct": ("fused_pipeline", ()),
+        # the GUI preview, one frame per tick at 960x540 (853x480 for c3 too)
+        "fused_pipeline_preview": ("fused_pipeline", ("preview-defaults", "preview-c4")),
+        "fused_pipeline_gaussian_preview": ("fused_pipeline", ("preview-c3", "preview-c3-853")),
+        "fused_pipeline_f32in_preview": ("fused_pipeline", ("preview-c4-text",)),
+        "warp_planar_preview": ("warp_planar", ("preview-c3", "preview-c3-angled",
+                                                "preview-c3-853")),
+        "glitch_shear_preview": ("glitch_shear", ("preview-c4", "preview-c4-text")),
+        "bloom3_planar_preview": ("bloom3", ("preview-c3-angled",)),
+        "bloom3_fast_planar_preview": ("bloom3", ("preview-defaults-angled",)),
     }
     for tag in SIGMAS:  # the stand-alone routes at large radii: on no main path
         runs_on.update({f"{k}_{tag}": (c, ()) for k, c in (
             ("bloom3_planar", "bloom3"), ("bloom_stripe", "bloom"), ("bloom2_planar", "bloom2"))})
     for kname, entry in table.items():
         counter, on = runs_on[kname]
-        by_path = {pn: v for pn, v in launches[counter].items() if on is None or pn in on}
+        by_path = {pn: v for pn, v in launches[counter].items()
+                   if (pn in on if on is not None else not pn.startswith("preview-"))}
         entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
     print(f"card: {card}")
     print(card)

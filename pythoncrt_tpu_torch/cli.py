@@ -8,10 +8,12 @@ the reference driver (:1225-1266) apply through EffectParams.clamped.
 lockstep groups through multiclip.process_videos, journal resume,
 per-clip retry), as pythoncrt_tpu/cli.py's ``_run_batch`` does.
 ``--check-deps`` prints the dependency report and exits 0 or 4 before
-any other work. Flags whose machinery is not ported yet (``--gui``,
-``--devices`` above 1, ``--steps-per-call`` above 1) exit with status 2
-and name the ROADMAP.md item that brings them, in manifest runs too.
-Nothing falls back to another path.
+any other work. ``--gui``, or no ``--input`` without ``--batch-manifest``,
+opens the Qt window (gui.launch_gui) on ``--device``, as
+pythoncrt_tpu/cli.py does: exit 3 without PySide6. Flags whose machinery
+is not ported yet (``--devices`` above 1, ``--steps-per-call`` above 1)
+exit with status 2 and name the ROADMAP.md item that brings them, in
+manifest runs too. Nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -200,7 +202,6 @@ def params_from_args(a: argparse.Namespace, provided: set | None = None) -> Effe
 def _refusal(a) -> str:
     """The first flag the port does not run yet, as a message, or ''."""
     todo = [
-        (a.gui, "--gui", "queue 1, GUI"),
         (a.devices > 1, "--devices", "queue 1, multiclip: multi-GPU"),
         (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline: steps per call"),
     ]
@@ -339,10 +340,13 @@ def main(argv=None) -> int:
         return 2
     if a.batch_manifest:
         return 2 if _no_cuda(a.device) else _run_batch(a, argv)
-    if not a.input:
-        print("--input is required (the GUI is not ported yet: ROADMAP.md queue 1, GUI)",
-              file=sys.stderr)
-        return 2
+    if a.gui or not a.input:
+        from . import gui
+
+        # PySide6 first (exit 3, the JAX package's guard), then the card
+        if gui.qt_available() and _no_cuda(a.device):
+            return 2
+        return gui.launch_gui(device=a.device)
     t0 = time.perf_counter()
     inp = Path(a.input)
     if not inp.exists():

@@ -50,6 +50,8 @@ NumPy oracle and are uploaded once. Per-frame inputs (scanline phase,
 flicker gain, noise, glitch offsets) are computed per batch from
 absolute frame indices, so every draw is a pure function of (seed, frame
 index): outputs do not depend on how frames are split into batches.
+``make_aux_at`` and ``process_at`` take times in seconds in place of the
+indices, with the host-rng noise given by the caller (the GUI preview).
 
 ``precision`` "fast" is the JAX engine's ``lut_exact=False``: the
 triad's two pow sites on the clipped values instead of the 1024-bin
@@ -311,12 +313,38 @@ class CRTEngine:
     # ------------------------------------------------------------------
 
     def make_aux(self, frame_indices) -> FrameAux:
-        """Per-frame inputs for absolute frame indices. Host f64 scalar
-        math as the reference (phase: crt_filter.py:1043, flicker: :632,
-        time: :1064)."""
-        p = self.params
+        """Per-frame inputs for absolute frame indices, at the times
+        ``idx / fps`` (time: crt_filter.py:1064); the host-rng noise is
+        one stream per (seed, frame index)."""
         idx = np.asarray(frame_indices, dtype=np.int64).reshape(-1)
-        t = idx / float(self.fps)
+        noise = None
+        if self.rng == "host" and self.params.noise_on:
+            gh, gw = self._grain_hw
+            noise = np.stack([
+                np.random.default_rng((self.seed, int(i))).standard_normal(
+                    (gh, gw), dtype=np.float32) for i in idx])
+        return self._aux_at(idx / float(self.fps), idx, noise)
+
+    def make_aux_at(self, times_sec, noise_fields=None) -> FrameAux:
+        """Per-frame inputs for arbitrary times in seconds: the GUI
+        preview runs on wall-clock time, not on frame indices (reference
+        on_tick, crt_filter.py:1810-1852). The host-rng noise is injected
+        (the preview's time-seeded grain, gui_qt.render_preview_frame);
+        ``frame_idx`` is the nearest frame, which only the native streams
+        read."""
+        t = np.asarray(times_sec, dtype=np.float64).reshape(-1)
+        noise = None
+        if self.rng == "host" and self.params.noise_on:
+            if noise_fields is None:
+                raise ValueError("host-rng preview aux needs injected noise_fields")
+            noise = np.asarray(noise_fields, np.float32)
+        return self._aux_at(t, np.rint(t * self.fps).astype(np.int64), noise)
+
+    def _aux_at(self, t: np.ndarray, idx: np.ndarray, noise) -> FrameAux:
+        """The inputs that follow from the f64 times t: the host f64 scalar
+        math of the reference (phase: crt_filter.py:1043, flicker: :632)
+        and, with host rng, the glitch fields."""
+        p = self.params
         # the host glitch seeds take int(|phase| * k) of the f64 phase
         # (crt_filter.py:841, :670): a f32 phase near an integer boundary
         # would draw another frame's whole field
@@ -326,25 +354,18 @@ class CRTEngine:
             flicker = (1.0 + 0.25 * p.flicker_strength
                        * np.sin(2.0 * np.pi * p.flicker_hz * t)).astype(np.float32)
         else:
-            flicker = np.ones(idx.shape[0], np.float32)
-        noise = g_base = g_seg = None
-        if self.rng == "host":
-            if p.noise_on:
-                gh, gw = self._grain_hw
-                # independent per-frame streams keyed by frame index
-                noise = np.stack([
-                    np.random.default_rng((self.seed, int(i))).standard_normal(
-                        (gh, gw), dtype=np.float32) for i in idx])
-            if self._glitch and self.engine == "preview":
-                g_base = np.stack([oracle.glitch_offsets_preview(
-                    self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
-                    for ph in phase64])
-            elif self._glitch:
-                fields = [oracle.glitch_fields_export(
-                    self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
-                    for ph in phase64]
-                g_base = np.stack([f[0] for f in fields])
-                g_seg = np.stack([f[1] for f in fields])
+            flicker = np.ones(t.shape[0], np.float32)
+        g_base = g_seg = None
+        if self.rng == "host" and self._glitch and self.engine == "preview":
+            g_base = np.stack([oracle.glitch_offsets_preview(
+                self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
+                for ph in phase64])
+        elif self.rng == "host" and self._glitch:
+            fields = [oracle.glitch_fields_export(
+                self.h, self.w, float(ph), p.glitch_amp_px, p.glitch_height_frac)
+                for ph in phase64]
+            g_base = np.stack([f[0] for f in fields])
+            g_seg = np.stack([f[1] for f in fields])
         return FrameAux(idx, phase, flicker, noise, g_base, g_seg)
 
     def _frame_generator(self, frame_idx: int, stream: int) -> torch.Generator:
@@ -550,10 +571,25 @@ class CRTEngine:
         engine's device, state). Pass state=None for the first batch of a
         stream (its first frame passes through unblended); thereafter the
         returned state carries the persistence tail across batches."""
+        x = self._frames(frames_u8)
+        if frame_indices is None:
+            frame_indices = np.arange(x.shape[0])
+        return self._process(x, self.make_aux(frame_indices), state)
+
+    def process_at(self, frames_u8, times_sec, noise_fields=None, state=None):
+        """process() addressed by time instead of frame index (the GUI
+        preview's access; see make_aux_at): the same checks and step."""
+        x = self._frames(frames_u8)
+        return self._process(x, self.make_aux_at(times_sec, noise_fields), state)
+
+    def _frames(self, frames_u8) -> torch.Tensor:
         x = torch.as_tensor(frames_u8).to(self.device, non_blocking=True)
         if x.dtype != torch.uint8 or tuple(x.shape[1:]) != self._frame_shape():
             raise ValueError(f"frames {x.dtype} {tuple(x.shape[1:])} != uint8 "
                              f"{self._frame_shape()} for layout={self.layout!r}")
+        return x
+
+    def _process(self, x: torch.Tensor, aux: FrameAux, state):
         first = state is None
         if first:
             state = self.init_state()
@@ -562,10 +598,6 @@ class CRTEngine:
             # (the oracle's persistence_blend resizes; PARITY.md)
             raise ValueError(f"state shape {tuple(state.shape)} != {self._frame_shape()}")
         state = torch.as_tensor(state, dtype=torch.float32).to(self.device)
-        b = x.shape[0]
-        if frame_indices is None:
-            frame_indices = np.arange(b)
-        aux = self.make_aux(frame_indices)
         if self.layout == "nhwc":
             x, state = x.permute(0, 3, 1, 2), state.permute(2, 0, 1)
         out, state = self._step(x.contiguous(), aux, state.contiguous(), first)

@@ -78,6 +78,14 @@ def _probe_encoder(codec: str) -> bool:
     return _PROBE_CACHE[key]
 
 
+def can_use_nvenc() -> bool:
+    return _probe_encoder("h264_nvenc")
+
+
+def can_use_amf() -> bool:
+    return _probe_encoder("h264_amf")
+
+
 def normalize_nvenc_preset(preset: str) -> str:
     """Map p1..p7 to legacy NVENC preset tokens; pass legacy names through;
     fall back to 'medium' (crt_filter.py:103-138)."""

@@ -40,6 +40,17 @@ class TextParams:
     def enabled(self) -> bool:
         return bool(self.text)
 
+    def to_json_dict(self) -> dict:
+        return {
+            "text": self.text,
+            "font": self.font,
+            "size": int(self.size),
+            "color": self.color,
+            "x": int(self.x),
+            "y": int(self.y),
+            "after": bool(self.after),
+        }
+
     @classmethod
     def from_json_dict(cls, d: dict) -> "TextParams":
         return cls(
@@ -178,6 +189,52 @@ class EffectParams:
 
     # ---- preset JSON (the reference's schema, crt_filter.py:2043-2080) ----
 
+    def to_preset_dict(
+        self,
+        *,
+        crf: int = 18,
+        bitrate_kbps: int = 0,
+        nvenc_preset: str = "p4",
+        gpu: bool = False,
+        encoder: str = "auto",
+    ) -> dict:
+        return {
+            "scanline": float(self.scanline_strength),
+            "triad": float(self.triad_strength),
+            "triad_gamma": float(self.triad_gamma),
+            "triad_softness": float(self.triad_softness),
+            "triad_preserve_luma": bool(self.triad_preserve_luma),
+            "pixel_size": int(self.pixel_size),
+            "aberration_px": int(self.aberration_px),
+            "noise": float(self.noise_strength),
+            "bloom_sigma": float(self.bloom_sigma),
+            "bloom_strength": float(self.bloom_strength),
+            "bloom_threshold": float(self.bloom_threshold),
+            "vignette": float(self.vignette_strength),
+            "persistence": float(self.persistence),
+            "scanline_speed": float(self.scanline_speed_px_s),
+            "scanline_period": float(self.scanline_period_px),
+            "glitch_amp": int(self.glitch_amp_px),
+            "glitch_height": float(self.glitch_height_frac),
+            "crf": int(crf),
+            "bitrate_kbps": int(bitrate_kbps),
+            "nvenc_preset": str(nvenc_preset),
+            "fast_bloom": bool(self.fast_bloom),
+            "gpu": bool(gpu),
+            "encoder": str(encoder),
+            "brightness": float(self.brightness),
+            "contrast": float(self.contrast),
+            "gamma": float(self.gamma),
+            "saturation": float(self.saturation),
+            "temperature": float(self.temperature),
+            "flicker_strength": float(self.flicker_strength),
+            "flicker_hz": float(self.flicker_hz),
+            "grain_size": int(self.grain_size),
+            "scanline_angle": float(self.scanline_angle),
+            "scanline_thickness": float(self.scanline_thickness),
+            "warp_strength": float(self.warp_strength),
+        }
+
     @classmethod
     def from_preset_dict(cls, d: dict, base: "EffectParams" = None) -> "EffectParams":
         """Apply a preset dict key by key over ``base`` (missing keys keep
@@ -221,6 +278,11 @@ class EffectParams:
         return dataclasses.replace(p, **updates)
 
 
+def save_preset(path: str | Path, params: EffectParams, **codec_kwargs) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(params.to_preset_dict(**codec_kwargs), f, indent=2)
+
+
 def load_preset(path: str | Path, base: EffectParams = None) -> Tuple[EffectParams, dict]:
     """Load a preset JSON. Returns (params, raw dict) so callers can read
     the codec keys (crf, bitrate_kbps, encoder, ...) kept outside
@@ -233,3 +295,8 @@ def load_preset(path: str | Path, base: EffectParams = None) -> Tuple[EffectPara
 def load_text_preset(path: str | Path) -> TextParams:
     with open(path, "r", encoding="utf-8") as f:
         return TextParams.from_json_dict(json.load(f))
+
+
+def save_text_preset(path: str | Path, text: TextParams) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(text.to_json_dict(), f, indent=2)

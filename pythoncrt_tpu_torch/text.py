@@ -10,8 +10,9 @@ Font resolution mirrors the reference's PIL path (crt_filter.py:366-414):
 explicit .ttf/.otf path -> known family map in the system font dirs ->
 <family>.ttf -> arial.ttf -> PIL builtin default. PIL is imported when a
 text is rasterized, not with the module; without it ``rasterize_text``
-raises ImportError. The reference's Qt rasterizer (the GUI's) is not
-ported yet.
+raises ImportError. ``rasterize_text_qt`` is the reference's Qt
+rasterizer (the GUI's), with the PIL path where Qt or its application is
+missing.
 """
 
 from __future__ import annotations
@@ -103,6 +104,56 @@ def rasterize_text(w: int, h: int, t: TextParams) -> np.ndarray:
     r, g, b = parse_hex_color(t.color)
     draw.text((int(t.x), int(t.y)), t.text, font=font, fill=(r, g, b, 255))
     return np.asarray(img, dtype=np.uint8)
+
+
+def rasterize_text_qt(w: int, h: int, t: TextParams) -> np.ndarray:
+    """Qt-based rasterizer (reference crt_filter.py:417-466): antialiased
+    QPainter text with pixel-size fonts and bytesPerLine-aware extraction.
+    Falls back to the PIL path when PySide6 is unavailable (the fallback
+    the reference implements)."""
+    try:
+        from PySide6 import QtCore, QtGui
+    except ImportError:
+        return rasterize_text(w, h, t)
+    if QtGui.QGuiApplication.instance() is None:
+        # QPainter text / QFontDatabase without a QGuiApplication is a
+        # Qt FATAL abort, not an exception: headless callers (tests,
+        # CLI renders on a PySide6-equipped host) take the PIL path
+        return rasterize_text(w, h, t)
+    if not t.text:
+        return np.zeros((h, w, 4), dtype=np.uint8)
+    img = QtGui.QImage(w, h, QtGui.QImage.Format_RGBA8888)
+    img.fill(QtCore.Qt.transparent)
+    painter = QtGui.QPainter(img)
+    try:
+        painter.setRenderHints(
+            QtGui.QPainter.Antialiasing
+            | QtGui.QPainter.TextAntialiasing
+            | QtGui.QPainter.SmoothPixmapTransform,
+            True,
+        )
+        family = None
+        if t.font and os.path.isfile(t.font):
+            fid = QtGui.QFontDatabase.addApplicationFont(t.font)
+            fams = QtGui.QFontDatabase.applicationFontFamilies(fid) if fid >= 0 else []
+            family = fams[0] if fams else None
+        if not family and t.font:
+            family = t.font
+        font = QtGui.QFont(family) if family else QtGui.QFont()
+        font.setPixelSize(max(1, int(t.size)))
+        painter.setFont(font)
+        r, g, b = parse_hex_color(t.color)
+        painter.setPen(QtGui.QColor(r, g, b, 255))
+        painter.drawText(int(t.x), int(t.y) + (font.pixelSize() or int(t.size)), t.text)
+    finally:
+        painter.end()
+    bpl = int(img.bytesPerLine())
+    buf = bytes(img.bits())
+    arr = np.frombuffer(buf, dtype=np.uint8)
+    expected = bpl * h
+    if arr.size < expected:
+        arr = np.pad(arr, (0, expected - arr.size))
+    return arr[:expected].reshape(h, bpl // 4, 4)[:, :w, :].copy()
 
 
 _OVERLAY_CACHE: "OrderedDict" = OrderedDict()

@@ -1,10 +1,12 @@
 """The port's entry points: no import of JAX or of the JAX package,
-refusals for what the port does not run, the render loop against
+refusals for what the port does not run, the GUI guard (exit 3 without
+PySide6), the render loop against
 CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
 CLI defaults and c4, export and preview; 2-D scanlines and text
 overlays; --precision fast, --segment-frames, --decode-workers,
 --pipe-format yuv420p and --check-deps in a fresh interpreter each)."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -129,11 +131,58 @@ def test_formerly_refused_configs_render(overrides):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--gui"], ["--steps-per-call", "2"],
+    ["--devices", "2"], ["--steps-per-call", "2"],
 ])
 def test_out_of_slice_flags_exit_2(flags, capsys):
     assert cli.main(["--input", "x.mp4", *flags]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--input", "x.mp4", "--gui"], ["--gui"], [], ["--gui", "--device", "cpu"],
+    ["--output", "y.mp4", *C3_FLAGS],
+], ids=["input_gui", "gui", "no_args", "gui_cpu", "no_input"])
+def test_gui_without_pyside6_exits_3(argv, capsys):
+    """--gui, or no --input without --batch-manifest, opens the GUI as the
+    JAX CLI does (pythoncrt_tpu/cli.py:359-362); without PySide6 the guard
+    exits 3 with the JAX package's message, naming the port's CLI, before
+    it asks for a CUDA device."""
+    if importlib.util.find_spec("PySide6") is not None:
+        pytest.skip("PySide6 is installed here")
+    assert cli.main(argv) == 3
+    err = capsys.readouterr().err
+    assert "GUI unavailable: PySide6 is not installed" in err
+    assert "python -m pythoncrt_tpu_torch --input in.mp4" in err
+
+
+@pytest.mark.parametrize("argv", [["--gui"], []], ids=["gui", "no_args"])
+def test_gui_guard_loads_no_jax(argv):
+    """In a fresh interpreter the guard exits 3 and loads neither JAX nor
+    any module of the JAX package (nor torch: the guard needs none)."""
+    if importlib.util.find_spec("PySide6") is not None:
+        pytest.skip("PySide6 is installed here")
+    code = ("import sys, pythoncrt_tpu_torch.cli as c; "
+            f"rc = c.main({argv!r}); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'pythoncrt_tpu')); "
+            "print('rc', rc, 'loaded', bad, 'torch', 'torch' in sys.modules)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert "rc 3 loaded [] torch False" in res.stdout, res.stdout + res.stderr
+    assert "GUI unavailable" in res.stderr
+
+
+def test_gui_with_qt_but_no_cuda_exits_2(monkeypatch, capsys):
+    """With Qt present, --device cuda on a host without CUDA exits 2 with
+    the no-CUDA message, before any window is built."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from pythoncrt_tpu_torch import gui
+
+    monkeypatch.setattr(gui, "qt_available", lambda: True)
+    monkeypatch.setattr(gui, "launch_gui", lambda device: pytest.fail("window built"))
+    assert cli.main(["--gui"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("extra", [[], ["--devices", "2"]], ids=["render", "devices_2"])

@@ -1,8 +1,9 @@
-"""The port's own copies of the JAX package's host modules (params,
-oracle, the CLI parser, io.video's helpers, the perf report, the text
-rasterizer, the batch journal, the multi-clip helpers, the segment
-store, the dependency report, the native host I/O and the parallel
-reader) against the
+"""The port's own copies of the JAX package's host modules (params and
+its preset writers, oracle, the CLI parser, io.video's helpers and
+encoder probes, the perf report, the text rasterizers (PIL, and Qt's
+PIL path without an application), the batch journal, the multi-clip
+helpers, the segment store, the dependency report, the native host I/O,
+the parallel reader and compat's mask builders) against the
 originals: the same flags and defaults, the same fields, clamps and
 preset semantics, and equal results on seeded inputs (bitwise: the
 copies run the same NumPy code)."""
@@ -374,3 +375,68 @@ def test_copied_host_modules_agree(tmp_path, module, seed):
         assert [i for i, _ in got] == [i for i, _ in want]
         assert all(np.array_equal(x, y) for (_, x), (_, y) in zip(got, want))
         assert sum(len(x) for _, x in got) == len(frames) - start
+
+
+@pytest.mark.parametrize("kw", [
+    dict(text="CH 3", size=24, color="#FFCC00", x=10, y=5),
+    dict(text="", size=36),
+])
+def test_rasterize_text_qt_without_qt_is_the_pil_path(kw):
+    """Without PySide6 (or, tests/test_torch_gui_stubbed.py, without a
+    QGuiApplication) the Qt rasterizer takes the PIL path, as the JAX
+    package's does."""
+    pytest.importorskip("PIL")
+    import importlib.util
+
+    if importlib.util.find_spec("PySide6") is not None:
+        pytest.skip("PySide6 is installed here")
+    t_t, t_j = tparams.TextParams(**kw), jparams.TextParams(**kw)
+    got = ttext.rasterize_text_qt(64, 40, t_t)
+    np.testing.assert_array_equal(got, ttext.rasterize_text(64, 40, t_t))
+    np.testing.assert_array_equal(got, jtext.rasterize_text_qt(64, 40, t_j))
+
+
+def test_encoder_probes_are_the_same():
+    assert (tvideo.can_use_nvenc(), tvideo.can_use_amf()) \
+        == (jvideo.can_use_nvenc(), jvideo.can_use_amf())
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_preset_writers_are_the_same(tmp_path, seed):
+    """save_preset / save_text_preset write the JAX package's JSON (the
+    GUI's Save Preset actions), and load back to the same params."""
+    rng = np.random.default_rng(seed)
+    kw = dict(scanline_strength=float(rng.uniform(0, 1)), persistence=float(rng.uniform(0, 0.9)),
+              pixel_size=int(rng.integers(1, 5)), fast_bloom=bool(rng.integers(2)),
+              glitch_amp_px=int(rng.integers(0, 9)), warp_strength=float(rng.uniform(-1, 1)))
+    text = dict(text=str(rng.choice(["", "CH 3"])), size=int(rng.integers(8, 60)),
+                x=int(rng.integers(0, 99)), after=bool(rng.integers(2)))
+    codec = dict(crf=int(rng.integers(12, 29)), bitrate_kbps=int(rng.integers(0, 9000)),
+                 nvenc_preset="p5", gpu=bool(rng.integers(2)), encoder="cpu")
+    for mod, tag in ((tparams, "t"), (jparams, "j")):
+        p = mod.EffectParams(**kw, text=mod.TextParams(**text))
+        mod.save_preset(tmp_path / f"{tag}.json", p, **codec)
+        mod.save_text_preset(tmp_path / f"{tag}_text.json", p.text)
+    for name in ("{}.json", "{}_text.json"):
+        assert json.loads((tmp_path / name.format("t")).read_text()) \
+            == json.loads((tmp_path / name.format("j")).read_text())
+    got, raw = tparams.load_preset(tmp_path / "t.json")
+    assert raw["crf"] == codec["crf"] and got.pixel_size == kw["pixel_size"]
+    assert dataclasses.asdict(tparams.load_text_preset(tmp_path / "t_text.json")) == text | dict(
+        font="", color="#FFFFFF", y=32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_compat_mask_builders_are_the_same(seed):
+    from pythoncrt_tpu import compat as jcompat
+    from pythoncrt_tpu_torch import compat as tcompat
+
+    rng = np.random.default_rng(seed)
+    h, w = int(rng.integers(5, 60)), int(rng.integers(5, 90))
+    s, per, ph = float(rng.uniform(0, 1)), float(rng.uniform(1, 5)), float(rng.uniform(-9, 9))
+    ang, soft = float(rng.uniform(-30, 30)), float(rng.uniform(0, 2))
+    for call in (lambda c: c.make_scanline_mask_dynamic(h, s, per, ph),
+                 lambda c: c.make_scanline_mask_2d(h, w, s, per, ph, ang, 1.5),
+                 lambda c: c.make_triad_mask(h, w, s, soft),
+                 lambda c: c.make_vignette(h, w, s)):
+        np.testing.assert_array_equal(call(tcompat), call(jcompat))

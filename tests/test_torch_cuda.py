@@ -16,7 +16,9 @@ persistence scan (its multi-clip mode too) and the glitch shear are
 bitwise. The fused kernel's direct-pow triad (``--precision fast``,
 triad_mode 3) is held to the same 2e-6 / 1 LSB in every instantiation
 (gaussian at r = 4, a runtime radius and past 31; fast; f32 input) and
-the split route, and the whole step with it to the CPU step."""
+the split route, and the whole step with it to the CPU step. The GUI
+preview's engine call (process_at, one frame at 960x540 and 853x480) is
+held to the CPU step within 1 LSB."""
 
 import numpy as np
 import pytest
@@ -646,3 +648,42 @@ def test_fast_engine_on_card_matches_cpu(cuda_dev, name):
         outs.append(torch.cat([a, b]).cpu().int())
     d = (outs[0] - outs[1]).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+
+
+PREVIEW = {  # the GUI preview's configurations: overrides, text after (None: no text)
+    "defaults": ({}, None),
+    "c3": (C3, None),
+    "c4": (VARIANTS["c4"], None),
+    "c3_angled": ({**C3, "scanline_angle": 5.0, "scanline_thickness": 1.5}, True),
+    "defaults_angled": ({"scanline_angle": 12.0, "scanline_thickness": 2.0}, None),
+    "c4_text": (VARIANTS["c4"], False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(540, 960), (480, 853)], ids=["960x540", "853x480"])
+@pytest.mark.parametrize("name", sorted(PREVIEW))
+def test_process_at_on_card_matches_cpu(cuda_dev, name, hw):
+    """The GUI preview's engine (engine "preview", host rng, persistence
+    zeroed) addressed by time, one frame per call as the preview ticks,
+    on the card against the CPU step; the preview path's kernels launch
+    (fused or bloom3, the warp, the glitch shear)."""
+    overrides, after = PREVIEW[name]
+    h, w = hw
+    text = TextParams() if after is None else TextParams(text="T", after=after)
+    ov = np.random.default_rng(6).integers(0, 256, (h, w, 4), dtype=np.uint8)
+    p = EffectParams(**{**overrides, "persistence": 0.0}, text=text)
+    engs = [CRTEngine(p, h, w, 30.0, engine="preview", rng="host", device=dev, text_rgba=ov)
+            for dev in (cuda_dev, "cpu")]
+    x = np.random.default_rng(3).integers(0, 256, (3, h, w, 3), dtype=np.uint8)
+    counters = (kfused, kbloom3, kwarp, kglitch)
+    n0 = [m.launches for m in counters]
+    for k, t in enumerate((0.0, 1 / 30.0, 0.4567)):
+        noise = (np.random.default_rng(int(t * 1000)).standard_normal(
+            engs[0]._grain_hw, dtype=np.float32)[None] if p.noise_on else None)
+        got, want = (e.process_at(x[k:k + 1], np.array([t]), noise)[0].cpu().int()
+                     for e in engs)
+        d = (got - want).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3, t
+    ran = [m.launches > n for m, n in zip(counters, n0)]
+    assert ran == [not engs[0]._staged, engs[0]._staged, p.warp_on, p.glitch_on]
