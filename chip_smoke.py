@@ -106,8 +106,20 @@ Phases (each must pass; any failure exits non-zero):
    worker (``gui_qt.run_render_job``, c4) and ``compat.process_video``
    (the CLI defaults) each render 16 frames on the card; ``--gui``
    exits 3 where PySide6 is absent (the window itself is tested under a
-   stub on the CPU). Then the engine step alone per path (c5 at
-   3840x2160).
+   stub on the CPU). Then the multi-GPU slice (5b) on logical shards of
+   cuda:0 (several mesh entries on one card; more cards when visible):
+   ``ShardedCRTEngine`` on c4 (planar gbr) and the CLI defaults (NHWC)
+   over 2, 4 and 8 shards and c3 over 4, two batches of 8 at 1080p with
+   native rng against the single-device engine (0 LSB without
+   persistence, else 1 LSB and the state within 1e-4) and with host rng
+   against the oracle (1 LSB, fewer than 1e-3 off), with the carry
+   rounds', corrections' and gather's ms per batch (CUDA events) beside
+   the single-device step; c5's clips over 2 and 4 logical devices
+   (``MultiClipEngine`` over a clip mesh) bit for bit the single-device
+   engine; ``render_stream`` of 19 c4 frames at batch 8 through a 4-shard
+   runner (the tail on the engine) within 1 LSB of the unsharded render;
+   the same over the real cards when more than one is visible. Then the
+   engine step alone per path (c5 at 3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -1764,6 +1776,248 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 5b. the multi-GPU slice: the sharded engines ----
+    # Frame sharding (ShardedCRTEngine) and clip sharding (MultiClipEngine
+    # over a clip mesh) on logical shards: several shards on cuda:0 run the
+    # per-shard kernels, the carry rounds, the corrections and the gathers
+    # of a mesh of cards (not its peer copies, second-card launches or
+    # scaling). Each path's launches are counted from 0 over its own run;
+    # the single-device and oracle references run after the count is read.
+    from pythoncrt_tpu_torch.parallel import CLIP_AXIS, DeviceMesh, ShardedCRTEngine, make_mesh
+    from pythoncrt_tpu_torch.pipeline import render_stream
+
+    ncard = torch.cuda.device_count()
+    shard_needs = {"c4": ("fused_pipeline", "glitch_shear", "persistence_scan"),
+                   "defaults": ("fused_pipeline", "persistence_scan"),
+                   "c3": ("fused_pipeline", "warp_planar")}
+    # (config, mesh tag, mesh, layout): c4 planar gbr (the ffmpeg pipe's
+    # layout), the defaults and c3 NHWC (the OpenCV pipe's)
+    shard_runs = [(cfg, f"x{k}", DeviceMesh([torch.device("cuda", 0)] * k), lay)
+                  for cfg, ks, lay in (("c4", (2, 4, 8), "planar"), ("defaults", (2, 4, 8), "nhwc"),
+                                       ("c3", (4,), "nhwc"))
+                  for k in ks]
+    if ncard > 1:
+        shard_runs += [(cfg, "cards", make_mesh(), lay) for cfg, lay in
+                       (("c4", "planar"), ("defaults", "nhwc"), ("c3", "nhwc"))]
+        print(f"[5] sharding: {ncard} cards visible: the sharded checks run on logical shards "
+              f"of cuda:0 and on the {ncard} real cards", flush=True)
+    else:
+        print("[5] sharding: one card visible: only logical shards of cuda:0 ran; no peer copy, "
+              "no launch on a second card and no scaling was measured", flush=True)
+    oracle_ref = {}  # config -> (host-rng frames, the oracle's stream)
+
+    def shard_lay(a, lay):
+        """NHWC RGB frames (numpy or tensor) in the run's layout."""
+        if lay == "nhwc":
+            return a
+        t = torch.as_tensor(a)
+        return t.permute(0, 3, 1, 2)[:, [1, 2, 0]].contiguous()
+
+    def to_rgb(a, lay):
+        t = torch.as_tensor(a)
+        return t if lay == "nhwc" else t[:, [2, 0, 1]].permute(0, 2, 3, 1)
+
+    def timed_step(sh, x, idx, st):
+        """One sharded step, its parts between CUDA events on cuda:0's
+        stream (every logical shard's work is there): ms of the shards'
+        effects and local scans, the carry rounds, the corrections and
+        the gather."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        xx, aux, s, first = sh._inputs(x, idx, st)
+        local = sh._local(xx, aux)
+        ev[1].record()
+        if sh._persist:
+            carries, ns = sh._carry(local, s, first)
+            ev[2].record()
+            outs = sh._correct(local, carries)
+        else:
+            outs, ns = [y for y, _ in local], local[-1][1]
+            ev[2].record()
+        ev[3].record()
+        out, ns = sh._outputs(outs, ns)
+        ev[4].record()
+        torch.cuda.synchronize()
+        return out, ns, [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    for cfg, tag, mesh, lay in shard_runs:
+        pname = f"sharded-{cfg}-{tag}"
+        p = configs[cfg]
+        kw = dict(layout="planar", channel_order="gbr") if lay == "planar" else {}
+        eng = CRTEngine(p, H, W, FPS, device=dev, **kw)
+        g = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randint(0, 256, (2 * B, H, W, 3), generator=g, device=dev, dtype=torch.uint8)
+        x = shard_lay(x, lay)
+        sh = ShardedCRTEngine(eng, mesh)
+        zero_counts()
+        t0 = time.perf_counter()
+        o1, s1 = sh.process(x[:B], np.arange(B))
+        o2, s2 = sh.process(x[B:], np.arange(B, 2 * B), s1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        for k, v in got.items():
+            launches[k][pname] = v
+        r1, q1 = eng.process(x[:B], np.arange(B))
+        r2, q2 = eng.process(x[B:], np.arange(B, 2 * B), q1)
+        d = (torch.cat([o1, o2]).int() - torch.cat([r1, r2]).int()).abs()
+        worst, sdiff = int(d.max().item()), float((s2 - q2).abs().max().item())
+        # per-batch times: 5 more stateful batches, sharded (by parts) and single
+        parts, steps, singles = [], [], []
+        st, st1 = s2, q2
+        for k in range(2, 7):
+            idx = np.arange(k * B, (k + 1) * B)
+            xb = x[(k % 2) * B:(k % 2 + 1) * B]
+            t1 = time.perf_counter()
+            _, st, ms = timed_step(sh, xb, idx, st)
+            steps.append((time.perf_counter() - t1) * 1e3)
+            parts.append(ms)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _, st1 = eng.process(xb, idx, st1)
+            e1.record()
+            torch.cuda.synchronize()
+            singles.append(e0.elapsed_time(e1))
+        med = np.median(np.array(parts), axis=0)
+        print(f"[5] main path {pname} ({mesh.size} shards on {sorted({str(v) for v in mesh.devices})}, "
+              f"{lay}, native rng, 2 batches of {B} at {W}x{H}): vs the single-device engine "
+              f"max {worst} LSB, state max |diff| {sdiff:.3g}; launches {got}; per batch (median "
+              f"of 5, CUDA events on cuda:0) effects + local scans {med[0]:.4f} ms, carry rounds "
+              f"{med[1]:.4f} ms, corrections {med[2]:.4f} ms, gather {med[3]:.4f} ms; sharded step "
+              f"{np.median(steps):.4f} ms wall, single-device step {np.median(singles):.4f} ms "
+              f"(events); first two batches {wall * 1e3:.1f} ms wall on {card}", flush=True)
+        if worst > (LSB_TOL if p.persistence_on else 0) or (p.persistence_on and sdiff > 1e-4):
+            fail(f"{pname} disagrees with the single-device engine: {worst} LSB, state {sdiff}")
+        missing = [k for k in shard_needs[cfg] if got[k] < 1]
+        if missing:
+            fail(f"main path {pname}: kernels never launched: {missing}")
+        del x, o1, o2, r1, r2, sh, eng
+        # host rng against the oracle, its stream computed once per config
+        if cfg not in oracle_ref:
+            clip = synth(2 * B, H, W, seed=12)
+            eng_o = CRTEngine(p, H, W, FPS, rng="host", device=dev)
+            oracle_ref[cfg] = clip, oracle_stream(eng_o, clip, np.arange(2 * B))
+        clip, want = oracle_ref[cfg]
+        engh = CRTEngine(p, H, W, FPS, rng="host", device=dev, **kw)
+        shh = ShardedCRTEngine(engh, mesh)
+        xc = shard_lay(clip, lay)
+        h1, hs = shh.process(xc[:B], np.arange(B))
+        h2, hs = shh.process(xc[B:], np.arange(B, 2 * B), hs)
+        d = np.abs(to_rgb(torch.cat([h1, h2]), lay).cpu().numpy().astype(np.int32)
+                   - want.astype(np.int32))
+        print(f"[5] {pname} with host rng vs the oracle, {2 * B} frames in two batches: max "
+              f"{int(d.max())} LSB, {float((d > 0).mean()):.3e} of values off", flush=True)
+        if d.max() > LSB_TOL or (d > 0).mean() >= 1e-3:
+            fail(f"{pname} disagrees with the oracle")
+        del shh, engh, h1, h2
+        torch.cuda.empty_cache()
+
+    # clip sharding: c5 (4 clips x 8 frames at 3840x2160, two steps of 4)
+    # over 2 and 4 logical devices, bit for bit the single-device engine
+    eng5 = CRTEngine(configs["c5"], H4, W4, FPS, layout="planar", channel_order="gbr",
+                     device=dev)
+    x5 = torch.randint(0, 256, (C5_CLIPS, B, 3, H4, W4), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    idx5 = np.tile(np.arange(B), (C5_CLIPS, 1)) + B * np.arange(C5_CLIPS)[:, None]
+    half = B // 2
+    mc1 = MultiClipEngine(eng5)
+    w1, ws1 = mc1.process(x5[:, :half], idx5[:, :half])
+    w2, ws2 = mc1.process(x5[:, half:], idx5[:, half:], ws1)
+    clip_meshes = [(f"x{k}", DeviceMesh([torch.device("cuda", 0)] * k, CLIP_AXIS)) for k in (2, 4)]
+    if ncard > 1:
+        from pythoncrt_tpu_torch.multiclip import best_mesh_size
+
+        clip_meshes.append(("cards", make_mesh(best_mesh_size(C5_CLIPS), axis=CLIP_AXIS)))
+    for tag, mesh in clip_meshes:
+        pname = f"c5-clips-{tag}"
+        mc = MultiClipEngine(eng5, mesh)
+        zero_counts()
+        t0 = time.perf_counter()
+        g1, gs1 = mc.process(x5[:, :half], idx5[:, :half])
+        g2, gs2 = mc.process(x5[:, half:], idx5[:, half:], gs1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        for k, v in got.items():
+            launches[k][pname] = v
+        same = all(torch.equal(a, b) for a, b in ((g1, w1), (g2, w2), (gs2, ws2)))
+        print(f"[5] main path {pname}: MultiClipEngine over {mesh.size} devices "
+              f"({sorted({str(v) for v in mesh.devices})}), c5 {C5_CLIPS} clips x {B} frames "
+              f"{W4}x{H4} in two steps, native rng: {'bit for bit' if same else 'DIFFERENT from'} "
+              f"the single-device engine; launches {got}; {C5_CLIPS * B / wall:.2f} frames/s "
+              f"wall over the two steps on {card}", flush=True)
+        if not same:
+            fail(f"{pname} differs from the single-device MultiClipEngine")
+        missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip")
+                   if got[k] < 1]
+        if missing:
+            fail(f"main path {pname}: kernels never launched: {missing}")
+        del mc, g1, g2, gs1, gs2
+    del x5, w1, w2, ws1, ws2, mc1, eng5
+    torch.cuda.empty_cache()
+
+    # the pipeline: render_stream over a 4-shard runner, c4, 19 frames at B = 8
+    # (two sharded batches, then the 3-frame tail on the single-device engine)
+    n19 = 19
+    clip19 = synth(n19, H, W, seed=13)
+
+    class MemReader:
+        out_h, out_w = H, W
+
+        def __init__(self):
+            self.i = 0
+
+        def read_into(self, buf):
+            if self.i >= n19:
+                return False
+            buf[...] = clip19[self.i]
+            self.i += 1
+            return True
+
+        def close(self):
+            pass
+
+    class MemWriter:
+        def __init__(self):
+            self.frames = []
+
+        def write_frame(self, f):
+            self.frames.append(f.copy())
+
+        def close(self):
+            pass
+
+    render_meshes = [("x4", DeviceMesh([torch.device("cuda", 0)] * 4))]
+    if ncard > 1 and B % ncard == 0:
+        render_meshes.append(("cards", make_mesh()))
+    eng_r = CRTEngine(configs["c4"], H, W, FPS, device=dev)
+    plain = MemWriter()
+    render_stream(MemReader(), plain, eng_r, batch_size=B)
+    for tag, mesh in render_meshes:
+        pname = f"sharded-render-c4-{tag}"
+        wtr = MemWriter()
+        zero_counts()
+        t0 = time.perf_counter()
+        n_out = render_stream(MemReader(), wtr, eng_r, batch_size=B,
+                              runner=ShardedCRTEngine(eng_r, mesh))
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        for k, v in got.items():
+            launches[k][pname] = v
+        d = np.abs(np.stack(wtr.frames).astype(np.int32) - np.stack(plain.frames).astype(np.int32))
+        print(f"[5] main path {pname}: render_stream, {n_out} of {n19} frames at batch {B} "
+              f"through a {mesh.size}-shard runner (the {n19 % B}-frame tail on the engine), "
+              f"against the unsharded render: max {int(d.max())} LSB, "
+              f"{float((d > 0).mean()):.3e} of values off; launches {got}; "
+              f"{n19 / wall:.2f} fps wall on {card}", flush=True)
+        if n_out != n19 or d.max() > LSB_TOL:
+            fail(f"{pname}: {n_out} frames, {int(d.max())} LSB against the unsharded render")
+        missing = [k for k in shard_needs["c4"] if got[k] < 1]
+        if missing:
+            fail(f"main path {pname}: kernels never launched: {missing}")
+    del eng_r, plain, clip19
+    torch.cuda.empty_cache()
+
     # device-side throughput of the same steps (no codecs): batches of 8
     xs_full = planar_gbr(synth(N_MAIN, H, W, seed=3))
     for pname, _, p, n, _ in paths:
@@ -1807,12 +2061,20 @@ def main() -> int:
     # None: every path). Kernels that share a counter (the fused modes,
     # the bloom3 and bloom2 variants) count on their own paths only; the
     # single-stream persistence row leaves out c5's multi-clip launches.
+    # the multi-GPU slice's paths (5b): frame shards, clip shards, the render
+    tags = ("x2", "x4", "x8", "cards")
+    sh_c4 = tuple(f"sharded-c4-{t}" for t in tags) + tuple(
+        f"sharded-render-c4-{t}" for t in tags)
+    sh_defaults = tuple(f"sharded-defaults-{t}" for t in tags)
+    sh_c3 = tuple(f"sharded-c3-{t}" for t in tags)
+    sh_c5 = tuple(f"c5-clips-{t}" for t in tags)
     runs_on = {
-        "fused_pipeline_gaussian": ("fused_pipeline", ("c3",)),
+        "fused_pipeline_gaussian": ("fused_pipeline", ("c3",) + sh_c3),
         "fused_pipeline": ("fused_pipeline", ("defaults", "c4", "defaults-yuv420p",
                                               "defaults-decode2", "c4-segments-crash",
-                                              "c4-segments-resume", "gui-export", "compat")),
-        "fused_pipeline_c5": ("fused_pipeline", ("c5",)),
+                                              "c4-segments-resume", "gui-export", "compat")
+                           + sh_c4 + sh_defaults),
+        "fused_pipeline_c5": ("fused_pipeline", ("c5",) + sh_c5),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
         "warp_planar": ("warp_planar", None),  # every path but the previews
         "warp_planar_strength1": ("warp_planar", ()),
@@ -1820,11 +2082,11 @@ def main() -> int:
                                                   "c4-text", "defaults-bloom2", "defaults-fast",
                                                   "defaults-yuv420p", "defaults-decode2",
                                                   "c4-segments-crash", "c4-segments-resume",
-                                                  "gui-export", "compat")),
-        "persistence_scan_multiclip": ("persistence_multiclip", ("c5",)),
+                                                  "gui-export", "compat") + sh_c4 + sh_defaults),
+        "persistence_scan_multiclip": ("persistence_multiclip", ("c5",) + sh_c5),
         "glitch_shear": ("glitch_shear", ("c4", "c4-text", "c4-segments-crash",
-                                          "c4-segments-resume", "gui-export")),
-        "glitch_shear_c5": ("glitch_shear", ("c5",)),
+                                          "c4-segments-resume", "gui-export") + sh_c4),
+        "glitch_shear_c5": ("glitch_shear", ("c5",) + sh_c5),
         "glitch_shear_band": ("glitch_shear", ()),
         "bloom3_planar": ("bloom3", ("c3-angled",)),
         "bloom3_fast_planar": ("bloom3", ("defaults-angled",)),

@@ -92,11 +92,10 @@ MULTI_CLIP_KWARGS = frozenset({
     "engine_mode", "rng", "seed", "precision", "pipe_format",
     "devices", "steps_per_call", "device",
 })
-# kwargs of the JAX CLI that only say how its render is spread (devices,
-# steps per call; the output does not depend on them): they stay in the
-# signature, so that journals agree, and are not passed on (one GPU, one
-# step per call; the CLI refuses values above 1)
-SPREAD_KWARGS = ("devices", "steps_per_call")
+# the JAX CLI's steps per call (the output does not depend on it): it stays
+# in the signature, so that journals agree, and is not passed on (one step
+# per call; the CLI refuses values above 1)
+SPREAD_KWARGS = ("steps_per_call",)
 
 
 def _render_kwargs(job: ClipJob) -> dict:

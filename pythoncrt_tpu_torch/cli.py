@@ -10,10 +10,13 @@ per-clip retry), as pythoncrt_tpu/cli.py's ``_run_batch`` does.
 ``--check-deps`` prints the dependency report and exits 0 or 4 before
 any other work. ``--gui``, or no ``--input`` without ``--batch-manifest``,
 opens the Qt window (gui.launch_gui) on ``--device``, as
-pythoncrt_tpu/cli.py does: exit 3 without PySide6. Flags whose machinery
-is not ported yet (``--devices`` above 1, ``--steps-per-call`` above 1)
-exit with status 2 and name the ROADMAP.md item that brings them, in
-manifest runs too. Nothing falls back to another path.
+pythoncrt_tpu/cli.py does: exit 3 without PySide6. ``--sharding auto``
+(the default) splits each batch's frames across the visible cards, at
+most ``--devices`` of them, when ``--device`` is ``cuda``; manifest
+groups shard their clips the same way. A flag whose machinery is not
+ported yet (``--steps-per-call`` above 1) exits with status 2 and names
+the ROADMAP.md item that brings it, in manifest runs too. Nothing falls
+back to another path.
 """
 
 from __future__ import annotations
@@ -202,7 +205,6 @@ def params_from_args(a: argparse.Namespace, provided: set | None = None) -> Effe
 def _refusal(a) -> str:
     """The first flag the port does not run yet, as a message, or ''."""
     todo = [
-        (a.devices > 1, "--devices", "queue 1, multiclip: multi-GPU"),
         (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline: steps per call"),
     ]
     for hit, flag, item in todo:
@@ -262,6 +264,8 @@ def _run_batch(a: argparse.Namespace, argv) -> int:
         kwargs["decode_workers"] = int(a.decode_workers)
     if a.assoc_scan:
         kwargs["assoc_scan"] = True
+    if a.sharding != "auto":
+        kwargs["sharding"] = str(a.sharding)
     if a.profile:
         kwargs["profile_dir"] = str(a.profile)
 
@@ -376,6 +380,8 @@ def main(argv=None) -> int:
         assoc_scan=bool(a.assoc_scan),
         precision=str(a.precision),
         pipe_format=str(a.pipe_format),
+        sharding=str(a.sharding),
+        devices=max(0, int(a.devices)),
         decode_workers=max(1, int(a.decode_workers)),
         segment_frames=max(0, int(a.segment_frames)),
         device=a.device,

@@ -63,6 +63,7 @@ blooms are f32 gathers and sums with no matmul.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import NamedTuple, Optional
 
@@ -164,7 +165,18 @@ class CRTEngine:
         self.channel_order = channel_order
         # plane i of a planar frame holds colour _plane_colors[i] (0=R, 1=G, 2=B)
         self._plane_colors = (0, 1, 2) if channel_order == "rgb" else (1, 2, 0)
+        self._text_rgba = text_rgba
         self._build_consts(consts or {}, text_rgba)
+
+    def replica(self, device) -> "CRTEngine":
+        """This engine on another device: the same configuration and the
+        same host tables (``consts``, copied there), so a shard on that
+        device computes what this engine computes (parallel/mesh.py). The
+        bloom opt-in variables are read again, as at any build."""
+        rep = copy.copy(self)
+        rep.device = torch.device(device)
+        rep._build_consts(self.consts, self._text_rgba)
+        return rep
 
     # ------------------------------------------------------------------
     # Host tables (the oracle is the single source of truth)

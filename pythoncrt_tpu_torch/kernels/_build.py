@@ -112,14 +112,22 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(fn_name: str, args: ctypes.Structure, stream: int) -> None:
-    """Call a C launcher with its argument struct on ``stream`` and raise
-    if the launch was refused (the C side returns cudaGetLastError())."""
+def launch(fn_name: str, args: ctypes.Structure, device) -> None:
+    """Call a C launcher with its argument struct on the current stream of
+    ``device`` (the operands' CUDA device) and raise if the launch was
+    refused (the C side returns cudaGetLastError()). The device is made
+    current around the call: a launch goes to the current device's
+    context, and the launchers' cudaFuncSetAttribute (dynamic shared
+    memory above 48 KB) acts on the current device only."""
+    import torch
+
     lib = library()
     size = getattr(lib, fn_name.replace("_launch", "_args_bytes"))()
     if size != ctypes.sizeof(args):
         raise RuntimeError(f"{fn_name}: argument struct is {ctypes.sizeof(args)} "
                            f"bytes in Python but {size} in C")
-    rc = getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {rc}")

@@ -462,7 +462,7 @@ def walk_launch(imgs: torch.Tensor, h: int, w: int, name: str, *, src: int, band
         a.depth, a.xdepth, a.win, a.smem = plan.depth, plan.xdepth, plan.win, plan.smem
         a.copy16 = int(w % 4 == 0 and a.img % 16 == 0)
         a.vec_ok = int(w % 4 == 0 and a.out % 16 == 0)
-    _build.launch("crt_walk_launch", a, torch.cuda.current_stream(imgs.device).cuda_stream)
+    _build.launch("crt_walk_launch", a, imgs.device)
     del scratch, tapdev  # freed on the stream: the allocator reuses them only after the kernel
     return out
 
@@ -513,5 +513,5 @@ def fast_launch(imgs: torch.Tensor, tables: FastTables, name: str, *, strength: 
     a.fwin, a.fsched, a.frow, a.fhalf = (t.data_ptr() for t in tables.walk)
     a.w2, a.hdepth, a.hwin = w2, plan.hdepth, plan.hwin
     a.sched_stride = plan.sched.shape[1]
-    _build.launch("crt_walk_launch", a, torch.cuda.current_stream(imgs.device).cuda_stream)
+    _build.launch("crt_walk_launch", a, imgs.device)
     return out

@@ -793,7 +793,7 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     a.copy_bytes = gb if ptr % gb == 0 else (4 if gb >= 4 and ptr % 4 == 0 else 1)
     # four values per thread for the grain loads and the stores
     a.vec_ok = int(s.w % 4 == 0 and all(p % 16 == 0 for p in (a.out, a.grain) if p))
-    _build.launch("crt_fused_launch", a, torch.cuda.current_stream(dev).cuda_stream)
+    _build.launch("crt_fused_launch", a, dev)
     launches += 1
     return out
 

@@ -80,7 +80,7 @@ def _launch(src: torch.Tensor, dst: torch.Tensor, y0: int, off: torch.Tensor,
     a.src, a.dst = src.data_ptr(), dst.data_ptr()
     a.off, a.seg = off.data_ptr(), seg_index.data_ptr()
     a.b, a.hs, a.w, a.y0, a.rows, a.nseg = b, hs, w, y0, rows, off.shape[2]
-    _build.launch("crt_glitch_launch", a, torch.cuda.current_stream(src.device).cuda_stream)
+    _build.launch("crt_glitch_launch", a, src.device)
     launches += 1
 
 

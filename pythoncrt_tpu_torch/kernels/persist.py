@@ -121,7 +121,7 @@ def persistence_scan(imgs: torch.Tensor, state: torch.Tensor, first: bool,
     a.emit_u8 = int(emit_u8)
     a.vec = int(a.n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (imgs, states, new_states))
                 and out.data_ptr() % (4 if emit_u8 else 16) == 0)
-    _build.launch("crt_persist_launch", a, torch.cuda.current_stream(imgs.device).cuda_stream)
+    _build.launch("crt_persist_launch", a, imgs.device)
     launches += 1
     multiclip_launches += clip_states is not None
     return out, (new_states[0] if clip_states is None else new_states)

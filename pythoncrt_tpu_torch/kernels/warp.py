@@ -92,6 +92,6 @@ def warp_planar(img: torch.Tensor, tables: WarpTables, *,
     a.b, a.h, a.w = b, h, w
     a.emit_u8 = int(emit_u8)
     a.vec = int(w % 4 == 0 and all(p % 16 == 0 for p in (a.out, a.y0, a.x0, a.fy, a.fx)))
-    _build.launch("crt_warp_launch", a, torch.cuda.current_stream(img.device).cuda_stream)
+    _build.launch("crt_warp_launch", a, img.device)
     launches += 1
     return out

@@ -1,10 +1,13 @@
 """Multi-clip batch render: N decoders -> one lockstep engine step -> N
-encoders, on one GPU.
+encoders.
 
 Port of pythoncrt_tpu/multiclip.py (BASELINE.json config 5 as a render):
 each step consumes one batch of up to B frames from every clip and runs
 them as one flat clip-major batch through ``MultiClipEngine``
 (parallel/mesh.py), whose persistence kernel keeps each clip's carry.
+With several visible cards the clip axis is sharded across them
+(``best_mesh_size`` of them, capped by ``devices``): each card takes whole
+clips, and no data crosses cards but the gather of the outputs.
 
 Host pipeline, on the single-clip render's pieces (pipeline.py):
 
@@ -26,11 +29,10 @@ failures mark that clip failed without ending the others;
 batch.render_batch adds journal resume and per-clip retry on top and is
 the CLI surface (--batch-manifest).
 
-The port runs one device step per batch on one device (eager PyTorch has
-no multi-step dispatch to amortize), so it takes neither ``devices`` nor
-``steps_per_call``; ``auto_steps_per_call`` (the JAX package's host-RAM
-rule) sizes each clip's queue of decoded batches. ``best_mesh_size``
-reads the JAX device list and belongs to the multi-GPU slice.
+The port runs one device step per batch (eager PyTorch has no
+multi-step dispatch to amortize), so it takes no ``steps_per_call``;
+``auto_steps_per_call`` (the JAX package's host-RAM rule) sizes each
+clip's queue of decoded batches.
 """
 
 from __future__ import annotations
@@ -90,6 +92,20 @@ class _AggregateProgress:
             self._cb(min(1.0, cur / total) if total else 1.0)
 
         return update
+
+
+def best_mesh_size(n_clips: int, devices: int = 0) -> int:
+    """The largest divisor of n_clips that fits the visible CUDA device
+    count, capped by ``devices`` when above 0 (MultiClipEngine needs
+    C % ndev == 0)."""
+    ndev = torch.cuda.device_count()
+    if devices > 0:
+        ndev = min(ndev, devices)
+    best = 1
+    for k in range(1, min(ndev, n_clips) + 1):
+        if n_clips % k == 0:
+            best = k
+    return best
 
 
 def _resolve_output_rate(infos, live, fps) -> float:
@@ -172,6 +188,7 @@ def process_videos(
     seed: int = 0,
     precision: str = "exact",
     pipe_format: str = "rgb24",
+    devices: int = 0,
     device="cuda",
     progress_cb: Optional[Callable[[float], None]] = None,
     report: bool = True,
@@ -188,7 +205,9 @@ def process_videos(
 
     Returns one ClipRenderResult per clip, in input order. A clip whose
     probe, decoder or encoder fails is marked failed without ending the
-    others."""
+    others. ``devices`` caps the cards the clip axis is sharded across
+    (0: every visible card; best_mesh_size) when ``device`` is "cuda";
+    a device that names one card, or the CPU, renders there alone."""
     if pipe_format not in ("rgb24", "yuv420p"):
         raise ValueError(f"pipe_format must be 'rgb24' or 'yuv420p', got {pipe_format!r}")
     inputs = [Path(p) for p in inputs]
@@ -232,7 +251,7 @@ def process_videos(
     planar = planar_pipe_gate(pipe_format)  # the single-clip render's gate and layout
     text_rgba = overlay_for(out_w, out_h, params.text)
     with perf.timed("fx.compile"):
-        from .parallel import MultiClipEngine
+        from .parallel import CLIP_AXIS, MultiClipEngine, make_mesh, may_shard
 
         eng = CRTEngine(params, out_h, out_w, fps_out, engine=engine_mode, rng=rng,
                         seed=seed, text_rgba=text_rgba, precision=precision,
@@ -242,7 +261,8 @@ def process_videos(
             from .kernels import _build
 
             _build.library()  # nvcc at first use, charged here
-        mc = MultiClipEngine(eng)
+        ndev = best_mesh_size(c, devices) if may_shard(eng.device) else 1
+        mc = MultiClipEngine(eng, make_mesh(ndev, axis=CLIP_AXIS) if ndev > 1 else None)
     dev, cuda = eng.device, eng.device.type == "cuda"
     fshape = eng._frame_shape()
     pipe = "gbrp" if planar else pipe_format

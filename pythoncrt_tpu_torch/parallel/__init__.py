@@ -1,5 +1,21 @@
-"""Clip-axis lockstep on one GPU (multi-GPU sharding: ROADMAP.md queue 1)."""
+"""Frame-axis and clip-axis sharding across CUDA devices (parallel/mesh.py)."""
 
-from .mesh import MultiClipEngine
+from .mesh import (
+    CLIP_AXIS,
+    FRAME_AXIS,
+    DeviceMesh,
+    MultiClipEngine,
+    ShardedCRTEngine,
+    make_mesh,
+    may_shard,
+)
 
-__all__ = ["MultiClipEngine"]
+__all__ = [
+    "CLIP_AXIS",
+    "FRAME_AXIS",
+    "DeviceMesh",
+    "MultiClipEngine",
+    "ShardedCRTEngine",
+    "make_mesh",
+    "may_shard",
+]

@@ -1,6 +1,6 @@
 """Video render pipeline: decode -> device batches -> encode.
 
-Port of pythoncrt_tpu/pipeline.py (single clip, single device):
+Port of pythoncrt_tpu/pipeline.py (single clip):
 
   decode thread -> pinned host batch -> H2D -> engine step (kernels)
   -> D2H into a pinned host batch -> encode thread
@@ -22,6 +22,11 @@ and journals each one with the persistence carry after its last batch
 (segments.py), and a later call resumes there: the reader seeks to the
 first frame not rendered and the stream continues from the snapshot,
 bit for bit.
+
+With ``sharding="auto"`` and more than one visible card, each full batch
+runs through a ``ShardedCRTEngine`` over the cards (``frame_runner``),
+the frame axis split across them with the persistence carry crossing the
+shards; the stream's short tail runs through the single-device engine.
 """
 
 from __future__ import annotations
@@ -212,9 +217,16 @@ def _segment_writer_loop(seg: SegmentRun, in_q: queue.Queue, free: queue.Queue, 
 def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAULT_BATCH,
                   start_idx: int = 0, total_frames: int = 0,
                   progress_cb: Optional[Callable[[float], None]] = None, state=None,
-                  segments: Optional[SegmentRun] = None, _fail_after_frames: int = 0) -> int:
+                  segments: Optional[SegmentRun] = None, runner=None,
+                  _fail_after_frames: int = 0) -> int:
     """Render every frame ``reader`` yields through ``engine`` into
     ``writer`` (which the caller closes). Returns the frames rendered.
+
+    ``runner`` (a ``ShardedCRTEngine`` around ``engine``, see
+    ``frame_runner``) takes every full batch; a short batch, the stream's
+    tail, goes through ``engine``, as the JAX package's render does
+    (pythoncrt_tpu/pipeline.py:484-486): a sharded batch must divide by
+    the mesh. Both return their output and state on the engine's device.
 
     ``start_idx`` is the absolute index of the reader's first frame and
     ``state`` the persistence carry before it (a segment resume: the
@@ -224,6 +236,7 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
     after it, made on the stream before the next step runs.
     ``_fail_after_frames`` is a test hook: the render fails once that
     many frames were dispatched."""
+    runner = engine if runner is None else runner
     dev = engine.device
     cuda = dev.type == "cuda"
     fshape = tuple(getattr(reader, "frame_shape", (reader.out_h, reader.out_w, 3)))
@@ -287,7 +300,8 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
                         continue
                 with perf.timed("fx.dispatch"), perf.device_trace("fx.step"):
                     x = buf[:got].to(dev, non_blocking=True)
-                    out, state = engine.process(x, np.arange(idx0, idx0 + got), state)
+                    step = runner if got == batch_size else engine
+                    out, state = step.process(x, np.arange(idx0, idx0 + got), state)
                     out_buf[:got].copy_(out, non_blocking=True)
                     snap = None
                     if snapshots and (idx0 + got) % segments.length == 0:
@@ -322,6 +336,28 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
     return frames
 
 
+def frame_runner(engine: CRTEngine, sharding: str, devices: int, batch_size: int):
+    """The step that takes a render's full batches (JAX pipeline.py:270-301).
+    ``sharding`` "auto": a ``ShardedCRTEngine`` over the first n visible
+    cards, n the visible count capped by ``devices`` (0: no cap), when n
+    is above 1 and divides ``batch_size``, and the engine's device names
+    the CUDA type rather than one card or the CPU (``may_shard``: a user
+    who named one device gets that device); else the engine itself.
+    "none" is the engine itself."""
+    if sharding not in ("auto", "none"):
+        raise ValueError(f"sharding must be 'auto' or 'none', got {sharding!r}")
+    from . import parallel
+
+    if sharding == "none" or not parallel.may_shard(engine.device):
+        return engine
+    ndev = torch.cuda.device_count()
+    if devices > 0:
+        ndev = min(ndev, devices)
+    if ndev > 1 and batch_size % ndev == 0:
+        return parallel.ShardedCRTEngine(engine, parallel.make_mesh(ndev))
+    return engine
+
+
 def planar_pipe_gate(pipe_format: str) -> bool:
     """Whether ffmpeg pipes both ends as planar gbrp and the engine runs
     planar (pythoncrt_tpu/pipeline.py planar_pipe_gate): an rgb24 request
@@ -352,6 +388,8 @@ def process_video(
     assoc_scan: bool = False,
     precision: str = "exact",
     pipe_format: str = "rgb24",
+    sharding: str = "auto",
+    devices: int = 0,
     decode_workers: int = 1,
     segment_frames: int = 0,
     device="cuda",
@@ -366,6 +404,10 @@ def process_video(
     semantics: width/height/fps of None keep the source values). When an
     ffmpeg binary pipes both ends, frames travel as planar gbrp and the
     engine runs in that layout (no host repack; planar_pipe_gate).
+    ``sharding`` "auto" splits each full batch's frames across the visible
+    cards (at most ``devices`` of them, 0 for all) when more than one is
+    visible, the batch size divides by their number and ``device`` is
+    "cuda" (frame_runner); "none" renders on one device.
     ``pipe_format`` "yuv420p" decodes a half-size pipe and converts on
     the host (NHWC; without an ffmpeg binary the OpenCV tier decodes).
     ``decode_workers`` above 1 decodes seek-positioned chunks in parallel
@@ -397,6 +439,7 @@ def process_video(
             from .kernels import _build
 
             _build.library()  # nvcc at first use, charged here
+        runner = frame_runner(eng, sharding, devices, batch_size)
     pipe = "gbrp" if planar else pipe_format
     out_fmt = "gbrp" if planar else "rgb24"
     enc = dict(encoder_preference=encoder_preference, gpu=gpu, crf=crf,
@@ -447,7 +490,7 @@ def process_video(
         with prof:
             frames = render_stream(reader, writer, eng, batch_size=batch_size, start_idx=skip,
                                    total_frames=total_frames, progress_cb=progress_cb,
-                                   state=state, segments=seg,
+                                   state=state, segments=seg, runner=runner,
                                    _fail_after_frames=_fail_after_frames)
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)

@@ -4,7 +4,8 @@ PySide6), the render loop against
 CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
 CLI defaults and c4, export and preview; 2-D scanlines and text
 overlays; --precision fast, --segment-frames, --decode-workers,
---pipe-format yuv420p and --check-deps in a fresh interpreter each)."""
+--pipe-format yuv420p, --devices, --sharding and --check-deps in a fresh
+interpreter each)."""
 
 import importlib.util
 import os
@@ -88,12 +89,16 @@ def test_out_of_slice_configs_raise(overrides, kw, item):
 
 @pytest.mark.parametrize("flags", [
     ["--precision", "fast"], ["--segment-frames", "2"], ["--decode-workers", "2"],
-    ["--pipe-format", "yuv420p"], ["--check-deps"],
-], ids=["precision_fast", "segment_frames", "decode_workers", "yuv420p", "check_deps"])
+    ["--pipe-format", "yuv420p"], ["--check-deps"], ["--devices", "2"],
+    ["--devices", "2", "--sharding", "none"],
+], ids=["precision_fast", "segment_frames", "decode_workers", "yuv420p", "check_deps",
+        "devices_2", "devices_2_sharding_none"])
 def test_ported_flags_render_without_jax(tmp_path, flags):
     """Each flag the port now runs renders 4 frames through cli.main (or,
     --check-deps, reports and exits 0) in a fresh interpreter that loads
-    no module of JAX or of the JAX package."""
+    no module of JAX or of the JAX package. --devices 2 with --device cpu
+    renders on the one device named, as the JAX package caps the shards
+    at the devices it sees."""
     inp, out = tmp_path / "in.mp4", tmp_path / "out.mp4"
     write_clip(inp, n=4)
     code = ("import sys, pythoncrt_tpu_torch.cli as c; "
@@ -130,9 +135,7 @@ def test_formerly_refused_configs_render(overrides):
     assert not np.array_equal(out.numpy(), frames)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--steps-per-call", "2"],
-])
+@pytest.mark.parametrize("flags", [["--steps-per-call", "2"]])
 def test_out_of_slice_flags_exit_2(flags, capsys):
     assert cli.main(["--input", "x.mp4", *flags]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
@@ -188,8 +191,8 @@ def test_gui_with_qt_but_no_cuda_exits_2(monkeypatch, capsys):
 @pytest.mark.parametrize("extra", [[], ["--devices", "2"]], ids=["render", "devices_2"])
 def test_cli_renders_a_batch_manifest(tmp_path, capsys, extra):
     """--batch-manifest renders two clips of different lengths in
-    lockstep on the CPU (every frame of each); --devices 2 stays refused
-    in a manifest run, naming ROADMAP.md."""
+    lockstep on the CPU (every frame of each), with --devices 2 too: the
+    jobs carry it into process_videos, which shards no clip on the CPU."""
     import json
 
     clips = []
@@ -202,9 +205,6 @@ def test_cli_renders_a_batch_manifest(tmp_path, capsys, extra):
     rc = cli.main(["--batch-manifest", str(m), *C4_FLAGS, "--batch-size", "2",
                    "--device", "cpu", *extra])
     out, err = capsys.readouterr()
-    if extra:
-        assert rc == 2 and "ROADMAP.md queue 1, multiclip: multi-GPU" in err
-        return
     assert rc == 0, out + err
     assert "2/2 clips ok" in out
     assert [count_frames(tmp_path / f"o{i}.mp4") for i in range(2)] == [5, 3]

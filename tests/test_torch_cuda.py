@@ -18,7 +18,10 @@ triad_mode 3) is held to the same 2e-6 / 1 LSB in every instantiation
 (gaussian at r = 4, a runtime radius and past 31; fast; f32 input) and
 the split route, and the whole step with it to the CPU step. The GUI
 preview's engine call (process_at, one frame at 960x540 and 853x480) is
-held to the CPU step within 1 LSB."""
+held to the CPU step within 1 LSB. The frame-sharded engine over 2, 4
+and 8 logical shards of cuda:0, and over every visible card (skipped on
+a one-card host), is held to the single-device engine: 0 LSB without
+persistence, else 1 LSB and the state within 1e-4."""
 
 import numpy as np
 import pytest
@@ -687,3 +690,65 @@ def test_process_at_on_card_matches_cpu(cuda_dev, name, hw):
         assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3, t
     ran = [m.launches > n for m, n in zip(counters, n0)]
     assert ran == [not engs[0]._staged, engs[0]._staged, p.warp_on, p.glitch_on]
+
+
+SHARDED = {"c4": VARIANTS["c4"], "defaults": {}, "c3": C3}
+
+
+def sharded_against_single(mesh, name, planar_gbr, h=64, w=200, b=8):
+    """Two stateful batches of b frames (native rng) through a
+    ShardedCRTEngine over ``mesh`` against the single-device engine: 0
+    LSB without persistence, else at most 1 LSB and the state within
+    1e-4 (the JAX package's tests/test_sharding.py tolerances)."""
+    from pythoncrt_tpu_torch.parallel import ShardedCRTEngine
+
+    kw = dict(layout="planar", channel_order="gbr") if planar_gbr else {}
+    p = EffectParams(**SHARDED[name])
+    eng = CRTEngine(p, h, w, 24.0, device=mesh.devices[0], **kw)
+    sh = ShardedCRTEngine(eng, mesh)
+    x = frames(2 * b, h, w, mesh.devices[0])
+    if not planar_gbr:
+        x = x.permute(0, 2, 3, 1).contiguous()
+    got, want = [], []
+    for run, out in ((sh, got), (eng, want)):
+        o1, s = run.process(x[:b], np.arange(b))
+        o2, s = run.process(x[b:], np.arange(b, 2 * b), s)
+        out += [torch.cat([o1, o2]).int(), s]
+    torch.cuda.synchronize()
+    d = (got[0] - want[0]).abs().max().item()
+    assert got[0].shape == want[0].shape and got[0].device == want[0].device
+    if not p.persistence_on:
+        assert d == 0
+    else:
+        assert d <= 1 and (got[1] - want[1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar_gbr", [False, True], ids=["nhwc", "planar_gbr"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_sharded_engine_logical_shards_on_one_card(cuda_dev, name, n, planar_gbr):
+    """n logical shards on cuda:0 (B = 8: one frame a shard at n = 8)."""
+    from pythoncrt_tpu_torch.parallel import DeviceMesh
+
+    sharded_against_single(DeviceMesh([torch.device("cuda", 0)] * n), name, planar_gbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_sharded_engine_over_the_visible_cards(cuda_dev, name):
+    """A ShardedCRTEngine over every visible card (make_mesh), and the
+    clip-sharded MultiClipEngine over them against one card: kernels
+    launched on each card, peer copies of the carry and the gathers."""
+    from pythoncrt_tpu_torch.parallel import CLIP_AXIS, make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices; this host has {n}")
+    sharded_against_single(make_mesh(), name, False, b=2 * n)
+    eng = CRTEngine(EffectParams(**SHARDED[name]), 64, 200, 24.0, device="cuda:0")
+    x = frames(n * 4, 64, 200, "cuda:0").permute(0, 2, 3, 1).reshape(n, 4, 64, 200, 3)
+    idx = np.tile(np.arange(4), (n, 1))
+    got, gs = MultiClipEngine(eng, make_mesh(axis=CLIP_AXIS)).process(x, idx)
+    want, ws = MultiClipEngine(eng).process(x, idx)
+    assert torch.equal(got, want) and torch.equal(gs, ws)
