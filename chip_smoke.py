@@ -33,9 +33,16 @@ Phases (each must pass; any failure exits non-zero):
    the stripe and bloom2 (c3's pre-bloom image). Then the fused kernel's
    direct-pow triad (``--precision fast``, triad_mode 3) on the CLI
    defaults, c3, c4-text and sigma 11, each with the LUT-exact mode timed
-   in turn on the same operands; its FP64 operations per value are
-   counted by running its two sites, compiled alone and instrumented at
-   each basic block, on values over (0, 1]. Then the GUI preview's
+   in turn on the same operands; its f32 and FP64 operations per value
+   are counted by running its three pow sites (csrc/triad_pow.cuh: the
+   f32 fast paths, the rounding tests, the FP64 fallbacks), compiled alone
+   and instrumented at each basic block, on values over (0, 1], and the
+   sites are swept over every f32 input of their domains (the log2 site
+   over [0, 1], the exp2 site over [-1500, 0] and -inf, the forward site
+   over [0, 1] at gamma 0.1, 1, 1.1, 2.2, 4 and 10): no value may differ
+   from the FP64 expression; the fallback share per site, the largest
+   distance of a fast value and the forward site's deltas from the twin's
+   torch.pow in double are printed. Then the GUI preview's
    kernels at its shapes (one frame at 960x540, the preview engine with
    host rng, persistence zeroed, addressed by time): the fused kernel
    (the CLI defaults' fast core, c3's gaussian core, c4-text's f32
@@ -47,7 +54,8 @@ Phases (each must pass; any failure exits non-zero):
    of the twin and, where one PyTorch call computes the same function,
    of that call; the least time the card could take (the largest of the
    bytes over the memory rate, the f32 operations over the f32 rate and
-   the FP64 operations over the FP64 rate).
+   the FP64 operations over the FP64 rate; the direct-pow rows count
+   their pow sites' operations as measured).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
@@ -208,7 +216,9 @@ PATH_KW = {"defaults-fast": dict(precision="fast"), "c3-fast": dict(precision="f
 # not counted). At these counts every kernel is bound by bytes. The
 # direct-pow triad's rows (precision fast) take DIRECT_F32_LESS fewer: the
 # tables' multiply, convert and two integer clamps at each of the two
-# sites, less the f32 multiply of the final site.
+# sites, less the f32 multiply of the final site; and add the f32 and FP64
+# operations its three pow sites (csrc/triad_pow.cuh) were counted to run
+# per value (pow_site_ops).
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
                  "warp_planar_strength1": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
@@ -222,6 +232,7 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "bloom_stripe_s11": 272, "bloom_stripe_s20": 490,
                  "bloom2_planar_s11": 272, "bloom2_planar_s20": 490}
 DIRECT_F32_LESS = 7
+PR8_FP64_OPS = 149  # the direct-pow triad's FP64 chains per value before csrc/triad_pow.cuh
 # the GUI's live preview: one frame per tick at the preview size of a
 # 1920x1080 source (960x540), and of an 853x480 (FWVGA) source, which the
 # fit leaves as it is (a 1280x720 source fits to 960x540 exactly); the
@@ -300,95 +311,128 @@ def nbytes(*ts) -> int:
     return sum(int(t.numel() * t.element_size()) for t in ts if t is not None)
 
 
-def bound(name: str, bytes_moved: int, values_out: int, f64_per_value: float = 0) -> tuple:
+def bound(name: str, bytes_moved: int, values_out: int, f64_per_value: float = 0,
+          f32_sites: float = 0) -> tuple:
     """Least time for the work: bytes (each input read once, each output
     written once) over the memory rate, the f32 operations over the f32
-    rate, or the FP64 operations (the direct-pow triad's) over the FP64
-    rate, whichever is largest: the card runs the three side by side."""
+    rate, or the FP64 operations (the direct-pow triad's fallback) over the
+    FP64 rate, whichever is largest: the card runs the three side by side.
+    ``f32_sites``: the direct-pow triad's pow sites' f32 operations per
+    value, counted."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     direct = name.endswith("_direct")
-    f32_ops = OPS_PER_VALUE[name.removesuffix("_direct")] - (DIRECT_F32_LESS if direct else 0)
+    f32_ops = (OPS_PER_VALUE[name.removesuffix("_direct")]
+               - (DIRECT_F32_LESS if direct else 0) + f32_sites)
     t_ops = max(f32_ops / F32_OPS_PER_S, f64_per_value / F64_OPS_PER_S) * values_out * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the direct-pow triad's two sites as csrc/fused.cu computes them, compiled
-# alone with its flags to count their FP64 operations per value
+# the direct-pow triad's three pow sites as csrc/fused.cu calls them
+# (csrc/triad_pow.cuh: the f32 fast paths, the rounding tests and the FP64
+# fallbacks), compiled alone with the kernels' flags to count their
+# operations per value
 DIRECT_TRIAD_CU = r"""
-__device__ unsigned long long f64_count;
+#include "triad_pow.cuh"
+__device__ unsigned long long f64_count, f32_count;
 extern "C" __global__ void triad_sites(const float* x, float* y, float g, float e, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float lin = (float)exp2((double)g * log2((double)x[i]));
-    const float t = (float)log2((double)lin);
-    y[i] = (float)exp2((double)(t * e));
+    const int i = 3 * (blockIdx.x * blockDim.x + threadIdx.x);  // a pixel's three planes
+    if (i + 2 >= n) return;
+    const float v[3] = {x[i], x[i + 1], x[i + 2]};
+    float lin[3], out[3];
+    triad::pow_fwd3(triad::kTab, v, g, lin);
+    triad::pow_final3(triad::kTab, lin, e, out);
+    for (int p = 0; p < 3; ++p) y[i + p] = out[p];
 }
 """
-F64_PTX = re.compile(r"^\s*(@!?%p\d+\s+)?(fma|add|sub|mul)(\.r[nzmp])?\.f64\b")
-F64_SASS = re.compile(r"\b(DFMA|DADD|DMUL)\b")
+OPS_PTX = {"f64": re.compile(r"^\s*(@!?%p\d+\s+)?(fma|add|sub|mul)(\.r[nzmp])?\.f64\b"),
+           "f32": re.compile(r"^\s*(@!?%p\d+\s+)?(fma|add|sub|mul)(\.r[nzmp])?(\.ftz)?(\.sat)?"
+                             r"\.f32\b")}
+OPS_SASS = {"f64": re.compile(r"\b(DFMA|DADD|DMUL)\b"), "f32": re.compile(r"\b(FFMA|FADD|FMUL)\b")}
 
 
 def direct_triad_build(nvcc: str, flags: tuple, d: str) -> tuple:
-    """The sites' SASS, and their PTX with a count of FP64 operations
-    (FMA as two) added to ``f64_count`` where each basic block starts and
-    before each predicated FP64 operation, built into a cubin."""
+    """The sites' SASS, and their PTX with counts of FP64 and f32 operations
+    (FMA as two) added to ``f64_count`` and ``f32_count`` where each basic
+    block of each function (the kernel and the out-of-line fallbacks)
+    starts and before each predicated operation, built into a cubin."""
     src, ptx = os.path.join(d, "t.cu"), os.path.join(d, "t.ptx")
     with open(src, "w") as f:
         f.write(DIRECT_TRIAD_CU)
-    subprocess.run([nvcc, *flags, "-cubin", "-o", os.path.join(d, "t.cubin"), src], check=True,
-                   capture_output=True, timeout=300)
+    inc = ("-I", str(_build_csrc()))
+    subprocess.run([nvcc, *flags, *inc, "-cubin", "-o", os.path.join(d, "t.cubin"), src],
+                   check=True, capture_output=True, timeout=300)
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                            os.path.join(d, "t.cubin")],
                           check=True, capture_output=True, text=True, timeout=120).stdout
-    subprocess.run([nvcc, *flags, "-ptx", "-o", ptx, src], check=True, capture_output=True,
+    subprocess.run([nvcc, *flags, *inc, "-ptx", "-o", ptx, src], check=True, capture_output=True,
                    timeout=300)
     lines = open(ptx).read().splitlines()
-    entry = next(i for i, ln in enumerate(lines) if ".entry triad_sites" in ln)
-    body = next(i for i in range(entry, len(lines)) if lines[i].strip() == "{") + 1
-    end = max(i for i, ln in enumerate(lines) if ln.strip() == "}")
-    first = next(i for i in range(body, end)
-                 if lines[i].strip() and not lines[i].strip().startswith((".", "//")))
 
-    def add(n: int, pred: str = "") -> str:
-        return (f"{{ .reg .u64 %f64n; mov.u64 %f64n, {n}; "
-                f"{pred}red.global.add.u64 [f64_count], %f64n; }}")
+    def add(kind: str, n: int, pred: str = "") -> str:
+        return (f"{{ .reg .u64 %opsn; mov.u64 %opsn, {n}; "
+                f"{pred}red.global.add.u64 [{kind}_count], %opsn; }}")
 
     def weight(m) -> int:
         return 2 if m.group(2) == "fma" else 1
 
-    # a block starts at the body's first instruction, at a label and after
-    # a branch; its count is added where it starts (after its label)
-    label = [bool(re.match(r"^\$\w+:", lines[i].strip())) for i in range(len(lines))]
-    starts = sorted({first} | {i for i in range(first, end) if label[i]}
-                    | {i + 1 for i in range(first, end - 1)
-                       if re.search(r"\b(bra(\.uni)?|ret|exit)\b", lines[i]) and not label[i + 1]})
-    out, static = lines[:first], 0
-    for k, start in enumerate(starts):
-        block = lines[start:starts[k + 1] if k + 1 < len(starts) else end]
-        head = [block.pop(0)] if label[start] else []
-        ops = [(F64_PTX.match(ln), ln) for ln in block]
-        static += sum(weight(m) for m, _ in ops if m)
-        out += head + [add(sum(weight(m) for m, _ in ops if m and not m.group(1)))]
-        for m, ln in ops:
-            if m and m.group(1):
-                out.append(add(weight(m), m.group(1)))
-            out.append(ln)
-    out += lines[end:]
+    out, static, i = [], dict(f64=0, f32=0), 0
+    while i < len(lines):  # copy up to each function body's "{", then rewrite the body
+        out.append(lines[i])
+        if lines[i] != "{":
+            i += 1
+            continue
+        end = next(k for k in range(i + 1, len(lines)) if lines[k] == "}")
+        body = lines[i + 1:end]
+        label = [bool(re.match(r"^\$\w+:", ln.strip())) for ln in body]
+        first = next(k for k, ln in enumerate(body)
+                     if ln.strip() and not ln.strip().startswith((".", "//")))
+        out += body[:first]
+        # a block starts at the first instruction, at a label and after a branch
+        starts = sorted({first} | {k for k in range(first, len(body)) if label[k]}
+                        | {k + 1 for k in range(first, len(body) - 1)
+                           if re.search(r"\b(bra(\.uni)?|ret|exit)\b", body[k])
+                           and not label[k + 1]})
+        for j, st in enumerate(starts):
+            block = body[st:starts[j + 1] if j + 1 < len(starts) else len(body)]
+            head = [block.pop(0)] if label[st] else []
+            out += head
+            for kind, rx in OPS_PTX.items():
+                ops = [m for m in map(rx.match, block) if m]
+                static[kind] += sum(weight(m) for m in ops)
+                n = sum(weight(m) for m in ops if not m.group(1))
+                if n:
+                    out.append(add(kind, n))
+            for ln in block:
+                for kind, rx in OPS_PTX.items():
+                    m = rx.match(ln)
+                    if m and m.group(1):
+                        out.append(add(kind, weight(m), m.group(1)))
+                out.append(ln)
+        out.append("}")
+        i = end + 1
     with open(ptx, "w") as f:
         f.write("\n".join(out) + "\n")
     cubin = os.path.join(d, "counted.cubin")
     subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, ptx], check=True, capture_output=True,
                    timeout=300)
-    sass_ops = sum(2 if op == "DFMA" else 1 for op in F64_SASS.findall(sass))
+    sass_ops = {k: sum(2 if op.endswith("FMA") else 1 for op in rx.findall(sass))
+                for k, rx in OPS_SASS.items()}
     return sass_ops, static, open(cubin, "rb").read()
 
 
-def fp64_ops_on_path(nvcc: str, flags: tuple, gammas, n: int = 1 << 16) -> dict:
-    """FP64 operations per value that the direct-pow triad's two sites
-    execute on the card, for each triad gamma: the mean over ``n`` values
-    evenly spread over (0, 1] (the clipped values the kernel feeds
-    them), counted by the instrumented sites. Also the counts of every
-    path in their SASS and in their PTX (the special cases too), which
+def _build_csrc():
+    from pythoncrt_tpu_torch.kernels import _build
+
+    return _build.CSRC
+
+
+def pow_site_ops(nvcc: str, flags: tuple, gammas, n: int = 3 << 15) -> dict:
+    """FP64 and f32 operations per value that the direct-pow triad's three
+    pow sites execute on the card, for each triad gamma: the mean over
+    ``n`` values evenly spread over (0, 1] (the clipped values the kernel
+    feeds them), three to a thread as the kernel's pixels give them,
+    counted by the instrumented sites. Also the counts of
+    every path in their SASS and in their PTX (the fallbacks too), which
     the run's values do not all take."""
     import ctypes
 
@@ -398,11 +442,12 @@ def fp64_ops_on_path(nvcc: str, flags: tuple, gammas, n: int = 1 << 16) -> dict:
     with tempfile.TemporaryDirectory() as d:
         sass_ops, ptx_ops, image = direct_triad_build(nvcc, flags, d)
     ctx, mod, fn = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
-    dptr, size = ctypes.c_uint64(), ctypes.c_size_t()
+    ptrs = {k: ctypes.c_uint64() for k in OPS_PTX}
+    size = ctypes.c_size_t()
 
     def check(rc, what):
         if rc != 0:
-            fail(f"the FP64 count's {what} returned CUDA driver error {rc}")
+            fail(f"the operation count's {what} returned CUDA driver error {rc}")
 
     dev = ctypes.c_int()
     torch.cuda.init()
@@ -412,29 +457,104 @@ def fp64_ops_on_path(nvcc: str, flags: tuple, gammas, n: int = 1 << 16) -> dict:
     try:
         check(cu.cuModuleLoadData(ctypes.byref(mod), image), "module load")
         check(cu.cuModuleGetFunction(ctypes.byref(fn), mod, b"triad_sites"), "function")
-        check(cu.cuModuleGetGlobal_v2(ctypes.byref(dptr), ctypes.byref(size), mod,
-                                      b"f64_count"), "counter")
+        for k, ptr in ptrs.items():
+            check(cu.cuModuleGetGlobal_v2(ctypes.byref(ptr), ctypes.byref(size), mod,
+                                          f"{k}_count".encode()), "counter")
         x = torch.arange(1, n + 1, device="cuda", dtype=torch.float64).div(n).float()
         y = torch.empty_like(x)
         torch.cuda.synchronize()
-        per_value = {}
+        per_value = {k: {} for k in OPS_PTX}
         for g in gammas:
-            check(cu.cuMemsetD8_v2(dptr, ctypes.c_ubyte(0), ctypes.c_size_t(8)), "counter reset")
+            for ptr in ptrs.values():
+                check(cu.cuMemsetD8_v2(ptr, ctypes.c_ubyte(0), ctypes.c_size_t(8)),
+                      "counter reset")
             args = [ctypes.c_uint64(x.data_ptr()), ctypes.c_uint64(y.data_ptr()),
                     ctypes.c_float(g), ctypes.c_float(1.0 / g), ctypes.c_int(n)]
             params = (ctypes.c_void_p * len(args))(*[ctypes.addressof(v) for v in args])
-            check(cu.cuLaunchKernel(fn, (n + 255) // 256, 1, 1, 256, 1, 1, 0, None, params,
+            check(cu.cuLaunchKernel(fn, (n // 3 + 255) // 256, 1, 1, 256, 1, 1, 0, None, params,
                                     None), "launch")
             check(cu.cuCtxSynchronize(), "run")
-            count = ctypes.c_uint64()
-            check(cu.cuMemcpyDtoH_v2(ctypes.byref(count), dptr, ctypes.c_size_t(8)),
-                  "counter read")
-            per_value[float(g)] = count.value / n
+            for k, ptr in ptrs.items():
+                count = ctypes.c_uint64()
+                check(cu.cuMemcpyDtoH_v2(ctypes.byref(count), ptr, ctypes.c_size_t(8)),
+                      "counter read")
+                per_value[k][float(g)] = count.value / n
         check(cu.cuModuleUnload(mod), "module unload")
     finally:
         cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
         cu.cuDevicePrimaryCtxRelease_v2(dev)
     return dict(per_value=per_value, sass_all_paths=sass_ops, ptx_all_paths=ptx_ops)
+
+
+def triad_sweep_phase(dev, gammas) -> None:
+    """Every f32 input of each pow site's domain through csrc/triad_pow.cuh
+    on the card (kernels/triad.py sweep, 2^26 inputs a launch): the log2
+    site over [0, 1], the exp2 site over [-1500, 0] and -inf, the forward
+    site over [0, 1] at each gamma. Fails on any value that is not the FP64
+    expression's, printing the first inputs. Prints the fallback share over
+    the whole domain and over the pixel range (x in [2^-8, 1]; the exp2
+    argument in [-8, 0]), the exact answers and the largest relative
+    distance from a fast value to the FP64 expression; for the forward site
+    also the values that differ from the twin's torch.pow in double (a twin
+    delta, not a fault: the twin is not the kernel's FP64 expression)."""
+    import torch
+
+    from pythoncrt_tpu_torch.kernels import triad
+
+    chunk = 1 << 26
+    buf = torch.empty(chunk, dtype=torch.float32, device=dev)
+    pixel = {"forward": (0x3B800000, 0x3F800001), "log2": (0x3B800000, 0x3F800001),
+             "exp2": (0x80000000, 0xC1000001)}  # [2^-8, 1]; [-8, 0]
+    t0 = time.perf_counter()
+    for site in triad.SITES:
+        for g in (gammas if site == "forward" else (1.0,)):
+            start, count = triad.DOMAINS[site]
+            tot = dict(n=0, mismatches=0, fallbacks=0, exact=0, max_distance=0.0)
+            first, twin, twin_first = None, 0, None
+            for off in range(0, count, chunk):
+                n = min(chunk, count - off)
+                r = triad.sweep(site, g, start=start + off, count=n, device=dev,
+                                out=buf[:n] if site == "forward" else None)
+                if r["first"] is not None and first is None:
+                    first = start + off + r["first"]
+                for k in tot:
+                    tot[k] = max(tot[k], r[k]) if k == "max_distance" else tot[k] + r[k]
+                if site == "forward":
+                    xs = torch.arange(start + off, start + off + n, device=dev,
+                                      dtype=torch.int32).view(torch.float32)
+                    want = torch.pow(xs.double(), float(np.float32(g))).float()
+                    diff = want.view(torch.int32) != buf[:n].view(torch.int32)
+                    nd = int(diff.sum().item())
+                    if nd and twin_first is None:
+                        i = int(diff.nonzero()[0].item())
+                        twin_first = (float(xs[i].item()), float(buf[i].item()),
+                                      float(want[i].item()))
+                    twin += nd
+                    del xs, want, diff
+            if site == "exp2":
+                r = triad.sweep(site, xs=torch.tensor(triad.EXP2_EXTRA, dtype=torch.float32,
+                                                      device=dev))
+                for k in ("n", "mismatches", "fallbacks", "exact"):
+                    tot[k] += r[k]
+            lo, hi = pixel[site]
+            px = triad.sweep(site, g, start=lo, count=hi - lo, device=dev)
+            name = f"{site} site" + (f" at gamma {g:g}" if site == "forward" else "")
+            extra = (f"; against the twin's torch.pow in double: {twin} values differ"
+                     + (f" (first: x {twin_first[0]!r}, kernel {twin_first[1]!r}, twin "
+                        f"{twin_first[2]!r})" if twin_first else "")
+                     if site == "forward" else "")
+            print(f"[3] triad sweep, {name}: {tot['n']} inputs, {tot['mismatches']} differ from "
+                  f"the FP64 expression; fallback share {tot['fallbacks'] / tot['n']:.4e} of the "
+                  f"domain, {px['fallbacks'] / px['n']:.4e} of the pixel range ({px['n']} "
+                  f"inputs); exact answers {tot['exact']}; largest distance of a fast value "
+                  f"{tot['max_distance']:.3e} (2^{np.log2(max(tot['max_distance'], 1e-300)):.2f})"
+                  f"{extra}", flush=True)
+            if tot["mismatches"]:
+                x0 = np.array([first & 0xFFFFFFFF], np.uint32).view(np.float32)[0]
+                fail(f"triad sweep, {name}: {tot['mismatches']} values differ from the FP64 "
+                     f"expression, the first at input {x0!r} (bits {first:#010x})")
+    del buf
+    print(f"[3] triad sweep: {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def ptxas_instances(log: str, match, what: str, count: int) -> list:
@@ -686,6 +806,7 @@ def main() -> int:
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
+    from pythoncrt_tpu_torch.kernels import triad as ktriad
     from pythoncrt_tpu_torch.kernels import warp as kwarp
 
     dev = torch.device("cuda")
@@ -703,8 +824,8 @@ def main() -> int:
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
-            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL, f64=0):
-        bms, by = bound(kname, bytes_moved, values_out, f64)
+            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL, f64=0, f32=0):
+        bms, by = bound(kname, bytes_moved, values_out, f64, f32)
         lib = f"{lib_ms:.4f} ms/call" if lib_ms is not None else "none (no one PyTorch call)"
         print(f"[3] {kname}{note}: max |kernel - twin| {err:.3g}, max {int(lsb)} LSB; "
               f"kernel {ms:.4f} ms/call ({ms / frames:.4f} ms/frame), plain twin "
@@ -1012,13 +1133,15 @@ def main() -> int:
     # operands
     direct = (("defaults", "fused_pipeline"), ("c3", "fused_pipeline_gaussian"),
               ("c4-text", "fused_pipeline_f32in"), ("defaults-s11", "fused_pipeline_s11"))
-    f64 = fp64_ops_on_path(_build.find_nvcc(), _build.NVCC_FLAGS,
-                           sorted({configs[cfg].triad_gamma for cfg, _ in direct}))
-    print(f"[3] the direct-pow triad's two sites compiled alone with the kernels' flags, "
-          f"instrumented and run on 65536 values over (0, 1]: FP64 operations per value (FMA as "
-          f"two) by triad gamma {f64['per_value']}; every path of their code, special cases "
-          f"included: {f64['ptx_all_paths']} in the PTX, {f64['sass_all_paths']} in the SASS",
+    gammas = sorted({configs[cfg].triad_gamma for cfg, _ in direct})
+    ops = pow_site_ops(_build.find_nvcc(), _build.NVCC_FLAGS, gammas)
+    print(f"[3] the direct-pow triad's three pow sites (csrc/triad_pow.cuh) compiled alone with "
+          f"the kernels' flags, instrumented and run on 98304 values over (0, 1]: operations per "
+          f"value (FMA as two) by triad gamma, f32 {ops['per_value']['f32']}, FP64 (the "
+          f"fallbacks) {ops['per_value']['f64']}; every path of their code, fallbacks "
+          f"included: {ops['ptx_all_paths']} in the PTX, {ops['sass_all_paths']} in the SASS",
           flush=True)
+    triad_sweep_phase(dev, sorted(set(ktriad.SWEEP_GAMMAS) | set(gammas)))
     for cfg, base in direct:
         ov = ov_synth if configs[cfg].text.enabled else None
         engs = {prec: CRTEngine(configs[cfg], H, W, FPS, rng="host", precision=prec,
@@ -1042,10 +1165,14 @@ def main() -> int:
             "pythoncrt_tpu/kernels/fused.py:680", (got - want).abs().max().item(),
             (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
             ms, time_ms(twin, iters=2), None, nbytes(feed, got, *kw.values()), got.numel(),
-            f64=f64["per_value"][configs[cfg].triad_gamma],
+            f64=ops["per_value"]["f64"][configs[cfg].triad_gamma],
+            f32=ops["per_value"]["f32"][configs[cfg].triad_gamma],
             note=f" ({cfg} spec with precision fast: the JAX kernel's lut_exact=False branch, "
                  f"fused.py:601-631; the LUT-exact mode {exact_ms:.4f} ms/call "
-                 f"({exact_ms / B:.4f} ms/frame) in turn, the direct mode {ms / exact_ms:.2f}x"
+                 f"({exact_ms / B:.4f} ms/frame) in turn, the direct mode {ms / exact_ms:.2f}x; "
+                 f"the bound counts the pow sites' operations (before their f32 fast paths: "
+                 f"{PR8_FP64_OPS} FP64 operations per value, an FP64 bound of "
+                 f"{PR8_FP64_OPS / F64_OPS_PER_S * got.numel() * 1e3 / B:.4f} ms/frame)"
                  f"{plan_note(eng.fused_tables)})")
         table[f"{base}_direct"]["exact_ms"] = exact_ms
         del got, want, feed, kw, run, twin, engs, eng

@@ -10,10 +10,11 @@
 // fused.py:325-326: text composited before the bloom), read as it is;
 // and its two triads: the LUT-exact one and the direct-pow one of
 // `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3).
-// The direct-pow triad costs two FP64 transcendental chains per value
-// (three per pixel) where the tables cost two shared-memory reads: on
-// this card, whose FP64 rate is a fraction of its f32 rate, "fast" is
-// not expected to be the faster mode (PERF.md).
+// The direct-pow triad's three pow sites per value are f32 double-float
+// fast paths with a rounding test and an out-of-line FP64 fallback
+// (triad_pow.cuh), bit for bit the FP64 expressions. Where the LUT-exact
+// triad reads two tables, they issue about 190 instructions per value,
+// which bound the direct-pow instantiations by operations (PERF.md).
 //
 // What bounds it on the card: on paper, bytes. A 1080p frame is 6.2 MB of
 // uint8 in (24.9 MB of f32 in the f32-input mode), plus the 8.3 MB f32
@@ -81,19 +82,20 @@
 // -fmad=false (no multiply-add contraction); divisions are IEEE (nvcc's
 // default -prec-div=true); the grade pow is computed in double and rounded
 // once to float; the triad's two pow sites read 1025-entry tables the host
-// builds with the same rounding, or (triad_mode 3) are computed in double
-// and rounded once, as the twin computes them. The tap sums are sequential f32
-// multiply-adds in tap order, on purpose not on the tensor cores: a TF32
-// or bf16 product, or a reordered sum, moves values across the triad's
-// quantize steps. Gaussian border taps follow the fold the JAX paths
-// use: out-of-frame taps add nothing in tap order, then the clipped
-// taps' summed coefficient times the edge sample is added (left, then
-// right).
+// builds with the same rounding, or (triad_mode 3) give the FP64
+// expressions rounded once to float, as the twin computes them. The tap
+// sums are sequential f32 multiply-adds in tap order, on purpose not on
+// the tensor cores: a TF32 or bf16 product, or a reordered sum, moves
+// values across the triad's quantize steps. Gaussian border taps follow
+// the fold the JAX paths use: out-of-frame taps add nothing in tap order,
+// then the clipped taps' summed coefficient times the edge sample is
+// added (left, then right).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "crt_common.cuh"
+#include "triad_pow.cuh"
 
 namespace {
 
@@ -190,7 +192,8 @@ struct Smem {
     short* offs;           // [3][win] staged offset of each window column
     short* lead;           // [win + 1] first column of each run of equal map columns
     short* loffs;          // [3][win] the staged offset of each leader column
-    float* lut;            // [2][LUTP] the triad's tables (triad_mode 2; none in mode 3)
+    float* lut;            // [2][LUTP] the triad's tables (triad_mode 2); DIRECT: the
+                           // pow sites' [triad::TAB] (triad_pow.cuh)
     float* tri;            // [3][sw] the strip's triad rows
     float* vx;             // [sw] the strip's vignette nx^2
     int* misc;             // [12] this strip's staged ranges, [12] the leader count
@@ -200,8 +203,9 @@ struct Smem {
 
 __host__ __device__ __forceinline__ int a16h(int n) { return (n + 15) & ~15; }
 
-// DIRECT: the direct-pow triad's layout, which holds no tables; a template
-// argument, so that the LUT-exact instantiations test nothing at run time.
+// DIRECT: the direct-pow triad's layout, which holds the pow sites' table in
+// place of the two LUTs; a template argument, so that the LUT-exact
+// instantiations test nothing at run time.
 template <bool DIRECT>
 __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* base) {
     Smem s;
@@ -228,7 +232,7 @@ __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* b
     s.offs = (short*)(base + o); o += a16h(3 * a.win * 2);
     s.lead = (short*)(base + o); o += a16h((a.win + 1) * 2);
     s.loffs = (short*)(base + o); o += a16h(3 * a.win * 2);
-    const int luts = DIRECT ? 0 : 2 * LUTP;
+    const int luts = DIRECT ? triad::TAB : 2 * LUTP;
     s.lut = (float*)(base + o);
     s.tri = s.lut + luts;
     s.vx = s.tri + 3 * a.sw;
@@ -288,26 +292,19 @@ __device__ __forceinline__ void grade(const FusedArgs& a, float x[3]) {
     }
 }
 
-// The triad's final pow site, exp2(e * log2(x)) for x >= 0, each
-// transcendental in double rounded once to float (ops/color.py pow_final).
-__device__ __forceinline__ float pow_final(float x, float e) {
-    const float t = (float)log2((double)x);
-    return (float)exp2((double)(t * e));
-}
-
 // The direct-pow triad (triad_mode 3) on one pixel: the JAX kernel's
 // lut_exact=False branch (fused.py:601-631), the two pow sites on the
-// clipped values, no quantize. The forward site is pow(x, g) computed in
-// double as exp2(g * log2(x)) and rounded once to float (libdevice's pow
-// keeps more FP64 temporaries live: the fast core's f32-input instance
-// spilled with it at 128 registers).
-__device__ __forceinline__ void triad_direct(const FusedArgs& a, float m[3], const float tri[3]) {
-    float lin[3], ol[3];
+// clipped values, no quantize: the forward site f32(exp2(g * log2(x))) and
+// the final f32(exp2(f32(log2(x)) * e)), each FP64 expression's rounding
+// given by triad_pow.cuh (tab: its table in shared memory).
+__device__ __forceinline__ void triad_direct(const FusedArgs& a, const float* tab, float m[3],
+                                             const float tri[3]) {
+    float x[3], lin[3], ol[3];
     #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-        lin[p] = (float)exp2((double)a.tri_g * log2((double)clip01(m[p])));
-        ol[p] = lin[p] * tri[p];
-    }
+    for (int p = 0; p < 3; ++p) x[p] = clip01(m[p]);
+    triad::pow_fwd3(tab, x, a.tri_g, lin);
+    #pragma unroll
+    for (int p = 0; p < 3; ++p) ol[p] = lin[p] * tri[p];
     if (a.luma_on) {
         const float yb = luma3(a, lin);
         const float ya = luma3(a, ol);
@@ -316,7 +313,10 @@ __device__ __forceinline__ void triad_direct(const FusedArgs& a, float m[3], con
         for (int p = 0; p < 3; ++p) ol[p] = ol[p] * ratio;
     }
     #pragma unroll
-    for (int p = 0; p < 3; ++p) m[p] = clip01(pow_final(clip01(ol[p]), a.tri_e));
+    for (int p = 0; p < 3; ++p) x[p] = clip01(ol[p]);
+    triad::pow_final3(tab, x, a.tri_e, m);
+    #pragma unroll
+    for (int p = 0; p < 3; ++p) m[p] = clip01(m[p]);
 }
 
 // Stages 7-11 for one composited pixel, given its per-column operands.
@@ -326,7 +326,7 @@ __device__ __forceinline__ void finish(const FusedArgs& a, const float* lut, flo
                                        const float tri[3], float s, float vy2, float vx2, float f,
                                        float n) {
     if constexpr (DIRECT) {
-        triad_direct(a, m, tri);
+        triad_direct(a, lut, m, tri);
     } else if (a.triad_mode == 1) {
         #pragma unroll
         for (int p = 0; p < 3; ++p) m[p] = clip01(m[p] * tri[p]);
@@ -397,18 +397,49 @@ __device__ __forceinline__ void epilogue4(const FusedArgs& a, const Smem& S, int
     const float s = a.sl_on ? __ldg(a.sl + (size_t)bi * h + gy) : 0.0f;
     const float vy = a.vig_on ? __ldg(a.vy2 + gy) : 0.0f;
     const float f = a.flicker_on ? __ldg(a.flicker + bi) : 0.0f;
-    #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-        const int c = lx + min(v, nv - 1);  // columns past the frame are not stored
-        float t3[3], px[3];
-        #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            t3[p] = S.tri[p * a.sw + c];
-            px[p] = m[p][v];
+    if constexpr (DIRECT) {
+        // one pixel an iteration, the loop kept: the pow sites' code (some
+        // five hundred instructions a pixel) appears once, not four times,
+        // which measured faster on every configuration timed (PERF.md).
+        // The pixels rotate through registers: each takes m[.][0] and
+        // leaves its result at m[.][3], so that after four turns m[.][v] is
+        // pixel v's.
+        float g4[4] = {gr[0], gr[1], gr[2], gr[3]};
+        #pragma unroll 1
+        for (int v = 0; v < 4; ++v) {
+            const int c = lx + min(v, nv - 1);  // columns past the frame are not stored
+            float t3[3], px[3];
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                t3[p] = S.tri[p * a.sw + c];
+                px[p] = m[p][0];
+            }
+            finish<DIRECT>(a, S.lut, px, t3, s, vy, S.vx[c], f, g4[0]);
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                m[p][0] = m[p][1];
+                m[p][1] = m[p][2];
+                m[p][2] = m[p][3];
+                m[p][3] = px[p];
+            }
+            g4[0] = g4[1];
+            g4[1] = g4[2];
+            g4[2] = g4[3];
         }
-        finish<DIRECT>(a, S.lut, px, t3, s, vy, S.vx[c], f, gr[v]);
+    } else {
         #pragma unroll
-        for (int p = 0; p < 3; ++p) m[p][v] = px[p];
+        for (int v = 0; v < 4; ++v) {
+            const int c = lx + min(v, nv - 1);  // columns past the frame are not stored
+            float t3[3], px[3];
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                t3[p] = S.tri[p * a.sw + c];
+                px[p] = m[p][v];
+            }
+            finish<DIRECT>(a, S.lut, px, t3, s, vy, S.vx[c], f, gr[v]);
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) m[p][v] = px[p];
+        }
     }
     const size_t plane = (size_t)h * w;
     const size_t o = (size_t)bi * 3 * plane + (size_t)gy * w + gx;
@@ -551,11 +582,11 @@ __device__ __forceinline__ void htaps_interior(const FusedArgs& a, const Smem& S
 // take 80 registers a thread (3 blocks), the fast ones 64 (4 blocks),
 // which measured faster for each on an H100 (PERF.md). The direct-pow
 // triad (DIRECT, triad_mode 3) is its own instantiation of each, with the
-// registers of 2 blocks (up to 128): its FP64 log2 and exp2 chains, four
-// pixels at a time, spilled at 64 and 80, and the LUT-exact
-// instantiations keep their code and caps.
+// same caps (its fast paths are f32 and its FP64 fallback is a call),
+// except the fast core's uint8-input one: at 64 registers it kept a word
+// in local memory, so it takes the gaussian's 80 (3 blocks).
 template <int CORE, int RT, bool F32IN, bool DIRECT>
-__global__ void __launch_bounds__(NT, DIRECT ? 2 : (CORE == FAST ? 4 : 3))
+__global__ void __launch_bounds__(NT, CORE == FAST && !(DIRECT && !F32IN) ? 4 : 3)
 fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
     const Smem S = smem_layout<DIRECT>(a, smem);
@@ -593,6 +624,9 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
             S.lut[i] = __ldg(a.lut_fwd + i);
             S.lut[LUTP + i] = __ldg(a.lut_fin + i);
         }
+    }
+    if constexpr (DIRECT) {
+        for (int i = tid; i < triad::TAB; i += NT) S.lut[i] = __ldg(triad::kTab + i);
     }
     for (int x = tid; x < ncen; x += NT) {
         #pragma unroll

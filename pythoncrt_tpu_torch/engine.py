@@ -166,23 +166,29 @@ class CRTEngine:
         # plane i of a planar frame holds colour _plane_colors[i] (0=R, 1=G, 2=B)
         self._plane_colors = (0, 1, 2) if channel_order == "rgb" else (1, 2, 0)
         self._text_rgba = text_rgba
-        self._build_consts(consts or {}, text_rgba)
+        # the bloom opt-in variables are read here, once, as the JAX engine
+        # reads them at build
+        self._build_consts(consts or {}, text_rgba, bloom_optin(p))
 
     def replica(self, device) -> "CRTEngine":
-        """This engine on another device: the same configuration and the
-        same host tables (``consts``, copied there), so a shard on that
-        device computes what this engine computes (parallel/mesh.py). The
-        bloom opt-in variables are read again, as at any build."""
+        """This engine on another device: the same configuration, the same
+        stage-6 route (the opt-in this engine resolved at its build; the
+        environment is not read again) and the same host tables
+        (``consts``, copied there), so a shard on that device computes what
+        this engine computes (parallel/mesh.py)."""
         rep = copy.copy(self)
         rep.device = torch.device(device)
-        rep._build_consts(self.consts, self._text_rgba)
+        rep._build_consts(self.consts, self._text_rgba, self._bloom_optin)
         return rep
 
     # ------------------------------------------------------------------
     # Host tables (the oracle is the single source of truth)
     # ------------------------------------------------------------------
 
-    def _build_consts(self, given: dict, text_rgba: Optional[np.ndarray]) -> None:
+    def _build_consts(self, given: dict, text_rgba: Optional[np.ndarray],
+                      optin: Optional[str]) -> None:
+        """The tables on ``self.device``; ``optin`` is the stage-6 kernel a
+        bloom opt-in selected (``bloom_optin``), or None."""
         p, h, w, dev = self.params, self.h, self.w, self.device
         own: dict = {}
         y_map, x_rgb = oresize.plane_index_maps(
@@ -255,7 +261,7 @@ class CRTEngine:
                           c["text_rgb"].permute(2, 0, 1)[list(pc)].float().contiguous())
         # 2-D scanlines need the per-pixel mask, and a bloom opt-in names
         # its own stage-6 kernel: both take the staged step
-        optin = bloom_optin(p)
+        self._bloom_optin = optin
         self._staged = (p.scanlines_on and not p.scanlines_1d) or optin is not None
         self.bloom_route = ("none" if not p.bloom_on
                             else optin or ("bloom3" if self._staged else "fused"))

@@ -64,6 +64,7 @@ launches = 0  # CUDA launches made by fused_pipeline
 MAX_TAPS = 63  # csrc/fused.cu MAXK: taps carried in the launch arguments
 MAX_R = MAX_TAPS // 2  # above this radius the taps come from a device table
 SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
+DIRECT_TAB = 320  # csrc/triad_pow.cuh TAB: the direct-pow triad's table in floats
 STRIP_WIDTHS = (128, 64, 32, 16, 8, 4)  # output columns per block, widest that fits first
 # distinct source rows per chunk and output rows per block, by core and
 # input: the fastest of a sweep of strips, chunks and runs on an H100
@@ -195,8 +196,8 @@ class FusedPlan:
     the ring offsets of each output row's and half-res row's operands.
     ``split``: no strip fits a block (the three-launch route of
     ``fused_pipeline``; the walk's sizes and tables are then unset).
-    ``direct``: the direct-pow triad (triad_mode 3), which stages no
-    tables."""
+    ``direct``: the direct-pow triad (triad_mode 3), which stages its pow
+    sites' table (DIRECT_TAB floats) in place of the LUTs."""
     fast: bool
     pre: bool
     knee: bool
@@ -335,8 +336,9 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
               win: int, hwin: int, seg_pitch: int, knee: bool, direct: bool = False) -> int:
     """Shared memory of one block in bytes: csrc/fused.cu's smem_layout
     (the fast core without a knee reads the pre-knee strip from its
-    knee'd ring; the direct-pow triad has no tables; a radius above MAX_R
-    adds its taps and border coefficients, 4r + 1 floats, at the end)."""
+    knee'd ring; the direct-pow triad holds its pow sites' table,
+    DIRECT_TAB floats, in place of the two LUTs; a radius above MAX_R adds
+    its taps and border coefficients, 4r + 1 floats, at the end)."""
     def a16(n):
         return _round_up(n, 16)
     n = a16(2 * step * 3 * seg_pitch * (1 if pre else 4))  # staged rows, two buffers
@@ -347,7 +349,8 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
     if not fast or knee:
         n += a16(depth * 3 * sw * 4)  # the pre-knee strip
     n += a16(3 * win * 2) + a16((win + 1) * 2) + a16(3 * win * 2)  # offsets, leaders
-    n += a16((2 * 1028 * (not direct) + 4 * sw) * 4)  # triad tables, triad and vignette rows
+    luts = DIRECT_TAB if direct else 2 * 1028
+    n += a16((luts + 4 * sw) * 4)  # triad tables, triad and vignette rows
     n += 64  # the strip's staged ranges
     if not fast and r > MAX_R:
         n += a16((4 * r + 1) * 4)  # the taps, edge_l and edge_r

@@ -2,6 +2,7 @@
 GPU, for an A/B of two trees.
 
     python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep [walk|fast]]
+                                     [--only fused]
 
 ``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
 built (default: this script's own; an earlier commit unpacked with
@@ -27,7 +28,8 @@ built (default: this script's own; an earlier commit unpacked with
   and ``"fast"`` (the direct-pow triad; a tree without it records the
   refusal); and a digest of each fused instantiation's SASS (its
   instructions, without the kernel's name and the encodings), so that
-  two trees' instantiations can be held equal.
+  two trees' instantiations can be held equal, with ptxas's registers,
+  stack frame and spill for each.
 
 Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
 per frame, the bytes bound (inputs and outputs once, tables once, at
@@ -35,7 +37,8 @@ per frame, the bytes bound (inputs and outputs once, tables once, at
 held bit for bit. ``--sweep`` (``walk``) also times this tree's row walk
 (kernels/bloom_walk.py) at other strip widths, chunk and run lengths on
 the bloom3 and bloom2-fast cases; ``--sweep fast`` times its fast source
-at other chunk and run lengths (FAST_STEP, FAST_RUN). Prints one JSON
+at other chunk and run lengths (FAST_STEP, FAST_RUN). ``--only fused``
+times the fused cases alone. Prints one JSON
 object and writes it to --out. Imports nothing of JAX; exits 2 without a
 CUDA device.
 """
@@ -43,6 +46,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import hashlib
 import json
@@ -111,7 +115,8 @@ def events_ms(fn, repeats: int = 5, calls: int = 20) -> float:
 def fused_sass(lib_path: str, nvcc: str) -> dict:
     """sha256 of each fused_strip_kernel instantiation's SASS in the
     built library, keyed "core/radius/f32-input/direct" from its mangled
-    name (a tree without the direct-pow triad has no fourth argument)."""
+    name (a tree without the direct-pow triad has no fourth argument),
+    with its instruction count and its count of each opcode."""
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib_path],
                           check=True, capture_output=True, text=True, timeout=300).stdout
     out = {}
@@ -122,8 +127,33 @@ def fused_sass(lib_path: str, nvcc: str) -> dict:
             code = [ln.split("*/", 1)[1].split(";")[0].strip() for ln in body.splitlines()
                     if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
             key = "/".join((*m.groups()[:3], m.group(4) or "0"))
+            opcodes = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", c).split(" ")[0]
+                                          .split(".")[0] for c in code)
             out[key] = dict(instructions=len(code), sha256=hashlib.sha256(
-                "\n".join(code).encode()).hexdigest()[:16])
+                "\n".join(code).encode()).hexdigest()[:16], opcodes=dict(opcodes.most_common()))
+    return out
+
+
+def fused_ptxas(log: str) -> dict:
+    """ptxas's registers, stack frame and spill bytes of each
+    fused_strip_kernel instantiation, keyed as fused_sass keys them."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fused_strip_kernelILi(\d)ELi(n?\d+)ELb(\d)E(?:Lb(\d)E)?", line)
+            key = "/".join((*m.groups()[:3], m.group(4) or "0")) if m else None
+            if key:
+                out[key] = {}
+        elif key:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and "stack" not in out[key]:
+                out[key].update(zip(("stack", "spill_stores", "spill_loads"),
+                                    map(int, m.groups())))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[key]["registers"] = int(m.group(1))
+                key = None
     return out
 
 
@@ -137,6 +167,7 @@ def main() -> int:
     ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="port_bloom_ab.json")
     ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast"))
+    ap.add_argument("--only", choices=("fused",))
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
@@ -158,6 +189,8 @@ def main() -> int:
     lib = _build.library()
     built = time.perf_counter() - t0
     sass = fused_sass(lib._name, _build.find_nvcc())
+    for k, v in fused_ptxas(_build.build_log).items():
+        sass.setdefault(k, {}).update(v)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 256, (B, 3, H, W), dtype=np.uint8)).cuda()
     feeds = {}
@@ -274,21 +307,23 @@ def main() -> int:
     for cfg, (params, text) in FUSED.items():
         for precision in ("exact", "fast"):
             run(f"fused_{cfg}_{precision}", lambda: fused_case(params, text, precision))
-    run("bloom3_planar", lambda: bloom3_case(None))
-    run("bloom3_fast_planar", bloom3_fast_case)
-    run("warp_planar", lambda: warp_case("u8"))
-    run("warp_planar_f32", lambda: warp_case("f32"))
-    run("warp_planar_strength1", lambda: warp_case("u8", strength=1.0))
-    run("grid_sample", grid_sample_case)
-    run("bloom2_planar", lambda: bloom2_case("c3-bloom2"))
-    run("bloom2_planar_fast", lambda: bloom2_case("defaults-bloom2"))
-    for limbs in (3, 2, 1):
-        run(f"bloom2_planar_pipelined_limbs{limbs}", lambda: bloom2_case("c3-bloom2", limbs=limbs))
-    run("bloom_stripe", lambda: stripe_case())
-    for tag, sigma in SIGMAS.items():
-        run(f"bloom3_planar_{tag}", lambda: bloom3_case(sigma))
-        run(f"bloom2_planar_{tag}", lambda: bloom2_case("c3-bloom2", sigma=sigma))
-        run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
+    if a.only != "fused":  # the stand-alone blooms and the warp
+        run("bloom3_planar", lambda: bloom3_case(None))
+        run("bloom3_fast_planar", bloom3_fast_case)
+        run("warp_planar", lambda: warp_case("u8"))
+        run("warp_planar_f32", lambda: warp_case("f32"))
+        run("warp_planar_strength1", lambda: warp_case("u8", strength=1.0))
+        run("grid_sample", grid_sample_case)
+        run("bloom2_planar", lambda: bloom2_case("c3-bloom2"))
+        run("bloom2_planar_fast", lambda: bloom2_case("defaults-bloom2"))
+        for limbs in (3, 2, 1):
+            run(f"bloom2_planar_pipelined_limbs{limbs}",
+                lambda: bloom2_case("c3-bloom2", limbs=limbs))
+        run("bloom_stripe", lambda: stripe_case())
+        for tag, sigma in SIGMAS.items():
+            run(f"bloom3_planar_{tag}", lambda: bloom3_case(sigma))
+            run(f"bloom2_planar_{tag}", lambda: bloom2_case("c3-bloom2", sigma=sigma))
+            run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
 
     sweep = []
     if a.sweep == "fast":

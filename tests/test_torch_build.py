@@ -8,6 +8,7 @@ a later process finds the library built, which is where chip_smoke.py
 reads each kernel's registers, stack frame and spill."""
 
 import os
+import re
 import stat
 
 import pytest
@@ -97,3 +98,21 @@ def test_library_without_its_log_is_rebuilt(fake_toolkit):
     _build.library()
     assert len(calls()) == 2 * n
     assert _build.build_log.count("Used 64 registers") == len(_build.SOURCES)
+
+
+@pytest.mark.parametrize("header", ["crt_common.cuh", "triad_pow.cuh"])
+def test_included_headers_key_the_build(header, tmp_path, monkeypatch):
+    """Every header a source includes is hashed with the sources: the
+    direct-pow triad's pow sites (triad_pow.cuh, included by fused.cu and
+    triad_sweep.cu) change the library's key when they change."""
+    includes = {h for src in _build.SOURCES
+                for h in re.findall(r'#include "([^"]+)"', (_build.CSRC / src).read_text())}
+    assert includes == set(_build.HEADERS)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.SOURCES + _build.HEADERS:
+        (csrc / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
+    assert _build._digest() != before

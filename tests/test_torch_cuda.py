@@ -16,7 +16,11 @@ persistence scan (its multi-clip mode too) and the glitch shear are
 bitwise. The fused kernel's direct-pow triad (``--precision fast``,
 triad_mode 3) is held to the same 2e-6 / 1 LSB in every instantiation
 (gaussian at r = 4, a runtime radius and past 31; fast; f32 input) and
-the split route, and the whole step with it to the CPU step. The GUI
+the split route, and the whole step with it to the CPU step; its three
+pow sites (csrc/triad_pow.cuh: f32 fast paths, a rounding test, an FP64
+fallback) bit for bit the FP64 expressions on 2^24 seeded inputs per site
+and gamma, and on crafted inputs next to f32 rounding midpoints and the
+subnormal boundaries, each of which takes the fallback. The GUI
 preview's engine call (process_at, one frame at 960x540 and 853x480) is
 held to the CPU step within 1 LSB. The frame-sharded engine over 2, 4
 and 8 logical shards of cuda:0, and over every visible card (skipped on
@@ -34,6 +38,7 @@ from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
 from pythoncrt_tpu_torch.kernels import fused as kfused
 from pythoncrt_tpu_torch.kernels import glitch as kglitch
 from pythoncrt_tpu_torch.kernels import persist as kpersist
+from pythoncrt_tpu_torch.kernels import triad as ktriad
 from pythoncrt_tpu_torch.kernels import warp as kwarp
 from pythoncrt_tpu_torch.params import EffectParams
 
@@ -634,6 +639,56 @@ def test_fused_split_route_direct_pow(cuda_dev, pre):
     torch.cuda.synchronize()
     want = kfused.fused_pipeline_ref(x, spec, consts, **kw)
     assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+# the direct-pow triad's pow sites (csrc/triad_pow.cuh) swept through
+# csrc/triad_sweep.cu: every site, the smoke's gammas
+SITE_CASES = [("log2", 1.0), ("exp2", 1.0)] + [("forward", g) for g in ktriad.SWEEP_GAMMAS]
+SITE_IDS = [f"{s}-{g:g}" if s == "forward" else s for s, g in SITE_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site, gamma", SITE_CASES, ids=SITE_IDS)
+def test_triad_pow_sites_match_fp64_on_seeded_inputs(cuda_dev, site, gamma):
+    """2^24 seeded f32 inputs drawn over each site's domain, and 2^24 over
+    its pixel range, through triad_pow.cuh: every value bit for bit the
+    FP64 expression's, each fast value within 2^-36 of it (the rounding
+    test's margin), and under 2^-9 of the pixel range's values take the
+    FP64 fallback."""
+    n = 1 << 24
+    start, count = ktriad.DOMAINS[site]
+    rng = np.random.default_rng(ktriad.SITES.index(site) * 100 + int(gamma * 10))
+    bits = (start + rng.integers(0, count, n, dtype=np.int64)).astype(np.uint32)
+    r = ktriad.sweep(site, gamma, xs=torch.from_numpy(bits.view(np.float32)).to(cuda_dev))
+    assert r["mismatches"] == 0 and r["max_distance"] < 2.0 ** -36, r
+    u = rng.random(n)
+    px = (-8.0 * u if site == "exp2" else np.exp2(-8.0 * u)).astype(np.float32)
+    r = ktriad.sweep(site, gamma, xs=torch.from_numpy(px).to(cuda_dev))
+    assert r["mismatches"] == 0 and r["fallbacks"] < n / 512, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site, gamma", [("log2", 1.0), ("exp2", 1.0), ("forward", 0.1),
+                                         ("forward", 2.2), ("forward", 10.0)],
+                         ids=["log2", "exp2", "forward-0.1", "forward-2.2", "forward-10"])
+def test_triad_crafted_inputs_take_the_fallback(cuda_dev, site, gamma):
+    """Inputs whose FP64 value lies within 2^-40 of an f32 rounding
+    midpoint, and the subnormal boundaries (subnormal inputs, results below
+    2^-124), each take the FP64 fallback and give its value; x = 0 and the
+    arguments whose result rounds to 0 are answered exactly, without it."""
+    c = ktriad.crafted_inputs(site, gamma)
+    xs = torch.from_numpy(c["fallback"]).to(cuda_dev)
+    assert xs.numel() > 40
+    fell = torch.zeros(xs.numel(), dtype=torch.uint8, device=cuda_dev)
+    out = torch.empty_like(xs)
+    r = ktriad.sweep(site, gamma, xs=xs, out=out, fell=fell)
+    assert r["mismatches"] == 0 and bool(fell.bool().all()), r
+    want = ktriad.expr(site, c["fallback"], gamma).astype(np.float32)
+    assert np.array_equal(out.cpu().numpy().view(np.int32), want.view(np.int32))
+    xs = torch.from_numpy(c["exact"]).to(cuda_dev)
+    fell = torch.ones(xs.numel(), dtype=torch.uint8, device=cuda_dev)
+    r = ktriad.sweep(site, gamma, xs=xs, fell=fell)
+    assert r["mismatches"] == 0 and r["exact"] == xs.numel() and not fell.bool().any(), r
 
 
 @pytest.mark.cuda

@@ -141,15 +141,16 @@ def test_medium_precision_raises():
 
 def test_fast_plan_stages_no_tables():
     """The direct-pow triad's plan drops the two 1025-entry tables from a
-    block's shared memory, and its consts carry none; the key tells the
-    two plans apart."""
+    block's shared memory for its pow sites' table (csrc/triad_pow.cuh,
+    DIRECT_TAB floats, built into the kernel), and its consts carry none;
+    the key tells the two plans apart."""
     kw = dict(sigma=1.2, strength=0.25, px=2, ab=1, triad=True, triad_gamma=2.2)
     exact = tfused.build_fused_spec(1080, 1920, **kw)
     fast = tfused.build_fused_spec(1080, 1920, **kw, lut_exact=False)
     ce, cf = tfused.fused_consts(exact), tfused.fused_consts(fast)
     assert tfused.triad_mode(exact) == 2 and tfused.triad_mode(fast) == 3
     assert cf.lut_fwd is None and ce.lut_fwd is not None
-    assert ce.plan.smem - cf.plan.smem == 2 * 1028 * 4
+    assert ce.plan.smem - cf.plan.smem == (2 * 1028 - tfused.DIRECT_TAB) * 4
     assert cf.plan.key == tfused.plan_key(fast) != tfused.plan_key(exact)
     with pytest.raises(ValueError, match="not made for this spec"):
         tfused.check_plan(fast, ce)

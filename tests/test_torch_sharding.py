@@ -159,6 +159,27 @@ def test_shards_on_one_device_share_the_engine():
     assert torch.equal(a, b) and torch.equal(sa, sb)
 
 
+@pytest.mark.parametrize("var, route", [("PCRT_BLOOM2_GAUSS", "bloom2"),
+                                        ("PCRT_PALLAS_BLOOM", "stripe")])
+def test_replica_keeps_the_engines_bloom_route(var, route, monkeypatch):
+    """A bloom opt-in is read once, when the engine is built: a replica
+    made after the variable is unset keeps the engine's stage-6 route and
+    computes its outputs bit for bit."""
+    params = EffectParams(**{**C4, "fast_bloom": False})
+    monkeypatch.setenv(var, "1")
+    eng = CRTEngine(params, H, W, FPS, rng="host", device="cpu")
+    assert eng.bloom_route == route and eng._staged
+    monkeypatch.delenv(var)
+    assert CRTEngine(params, H, W, FPS, device="cpu").bloom_route == "fused"
+    rep = eng.replica("cpu")
+    assert (rep.bloom_route, rep._staged) == (eng.bloom_route, eng._staged)
+    assert type(rep.bloom_spec) is type(eng.bloom_spec) and rep.fused_tables is not eng.fused_tables
+    frames = synth_frames(4, H, W, seed=2)
+    a, sa = eng.process(frames)
+    b, sb = rep.process(frames)
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+
+
 # ---- the clip axis -----------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ["nhwc", "planar_gbr"])
