@@ -30,7 +30,8 @@ Phases (each must pass; any failure exits non-zero):
    sigma 11 and 20 (radius 33 and 60, past the 63 taps of the launch
    arguments) at 1080p: the fused kernel (the CLI defaults with
    --no-fast-bloom), bloom3 (defaults-angled with the gaussian bloom),
-   the stripe and bloom2 (c3's pre-bloom image). Then the fused kernel's
+   the stripe and bloom2 (c3's pre-bloom image), and the fused kernel's
+   f32-input mode at sigma 11 (c4-text with --no-fast-bloom). Then the fused kernel's
    direct-pow triad (``--precision fast``, triad_mode 3) on the CLI
    defaults, c3, c4-text and sigma 11, each with the LUT-exact mode timed
    in turn on the same operands; its f32 and FP64 operations per value
@@ -228,6 +229,7 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "fused_pipeline_c5": 40, "glitch_shear_c5": 0,
                  # 2 x (2r + 1) multiply-adds and the composite
                  "fused_pipeline_s11": 300, "fused_pipeline_s20": 520,
+                 "fused_pipeline_f32in_s11": 300,
                  "bloom3_planar_s11": 272, "bloom3_planar_s20": 490,
                  "bloom_stripe_s11": 272, "bloom_stripe_s20": 490,
                  "bloom2_planar_s11": 272, "bloom2_planar_s20": 490}
@@ -816,6 +818,8 @@ def main() -> int:
                "c3-bloom2": EffectParams(**C3), "defaults-bloom2": EffectParams(),
                "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4),
                "defaults-s11": EffectParams(fast_bloom=False, bloom_sigma=11.0),
+               "c4-text-s11": EffectParams(**dict(C4, fast_bloom=False, bloom_sigma=11.0),
+                                           text=TextParams(**C4_TEXT)),
                "defaults-angled-s11": EffectParams(**DEF_ANGLED, fast_bloom=False,
                                                    bloom_sigma=11.0),
                "ab8-w8": EffectParams(aberration_px=8),
@@ -1125,6 +1129,28 @@ def main() -> int:
                      f"{kwalk.SRC_NAMES[src_id]}{walk_note(H, W, src_id, bands)})")
             del got, want
         del feed3, feedc, t2, eng, ang, c3e
+
+    # the f32-input instantiation past radius 31: c4-text (text before the
+    # bloom) with --no-fast-bloom --bloom-sigma 11
+    eng = CRTEngine(configs["c4-text-s11"], H, W, FPS, rng="host", layout="planar",
+                    channel_order="gbr", device=dev, text_rgba=ov_synth)
+    if eng._staged or eng.spec.pre or eng.spec.fast or eng.spec.r != 33:
+        fail("c4-text at sigma 11 does not take the fused kernel's f32 input past radius 31")
+    feed = eng._pre_bloom(x)
+    kw = eng.fused_operands(eng.make_aux(np.arange(B)))
+    run = functools.partial(kfused.fused_pipeline, feed, eng.spec, eng.fused_tables, **kw)
+    twin = functools.partial(kfused.fused_pipeline_ref, feed, eng.spec, eng.fused_tables, **kw)
+    got, want = run(), twin()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail("fused_pipeline_f32in_s11: non-finite output")
+    row("fused_pipeline_f32in_s11", "pythoncrt_tpu_torch/csrc/fused.cu",
+        "pythoncrt_tpu/kernels/fused.py:680", (got - want).abs().max().item(),
+        (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
+        time_ms(run), time_ms(twin, iters=2), None, nbytes(feed, got, *kw.values()), got.numel(),
+        note=f" (c4-text with --no-fast-bloom --bloom-sigma 11: text before the bloom, radius "
+             f"{eng.spec.r}{plan_note(eng.fused_tables)})")
+    del got, want, feed, kw, run, twin, eng
 
     # --precision fast: the fused kernel's direct-pow triad (triad_mode 3,
     # its own instantiations) on the CLI defaults (fast core), c3
@@ -2223,6 +2249,7 @@ def main() -> int:
         "bloom_stripe": ("bloom", ("c3-stripe",)),
         "fused_pipeline_s11": ("fused_pipeline", ("defaults-s11",)),
         "fused_pipeline_s20": ("fused_pipeline", ()),
+        "fused_pipeline_f32in_s11": ("fused_pipeline", ()),
         "fused_pipeline_direct": ("fused_pipeline", ("defaults-fast",)),
         "fused_pipeline_gaussian_direct": ("fused_pipeline", ()),
         "fused_pipeline_f32in_direct": ("fused_pipeline", ()),

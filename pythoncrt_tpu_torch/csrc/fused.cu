@@ -58,12 +58,21 @@
 //    vertical tap sum over the ring, then the composite with the
 //    pre-knee value and the epilogue. The radius of the CLI default
 //    sigma 1.2 (r = 4) is a template with unrolled taps; other radii up
-//    to 31 take a loop over the taps in the launch arguments, and larger
-//    radii (BIG) the same loop over the taps and border coefficients of
-//    a device table, staged in shared memory once per block (the plan
-//    narrows the strip as the rings grow; kernels/fused.py). Strips
+//    to 31 take a loop over the taps in the launch arguments. Strips
 //    (rows) away from the frame's edges run the taps without bounds
-//    tests.
+//    tests. Larger radii (BIG) read the taps and border coefficients
+//    from a device table, staged in shared memory once per block (the
+//    plan narrows the strip as the rings grow; kernels/fused.py), and
+//    block their tap loops in registers, since at 65 taps and more the
+//    loads per tap, not the arithmetic, bound the one-tap-at-a-time
+//    loops: an interior strip's horizontal taps slide a window of eight
+//    knee'd columns through registers (one 16-byte load of the row and
+//    one of four taps per four taps), and each thread sums BR inner
+//    output rows of one plane at once, reading each ring row of their
+//    union window once (vtaps_block); their composites wait in the
+//    spent knee'd-row buffer for the epilogue, which needs a pixel's
+//    three planes. Without multiply-add contraction each tap costs an
+//    FMUL and an FADD: twice the issue slots the FMA rate counts.
 //    Fast core: a ring of knee'd source rows and a ring of half-res rows;
 //    each half-res row (down rows, then down columns) is computed once
 //    per block as soon as its two source rows are in the ring; each
@@ -105,6 +114,7 @@ constexpr int MAXK = 63;     // taps carried in the launch arguments (radius <= 
 constexpr int MAXR = MAXK / 2;
 constexpr int GAUSS = 0, FAST = 1;
 constexpr int BIG = -2;      // gaussian radius above MAXR: taps from shared memory
+constexpr int BR = 4;        // BIG: output rows a thread sums at once in the vertical pass
 constexpr int LUTP = 1028;   // pitch of the two 1025-entry triad tables in shared memory
 
 }  // namespace
@@ -569,12 +579,100 @@ __device__ __forceinline__ void htaps_interior(const FusedArgs& a, const Smem& S
             #pragma unroll
             for (int v = 0; v < 4; ++v) acc[v] = acc[v] + a.taps[t] * val[v + t];
         }
+    } else if constexpr (RT == BIG) {
+        // a window of eight columns slides through registers: one 16-byte
+        // load of the row and one of the taps (the same address across the
+        // warp) per four taps; each output still adds its taps in order
+        const int kt = 2 * r + 1;
+        float4 lo = *reinterpret_cast<const float4*>(row);
+        int t = 0;
+        for (; t + 4 <= kt; t += 4) {
+            const float4 hi = *reinterpret_cast<const float4*>(row + t + 4);
+            const float4 tp = *reinterpret_cast<const float4*>(S.taps + t);
+            const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+            const float c[4] = {tp.x, tp.y, tp.z, tp.w};
+            #pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                #pragma unroll
+                for (int v = 0; v < 4; ++v) acc[v] = acc[v] + c[j] * x[v + j];
+            }
+            lo = hi;
+        }
+        if (t < kt) {  // the last 1-3 taps (columns past the window are read, not used)
+            const float4 hi = *reinterpret_cast<const float4*>(row + t + 4);
+            const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+            #pragma unroll
+            for (int j = 0; j < 3; ++j) {
+                if (t + j < kt) {
+                    const float c = S.taps[t + j];
+                    #pragma unroll
+                    for (int v = 0; v < 4; ++v) acc[v] = acc[v] + c * x[v + j];
+                }
+            }
+        }
     } else {
         for (int t = 0; t < 2 * r + 1; ++t) {
             const float tp = tapw<RT>(a, S, t);
             #pragma unroll
             for (int v = 0; v < 4; ++v) acc[v] = acc[v] + tp * row[v + t];
         }
+    }
+}
+
+// acc[i][v] += c * v4[v] for the BR outputs i in [i0, i1).
+__device__ __forceinline__ void add4_rows(float acc[BR][4], const float c[BR], float4 v4, int i0,
+                                          int i1) {
+    #pragma unroll
+    for (int i = 0; i < BR; ++i) {
+        if (i >= i0 && i < i1) {
+            acc[i][0] = acc[i][0] + c[i] * v4.x;
+            acc[i][1] = acc[i][1] + c[i] * v4.y;
+            acc[i][2] = acc[i][2] + c[i] * v4.z;
+            acc[i][3] = acc[i][3] + c[i] * v4.w;
+        }
+    }
+}
+
+// BIG: vertical taps of the BR inner output rows y .. y + BR - 1 (four
+// columns of one plane, `col` their first column in the filtered ring).
+// The union window j = 0 .. 2r + BR - 1 (frame row y - r + j) is walked
+// once: one ring offset (rowtab's first column of that row: an inner
+// row's tap k reads the filtered row that row y + k - r's composite slot
+// names, kernels/fused.py _ring_tables) and one 16-byte ring load per j,
+// shared by the BR outputs. Output i adds tap k = j - i at step j, so each
+// sums its taps in ascending k, the order of the loop it replaces; the
+// taps slide through registers, one new tap per j.
+__device__ __forceinline__ void vtaps_block(const FusedArgs& a, const Smem& S, const float* col,
+                                            int y, int r, float acc[BR][4]) {
+    const int rw = 2 * r + 2;
+    const int* ro = a.rowtab + (size_t)(y - r) * rw;
+    float c[BR];
+    #pragma unroll
+    for (int i = 0; i < BR; ++i) {
+        c[i] = 0.0f;
+        #pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][v] = 0.0f;
+    }
+    #pragma unroll
+    for (int j = 0; j < BR - 1; ++j) {  // outputs 0 .. j have begun
+        #pragma unroll
+        for (int i = BR - 1; i > 0; --i) c[i] = c[i - 1];
+        c[0] = S.taps[j];
+        add4_rows(acc, c, *reinterpret_cast<const float4*>(col + __ldg(ro + j * rw)), 0, j + 1);
+    }
+    #pragma unroll 4
+    for (int j = BR - 1; j <= 2 * r; ++j) {  // every output
+        #pragma unroll
+        for (int i = BR - 1; i > 0; --i) c[i] = c[i - 1];
+        c[0] = S.taps[j];
+        add4_rows(acc, c, *reinterpret_cast<const float4*>(col + __ldg(ro + j * rw)), 0, BR);
+    }
+    #pragma unroll
+    for (int s = 1; s < BR; ++s) {  // outputs s .. BR - 1 have taps left
+        const int j = 2 * r + s;
+        #pragma unroll
+        for (int i = BR - 1; i > 0; --i) c[i] = c[i - 1];
+        add4_rows(acc, c, *reinterpret_cast<const float4*>(col + __ldg(ro + j * rw)), s, BR);
     }
 }
 
@@ -797,62 +895,147 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
             }
 
             // ---- 3. vertical taps, composite, epilogue ----
-            for (int it = tid; it < (ye - nxt) * nq; it += NT) {
-                const int yy = div_nq(it), q = it - yy * nq;
-                const int y = nxt + yy, gx = x0 + 4 * q;
-                const int* t = a.rowtab + (size_t)y * rw;
-                const bool inner = y - r >= 0 && y + r < h;
-                float m[3][4];
-                #pragma unroll
-                for (int p = 0; p < 3; ++p) {
-                    const float4 xv4 =
-                        *reinterpret_cast<const float4*>(S.xr + t[0] + p * sw + 4 * q);
-                    const float xv[4] = {xv4.x, xv4.y, xv4.z, xv4.w};
-                    float acc[4];
-                    if (!a.bloom_on) {
-                        #pragma unroll
-                        for (int v = 0; v < 4; ++v) m[p][v] = xv[v];
-                        continue;
-                    }
-                    if (r == 0) {  // a one-tap gaussian is the identity (the reference skips it)
-                        #pragma unroll
-                        for (int v = 0; v < 4; ++v) acc[v] = knee(a, xv[v]);
-                    } else {
+            if constexpr (RT == BIG) {
+                // In passes of up to `vcap` output rows: each thread sums BR
+                // rows x 4 columns of one plane and stores their composites
+                // in S.kw (the chunk's knee'd rows are spent), a row of the
+                // strip's 4 * nq columns per plane; then the epilogue takes a
+                // row's three planes from there. The window holds the strip,
+                // so win >= 4 * nq and a pass holds at least `step` rows.
+                const int mp = 4 * nq;
+                const int vcap = step * a.win / mp;
+                for (int ya = nxt; ya < ye; ya += vcap) {
+                    const int yb = min(ya + vcap, ye);
+                    if (ya > nxt) __syncthreads();  // the last pass's epilogue has read S.kw
+                    const int ng = (yb - ya + BR - 1) / BR;
+                    for (int it = tid; it < ng * 3 * nq; it += NT) {
+                        const int gp = div_nq(it), q = it - gp * nq;
+                        const int g = gp / 3, p = gp - 3 * g;
+                        const int y = ya + BR * g, n = min(BR, yb - y);
                         const float* col = S.ring + p * sw + 4 * q;
-                        #pragma unroll
-                        for (int v = 0; v < 4; ++v) acc[v] = 0.0f;
-                        if (inner) {
-                            if constexpr (RT > 0) {
-                                #pragma unroll
-                                for (int k = 0; k < 2 * RT + 1; ++k)
-                                    add4(acc, a.taps[k], col + t[1 + k]);
-                            } else {
+                        float* mo = S.kw + (size_t)((y - ya) * 3 + p) * mp + 4 * q;
+                        if (n == BR && y - r >= 0 && y + BR - 1 + r < h) {
+                            float acc[BR][4];
+                            vtaps_block(a, S, col, y, r, acc);
+                            #pragma unroll
+                            for (int i = 0; i < BR; ++i) {
+                                const float4 xv = *reinterpret_cast<const float4*>(
+                                    S.xr + __ldg(a.rowtab + (size_t)(y + i) * rw) + p * sw + 4 * q);
+                                *reinterpret_cast<float4*>(mo + i * 3 * mp) = make_float4(
+                                    clip01(xv.x + a.strength * acc[i][0]),
+                                    clip01(xv.y + a.strength * acc[i][1]),
+                                    clip01(xv.z + a.strength * acc[i][2]),
+                                    clip01(xv.w + a.strength * acc[i][3]));
+                            }
+                            continue;
+                        }
+                        for (int i = 0; i < n; ++i) {  // one row at a time (the frame's edges)
+                            const int yi = y + i;
+                            const int* t = a.rowtab + (size_t)yi * rw;
+                            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                            if (yi - r >= 0 && yi + r < h) {
                                 for (int k = 0; k < kt; ++k)
                                     add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
+                            } else {
+                                for (int k = 0; k < kt; ++k) {
+                                    const int sy = yi + k - r;
+                                    if (sy >= 0 && sy < h)
+                                        add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
+                                }
+                                if (yi < r) add4(acc, edgel<RT>(a, S, yi), col + t[1 + r - yi]);
+                                if (h - 1 - yi < r)
+                                    add4(acc, edger<RT>(a, S, h - 1 - yi),
+                                         col + t[1 + (h - 1 - yi) + r]);
                             }
-                        } else {
-                            for (int k = 0; k < kt; ++k) {
-                                const int sy = y + k - r;
-                                if (sy >= 0 && sy < h) add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
-                            }
-                            // the tap rows clamp to the frame: rows 0 and H - 1
-                            if (y < r) add4(acc, edgel<RT>(a, S, y), col + t[1 + r - y]);
-                            if (h - 1 - y < r)
-                                add4(acc, edger<RT>(a, S, h - 1 - y),
-                                     col + t[1 + (h - 1 - y) + r]);
+                            const float4 xv =
+                                *reinterpret_cast<const float4*>(S.xr + t[0] + p * sw + 4 * q);
+                            *reinterpret_cast<float4*>(mo + i * 3 * mp) = make_float4(
+                                clip01(xv.x + a.strength * acc[0]),
+                                clip01(xv.y + a.strength * acc[1]),
+                                clip01(xv.z + a.strength * acc[2]),
+                                clip01(xv.w + a.strength * acc[3]));
                         }
                     }
-                    #pragma unroll
-                    for (int v = 0; v < 4; ++v) m[p][v] = clip01(xv[v] + a.strength * acc[v]);
+                    __syncthreads();
+                    for (int it = tid; it < (yb - ya) * nq; it += NT) {
+                        const int yy = div_nq(it), q = it - yy * nq;
+                        const int y = ya + yy, gx = x0 + 4 * q;
+                        float m[3][4];
+                        #pragma unroll
+                        for (int p = 0; p < 3; ++p) {
+                            const float4 v4 = *reinterpret_cast<const float4*>(
+                                S.kw + (size_t)(yy * 3 + p) * mp + 4 * q);
+                            m[p][0] = v4.x; m[p][1] = v4.y; m[p][2] = v4.z; m[p][3] = v4.w;
+                        }
+                        float gr[4];
+                        if (ya == nxt && it == tid) {
+                            #pragma unroll
+                            for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
+                        } else {
+                            load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                        }
+                        epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
+                    }
                 }
-                float gr[4];
-                if (it == tid) {
+            } else {
+                for (int it = tid; it < (ye - nxt) * nq; it += NT) {
+                    const int yy = div_nq(it), q = it - yy * nq;
+                    const int y = nxt + yy, gx = x0 + 4 * q;
+                    const int* t = a.rowtab + (size_t)y * rw;
+                    const bool inner = y - r >= 0 && y + r < h;
+                    float m[3][4];
                     #pragma unroll
-                    for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
-                } else {
-                    load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                    for (int p = 0; p < 3; ++p) {
+                        const float4 xv4 =
+                            *reinterpret_cast<const float4*>(S.xr + t[0] + p * sw + 4 * q);
+                        const float xv[4] = {xv4.x, xv4.y, xv4.z, xv4.w};
+                        float acc[4];
+                        if (!a.bloom_on) {
+                            #pragma unroll
+                            for (int v = 0; v < 4; ++v) m[p][v] = xv[v];
+                            continue;
+                        }
+                        if (r == 0) {  // one tap: the identity (the reference skips it)
+                            #pragma unroll
+                            for (int v = 0; v < 4; ++v) acc[v] = knee(a, xv[v]);
+                        } else {
+                            const float* col = S.ring + p * sw + 4 * q;
+                            #pragma unroll
+                            for (int v = 0; v < 4; ++v) acc[v] = 0.0f;
+                            if (inner) {
+                                if constexpr (RT > 0) {
+                                    #pragma unroll
+                                    for (int k = 0; k < 2 * RT + 1; ++k)
+                                        add4(acc, a.taps[k], col + t[1 + k]);
+                                } else {
+                                    for (int k = 0; k < kt; ++k)
+                                        add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
+                                }
+                            } else {
+                                for (int k = 0; k < kt; ++k) {
+                                    const int sy = y + k - r;
+                                    if (sy >= 0 && sy < h)
+                                        add4(acc, tapw<RT>(a, S, k), col + t[1 + k]);
+                                }
+                                // the tap rows clamp to the frame: rows 0 and H - 1
+                                if (y < r) add4(acc, edgel<RT>(a, S, y), col + t[1 + r - y]);
+                                if (h - 1 - y < r)
+                                    add4(acc, edger<RT>(a, S, h - 1 - y),
+                                         col + t[1 + (h - 1 - y) + r]);
+                            }
+                        }
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) m[p][v] = clip01(xv[v] + a.strength * acc[v]);
+                    }
+                    float gr[4];
+                    if (it == tid) {
+                        #pragma unroll
+                        for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
+                    } else {
+                        load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                    }
+                    epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
                 }
-                epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
             }
         } else {
             // ---- 2. half-res rows: down rows, then down columns ----

@@ -64,13 +64,20 @@ launches = 0  # CUDA launches made by fused_pipeline
 MAX_TAPS = 63  # csrc/fused.cu MAXK: taps carried in the launch arguments
 MAX_R = MAX_TAPS // 2  # above this radius the taps come from a device table
 SMEM_MAX = 232448  # shared memory one block may use on sm_90 (227 KB)
+SMEM_SM = 233472  # shared memory of an SM's blocks on sm_90 (228 KB), 1 KB of it reserved per block
 DIRECT_TAB = 320  # csrc/triad_pow.cuh TAB: the direct-pow triad's table in floats
 STRIP_WIDTHS = (128, 64, 32, 16, 8, 4)  # output columns per block, widest that fits first
 # distinct source rows per chunk and output rows per block, by core and
 # input: the fastest of a sweep of strips, chunks and runs on an H100
 # (PERF.md, the fused kernel's redesign)
 WALK = {("gaussian", True): (8, 64), ("gaussian", False): (8, 64),
-        ("fast", True): (12, 128), ("fast", False): (6, 128)}
+        ("fast", True): (12, 128), ("fast", False): (6, 128),
+        ("big", True): (16, 540), ("big", False): (16, 256)}
+BIG_ROWS = 4  # csrc/fused.cu BR: output rows a thread sums at once past MAX_R
+# past MAX_R a strip narrower than this leaves the vertical pass too few
+# groups of rows to fill a block: two blocks per SM are sought only at
+# this width and wider (PERF.md)
+BIG_MIN_SW = 32
 
 
 @dataclass(frozen=True)
@@ -357,6 +364,11 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
     return n
 
 
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory one SM holds at once."""
+    return SMEM_SM // (smem + 1024)
+
+
 def plan_key(spec: "FusedSpec") -> tuple:
     """What of a spec its plan is made for: (H, W, pre, fast core,
     gaussian radius, knee, direct-pow triad). Taps of one radius share a
@@ -371,7 +383,10 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     (``fast_taps``: the numpy bilinear_taps of fast_tables): the widest
     strip of STRIP_WIDTHS whose block fits in shared memory, and the ring
     depths the walk needs (never more than the frame's distinct rows);
-    chunk and run sizes from WALK. A plan that fits no strip is ``split``."""
+    chunk and run sizes from WALK. Past MAX_R the widest strip of at least
+    BIG_MIN_SW columns that leaves room for two blocks per SM is taken
+    where there is one, and where WALK's "big" chunk fits no strip the
+    gaussian one is tried. A plan that fits no strip is ``split``."""
     h, w, _, fast, r, knee, direct = plan_key(spec)
     if spec.pre:
         ydist, ysrc = distinct_rows(y_map)
@@ -379,34 +394,48 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     else:
         ydist = ysrc = np.arange(h, dtype=np.int32)
         gran = 4 if w % 4 == 0 else 1
-    step, run = WALK["fast" if fast else "gaussian", bool(spec.pre)]
-    run = min(run, h)
-    plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran, 0,
-                     ydist, ysrc, np.zeros((0, 3, 4), np.int32), np.zeros((0, 4), np.int64),
-                     direct=direct)
-    depth = hdepth = 1
-    sched = []
-    for y0 in range(0, h, run):
-        chunks = plan_chunks(plan, y0, fast_taps)
-        sched.append([chunks[0][0], chunks[-1][1], chunks[0][2]]
-                     + [v for c in chunks for v in (c[3], c[5])])
-        for d, e, nh, he, nxt, ye, alive, halive in chunks:
-            depth = max(depth, e - alive)
-            hdepth = max(hdepth, he - halive)
-    depth = min(depth, len(ysrc))  # a ring of every distinct row never evicts one
-    for cand in STRIP_WIDTHS:
-        windows = strip_windows(w, cand, r, fast_taps if fast else None)
-        segs, pitch = staged_segments(x_maps, windows, spec.pre, gran)
-        # the fast core shifts its window by up to 3 columns (csrc/fused.cu ksh)
-        win = _round_up(int((windows[:, 1] - windows[:, 0]).max()) + 3 * fast, 4)
-        hwin = _round_up(int((windows[:, 3] - windows[:, 2] + 1).max()), 4) if fast else 0
-        smem = plan_smem(fast, spec.pre, r, cand, step, depth, hdepth, win, hwin, pitch,
-                         knee, direct)
-        if smem <= SMEM_MAX:
+    # WALK's key: past MAX_R the kernel blocks its taps (csrc/fused.cu BIG)
+    core = "fast" if fast else "big" if r > MAX_R else "gaussian"
+    walks = [WALK[core, bool(spec.pre)]]
+    if core == "big":  # the gaussian chunk where the big one fits no strip: no earlier split
+        walks.append(WALK["gaussian", bool(spec.pre)])
+    for step, run in walks:
+        run = min(run, h)
+        plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran,
+                         0, ydist, ysrc, np.zeros((0, 3, 4), np.int32),
+                         np.zeros((0, 4), np.int64), direct=direct)
+        depth = hdepth = 1
+        sched = []
+        for y0 in range(0, h, run):
+            chunks = plan_chunks(plan, y0, fast_taps)
+            sched.append([chunks[0][0], chunks[-1][1], chunks[0][2]]
+                         + [v for c in chunks for v in (c[3], c[5])])
+            for d, e, nh, he, nxt, ye, alive, halive in chunks:
+                depth = max(depth, e - alive)
+                hdepth = max(hdepth, he - halive)
+        depth = min(depth, len(ysrc))  # a ring of every distinct row never evicts one
+        fits = None
+        for cand in STRIP_WIDTHS:
+            windows = strip_windows(w, cand, r, fast_taps if fast else None)
+            segs, pitch = staged_segments(x_maps, windows, spec.pre, gran)
+            # the fast core shifts its window by up to 3 columns (csrc/fused.cu ksh)
+            win = _round_up(int((windows[:, 1] - windows[:, 0]).max()) + 3 * fast, 4)
+            hwin = _round_up(int((windows[:, 3] - windows[:, 2] + 1).max()), 4) if fast else 0
+            smem = plan_smem(fast, spec.pre, r, cand, step, depth, hdepth, win, hwin, pitch,
+                             knee, direct)
+            if smem > SMEM_MAX:
+                continue
+            this = (cand, windows, segs, pitch, win, hwin, smem)
+            fits = fits or this  # the widest strip that fits
+            if core != "big" or (cand >= BIG_MIN_SW and blocks_per_sm(smem) >= 2):
+                fits = this
+                break
+        if fits:
             break
     else:
         plan.split, plan.depth, plan.hdepth = True, depth, hdepth
         return plan
+    cand, windows, segs, pitch, win, hwin, smem = fits
     plan.sw, plan.depth, plan.hdepth, plan.win, plan.hwin = cand, depth, hdepth, win, hwin
     plan.seg_pitch, plan.smem, plan.segs, plan.windows = pitch, smem, segs, windows
     plan.runtab = np.zeros((len(sched), max(map(len, sched))), np.int32)

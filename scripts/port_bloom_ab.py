@@ -1,8 +1,8 @@
 """The stand-alone blooms', the warp's and the fused kernels timed on one
 GPU, for an A/B of two trees.
 
-    python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE] [--sweep [walk|fast]]
-                                     [--only fused]
+    python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE]
+                                     [--sweep [walk|fast|fused]] [--only fused]
 
 ``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
 built (default: this script's own; an earlier commit unpacked with
@@ -22,9 +22,10 @@ built (default: this script's own; an earlier commit unpacked with
   grid_sample on c3's operands (the library call);
 - the fused kernel on the engine's own operands (host rng) for the CLI
   defaults (fast core), c3 (gaussian core, radius 4), c4-text (text
-  before the bloom: the f32-input mode) and the CLI defaults with
-  ``--no-fast-bloom --bloom-sigma 11`` (radius 33, taps from shared
-  memory), each with ``precision="exact"`` (the 1024-bin triad tables)
+  before the bloom: the f32-input mode) and, past radius 31 (taps from
+  shared memory), the CLI defaults with ``--no-fast-bloom --bloom-sigma
+  11`` and ``20`` (radius 33 and 60) and c4-text with ``--no-fast-bloom
+  --bloom-sigma 11``, each with ``precision="exact"`` (the 1024-bin triad tables)
   and ``"fast"`` (the direct-pow triad; a tree without it records the
   refusal); and a digest of each fused instantiation's SASS (its
   instructions, without the kernel's name and the encodings), so that
@@ -37,8 +38,13 @@ per frame, the bytes bound (inputs and outputs once, tables once, at
 held bit for bit. ``--sweep`` (``walk``) also times this tree's row walk
 (kernels/bloom_walk.py) at other strip widths, chunk and run lengths on
 the bloom3 and bloom2-fast cases; ``--sweep fast`` times its fast source
-at other chunk and run lengths (FAST_STEP, FAST_RUN). ``--only fused``
-times the fused cases alone. Prints one JSON
+at other chunk and run lengths (FAST_STEP, FAST_RUN); ``--sweep fused``
+times the fused kernel past radius 31 (sigma 11 and 20 on the CLI
+defaults, sigma 11 on c4-text and on c4: uint8 input at pixel 1) with the
+tree's own plans, then at each strip width, chunk and run length of
+SWEEP_FUSED (STRIP_WIDTHS, WALK's "big" entries), with each plan's shared
+memory and the blocks per SM it leaves room for.
+``--only fused`` times the fused cases alone. Prints one JSON
 object and writes it to --out. Imports nothing of JAX; exits 2 without a
 CUDA device.
 """
@@ -79,7 +85,15 @@ C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_str
           fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
           pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3, scanline_speed_px_s=120.0)
 FUSED = {"defaults": ({}, False), "c3": (C3, False), "c4-text": (C4, True),  # params, text
-         "defaults-s11": (dict(fast_bloom=False, bloom_sigma=11.0), False)}
+         "defaults-s11": (dict(fast_bloom=False, bloom_sigma=11.0), False),
+         "defaults-s20": (dict(fast_bloom=False, bloom_sigma=20.0), False),
+         "c4-text-s11": (dict(C4, fast_bloom=False, bloom_sigma=11.0), True)}
+# --sweep fused: the fused kernel past radius 31 (params, text), and its grid
+BIG_CASES = {"defaults-s11": FUSED["defaults-s11"], "defaults-s20": FUSED["defaults-s20"],
+             "c4-text-s11": FUSED["c4-text-s11"],
+             "c4-s11": (dict(C4, fast_bloom=False, bloom_sigma=11.0), False)}  # pixel 1, uint8
+SWEEP_FUSED = dict(sw=(128, 64, 32, 16), step=(8, 12, 16, 24), run=(64, 128, 256, 540))
+SMEM_PER_SM = 233472  # an H100 SM's shared memory for blocks (228 KB), 1 KB reserved per block
 
 
 @contextlib.contextmanager
@@ -166,7 +180,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="port_bloom_ab.json")
-    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast"))
+    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast", "fused"))
     ap.add_argument("--only", choices=("fused",))
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
@@ -302,7 +316,11 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         ms = events_ms(fn)
-        return dict(ms=ms, ms_per_frame=ms / B, sha256=digest(out))
+        plan = eng.fused_tables.plan
+        return dict(ms=ms, ms_per_frame=ms / B, sha256=digest(out),
+                    plan=dict(sw=plan.sw, step=plan.step, run=plan.run, depth=plan.depth,
+                              smem=plan.smem,
+                              blocks_per_sm_by_smem=SMEM_PER_SM // (plan.smem + 1024)))
 
     for cfg, (params, text) in FUSED.items():
         for precision in ("exact", "fast"):
@@ -326,6 +344,27 @@ def main() -> int:
             run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
 
     sweep = []
+    if a.sweep == "fused":  # the fused kernel's walk past radius 31: strip, chunk and run
+        ref = {}
+        for cfg, (params, text) in BIG_CASES.items():  # the tree's own plans first
+            ref[cfg] = fused_case(params, text, "exact")
+            print(f"{a.tag} sweep plan {cfg}: {ref[cfg]}", flush=True)
+        keep = (kfused.STRIP_WIDTHS, dict(kfused.WALK))
+        for sw in SWEEP_FUSED["sw"]:
+            for step in SWEEP_FUSED["step"]:
+                for run_rows in SWEEP_FUSED["run"]:
+                    kfused.STRIP_WIDTHS = (sw,)
+                    for pre in (True, False):
+                        kfused.WALK["big", pre] = (step, run_rows)
+                    row = dict(sw=sw, step=step, run=run_rows)
+                    for cfg, (params, text) in BIG_CASES.items():
+                        r = fused_case(params, text, "exact")
+                        row[cfg] = r["ms_per_frame"]
+                        row[cfg + "_same"] = r["sha256"] == ref[cfg]["sha256"]
+                        row[cfg + "_plan"] = r["plan"]
+                    print(f"{a.tag} sweep {row}", flush=True)
+                    sweep.append(row)
+        kfused.STRIP_WIDTHS, kfused.WALK = keep
     if a.sweep == "fast":
         from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
 

@@ -13,8 +13,10 @@ double, as the twins do), so fused f32 outputs agree to 2e-6 and uint8
 outputs to 1 LSB; the stand-alone blooms' row walk (csrc/bloom_walk.cu:
 bloom3's gaussian and fast bloom, the stripe, bloom2), the warp, the
 persistence scan (its multi-clip mode too) and the glitch shear are
-bitwise. The fused kernel's direct-pow triad (``--precision fast``,
-triad_mode 3) is held to the same 2e-6 / 1 LSB in every instantiation
+bitwise, and so is the fused kernel past radius 31 (its register-blocked
+tap loops; both inputs, both triads). The fused kernel's direct-pow
+triad (``--precision fast``, triad_mode 3) is held to the same 2e-6 /
+1 LSB in every instantiation
 (gaussian at r = 4, a runtime radius and past 31; fast; f32 input) and
 the split route, and the whole step with it to the CPU step; its three
 pow sites (csrc/triad_pow.cuh: f32 fast paths, a rounding test, an FP64
@@ -370,6 +372,48 @@ def test_fused_f32_input_matches_twin(cuda_dev, name, shape):
             feed[i:j], eng.spec, eng.fused_tables,
             **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
     assert_fused_close(got, twin, b, False)
+
+
+# the fused kernel past radius 31 (the BIG instantiations: register-blocked
+# taps): radii 32, 33 and 60; frames with edge strips and border rows only,
+# frames narrower than 2r and than a strip, and one with interior strips,
+# blocked row groups and W % 4 != 0
+BIG_SIGMAS = {"r32": 10.5, "r33": 11.0, "r60": 20.0}
+BIG_SHAPES = [(2, 96, 160), (2, 48, 256), (1, 200, 50), (2, 40, 1), (2, 160, 522)]
+BIG_IDS = ["96x160", "48x256", "narrow", "column", "interior"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("f32_input", [False, True], ids=["u8_input", "f32_input"])
+@pytest.mark.parametrize("px", [1, 2])
+@pytest.mark.parametrize("shape", BIG_SHAPES, ids=BIG_IDS)
+@pytest.mark.parametrize("radius", sorted(BIG_SIGMAS))
+def test_fused_big_radius_is_the_twin_bit_for_bit(cuda_dev, radius, shape, px, f32_input,
+                                                  precision):
+    """The four BIG instantiations (uint8 and f32 input, LUT-exact and
+    direct-pow triad) give the twin's bits: every tap sum in the twin's
+    order, the border fold included."""
+    b, h, w = shape
+    p = dict(fast_bloom=False, bloom_sigma=BIG_SIGMAS[radius], pixel_size=px)
+    text = {}
+    if f32_input:
+        p["text"] = TextParams(text="T", after=False)
+        text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
+    eng = CRTEngine(EffectParams(**p), h, w, 24.0, rng="host", precision=precision,
+                    layout="planar", channel_order="gbr", device=cuda_dev, **text)
+    plan = eng.fused_tables.plan
+    assert eng.spec.r == int(radius[1:]) > kfused.MAX_R and not plan.split
+    assert eng.spec.pre != f32_input and (kfused.triad_mode(eng.spec) == 3) == (
+        precision == "fast")
+    x = frames(b, h, w, cuda_dev)
+    feed = eng._pre_bloom(x) if f32_input else x
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    n0 = kfused.launches
+    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    torch.cuda.synchronize()
+    assert kfused.launches == n0 + 1
+    assert torch.equal(got, kfused.fused_pipeline_ref(feed, eng.spec, eng.fused_tables, **kw))
 
 
 NEW_PATHS = {
