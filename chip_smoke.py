@@ -84,9 +84,11 @@ Phases (each must pass; any failure exits non-zero):
    in-memory frames; and the CLI defaults with aberration 8 on 32
    frames 1080x8 (the roll mod W) through ``render_stream``; the CLI
    defaults with ``--precision fast``, ``--pipe-format yuv420p`` (the
-   OpenCV tier without an ffmpeg binary) on 32 and ``--decode-workers 2``
-   on 64 (two chunks, two workers; its encoder frames bit for bit the
-   single reader's, the CLI defaults' render, which runs on 64). Then
+   OpenCV tier without an ffmpeg binary) on 32 and ``--decode-workers 2
+   --steps-per-call 2`` on 64 (two chunks of two super-batches, two
+   workers; its encoder frames bit for bit the single reader's, the CLI
+   defaults' render, which runs on 64: one super-batch at the auto 8
+   steps per call). Then
    c4 with ``--segment-frames 16`` through ``process_video``: a straight
    render, a render that fails as injected once 24 frames were dispatched,
    and the same call again, which resumes at frame 16; the segments'
@@ -128,7 +130,21 @@ Phases (each must pass; any failure exits non-zero):
    engine; ``render_stream`` of 19 c4 frames at batch 8 through a 4-shard
    runner (the tail on the engine) within 1 LSB of the unsharded render;
    the same over the real cards when more than one is visible. Then the
-   engine step alone per path (c5 at 3840x2160).
+   steps-per-call slice (5c): the CLI defaults, c4 and c3 through
+   ``cli.main`` with ``--steps-per-call 2`` on 37 frames (two super-batches
+   of 16 and a 5-frame tail), the defaults at the auto 8 on 72 (one of 64,
+   then a batch), c4 through ``render_stream`` and a 4-shard runner at 2
+   on 37, and c5 as a manifest at the auto 2 of four 3840x2160 clips of
+   32, 32, 32 and 37 frames (two rounds of stacks, then the ragged clip
+   alone), each path also at one step per call: the frames handed to the
+   encoders bit for bit equal (c5 by SHA-1), the kernels' launch counts
+   equal, and the engines' ``process_stack`` calls counted; the pinned
+   host bytes of ``render_stream``'s pools at one step and at the auto 8
+   (batch 8 and 16); the render fps, wall, of the defaults at both; and
+   engine fps from CUDA events, ``process()`` x n against
+   ``process_stack`` at the auto steps per call, five turns of three
+   super-batches each, on the defaults, c3, c4 and c4-text at 1080p and
+   c5 at 4K. Then the engine step alone per path (c5 at 3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -142,6 +158,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import os
@@ -156,9 +173,19 @@ import numpy as np
 
 H, W, B, FPS = 1080, 1920, 8, 24.0
 N_MAIN, N_C3 = 32, 16
-# the CLI defaults with and without --decode-workers 2: two chunks of the
-# parallel reader's default 4 batches, so that both workers decode
+# the CLI defaults (one super-batch at the auto 8 steps per call) and, with
+# --decode-workers 2 --steps-per-call 2, two chunks of the parallel
+# reader's super-batches of 16 (two per chunk under its 256 MB cap), so
+# that both workers decode
 N_DECODE = 64
+# --steps-per-call: the CLI defaults, c4 and c3 at 2 over N_SPC frames (two
+# super-batches of 16 and a ragged 5-frame tail); the defaults at auto (8)
+# over N_SPC_AUTO (one super-batch of 64, then a batch); c5's manifest at
+# auto (2 at 4K) on clips of at least two super-batches, the last ragged;
+# c4 through a 4-shard runner at 2 over N_SPC
+N_SPC, N_SPC_AUTO = 37, 72
+C5_STACK_LENGTHS = (32, 32, 32, 37)
+SPC_TURNS, SPC_REPEATS = 5, 3  # engine fps: turns, super-batches per turn
 H4, W4, C5_CLIPS = 2160, 3840, 4   # c5: 4K clips in lockstep (bench.py:199-229)
 C5_LENGTHS = (16, 16, 12, 9)       # the manifest render's clips, ragged tails
 OPTINS = {"c3-bloom2": {"PCRT_BLOOM2_GAUSS": "1"}, "defaults-bloom2": {"PCRT_BLOOM2_FAST": "1"},
@@ -658,9 +685,10 @@ def plan_note(tables) -> str:
 
 
 @contextlib.contextmanager
-def capture_writers(vio, on: bool = True):
+def capture_writers(vio, on: bool = True, digest: bool = False):
     """The frames handed to every writer the port opens, per destination
-    (a destination opened again starts over), while the context lasts."""
+    (a destination opened again starts over), while the context lasts;
+    with ``digest`` each frame's SHA-1 in its place (4K clips)."""
     frames: dict = {}
     real = vio.open_writer
 
@@ -670,7 +698,8 @@ def capture_writers(vio, on: bool = True):
 
         class Rec:
             def write_frame(self, f):
-                rec.append(f.copy())
+                rec.append(hashlib.sha1(np.ascontiguousarray(f)).hexdigest() if digest
+                           else f.copy())
                 wtr.write_frame(f)
 
             def close(self):
@@ -1540,8 +1569,8 @@ def main() -> int:
          ("fused_pipeline", "persistence_scan")),
         ("defaults-yuv420p", ["--pipe-format", "yuv420p"], configs["defaults"], N_MAIN,
          ("fused_pipeline", "persistence_scan")),
-        ("defaults-decode2", ["--decode-workers", "2"], configs["defaults"], N_DECODE,
-         ("fused_pipeline", "persistence_scan")),
+        ("defaults-decode2", ["--decode-workers", "2", "--steps-per-call", "2"],
+         configs["defaults"], N_DECODE, ("fused_pipeline", "persistence_scan")),
     )
     captured = {}  # path -> the frames its writer was handed (CAPTURE paths)
 
@@ -1644,10 +1673,10 @@ def main() -> int:
         if not cv2_ver:
             fail("the renders of this slice's flags need a codec backend (cv2); this host has none")
         same = np.array_equal(captured["defaults"], captured["defaults-decode2"])
-        print(f"[5] --decode-workers 2 (two workers, two chunks) vs one reader, the CLI "
-              f"defaults on {N_DECODE} frames: the "
-              f"frames handed to the encoder are {'bit for bit equal' if same else 'DIFFERENT'}",
-              flush=True)
+        print(f"[5] --decode-workers 2 --steps-per-call 2 (two workers, two chunks of two "
+              f"super-batches) vs one reader at the auto steps per call (one super-batch of "
+              f"{N_DECODE}), the CLI defaults on {N_DECODE} frames: the frames handed to the "
+              f"encoder are {'bit for bit equal' if same else 'DIFFERENT'}", flush=True)
         if not same:
             fail("--decode-workers 2 changed the frames")
         del captured
@@ -1937,6 +1966,7 @@ def main() -> int:
     # scaling). Each path's launches are counted from 0 over its own run;
     # the single-device and oracle references run after the count is read.
     from pythoncrt_tpu_torch.parallel import CLIP_AXIS, DeviceMesh, ShardedCRTEngine, make_mesh
+    from pythoncrt_tpu_torch.parallel import mesh as pmesh
     from pythoncrt_tpu_torch.pipeline import render_stream
 
     ncard = torch.cuda.device_count()
@@ -1977,8 +2007,8 @@ def main() -> int:
         the gather."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        xx, aux, s, first = sh._inputs(x, idx, st)
-        local = sh._local(xx, aux)
+        xx, aux, s, first = sh._inputs(x[None], idx, st)
+        local = sh._local(xx[0], pmesh._uploads(sh.mesh, sh._reps, aux))
         ev[1].record()
         if sh._persist:
             carries, ns = sh._carry(local, s, first)
@@ -1988,7 +2018,8 @@ def main() -> int:
             outs, ns = [y for y, _ in local], local[-1][1]
             ev[2].record()
         ev[3].record()
-        out, ns = sh._outputs(outs, ns)
+        out = torch.empty(xx.shape[1:], dtype=torch.uint8, device=sh.engine.device)
+        ns = sh._outputs(outs, ns, out)
         ev[4].record()
         torch.cuda.synchronize()
         return out, ns, [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
@@ -2171,6 +2202,271 @@ def main() -> int:
     del eng_r, plain, clip19
     torch.cuda.empty_cache()
 
+    # ---- 5c. steps per call: super-batches on the main paths ----
+    # Each path renders at its steps per call (the stack: full super-batches
+    # through process_stack) and at 1, with the launches counted from 0 over
+    # each run: the encoder's frames must be bit for bit the same, and so must
+    # every kernel's launch count. process_stack calls are counted by a
+    # wrapper around the engines' method, so a path that never filled a
+    # super-batch fails.
+    from pythoncrt_tpu_torch import cli
+    from pythoncrt_tpu_torch import pipeline as tpipe
+    from pythoncrt_tpu_torch.multiclip import auto_steps_per_call
+
+    spc_auto = tpipe.resolve_steps_per_call(H, W, False, 0)
+    spc_c5 = auto_steps_per_call(H4, W4, C5_CLIPS, B)
+
+    @contextlib.contextmanager
+    def count_stacks(cls):
+        calls, real = [], cls.process_stack
+
+        def spy(self, frames_stack, frame_indices, *a, **k):
+            calls.append(int(np.asarray(frame_indices).shape[0]))
+            return real(self, frames_stack, frame_indices, *a, **k)
+        cls.process_stack = spy
+        try:
+            yield calls
+        finally:
+            cls.process_stack = real
+
+    def spc_pair(pname, run, n, needs, n_stacks):
+        """Run ``run(spc_tag)`` for the stack and for 1 step per call; check
+        frames, launches and stacks; record the stack run's launches."""
+        res = {}
+        for tag in ("stack", "one"):
+            zero_counts()
+            t0 = time.perf_counter()
+            with count_stacks(CRTEngine) as c1, count_stacks(ShardedCRTEngine) as c2, \
+                    count_stacks(MultiClipEngine) as c3:
+                frames = run(tag)
+            res[tag] = (frames, read_counts(), time.perf_counter() - t0, c1 + c2 + c3)
+        (fs, ls, ws, st), (f1, l1, w1, s1) = res["stack"], res["one"]
+        for k, v in ls.items():
+            launches[k][pname] = v
+        same = fs == f1 if isinstance(fs, list) else np.array_equal(fs, f1)
+        print(f"[5] main path {pname}: {n} frames; process_stack calls {st} (steps each); "
+              f"frames {'bit for bit' if same else 'DIFFERENT from'} one step per call's; "
+              f"launches {ls} against {l1} at one step per call; {n / ws:.2f} fps wall against "
+              f"{n / w1:.2f} at one step per call (codecs included) on {card}", flush=True)
+        if not same or ls != l1 or st != n_stacks or s1:
+            fail(f"{pname}: frames equal {same}, launches {ls} vs {l1}, stacks {st} vs "
+                 f"{n_stacks} (one step per call: {s1})")
+        missing = [k for k in needs if ls[k] < 1]
+        if missing:
+            fail(f"main path {pname}: kernels never launched: {missing}")
+        return ws, w1
+
+    def no_sync(pname, fn):
+        """One call of ``fn`` under torch's CUDA sync debug mode "error":
+        it raises on a synchronizing call (an .item(), a blocking copy, a
+        stream or device synchronize)."""
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            fail(f"{pname}: process_stack synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        print(f"[5] {pname}: process_stack ran under CUDA sync debug mode 'error': no host "
+              f"sync between its chunks on {card}", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spc_")
+    try:
+        clip = synth(N_SPC_AUTO, H, W, seed=3)
+        for n in (N_SPC, N_SPC_AUTO):
+            wr, _ = vio.open_writer(os.path.join(tmp, f"in{n}.mp4"), W, H, FPS)
+            for f in clip[:n]:
+                wr.write_frame(f)
+            wr.close()
+        spc_paths = (  # name, flags, steps per call (0: auto), frames, kernels, stacks
+            ("defaults-spc2", [], 2, N_SPC, ("fused_pipeline", "persistence_scan"), [2, 2]),
+            ("c4-spc2", C4_FLAGS, 2, N_SPC,
+             ("fused_pipeline", "glitch_shear", "persistence_scan"), [2, 2]),
+            ("c3-spc2", C3_FLAGS, 2, N_SPC, ("fused_pipeline", "warp_planar"), [2, 2]),
+            ("defaults-spc-auto", [], 0, N_SPC_AUTO, ("fused_pipeline", "persistence_scan"),
+             [spc_auto]))
+        render_wall = {}
+        for pname, flags, spc, n, needs, n_stacks in spc_paths:
+            def run(tag, flags=flags, spc=spc, n=n, pname=pname):
+                outp = os.path.join(tmp, f"out_{pname}_{tag}.mp4")
+                with capture_writers(vio) as cap:
+                    rc = cli.main(["--input", os.path.join(tmp, f"in{n}.mp4"), "--output", outp,
+                                   *flags, "--steps-per-call", str(spc if tag == "stack" else 1),
+                                   "--batch-size", str(B), "--device", "cuda"])
+                if rc != 0 or vio.probe_clip(outp).frame_count != n:
+                    fail(f"{pname} ({tag}): exit {rc}, {vio.probe_clip(outp).frame_count} frames")
+                return np.stack(cap[outp])
+            render_wall[pname] = spc_pair(pname, run, n, needs, n_stacks)
+        ws, w1 = render_wall["defaults-spc-auto"]
+        print(f"[5] render fps, wall (cli.main, cv2 codecs, {N_SPC_AUTO} frames {W}x{H} at batch "
+              f"{B}), the CLI defaults: {N_SPC_AUTO / w1:.2f} at one step per call, "
+              f"{N_SPC_AUTO / ws:.2f} at the auto {spc_auto} on {card}", flush=True)
+        del clip
+
+        # c4 through a runner of 4 logical shards of cuda:0, in memory
+        clip = synth(N_SPC, H, W, seed=13)
+        eng_s = CRTEngine(configs["c4"], H, W, FPS, device=dev)
+        mesh4 = DeviceMesh([torch.device("cuda", 0)] * 4)
+
+        def run_sharded(tag):
+            class Reader:
+                out_h, out_w, i = H, W, 0
+
+                def read_into(self, buf):
+                    if self.i >= N_SPC:
+                        return False
+                    buf[...] = clip[self.i]
+                    self.i += 1
+                    return True
+
+                def close(self):
+                    pass
+
+            wtr = MemWriter()
+            got = render_stream(Reader(), wtr, eng_s, batch_size=B,
+                                steps_per_call=2 if tag == "stack" else 1,
+                                runner=ShardedCRTEngine(eng_s, mesh4))
+            if got != N_SPC:
+                fail(f"sharded-render-c4-x4-spc2 ({tag}) rendered {got} frames")
+            return np.stack(wtr.frames)
+        spc_pair("sharded-render-c4-x4-spc2", run_sharded, N_SPC,
+                 ("fused_pipeline", "glitch_shear", "persistence_scan"), [2, 2])
+        sh_s = ShardedCRTEngine(eng_s, mesh4)
+        xs_s = torch.from_numpy(clip[:2 * B]).to(dev).reshape(2, B, H, W, 3)
+        _, st_s = sh_s.process_stack(xs_s, np.arange(2 * B).reshape(2, B))
+        no_sync("sharded-c4-x4 (ShardedCRTEngine, 2 steps)", lambda: sh_s.process_stack(
+            xs_s, np.arange(2 * B, 4 * B).reshape(2, B), st_s))
+        del clip, eng_s, sh_s, xs_s
+
+        # c5: a manifest of 4K clips of two super-batches or more at the auto
+        # steps per call, the last clip ragged, frames compared by digest
+        t0 = time.perf_counter()
+        srcs = []
+        for c, n in enumerate(C5_STACK_LENGTHS):
+            srcs.append(os.path.join(tmp, f"c5s_in{c}.mp4"))
+            wr, _ = vio.open_writer(srcs[-1], W4, H4, FPS)
+            for f in synth(n, H4, W4, seed=70 + c):
+                wr.write_frame(f)
+            wr.close()
+        made = time.perf_counter() - t0
+
+        def run_c5(tag):
+            jobs = [{"input": src, "output": os.path.join(tmp, f"c5s_{tag}{c}.mp4")}
+                    for c, src in enumerate(srcs)]
+            manifest = os.path.join(tmp, f"c5s_{tag}.json")
+            with open(manifest, "w") as f:
+                json.dump(jobs, f)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), capture_writers(vio, digest=True) as cap:
+                rc = cli.main(["--batch-manifest", manifest, *C4_FLAGS, "--batch-size", str(B),
+                               "--steps-per-call", "0" if tag == "stack" else "1",
+                               "--batch-journal", "none", "--device", "cuda"])
+            counts = [len(cap[j["output"]]) for j in jobs]
+            if rc != 0 or counts != list(C5_STACK_LENGTHS):
+                fail(f"c5-stacks ({tag}): exit {rc}, frames {counts}: "
+                     f"{buf.getvalue().strip().splitlines()[-4:]}")
+            return [d for j in jobs for d in cap[j["output"]]]
+        rounds = min(C5_STACK_LENGTHS) // (spc_c5 * B)
+        print(f"[5] c5-stacks: {C5_CLIPS} clips of {list(C5_STACK_LENGTHS)} frames {W4}x{H4} "
+              f"(cv2 mp4v, {made:.2f}s to write the sources), auto steps per call "
+              f"{spc_c5}; frames compared by SHA-1", flush=True)
+        spc_pair("c5-stacks", run_c5, sum(C5_STACK_LENGTHS),
+                 ("fused_pipeline", "glitch_shear", "persistence_multiclip"), [spc_c5] * rounds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # pinned host memory of render_stream's two pools (tpipe.host_pool)
+    frame_bytes = H * W * 3
+    for b in (B, tpipe.DEFAULT_BATCH):
+        held = {s: 2 * np.prod(tpipe.host_pool(b, s)) * frame_bytes for s in (1, spc_auto)}
+        print(f"[5] pinned host bytes of render_stream at {W}x{H}, batch {b}: "
+              f"{held[1]} at one step per call ({tpipe.host_pool(b, 1)[1]} buffers of {b} "
+              f"frames per direction), {held[spc_auto]} at the auto {spc_auto} "
+              f"({tpipe.host_pool(b, spc_auto)[1]} buffers of {b * spc_auto} frames)",
+              flush=True)
+
+    # engine fps, process() x n against process_stack of n, frames on the card
+    def fps_turns(loop, stack, frames_per):
+        """SPC_TURNS turns, each timing SPC_REPEATS super-batches through
+        ``loop`` and through ``stack`` (alternating which goes first), from
+        CUDA events: fps of each per turn."""
+        out = {"loop": [], "stack": []}
+        for t in range(SPC_TURNS):
+            for which in (("loop", "stack") if t % 2 == 0 else ("stack", "loop")):
+                fn = loop if which == "loop" else stack
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(SPC_REPEATS):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                out[which].append(SPC_REPEATS * frames_per / e0.elapsed_time(e1) * 1e3)
+        return out
+
+    def fps_line(pname, shape, spc, out):
+        def fmt(v):
+            lo, hi = min(v), max(v)
+            return (f"median {np.median(v):.2f} (min {lo:.2f}, max {hi:.2f}, spread "
+                    f"{(hi - lo) / np.median(v) * 100:.1f}%; turns "
+                    f"{', '.join(f'{x:.2f}' for x in v)})")
+        print(f"[5] engine fps, {pname} ({shape}, {spc} steps per call, frames on the card, CUDA "
+              f"events, {SPC_TURNS} turns of {SPC_REPEATS} super-batches): process() x {spc} "
+              f"{fmt(out['loop'])}; process_stack {fmt(out['stack'])}; stack / loop "
+              f"{np.median(out['stack']) / np.median(out['loop']):.3f} on {card}", flush=True)
+
+    xs_full = planar_gbr(synth(spc_auto * B, H, W, seed=3))
+    for pname in ("defaults", "c3", "c4", "c4-text"):
+        p = configs[pname]
+        eng_f = CRTEngine(p, H, W, FPS, layout="planar", channel_order="gbr", device=dev,
+                          text_rgba=overlay(p))
+        stack = xs_full.reshape(spc_auto, B, *xs_full.shape[1:])
+        box = {"i": 0, "st": None}
+
+        def nxt():
+            box["i"] += 1
+            return np.arange(box["i"] * spc_auto * B, (box["i"] + 1) * spc_auto * B)
+
+        def loop():
+            idx = nxt().reshape(spc_auto, B)
+            for k in range(spc_auto):
+                _, box["st"] = eng_f.process(stack[k], idx[k], box["st"])
+
+        def stk():
+            _, box["st"] = eng_f.process_stack(stack, nxt().reshape(spc_auto, B), box["st"])
+        loop()
+        stk()
+        no_sync(pname, stk)
+        fps_line(pname, f"{W}x{H}, B {B}", spc_auto, fps_turns(loop, stk, spc_auto * B))
+        del eng_f
+    del xs_full
+    eng5 = CRTEngine(configs["c5"], H4, W4, FPS, layout="planar", channel_order="gbr",
+                     device=dev)
+    mc = MultiClipEngine(eng5)
+    x5 = torch.randint(0, 256, (spc_c5, C5_CLIPS, B, 3, H4, W4), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    box5 = {"i": 0, "st": None}
+
+    def nxt5():
+        box5["i"] += 1
+        return (box5["i"] * spc_c5 * B + np.arange(spc_c5 * B).reshape(spc_c5, 1, B)
+                + np.zeros((1, C5_CLIPS, 1), np.int64))
+
+    def loop5():
+        idx = nxt5()
+        for k in range(spc_c5):
+            _, box5["st"] = mc.process(x5[k], idx[k], box5["st"])
+
+    def stk5():
+        _, box5["st"] = mc.process_stack(x5, nxt5(), box5["st"])
+    loop5()
+    stk5()
+    no_sync("c5 (MultiClipEngine)", stk5)
+    fps_line("c5", f"{C5_CLIPS} clips x B {B}, {W4}x{H4}", spc_c5,
+             fps_turns(loop5, stk5, spc_c5 * C5_CLIPS * B))
+    del x5, mc, eng5
+    torch.cuda.empty_cache()
+
     # device-side throughput of the same steps (no codecs): batches of 8
     xs_full = planar_gbr(synth(N_MAIN, H, W, seed=3))
     for pname, _, p, n, _ in paths:
@@ -2221,13 +2517,16 @@ def main() -> int:
     sh_defaults = tuple(f"sharded-defaults-{t}" for t in tags)
     sh_c3 = tuple(f"sharded-c3-{t}" for t in tags)
     sh_c5 = tuple(f"c5-clips-{t}" for t in tags)
+    # the steps-per-call paths (5c)
+    spc_c4 = ("c4-spc2", "sharded-render-c4-x4-spc2")
+    spc_defaults = ("defaults-spc2", "defaults-spc-auto")
     runs_on = {
-        "fused_pipeline_gaussian": ("fused_pipeline", ("c3",) + sh_c3),
+        "fused_pipeline_gaussian": ("fused_pipeline", ("c3", "c3-spc2") + sh_c3),
         "fused_pipeline": ("fused_pipeline", ("defaults", "c4", "defaults-yuv420p",
                                               "defaults-decode2", "c4-segments-crash",
                                               "c4-segments-resume", "gui-export", "compat")
-                           + sh_c4 + sh_defaults),
-        "fused_pipeline_c5": ("fused_pipeline", ("c5",) + sh_c5),
+                           + sh_c4 + sh_defaults + spc_c4 + spc_defaults),
+        "fused_pipeline_c5": ("fused_pipeline", ("c5", "c5-stacks") + sh_c5),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
         "warp_planar": ("warp_planar", None),  # every path but the previews
         "warp_planar_strength1": ("warp_planar", ()),
@@ -2235,11 +2534,12 @@ def main() -> int:
                                                   "c4-text", "defaults-bloom2", "defaults-fast",
                                                   "defaults-yuv420p", "defaults-decode2",
                                                   "c4-segments-crash", "c4-segments-resume",
-                                                  "gui-export", "compat") + sh_c4 + sh_defaults),
-        "persistence_scan_multiclip": ("persistence_multiclip", ("c5",) + sh_c5),
+                                                  "gui-export", "compat") + sh_c4 + sh_defaults
+                             + spc_c4 + spc_defaults),
+        "persistence_scan_multiclip": ("persistence_multiclip", ("c5", "c5-stacks") + sh_c5),
         "glitch_shear": ("glitch_shear", ("c4", "c4-text", "c4-segments-crash",
-                                          "c4-segments-resume", "gui-export") + sh_c4),
-        "glitch_shear_c5": ("glitch_shear", ("c5",) + sh_c5),
+                                          "c4-segments-resume", "gui-export") + sh_c4 + spc_c4),
+        "glitch_shear_c5": ("glitch_shear", ("c5", "c5-stacks") + sh_c5),
         "glitch_shear_band": ("glitch_shear", ()),
         "bloom3_planar": ("bloom3", ("c3-angled",)),
         "bloom3_fast_planar": ("bloom3", ("defaults-angled",)),

@@ -92,14 +92,6 @@ MULTI_CLIP_KWARGS = frozenset({
     "engine_mode", "rng", "seed", "precision", "pipe_format",
     "devices", "steps_per_call", "device",
 })
-# the JAX CLI's steps per call (the output does not depend on it): it stays
-# in the signature, so that journals agree, and is not passed on (one step
-# per call; the CLI refuses values above 1)
-SPREAD_KWARGS = ("steps_per_call",)
-
-
-def _render_kwargs(job: ClipJob) -> dict:
-    return {k: v for k, v in job.kwargs.items() if k not in SPREAD_KWARGS}
 
 
 def _group_key(job: ClipJob) -> str:
@@ -192,7 +184,7 @@ def render_batch(
                     [jobs[g].input_path for g in grp],
                     [jobs[g].output_path for g in grp],
                     j0.params, width=j0.width, height=j0.height,
-                    fps=j0.fps, report=False, **_render_kwargs(j0),
+                    fps=j0.fps, report=False, **j0.kwargs,
                 )
             except Exception:
                 # a group-level failure (e.g. source sizes that differ
@@ -225,7 +217,7 @@ def render_batch(
                 process_fn(
                     job.input_path, job.output_path, job.params,
                     width=job.width, height=job.height, fps=job.fps,
-                    report=False, **_render_kwargs(job),
+                    report=False, **job.kwargs,
                 )
                 ok = True
                 break

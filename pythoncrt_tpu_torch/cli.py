@@ -13,9 +13,10 @@ opens the Qt window (gui.launch_gui) on ``--device``, as
 pythoncrt_tpu/cli.py does: exit 3 without PySide6. ``--sharding auto``
 (the default) splits each batch's frames across the visible cards, at
 most ``--devices`` of them, when ``--device`` is ``cuda``; manifest
-groups shard their clips the same way. A flag whose machinery is not
-ported yet (``--steps-per-call`` above 1) exits with status 2 and names
-the ROADMAP.md item that brings it, in manifest runs too. Nothing falls
+groups shard their clips the same way. ``--steps-per-call`` n runs n
+batches per device call (0, the default: the JAX package's auto rule;
+forced to 1 under ``--segment-frames``), for the single clip and the
+manifest alike. Every value the JAX CLI accepts renders; nothing falls
 back to another path.
 """
 
@@ -202,17 +203,6 @@ def params_from_args(a: argparse.Namespace, provided: set | None = None) -> Effe
     return dataclasses.replace(base, **updates, text=text).clamped()
 
 
-def _refusal(a) -> str:
-    """The first flag the port does not run yet, as a message, or ''."""
-    todo = [
-        (a.steps_per_call > 1, "--steps-per-call", "queue 1, pipeline: steps per call"),
-    ]
-    for hit, flag, item in todo:
-        if hit:
-            return f"{flag} is not ported to the PyTorch/CUDA package yet: ROADMAP.md {item}"
-    return ""
-
-
 def _run_batch(a: argparse.Namespace, argv) -> int:
     """--batch-manifest: manifest jobs -> batch.render_batch (journal
     resume, per-clip retry; jobs that share params, size and fps render
@@ -338,10 +328,6 @@ def main(argv=None) -> int:
         rep = check_deps()
         print(rep.render())
         return 0 if rep.ok else 4
-    msg = _refusal(a)
-    if msg:
-        print(msg, file=sys.stderr)
-        return 2
     if a.batch_manifest:
         return 2 if _no_cuda(a.device) else _run_batch(a, argv)
     if a.gui or not a.input:
@@ -384,6 +370,7 @@ def main(argv=None) -> int:
         devices=max(0, int(a.devices)),
         decode_workers=max(1, int(a.decode_workers)),
         segment_frames=max(0, int(a.segment_frames)),
+        steps_per_call=int(a.steps_per_call),
         device=a.device,
         profile_dir=a.profile or None,
     )

@@ -52,6 +52,11 @@ absolute frame indices, so every draw is a pure function of (seed, frame
 index): outputs do not depend on how frames are split into batches.
 ``make_aux_at`` and ``process_at`` take times in seconds in place of the
 indices, with the host-rng noise given by the caller (the GUI preview).
+``upload`` puts the inputs the step reads on the device, one
+non-blocking copy from pinned memory each; ``process_stack`` runs n
+batches with one make_aux and one upload, the n steps enqueued back to
+back with no host wait, chunk i written into ``out[i]`` (the JAX
+engine's one dispatch of n chunks, pythoncrt_tpu/engine.py:1381-1406).
 
 ``precision`` "fast" is the JAX engine's ``lut_exact=False``: the
 triad's two pow sites on the clipped values instead of the 1024-bin
@@ -99,6 +104,39 @@ class FrameAux(NamedTuple):
     noise: Optional[np.ndarray] = None  # (B, gh, gw) f32 std-normal (rng="host")
     glitch_base: Optional[np.ndarray] = None  # (B, rows) f32 (rng="host")
     glitch_seg: Optional[np.ndarray] = None  # (B, rows, segs) f32 (rng="host", export)
+
+
+class DeviceAux(NamedTuple):
+    """The per-frame inputs of a FrameAux that the step reads, on the
+    engine's device (``CRTEngine.upload``): each host array copied once,
+    from pinned memory without a wait, so the chunks of a stack read
+    slices of them. Slicing every field along axis 0 slices the frames."""
+
+    frame_idx: np.ndarray  # (N,) int64 on the host: the native streams' keys
+    sl: Optional[torch.Tensor] = None  # (N, H) 1-D scanline rows, or (N,) 2-D mask phase
+    flicker: Optional[torch.Tensor] = None  # (N,) f32 [flicker]
+    noise: Optional[torch.Tensor] = None  # (N, gh, gw) f32 (rng="host")
+    glitch_base: Optional[torch.Tensor] = None  # (N, rows) f32 (rng="host")
+    glitch_seg: Optional[torch.Tensor] = None  # (N, rows, segs) f32 (rng="host", export)
+
+
+def aux_slice(aux, sl: slice):
+    """The frames ``sl`` of a FrameAux or DeviceAux."""
+    return type(aux)(*(None if f is None else f[sl] for f in aux))
+
+
+def stack_out(out, shape, device) -> torch.Tensor:
+    """The uint8 destination of a stack: ``out`` when the caller gave one
+    (contiguous, of ``shape``, on ``device``), else a new tensor."""
+    device = torch.device(device)
+    if out is None:
+        return torch.empty(tuple(shape), dtype=torch.uint8, device=device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != tuple(shape) \
+            or not out.is_contiguous() or out.device.type != device.type \
+            or (device.index is not None and out.device.index != device.index):
+        raise ValueError(f"out must be a contiguous uint8 {tuple(shape)} tensor on {device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
 
 
 def bloom_optin(params: EffectParams) -> Optional[str]:
@@ -386,26 +424,58 @@ class CRTEngine:
             g_seg = np.stack([f[1] for f in fields])
         return FrameAux(idx, phase, flicker, noise, g_base, g_seg)
 
-    def _frame_generator(self, frame_idx: int, stream: int) -> torch.Generator:
-        """The native-rng generator of one frame and stream, seeded as a
-        pure function of (seed, frame index, stream)."""
+    def upload(self, aux) -> DeviceAux:
+        """The inputs of ``aux`` that the step reads, on the device: the
+        1-D scanline rows (host f32 math, _scanline_rows) or the 2-D
+        mask's phase, the flicker gains and the host-rng fields, one
+        non-blocking copy each. A DeviceAux is returned as it is."""
+        if isinstance(aux, DeviceAux):
+            return aux
+        p = self.params
+        sl = None
+        if p.scanlines_on:
+            sl = (self._scanline_rows(aux.phase) if p.scanlines_1d
+                  else np.asarray(aux.phase, np.float32))
+        host = (sl, aux.flicker if p.flicker_on else None, aux.noise, aux.glitch_base,
+                aux.glitch_seg)
+        return DeviceAux(np.asarray(aux.frame_idx, np.int64), *(self._put(a) for a in host))
+
+    def _put(self, a) -> Optional[torch.Tensor]:
+        """A host array on the device: through pinned memory and one
+        non-blocking copy on the current stream (the host block is not
+        reused before the copy ran), so no host wait."""
+        if a is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def frame_seed(self, frame_idx: int, stream: int) -> int:
+        """The native-rng seed of one frame and stream, a pure function of
+        (seed, frame index, stream)."""
         ss = np.random.SeedSequence([self.seed % (1 << 64), int(frame_idx) % (1 << 64),
                                      stream])
+        return int(ss.generate_state(1, np.uint64)[0]) >> 1
+
+    def _frame_generator(self, frame_idx: int, stream: int) -> torch.Generator:
+        """The native-rng generator of one frame and stream (frame_seed)."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(ss.generate_state(1, np.uint64)[0]) >> 1)
+        gen.manual_seed(self.frame_seed(frame_idx, stream))
         return gen
 
     def _grain_field(self, aux: FrameAux) -> torch.Tensor:
         """(B, H, W) unscaled stage-11 field: drawn per frame (native) or
         the host fields, then the oracle's bilinear upsample."""
         gh, gw = self._grain_hw
+        aux = self.upload(aux)
         if aux.noise is None:
             field = torch.stack([
                 torch.randn((gh, gw), generator=self._frame_generator(i, _GRAIN_STREAM),
                             device=self.device, dtype=torch.float32)
                 for i in aux.frame_idx])
         else:
-            field = torch.from_numpy(np.ascontiguousarray(aux.noise, np.float32)).to(self.device)
+            field = aux.noise
         if self.params.grain_size > 1:
             field = oresize.resize_bilinear(field, *self._grain_taps)
         return field.contiguous()
@@ -415,13 +485,14 @@ class CRTEngine:
         fields or per-frame native draws, base + segment in f32, then
         rint (the JAX engine's _glitch_seg_offsets and _band_maps)."""
         amp = self.consts["glitch_amp"]
+        aux = self.upload(aux)
         if self.engine == "preview":
             if aux.glitch_base is None:
                 base = torch.stack([oglitch.native_preview_offsets(
                     self._frame_generator(i, _GLITCH_STREAM), self._glitch_rows, amp)
                     for i in aux.frame_idx])
             else:
-                base = torch.from_numpy(np.ascontiguousarray(aux.glitch_base)).to(self.device)
+                base = aux.glitch_base
             offs = base[:, :, None]
         else:
             if aux.glitch_base is None:
@@ -431,8 +502,7 @@ class CRTEngine:
                 base = torch.stack([f[0] for f in fields])
                 seg = torch.stack([f[1] for f in fields])
             else:
-                base = torch.from_numpy(np.ascontiguousarray(aux.glitch_base)).to(self.device)
-                seg = torch.from_numpy(np.ascontiguousarray(aux.glitch_seg)).to(self.device)
+                base, seg = aux.glitch_base, aux.glitch_seg
             offs = base[:, :, None] + seg
         return kglitch.round_offsets(offs).contiguous()
 
@@ -446,13 +516,15 @@ class CRTEngine:
                                + np.sin(omega * (y[None, :] + phase[:, None])))
         return (np.float32(1.0) - np.float32(p.scanline_strength) * s).astype(np.float32)
 
-    def _scanline_mask_2d(self, phase: np.ndarray) -> torch.Tensor:
+    def _scanline_mask_2d(self, phase) -> torch.Tensor:
         """(B, H, W) stage-8 2-D multiplier on the device, f32 in the
-        oracle's op order (scanline_mask_2d). Its sin and pow are each
-        rounded once from double, so the mask is the same on every
-        device; NumPy's f32 forms are not, and may differ by an ulp."""
+        oracle's op order (scanline_mask_2d), from the (B,) phase (host or
+        device). Its sin and pow are each rounded once from double, so the
+        mask is the same on every device; NumPy's f32 forms are not, and
+        may differ by an ulp."""
         p = self.params
-        ph = torch.from_numpy(np.ascontiguousarray(phase, np.float32)).to(self.device)
+        ph = (phase if isinstance(phase, torch.Tensor)
+              else self._put(np.asarray(phase, np.float32)))
         arg = self._sl_omega * (self.consts["sl_slant"][None] + ph[:, None, None])
         s = 0.5 * (1.0 + torch.sin(arg.double()).float())
         shaped = ocolor.powf_rn(s, self._sl_inv_sharp)
@@ -462,19 +534,23 @@ class CRTEngine:
     # The step
     # ------------------------------------------------------------------
 
-    def _effects(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
-        """Stages 1-14 on (B, 3, H, W) uint8 planar frames on the device:
-        f32 in [0, 1], or uint8 when the cast folded into the last kernel
-        (nothing temporal follows)."""
+    def _effects(self, x: torch.Tensor, aux, dst=None) -> torch.Tensor:
+        """Stages 1-14 on (B, 3, H, W) uint8 planar frames on the device
+        (``aux`` a FrameAux or its upload): f32 in [0, 1], or uint8 when
+        the cast folded into the last kernel (nothing temporal follows),
+        that kernel writing into ``dst`` ((B, 3, H, W) uint8) when given."""
         p = self.params
+        aux = self.upload(aux)
         if self._staged:
             out = self._staged_stages(x, aux)
         else:
             feed = x if self.spec.pre else self._pre_bloom(x)
             out = kfused.fused_pipeline(feed, self.spec, self.fused_tables,
+                                        out=dst if self.spec.emit == "u8" else None,
                                         **self.fused_operands(aux))
         if p.warp_on:  # stage 12
-            out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8)
+            out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8,
+                                    out=dst if self._warp_u8 else None)
         if self._text_after:  # stage 13
             out = ocolor.composite_text(out, *self._text)
         if self._glitch:  # stage 14
@@ -482,24 +558,27 @@ class CRTEngine:
                                          self.consts["glitch_seg_index"])
         return out
 
-    def _finish(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
+    def _finish(self, imgs: torch.Tensor, state: torch.Tensor, first: bool, dst=None):
         """Stage 15 and the uint8 cast over one stream's batch -> (uint8
-        frames, new (3, H, W) f32 state)."""
+        frames, new (3, H, W) f32 state); the persistence kernel writes
+        its frames into ``dst`` when given."""
         p = self.params
         if p.persistence_on:  # stage 15
             if self.assoc_scan:
                 return self._assoc_persistence(imgs, state, first)
-            return kpersist.persistence_scan(imgs, state, first, p.persistence, emit_u8=True)
+            return kpersist.persistence_scan(imgs, state, first, p.persistence, emit_u8=True,
+                                             out=dst)
         if imgs.dtype == torch.uint8:
             # the carried state is the quantized last frame in [0, 1];
             # nothing reads it back while persistence is off
             return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
         return ocolor.to_uint8(imgs), imgs[-1]
 
-    def _step(self, x: torch.Tensor, aux: FrameAux, state: torch.Tensor, first: bool):
+    def _step(self, x: torch.Tensor, aux, state: torch.Tensor, first: bool, dst=None):
         """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
-        the device -> (uint8 planar frames, new state)."""
-        return self._finish(self._effects(x, aux), state, first)
+        the device -> (uint8 planar frames, new state); the last kernel
+        that emits the frames writes them into ``dst`` when given."""
+        return self._finish(self._effects(x, aux, dst), state, first, dst)
 
     def _assoc_persistence(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
         """Stage 15 as an O(log B) associative scan (the JAX engine's
@@ -554,23 +633,25 @@ class CRTEngine:
         return kfused.epilogue_ref(img, self.spec, self.fused_tables,
                                    **self.fused_operands(aux))
 
-    def fused_operands(self, aux: FrameAux) -> dict:
+    def fused_operands(self, aux) -> dict:
         """The per-batch operands of stages 7-11, as the fused kernel (or
-        the staged step's epilogue) takes them."""
+        the staged step's epilogue) takes them, from a FrameAux or its
+        upload."""
         s, c = self.spec, self.consts
+        aux = self.upload(aux)
         kw = {}
         if s.noise:
             kw["grain"] = self._grain_field(aux)
         if s.scanlines and self.params.scanlines_1d:
-            kw["sl"] = torch.from_numpy(self._scanline_rows(aux.phase)).to(self.device)
+            kw["sl"] = aux.sl
         elif s.scanlines:
-            kw["sl"] = self._scanline_mask_2d(aux.phase)
+            kw["sl"] = self._scanline_mask_2d(aux.sl)
         if s.vignette:
             kw["vy2"], kw["vx2"] = c["vig_ny2"], c["vig_nx2"]
         if s.triad:
             kw["tri"] = self._tri
         if s.flicker:
-            kw["flicker"] = torch.from_numpy(aux.flicker).to(self.device)
+            kw["flicker"] = aux.flicker
         return kw
 
     # ------------------------------------------------------------------
@@ -600,6 +681,28 @@ class CRTEngine:
         x = self._frames(frames_u8)
         return self._process(x, self.make_aux_at(times_sec, noise_fields), state)
 
+    def process_stack(self, frames_stack, frame_indices, state=None, out=None):
+        """n process() calls over (n, B, ...) frames with (n, B) frame
+        indices, enqueued back to back: one make_aux of the n * B frames,
+        one copy of the stack and of each per-frame input to the device,
+        then the n steps with no host wait between them (the JAX engine's
+        process_stack, one dispatch of n chunks). Chunk i's frames are
+        written into ``out[i]`` (a (n, B, ...) uint8 tensor on the device;
+        None: a new one). Returns (out, final state), bit for bit n
+        process() calls: the native draws are keyed by frame index."""
+        x = torch.as_tensor(frames_stack)
+        exp = self._frame_shape()
+        if x.dtype != torch.uint8 or x.ndim != 2 + len(exp) or tuple(x.shape[2:]) != exp:
+            raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (n, B) + {exp} "
+                             f"for layout={self.layout!r}")
+        idx = np.asarray(frame_indices, dtype=np.int64)
+        if idx.size != x.shape[0] * x.shape[1]:
+            raise ValueError(f"frame_indices {idx.shape} do not pair with frames "
+                             f"{tuple(x.shape[:2])}")
+        out = stack_out(out, x.shape, self.device)
+        x = x.to(self.device, non_blocking=True)
+        return out, self._chunks(x, self.make_aux(idx.reshape(-1)), state, out)
+
     def _frames(self, frames_u8) -> torch.Tensor:
         x = torch.as_tensor(frames_u8).to(self.device, non_blocking=True)
         if x.dtype != torch.uint8 or tuple(x.shape[1:]) != self._frame_shape():
@@ -608,6 +711,15 @@ class CRTEngine:
         return x
 
     def _process(self, x: torch.Tensor, aux: FrameAux, state):
+        out = torch.empty(x.shape, dtype=torch.uint8, device=self.device)
+        return out, self._chunks(x[None], aux, state, out[None])
+
+    def _chunks(self, x: torch.Tensor, aux, state, out: torch.Tensor):
+        """The steps of (n, B, ...) frames on the device, in the engine's
+        layout, with the aux of their n * B frames (host, uploaded here
+        once, or its upload): chunk i written into out[i]; the state stays
+        planar on the device between chunks. Returns the final state in
+        the layout."""
         first = state is None
         if first:
             state = self.init_state()
@@ -616,19 +728,18 @@ class CRTEngine:
             # (the oracle's persistence_blend resizes; PARITY.md)
             raise ValueError(f"state shape {tuple(state.shape)} != {self._frame_shape()}")
         state = torch.as_tensor(state, dtype=torch.float32).to(self.device)
-        if self.layout == "nhwc":
-            x, state = x.permute(0, 3, 1, 2), state.permute(2, 0, 1)
-        out, state = self._step(x.contiguous(), aux, state.contiguous(), first)
-        if self.layout == "nhwc":
-            out, state = out.permute(0, 2, 3, 1), state.permute(1, 2, 0)
-        return out.contiguous(), state.contiguous()
-
-    def process_stack(self, frames_stack, frame_indices, state=None):
-        """n sequential process() calls over (n, B, ...) frames with (n, B)
-        frame indices. Returns ((n, B, ...) uint8, final state)."""
-        idx = np.asarray(frame_indices).reshape(len(frames_stack), -1)
-        outs = []
-        for frames, ii in zip(frames_stack, idx):
-            out, state = self.process(frames, ii, state)
-            outs.append(out)
-        return torch.stack(outs), state
+        nhwc = self.layout == "nhwc"
+        if nhwc:
+            x, state = x.permute(0, 1, 4, 2, 3), state.permute(2, 0, 1)
+        state = state.contiguous()
+        dev_aux = self.upload(aux)
+        b = x.shape[1]
+        for i in range(x.shape[0]):
+            dst = None if nhwc else out[i]
+            chunk = aux_slice(dev_aux, slice(i * b, (i + 1) * b))
+            frames, state = self._step(x[i].contiguous(), chunk, state, first and i == 0, dst)
+            if nhwc:
+                out[i].copy_(frames.permute(0, 2, 3, 1))
+            elif frames is not dst:
+                dst.copy_(frames)
+        return (state.permute(1, 2, 0) if nhwc else state).contiguous()

@@ -57,7 +57,7 @@ from .. import oracle
 from ..ops import blur as oblur
 from ..ops import color as ocolor
 from ..ops import resize as oresize
-from . import _build
+from . import _build, dest, into
 
 launches = 0  # CUDA launches made by fused_pipeline
 
@@ -773,7 +773,7 @@ def static_args(spec: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
 
 def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
                    grain=None, sl=None, vy2=None, vx2=None, tri=None,
-                   flicker=None) -> torch.Tensor:
+                   flicker=None, out=None) -> torch.Tensor:
     """Run stages 1-11.
 
     img: (B, 3, H, W) uint8 planar frames, plane i holding colour
@@ -782,20 +782,21 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
     f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
     order [triad]; flicker: (B,) f32 [flicker]. Returns (B, 3, H, W)
-    f32 in [0, 1], or uint8 when spec.emit == "u8".
+    f32 in [0, 1], or uint8 when spec.emit == "u8", written into ``out``
+    when given.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel.
     """
     global launches
     if img.device.type == "cpu":
-        return fused_pipeline_ref(img, spec, consts, grain=grain, sl=sl, vy2=vy2,
-                                  vx2=vx2, tri=tri, flicker=flicker)
+        return into(out, fused_pipeline_ref(img, spec, consts, grain=grain, sl=sl, vy2=vy2,
+                                            vx2=vx2, tri=tri, flicker=flicker))
     if img.device.type != "cuda":
         raise ValueError(f"fused_pipeline: unsupported device {img.device}")
     if consts.plan is not None and consts.plan.split:
         check_plan(spec, consts)
         return _split_pipeline(img, spec, consts, grain=grain, sl=sl, vy2=vy2, vx2=vx2,
-                               tri=tri, flicker=flicker)
+                               tri=tri, flicker=flicker, out=out)
     s = spec
     b = img.shape[0]
     dev = img.device
@@ -815,8 +816,8 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
         a.flicker = _check("flicker", flicker, (b,), torch.float32, dev)
     if s.triad:
         a.tri = _check("tri", tri, (3, s.w), torch.float32, dev)
-    out = torch.empty((b, 3, s.h, s.w), device=dev,
-                      dtype=torch.uint8 if s.emit == "u8" else torch.float32)
+    out = dest(out, (b, 3, s.h, s.w), torch.uint8 if s.emit == "u8" else torch.float32, dev,
+               "fused_pipeline")
     a.out = out.data_ptr()
     a.b = b
     # staged copies of gran elements where the frame pointer allows them

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import color as ocolor
-from . import _build
+from . import _build, dest, into
 
 launches = 0  # CUDA launches made by persistence_scan
 multiclip_launches = 0  # those of them in the multi-clip mode (clip_states)
@@ -85,19 +85,22 @@ class _PersistArgs(ctypes.Structure):
 
 def persistence_scan(imgs: torch.Tensor, state: torch.Tensor, first: bool,
                      persistence: float, *, emit_u8: bool = False,
-                     clip_states=None):
+                     clip_states=None, out=None):
     """(B, ...) f32 frames in [0, 1] and a (...) f32 state -> (outs,
     new_state): outs (B, ...) f32, or uint8 with ``emit_u8``; new_state
     the last blended frame (f32). ``first``: the batch opens a stream, so
     frame 0 passes through and ``state`` is not read. With ``clip_states``
     (C, ...): C clips of B / C frames, ``state`` ignored, ``first`` for
     every clip, and new_state (C, ...) (B % C != 0 raises ValueError).
+    ``out``: the tensor outs are written into (the kernel's destination),
+    or None for a new one.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel."""
     global launches, multiclip_launches
     if imgs.device.type == "cpu":
-        return persistence_scan_ref(imgs, state, first, persistence, emit_u8=emit_u8,
-                                    clip_states=clip_states)
+        res, ends = persistence_scan_ref(imgs, state, first, persistence, emit_u8=emit_u8,
+                                         clip_states=clip_states)
+        return into(out, res), ends
     if imgs.device.type != "cuda":
         raise ValueError(f"persistence_scan: unsupported device {imgs.device}")
     b = imgs.shape[0]
@@ -110,8 +113,8 @@ def persistence_scan(imgs: torch.Tensor, state: torch.Tensor, first: bool,
             or tuple(states.shape[1:]) != tuple(imgs.shape[1:]) or not states.is_contiguous():
         raise ValueError(f"persistence_scan: state must be a contiguous f32 "
                          f"{tuple(imgs.shape[1:])} tensor on {imgs.device}")
-    out = torch.empty(imgs.shape, device=imgs.device,
-                      dtype=torch.uint8 if emit_u8 else torch.float32)
+    out = dest(out, imgs.shape, torch.uint8 if emit_u8 else torch.float32, imgs.device,
+               "persistence_scan")
     new_states = torch.empty_like(states)
     a = _PersistArgs()
     a.imgs, a.state = imgs.data_ptr(), states.data_ptr()

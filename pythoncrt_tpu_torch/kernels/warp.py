@@ -26,7 +26,7 @@ import torch
 from .. import oracle
 from ..ops import color as ocolor
 from ..ops.warp import bilinear_gather_const0
-from . import _build
+from . import _build, dest, into
 
 launches = 0  # CUDA launches made by warp_planar
 
@@ -65,13 +65,14 @@ class _WarpArgs(ctypes.Structure):
 
 
 def warp_planar(img: torch.Tensor, tables: WarpTables, *,
-                emit_u8: bool = False) -> torch.Tensor:
+                emit_u8: bool = False, out=None) -> torch.Tensor:
     """(B, 3, H, W) f32 in [0, 1] -> warped f32, or uint8
-    clip(rint(v * 255)) with ``emit_u8``. CPU tensors run the plain twin;
-    CUDA tensors launch the kernel."""
+    clip(rint(v * 255)) with ``emit_u8``, written into ``out`` when
+    given. CPU tensors run the plain twin; CUDA tensors launch the
+    kernel."""
     global launches
     if img.device.type == "cpu":
-        return warp_planar_ref(img, tables, emit_u8=emit_u8)
+        return into(out, warp_planar_ref(img, tables, emit_u8=emit_u8))
     if img.device.type != "cuda":
         raise ValueError(f"warp_planar: unsupported device {img.device}")
     b, c, h, w = img.shape
@@ -86,8 +87,8 @@ def warp_planar(img: torch.Tensor, tables: WarpTables, *,
             raise ValueError(f"warp_planar: table {name} must be a contiguous {dt} "
                              f"({h}, {w}) tensor on {img.device}")
         setattr(a, name, t.data_ptr())
-    out = torch.empty((b, 3, h, w), device=img.device,
-                      dtype=torch.uint8 if emit_u8 else torch.float32)
+    out = dest(out, (b, 3, h, w), torch.uint8 if emit_u8 else torch.float32, img.device,
+               "warp_planar")
     a.out = out.data_ptr()
     a.b, a.h, a.w = b, h, w
     a.emit_u8 = int(emit_u8)

@@ -9,30 +9,32 @@ With several visible cards the clip axis is sharded across them
 (``best_mesh_size`` of them, capped by ``devices``): each card takes whole
 clips, and no data crosses cards but the gather of the outputs.
 
-Host pipeline, on the single-clip render's pieces (pipeline.py):
+Host pipeline, on the single-clip render's pieces (pipeline.py), with
+``steps_per_call`` n (0: ``auto_steps_per_call``, the JAX package's
+host-RAM rule) batches per device call:
 
   N decode threads (``_feeder``, each filling its clip's pool of pinned
-  host batches)
-      -> per-clip queues
-      -> collector thread: one (first index, buffer, frames) item per
-         live clip and step (no copy: the buffers travel as they are)
-      -> main loop: each clip's buffer copied to its slot of one device
-         batch, the engine step, each clip's frames copied back into a
-         pinned buffer of its pool (one CUDA stream, no wait: the loop
-         waits for step N's copy back only after queuing step N+1)
+  host super-batches of n * B frames)
+      -> per-clip queues of max(2, 4 // n) super-batches
+      -> collector thread (``_collector``): a ("stack", ...) item when
+         every live clip delivered a full super-batch, else one
+         ("batch", ...) item per batch of the super-batches (the ragged
+         tails); no copy: the buffers travel as they are
+      -> main loop: each clip's frames copied to its slot of one device
+         (n, C, B, ...) stack or (C, B, ...) batch, ``process_stack`` (n
+         steps enqueued back to back) or ``process``, each clip's frames
+         copied back into a pinned buffer of its pool (one CUDA stream, no
+         wait: the loop waits for call N's copy back only after queuing
+         call N+1)
       -> N encode threads (``_writer_loop``, which recycle the buffers)
 
 Clips may have different lengths: a finished clip's slot pads with zeros
 (its writer stops at the real frame count); its buffers stay in its own
-pool and are dropped with it. Per-clip decode, encode, open and probe
-failures mark that clip failed without ending the others;
-batch.render_batch adds journal resume and per-clip retry on top and is
-the CLI surface (--batch-manifest).
-
-The port runs one device step per batch (eager PyTorch has no
-multi-step dispatch to amortize), so it takes no ``steps_per_call``;
-``auto_steps_per_call`` (the JAX package's host-RAM rule) sizes each
-clip's queue of decoded batches.
+pool and are dropped with it. Outputs do not depend on n: every draw is
+keyed by frame index and each clip's carry runs over its own frames in
+order. Per-clip decode, encode, open and probe failures mark that clip
+failed without ending the others; batch.render_batch adds journal resume
+and per-clip retry on top and is the CLI surface (--batch-manifest).
 """
 
 from __future__ import annotations
@@ -134,17 +136,23 @@ def auto_steps_per_call(h: int, w: int, clips: int, batch: int) -> int:
     return max(1, min(8, budget // max(1, clips * batch)))
 
 
-def _collector(queues, step_q: queue.Queue, stop: threading.Event, err: dict) -> None:
-    """Assemble one step from the per-clip queues: ("batch", items,
-    idx0s) with items[i] the (first index, buffer, frames) of clip i, or
-    None once clip i has ended (its slot pads). Runs on its own thread so
-    a slow decoder does not hold the device loop."""
+def _collector(queues, step_q: queue.Queue, stop: threading.Event, err: dict,
+               spc: int, batch: int) -> None:
+    """Assemble the device calls from the per-clip queues of super-batches
+    (JAX multiclip.py:130-200): ("stack", items, idx0s) when every live
+    clip delivered a full super-batch of spc * batch frames, else, over
+    the ragged tails, one ("batch", items, idx0s) per batch. items[i] is
+    clip i's (buffer, first frame in it, frames, whether the buffer is
+    done after this call), or None where clip i has no frames (its slot
+    pads); idx0s[i] the absolute index of clip i's first frame there. Runs
+    on its own thread so a slow decoder does not hold the device loop."""
     c = len(queues)
+    feed = spc * batch
     active = [True] * c
     next_idx = [0] * c
     try:
         while not stop.is_set() and any(active):
-            items = [None] * c
+            got = [None] * c
             for i in range(c):
                 if not active[i]:
                     continue
@@ -156,12 +164,22 @@ def _collector(queues, step_q: queue.Queue, stop: threading.Event, err: dict) ->
                         return
                     active[i] = False
                     continue
-                items[i] = item
+                got[i] = item
                 next_idx[i] = item[0]
-            if all(it is None for it in items):
+            live = [g for g in got if g is not None]
+            if not live:
                 break
-            if not _put_or_stop(step_q, ("batch", items, np.array(next_idx, np.int64)), stop):
-                return
+            idx0s = np.array(next_idx, np.int64)
+            if spc > 1 and all(g[2] == feed for g in live):
+                items = [None if g is None else (g[1], 0, feed, True) for g in got]
+                if not _put_or_stop(step_q, ("stack", items, idx0s), stop):
+                    return
+                continue
+            for lo in range(0, max(g[2] for g in live), batch):
+                items = [None if g is None or g[2] <= lo else
+                         (g[1], lo, min(batch, g[2] - lo), lo + batch >= g[2]) for g in got]
+                if not _put_or_stop(step_q, ("batch", items, idx0s + lo), stop):
+                    return
     except Exception as e:
         err["collect"] = e
     finally:
@@ -189,6 +207,7 @@ def process_videos(
     precision: str = "exact",
     pipe_format: str = "rgb24",
     devices: int = 0,
+    steps_per_call: int = 0,
     device="cuda",
     progress_cb: Optional[Callable[[float], None]] = None,
     report: bool = True,
@@ -207,7 +226,9 @@ def process_videos(
     probe, decoder or encoder fails is marked failed without ending the
     others. ``devices`` caps the cards the clip axis is sharded across
     (0: every visible card; best_mesh_size) when ``device`` is "cuda";
-    a device that names one card, or the CPU, renders there alone."""
+    a device that names one card, or the CPU, renders there alone.
+    ``steps_per_call`` n runs n batches of every clip per device call
+    (0: auto_steps_per_call); it does not change the output."""
     if pipe_format not in ("rgb24", "yuv420p"):
         raise ValueError(f"pipe_format must be 'rgb24' or 'yuv420p', got {pipe_format!r}")
     inputs = [Path(p) for p in inputs]
@@ -267,10 +288,14 @@ def process_videos(
     fshape = eng._frame_shape()
     pipe = "gbrp" if planar else pipe_format
     pix_fmt = "gbrp" if planar else "rgb24"
-    depth = auto_steps_per_call(out_h, out_w, c, batch_size)  # decoded batches queued per clip
+    spc = int(steps_per_call)
+    if spc <= 0:
+        spc = auto_steps_per_call(out_h, out_w, c, batch_size)
+    feed = spc * batch_size
+    depth = max(2, 4 // spc)  # decoded super-batches queued per clip (JAX multiclip.py:379)
 
     def host_batch():
-        return torch.empty((batch_size, *fshape), dtype=torch.uint8, pin_memory=cuda)
+        return torch.empty((feed, *fshape), dtype=torch.uint8, pin_memory=cuda)
 
     audio_paths = [vio.extract_audio(p) if infos[i] is not None else None
                    for i, p in enumerate(inputs)]
@@ -333,7 +358,7 @@ def process_videos(
             t.start()
 
         t_coll = threading.Thread(target=_collector, daemon=True,
-                                  args=(feed_qs, step_q, stop, coll_err))
+                                  args=(feed_qs, step_q, stop, coll_err, spc, batch_size))
         threads.append(t_coll)
         t_coll.start()
 
@@ -365,27 +390,42 @@ def process_videos(
                 item = step_q.get()
                 if item is None:
                     break
-                _, items, idx0s = item
+                kind, items, idx0s = item
+                n = spc if kind == "stack" else 1
                 with perf.timed("fx.dispatch"), perf.device_trace("fx.step"):
-                    x = torch.empty((c, batch_size, *fshape), dtype=torch.uint8, device=dev)
-                    ins, outs = [], []
+                    # each clip's frames go to their slot, batch by batch
+                    x = torch.empty((n, c, batch_size, *fshape), dtype=torch.uint8, device=dev)
+                    ins = []
                     for i, it in enumerate(items):
-                        got = 0
-                        if it is not None:
-                            _, buf, got = it
-                            x[i, :got].copy_(buf[:got], non_blocking=True)
+                        if it is None:  # a finished clip's slot pads with zeros
+                            x[:, i].zero_()
+                            continue
+                        buf, lo, got, done = it
+                        for s in range(n):
+                            b0, b1 = s * batch_size, min(got, (s + 1) * batch_size)
+                            x[s, i, :b1 - b0].copy_(buf[lo + b0:lo + b1], non_blocking=True)
+                        if got < batch_size:  # a ragged tail (n is 1)
+                            x[0, i, got:].zero_()
+                        if done:
                             ins.append((i, buf))
-                        if got < batch_size:
-                            x[i, got:].zero_()
-                    idx = idx0s[:, None] + np.arange(batch_size)[None, :]
-                    out, states = mc.process(x, idx, states)
+                    idx = (idx0s[None, :, None]
+                           + np.arange(n * batch_size).reshape(n, 1, batch_size))
+                    if kind == "stack":
+                        out, states = mc.process_stack(x, idx, states)
+                    else:
+                        out, states = mc.process(x[0], idx[0], states)
+                        out = out[None]
+                    outs = []
                     for i, it in enumerate(items):
                         if it is None or "encode" in enc_errs[i]:
                             continue
                         out_buf = out_buffer(i)
                         if out_buf is not None:
-                            out_buf[:it[2]].copy_(out[i, :it[2]], non_blocking=True)
-                            outs.append((i, out_buf, it[2]))
+                            got = it[2]
+                            for s in range(n):
+                                b0, b1 = s * batch_size, min(got, (s + 1) * batch_size)
+                                out_buf[b0:b1].copy_(out[s, i, :b1 - b0], non_blocking=True)
+                            outs.append((i, out_buf, got))
                     ev = None
                     if cuda:
                         ev = torch.cuda.Event()

@@ -52,7 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..engine import CRTEngine, FrameAux
+from ..engine import CRTEngine, FrameAux, aux_slice, stack_out
 from ..kernels import persist as kpersist
 from ..ops import color as ocolor
 
@@ -124,8 +124,15 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _aux_slice(aux: FrameAux, sl: slice) -> FrameAux:
-    return FrameAux(*(None if f is None else f[sl] for f in aux))
+def _uploads(mesh: DeviceMesh, reps: list, aux: FrameAux) -> list:
+    """Each shard's copy of the aux's device inputs: one upload per
+    distinct device, shared by the shards on it."""
+    by_dev: dict = {}
+    for dev, rep in zip(mesh.devices, reps):
+        if dev not in by_dev:
+            with _on(dev):
+                by_dev[dev] = rep.upload(aux)
+    return [by_dev[d] for d in mesh.devices]
 
 
 def _planar(x: torch.Tensor, nhwc: bool) -> torch.Tensor:
@@ -133,17 +140,21 @@ def _planar(x: torch.Tensor, nhwc: bool) -> torch.Tensor:
     return (x.permute(0, 3, 1, 2) if nhwc else x).contiguous()
 
 
-def _gather(parts: list, nhwc: bool, device: torch.device) -> torch.Tensor:
+def _gather(parts: list, nhwc: bool, device: torch.device, out=None) -> torch.Tensor:
     """Planar (N_i, 3, H, W) shard results, concatenated along axis 0 on
-    ``device`` in the engine's layout."""
+    ``device`` in the engine's layout, into ``out`` when given (a part
+    already written there is not copied)."""
     parts = [p.permute(0, 2, 3, 1) if nhwc else p for p in parts]
-    if len(parts) == 1 and parts[0].device == _canonical(device):
-        return parts[0].contiguous()
-    n = sum(p.shape[0] for p in parts)
-    out = torch.empty((n, *parts[0].shape[1:]), dtype=parts[0].dtype, device=device)
+    if out is None:
+        if len(parts) == 1 and parts[0].device == _canonical(device):
+            return parts[0].contiguous()
+        n = sum(p.shape[0] for p in parts)
+        out = torch.empty((n, *parts[0].shape[1:]), dtype=parts[0].dtype, device=device)
     k = 0
     for p in parts:
-        out[k:k + p.shape[0]].copy_(p, non_blocking=True)
+        dst = out[k:k + p.shape[0]]
+        if p.data_ptr() != dst.data_ptr() or p.stride() != dst.stride():
+            dst.copy_(p, non_blocking=True)
         k += p.shape[0]
     return out
 
@@ -174,42 +185,62 @@ class ShardedCRTEngine:
         self._om = np.float32(1.0 - p.persistence)
 
     def process(self, frames_u8, frame_indices=None, state=None):
-        x, aux, state, first = self._inputs(frames_u8, frame_indices, state)
-        local = self._local(x, aux)
-        if self._persist:
-            carries, new_state = self._carry(local, state, first)
-            outs = self._correct(local, carries)
-        else:
-            outs, new_state = [y for y, _ in local], local[-1][1]
-        return self._outputs(outs, new_state)
+        x, aux, state, first = self._inputs(torch.as_tensor(frames_u8)[None], frame_indices,
+                                            state)
+        out = torch.empty(x.shape[1:], dtype=torch.uint8, device=self.engine.device)
+        return out, self._chunks(x, aux, state, first, out[None])
 
-    def process_stack(self, frames_stack, frame_indices, state=None):
-        """n sequential process() calls over (n, B, ...) frames with (n, B)
-        frame indices. Returns ((n, B, ...) uint8, final state)."""
-        idx = np.asarray(frame_indices).reshape(len(frames_stack), -1)
-        outs = []
-        for frames, ii in zip(frames_stack, idx):
-            out, state = self.process(frames, ii, state)
-            outs.append(out)
-        return torch.stack(outs), state
+    def process_stack(self, frames_stack, frame_indices, state=None, out=None):
+        """n process() calls over (n, B, ...) frames with (n, B) frame
+        indices, enqueued back to back (the JAX engine's process_stack):
+        one make_aux of the n * B frames, uploaded once to each shard
+        device; per chunk the shards' effects, the carry rounds and the
+        corrections as in process(), chunk i gathered into ``out[i]`` (a
+        (n, B, ...) uint8 tensor on the engine's device; None: a new one).
+        Returns (out, final state), bit for bit n process() calls."""
+        x, aux, state, first = self._inputs(torch.as_tensor(frames_stack), frame_indices, state)
+        out = stack_out(out, x.shape, self.engine.device)
+        return out, self._chunks(x, aux, state, first, out)
+
+    def _chunks(self, x: torch.Tensor, aux: FrameAux, state, first: bool,
+                out: torch.Tensor):
+        """The sharded steps of (n, B, ...) frames (the host aux of their
+        n * B frames, the planar state on shard 0's device): chunk i
+        gathered into out[i]. Returns the final state in the layout."""
+        nhwc = self.engine.layout == "nhwc"
+        auxes = _uploads(self.mesh, self._reps, aux)
+        b = x.shape[1]
+        for i in range(x.shape[0]):
+            if i:  # the carry after chunk i - 1, where the next composition starts
+                state = state.to(self.mesh.devices[0], non_blocking=True)
+            local = self._local(x[i], auxes, i * b)
+            if self._persist:
+                carries, state = self._carry(local, state, first and i == 0)
+                outs = self._correct(local, carries)
+            else:
+                outs, state = [y for y, _ in local], local[-1][1]
+            _gather(outs, nhwc, self.engine.device, out[i])
+        return self._state_out(state)
 
     # -- the steps of process() (chip_smoke.py times them one by one) --
 
-    def _inputs(self, frames_u8, frame_indices, state):
-        """Validate; -> (frames, host aux, planar (3, H, W) state on shard
-        0's device or None, first)."""
+    def _inputs(self, x: torch.Tensor, frame_indices, state):
+        """Validate an (n, B, ...) stack; -> (frames, the host aux of its
+        n * B frames, planar (3, H, W) state on shard 0's device or None,
+        first)."""
         eng = self.engine
-        x = torch.as_tensor(frames_u8)
-        _check_frame_dims(eng, x.shape[1:])
+        if x.ndim != 2 + len(eng._frame_shape()):
+            raise ValueError(f"frames {tuple(x.shape)} are not a (n, B) stack of frames")
+        n, b = x.shape[:2]
+        _check_frame_dims(eng, x.shape[2:])
         if x.dtype != torch.uint8:
             raise ValueError(f"frames must be uint8, got {x.dtype}")
-        b = x.shape[0]
         if b % self.ndev != 0:
             raise ValueError(f"batch {b} not divisible by mesh size {self.ndev}")
-        idx = (np.arange(b) if frame_indices is None
+        idx = (np.arange(n * b) if frame_indices is None
                else np.asarray(frame_indices, dtype=np.int64).reshape(-1))
-        if idx.size != b:
-            raise ValueError(f"frame_indices {idx.shape} do not pair with a batch of {b}")
+        if idx.size != n * b:
+            raise ValueError(f"frame_indices {idx.shape} do not pair with frames {(n, b)}")
         first = state is None
         if not first:
             state = torch.as_tensor(state, dtype=torch.float32)
@@ -221,10 +252,12 @@ class ShardedCRTEngine:
             state = state.contiguous()
         return x, eng.make_aux(idx), state, first
 
-    def _local(self, x: torch.Tensor, aux: FrameAux) -> list:
+    def _local(self, x: torch.Tensor, auxes: list, off: int = 0) -> list:
         """Every shard's stages 1-14 on its device, then with persistence
         on the zero-init local scan: [(y f32 (n, 3, H, W), y_last)]; with
-        it off, each shard's _finish: [(uint8 frames, tail state)]."""
+        it off, each shard's _finish: [(uint8 frames, tail state)].
+        ``auxes`` are the shards' uploads (_uploads) of a stack whose
+        frames start ``off`` frames before the batch's."""
         nl = x.shape[0] // self.ndev
         nhwc = self.engine.layout == "nhwc"
         p = self.engine.params
@@ -233,7 +266,8 @@ class ShardedCRTEngine:
             sl = slice(i * nl, (i + 1) * nl)
             with _on(dev):
                 xs = _planar(x[sl].to(dev, non_blocking=True), nhwc)
-                imgs = rep._effects(xs, _aux_slice(aux, sl))
+                imgs = rep._effects(xs, aux_slice(auxes[i], slice(off + sl.start,
+                                                                  off + sl.stop)))
                 if self._persist:
                     zero = torch.zeros(imgs.shape[1:], dtype=torch.float32, device=dev)
                     local.append(kpersist.persistence_scan(imgs, zero, False, p.persistence,
@@ -284,12 +318,18 @@ class ShardedCRTEngine:
                 outs.append(ocolor.to_uint8(y.add_(tpow * carry).clamp_(0.0, 1.0)))
         return outs
 
-    def _outputs(self, outs: list, new_state: torch.Tensor):
+    def _outputs(self, outs: list, new_state: torch.Tensor, out: torch.Tensor):
+        """Gather the shards' frames into ``out`` (on the engine's device,
+        in its layout); -> the state there, in the layout."""
+        _gather(outs, self.engine.layout == "nhwc", self.engine.device, out)
+        return self._state_out(new_state)
+
+    def _state_out(self, state: torch.Tensor) -> torch.Tensor:
+        """A planar state -> the caller's: on the engine's device, in its
+        layout."""
         eng = self.engine
-        nhwc = eng.layout == "nhwc"
-        out = _gather(outs, nhwc, eng.device)
-        st = new_state.to(eng.device, non_blocking=True)
-        return out, (st.permute(1, 2, 0) if nhwc else st).contiguous()
+        st = state.to(eng.device, non_blocking=True)
+        return (st.permute(1, 2, 0) if eng.layout == "nhwc" else st).contiguous()
 
 
 class MultiClipEngine:
@@ -320,11 +360,12 @@ class MultiClipEngine:
         self._reps = _replicas(engine, self.mesh)
 
     @staticmethod
-    def _finish(eng: CRTEngine, imgs: torch.Tensor, states: torch.Tensor, first: bool):
+    def _finish(eng: CRTEngine, imgs: torch.Tensor, states: torch.Tensor, first: bool,
+                dst=None):
         p = eng.params
         if p.persistence_on and not eng.assoc_scan:
             return kpersist.persistence_scan(imgs, None, first, p.persistence, emit_u8=True,
-                                             clip_states=states)
+                                             clip_states=states, out=dst)
         b = imgs.shape[0] // states.shape[0]
         outs, ends = zip(*(eng._finish(imgs[k * b:(k + 1) * b], states[k], first)
                            for k in range(states.shape[0])))
@@ -337,11 +378,36 @@ class MultiClipEngine:
         if x.dtype != torch.uint8 or x.ndim != 5 or tuple(x.shape[2:]) != fshape:
             raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (C, B, *{fshape}) "
                              f"for layout={eng.layout!r}")
-        c, b = x.shape[:2]
+        out, states = self._chunks(x[None], frame_indices, states, None)
+        return out[0], states
+
+    def process_stack(self, frames_stack, frame_indices, states=None, out=None):
+        """n process() calls over (n, C, B, ...) frames with (n, C, B)
+        frame indices, enqueued back to back (the JAX engine's
+        process_stack): one make_aux of the n * C * B frames, uploaded once
+        to each device; per chunk each device's clips through stages 1-14
+        and the multi-clip persistence launch, chunk i gathered into
+        ``out[i]`` (a (n, C, B, ...) uint8 tensor on the engine's device;
+        None: a new one). The clips' states stay on their devices between
+        chunks. Returns (out, final states), bit for bit n process()
+        calls."""
+        eng = self.engine
+        x = torch.as_tensor(frames_stack)
+        fshape = eng._frame_shape()
+        if x.dtype != torch.uint8 or x.ndim != 6 or tuple(x.shape[3:]) != fshape:
+            raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (n, C, B, *{fshape}) "
+                             f"for layout={eng.layout!r}")
+        return self._chunks(x, frame_indices, states, out)
+
+    def _chunks(self, x: torch.Tensor, frame_indices, states, out):
+        """The steps of a checked (n, C, B, ...) stack (process_stack)."""
+        eng = self.engine
+        fshape = eng._frame_shape()
+        n, c, b = x.shape[:3]
         if c % self.ndev != 0:
             raise ValueError(f"clip count {c} not divisible by mesh size {self.ndev}")
         idx = np.asarray(frame_indices, dtype=np.int64)
-        if idx.size != c * b:
+        if idx.size != n * c * b:
             raise ValueError(f"frame_indices {idx.shape} do not pair with {c} clips of {b}")
         first = states is None
         if first:
@@ -349,28 +415,28 @@ class MultiClipEngine:
         elif tuple(states.shape) != (c, *fshape):
             raise ValueError(f"states shape {tuple(states.shape)} != {(c, *fshape)}")
         states = torch.as_tensor(states, dtype=torch.float32)
-        flat = x.reshape(c * b, *fshape)  # clip-major
+        out = stack_out(out, x.shape, eng.device)
+        flat = x.reshape(n, c * b, *fshape)  # clip-major per chunk
+        out_flat = out.view(n, c * b, *fshape)
         aux = eng.make_aux(idx.reshape(-1))
         nhwc = eng.layout == "nhwc"
         k = c // self.ndev
-        outs, ends = [], []
-        for s, (dev, rep) in enumerate(zip(self.mesh.devices, self._reps)):
-            fs, cs = slice(s * k * b, (s + 1) * k * b), slice(s * k, (s + 1) * k)
+        auxes = _uploads(self.mesh, self._reps, aux)
+        sts = []
+        for s, dev in enumerate(self.mesh.devices):
             with _on(dev):
-                f = _planar(flat[fs].to(dev, non_blocking=True), nhwc)
-                st = _planar(states[cs].to(dev, non_blocking=True), nhwc)
-                o, e = self._finish(rep, rep._effects(f, _aux_slice(aux, fs)), st, first)
-            outs.append(o)
-            ends.append(e)
-        out = _gather(outs, nhwc, eng.device)
-        return out.reshape(c, b, *fshape), _gather(ends, nhwc, eng.device)
-
-    def process_stack(self, frames_stack, frame_indices, states=None):
-        """n sequential process() calls over (n, C, B, ...) frames with
-        (n, C, B) frame indices. Returns ((n, C, B, ...) uint8, states)."""
-        idx = np.asarray(frame_indices)
-        outs = []
-        for frames, ii in zip(frames_stack, idx.reshape(len(frames_stack), -1)):
-            out, states = self.process(frames, ii, states)
-            outs.append(out)
-        return torch.stack(outs), states
+                sts.append(_planar(states[s * k:(s + 1) * k].to(dev, non_blocking=True), nhwc))
+        same = [not nhwc and dev == _canonical(eng.device) for dev in self.mesh.devices]
+        for i in range(n):
+            outs = []
+            for s, (dev, rep) in enumerate(zip(self.mesh.devices, self._reps)):
+                fs = slice(s * k * b, (s + 1) * k * b)
+                with _on(dev):
+                    f = _planar(flat[i, fs].to(dev, non_blocking=True), nhwc)
+                    imgs = rep._effects(f, aux_slice(auxes[s], slice(i * c * b + fs.start,
+                                                                     i * c * b + fs.stop)))
+                    o, sts[s] = self._finish(rep, imgs, sts[s], first and i == 0,
+                                             out_flat[i, fs] if same[s] else None)
+                outs.append(o)
+            _gather(outs, nhwc, eng.device, out_flat[i])
+        return out, _gather(sts, nhwc, eng.device)

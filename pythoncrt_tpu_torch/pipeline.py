@@ -27,6 +27,15 @@ With ``sharding="auto"`` and more than one visible card, each full batch
 runs through a ``ShardedCRTEngine`` over the cards (``frame_runner``),
 the frame axis split across them with the persistence carry crossing the
 shards; the stream's short tail runs through the single-device engine.
+
+``steps_per_call`` n above 1 (``--steps-per-call``; 0 is the JAX
+package's auto rule, ``resolve_steps_per_call``) makes every host buffer
+a super-batch of n batches: the decoder fills n * B frames, a full one
+goes to the device in one copy and through ``process_stack`` (n steps
+enqueued back to back), and comes back in one copy with one event; a
+short one, the stream's tail, is sliced into plain batches. The pools
+shrink to max(2, POOL // n) buffers per direction (``host_pool``), as
+the JAX package bounds its queue of decoded super-batches.
 """
 
 from __future__ import annotations
@@ -54,7 +63,33 @@ from .segments import SegmentStore
 from .text import overlay_for
 
 DEFAULT_BATCH = 16
-POOL = 4  # host batch buffers per direction
+POOL = 4  # host batch buffers per direction (of super-batches: host_pool)
+
+
+def host_pool(batch_size: int, steps_per_call: int) -> tuple[int, int]:
+    """(frames per host buffer, buffers per direction) of a render at
+    ``steps_per_call`` n: super-batches of n * B frames, max(2, POOL // n)
+    of them (the JAX package's bound on decoded super-batches in flight,
+    pythoncrt_tpu/pipeline.py:395), so n = 1 keeps POOL batches. The
+    render pins twice that many buffers: one pool per direction."""
+    return steps_per_call * batch_size, max(2, POOL // steps_per_call)
+
+
+def resolve_steps_per_call(out_h: int, out_w: int, segmented: bool, requested: int) -> int:
+    """The steps per call of a single-clip render (the JAX package's rule,
+    pythoncrt_tpu/pipeline.py:306-322): ``requested`` above 0 is kept;
+    0 (auto) gives 8 at 1920x1080 pixels or fewer and 4 above. Under
+    ``--segment-frames`` auto gives 1, and an explicit request above 1 is
+    forced to 1 with a notice: the journal snapshots the carry per
+    batch."""
+    spc = int(requested)
+    if spc <= 0:
+        return 1 if segmented else (8 if out_h * out_w <= 1920 * 1080 else 4)
+    if spc > 1 and segmented:
+        print("steps-per-call > 1 is forced to 1 under --segment-frames "
+              "(the journal snapshots the carry per batch)", flush=True)
+        return 1
+    return spc
 
 
 def _put_or_stop(q: queue.Queue, item, stop: threading.Event) -> bool:
@@ -215,7 +250,7 @@ def _segment_writer_loop(seg: SegmentRun, in_q: queue.Queue, free: queue.Queue, 
 
 
 def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAULT_BATCH,
-                  start_idx: int = 0, total_frames: int = 0,
+                  steps_per_call: int = 1, start_idx: int = 0, total_frames: int = 0,
                   progress_cb: Optional[Callable[[float], None]] = None, state=None,
                   segments: Optional[SegmentRun] = None, runner=None,
                   _fail_after_frames: int = 0) -> int:
@@ -227,6 +262,10 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
     tail, goes through ``engine``, as the JAX package's render does
     (pythoncrt_tpu/pipeline.py:484-486): a sharded batch must divide by
     the mesh. Both return their output and state on the engine's device.
+    ``steps_per_call`` n above 1 sends every full super-batch of n * B
+    frames through ``runner.process_stack`` as (n, B, ...) and slices a
+    short one into batches (JAX pipeline.py:456-495); it needs
+    ``segments`` None.
 
     ``start_idx`` is the absolute index of the reader's first frame and
     ``state`` the persistence carry before it (a segment resume: the
@@ -239,20 +278,24 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
     runner = engine if runner is None else runner
     dev = engine.device
     cuda = dev.type == "cuda"
+    spc = int(steps_per_call)
+    if spc < 1 or (spc > 1 and segments is not None):
+        raise ValueError(f"steps_per_call must be 1, or above 1 without segments, got {spc}")
     fshape = tuple(getattr(reader, "frame_shape", (reader.out_h, reader.out_w, 3)))
     if fshape != engine._frame_shape():
         raise ValueError(f"reader frames {fshape} do not fit the engine's "
                          f"{engine.layout} layout {engine._frame_shape()}")
+    feed, pool = host_pool(batch_size, spc)
 
     def host_batch():
-        return torch.empty((batch_size, *fshape), dtype=torch.uint8, pin_memory=cuda)
+        return torch.empty((feed, *fshape), dtype=torch.uint8, pin_memory=cuda)
 
     in_free: queue.Queue = queue.Queue()
     out_free: queue.Queue = queue.Queue()
-    for _ in range(POOL):
+    for _ in range(pool):
         in_free.put(host_batch())
         out_free.put(host_batch())
-    decode_q: queue.Queue = queue.Queue(maxsize=POOL)
+    decode_q: queue.Queue = queue.Queue(maxsize=pool)
     encode_q: queue.Queue = queue.Queue()
     stop = threading.Event()
     err: dict = {}
@@ -299,16 +342,29 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
                     except queue.Empty:
                         continue
                 with perf.timed("fx.dispatch"), perf.device_trace("fx.step"):
-                    x = buf[:got].to(dev, non_blocking=True)
-                    step = runner if got == batch_size else engine
-                    out, state = step.process(x, np.arange(idx0, idx0 + got), state)
-                    out_buf[:got].copy_(out, non_blocking=True)
                     snap = None
-                    if snapshots and (idx0 + got) % segments.length == 0:
-                        # the carry after the batch that closes a segment,
-                        # copied before the next step can replace it
-                        snap = torch.empty(state.shape, dtype=state.dtype, pin_memory=cuda)
-                        snap.copy_(state, non_blocking=True)
+                    if spc > 1 and got == feed:
+                        # a full super-batch: one copy each way, n steps
+                        # enqueued back to back
+                        x = buf.view(spc, batch_size, *fshape).to(dev, non_blocking=True)
+                        idx = np.arange(idx0, idx0 + feed).reshape(spc, batch_size)
+                        out, state = runner.process_stack(x, idx, state)
+                        out_buf.view(spc, batch_size, *fshape).copy_(out, non_blocking=True)
+                    else:
+                        # plain batches: one per buffer at steps per call 1,
+                        # else a short super-batch (the stream's tail) sliced
+                        for off in range(0, got, batch_size):
+                            n_b = min(batch_size, got - off)
+                            x = buf[off:off + n_b].to(dev, non_blocking=True)
+                            step = runner if n_b == batch_size else engine
+                            out, state = step.process(x, np.arange(idx0 + off, idx0 + off + n_b),
+                                                      state)
+                            out_buf[off:off + n_b].copy_(out, non_blocking=True)
+                        if snapshots and (idx0 + got) % segments.length == 0:
+                            # the carry after the batch that closes a segment,
+                            # copied before the next step can replace it
+                            snap = torch.empty(state.shape, dtype=state.dtype, pin_memory=cuda)
+                            snap.copy_(state, non_blocking=True)
                     ev = None
                     if cuda:
                         ev = torch.cuda.Event()
@@ -392,6 +448,7 @@ def process_video(
     devices: int = 0,
     decode_workers: int = 1,
     segment_frames: int = 0,
+    steps_per_call: int = 0,
     device="cuda",
     progress_cb: Optional[Callable[[float], None]] = None,
     report: bool = True,
@@ -411,11 +468,14 @@ def process_video(
     ``pipe_format`` "yuv420p" decodes a half-size pipe and converts on
     the host (NHWC; without an ffmpeg binary the OpenCV tier decodes).
     ``decode_workers`` above 1 decodes seek-positioned chunks in parallel
-    (io.video.ChunkedParallelReader). ``segment_frames`` above 0 writes
-    batch-aligned segments with a resume journal (segments.py) and
-    assembles them at the end; the same call after a crash resumes at the
-    first unfinished segment. ``_fail_after_frames`` is a test hook that
-    injects a crash. Returns whether a hardware encoder was used."""
+    (io.video.ChunkedParallelReader), in units of a super-batch.
+    ``segment_frames`` above 0 writes batch-aligned segments with a resume
+    journal (segments.py) and assembles them at the end; the same call
+    after a crash resumes at the first unfinished segment.
+    ``steps_per_call`` n runs n batches per device call (render_stream;
+    0: auto, resolve_steps_per_call). ``_fail_after_frames`` is a test
+    hook that injects a crash. Returns whether a hardware encoder was
+    used."""
     if pipe_format not in ("rgb24", "yuv420p"):
         raise ValueError(f"pipe_format must be 'rgb24' or 'yuv420p', got {pipe_format!r}")
     input_path, output_path = Path(input_path), Path(output_path)
@@ -442,6 +502,7 @@ def process_video(
         runner = frame_runner(eng, sharding, devices, batch_size)
     pipe = "gbrp" if planar else pipe_format
     out_fmt = "gbrp" if planar else "rgb24"
+    spc = resolve_steps_per_call(out_h, out_w, segment_frames > 0, steps_per_call)
     enc = dict(encoder_preference=encoder_preference, gpu=gpu, crf=crf,
                bitrate_kbps=target_bitrate_kbps, nvenc_preset=nvenc_preset)
     audio_path = vio.extract_audio(input_path)
@@ -472,10 +533,10 @@ def process_video(
             writer, used_gpu = vio.open_writer(str(output_path), out_w, out_h, fps_out,
                                                audio_path=audio_path, pix_fmt=out_fmt, **enc)
         # opened at the resume point: the decoder seeks to the first
-        # frame not yet rendered
+        # frame not yet rendered; its batches are the super-batches
         if decode_workers > 1 and info.duration > 0:
             reader = vio.ChunkedParallelReader(
-                str(input_path), out_w, out_h, fps_out, total_frames, batch_size,
+                str(input_path), out_w, out_h, fps_out, total_frames, spc * batch_size,
                 workers=decode_workers, decoder_preference=decoder_preference,
                 pipe_format=pipe, start_frame=skip)
         else:
@@ -488,7 +549,8 @@ def process_video(
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
         with prof:
-            frames = render_stream(reader, writer, eng, batch_size=batch_size, start_idx=skip,
+            frames = render_stream(reader, writer, eng, batch_size=batch_size,
+                                   steps_per_call=spc, start_idx=skip,
                                    total_frames=total_frames, progress_cb=progress_cb,
                                    state=state, segments=seg, runner=runner,
                                    _fail_after_frames=_fail_after_frames)

@@ -4,8 +4,8 @@ PySide6), the render loop against
 CRTEngine.process, and CLI renders of a tiny clip on the CPU (c3, the
 CLI defaults and c4, export and preview; 2-D scanlines and text
 overlays; --precision fast, --segment-frames, --decode-workers,
---pipe-format yuv420p, --devices, --sharding and --check-deps in a fresh
-interpreter each)."""
+--pipe-format yuv420p, --devices, --sharding, --steps-per-call and
+--check-deps in a fresh interpreter each)."""
 
 import importlib.util
 import os
@@ -90,9 +90,9 @@ def test_out_of_slice_configs_raise(overrides, kw, item):
 @pytest.mark.parametrize("flags", [
     ["--precision", "fast"], ["--segment-frames", "2"], ["--decode-workers", "2"],
     ["--pipe-format", "yuv420p"], ["--check-deps"], ["--devices", "2"],
-    ["--devices", "2", "--sharding", "none"],
+    ["--devices", "2", "--sharding", "none"], ["--steps-per-call", "2"],
 ], ids=["precision_fast", "segment_frames", "decode_workers", "yuv420p", "check_deps",
-        "devices_2", "devices_2_sharding_none"])
+        "devices_2", "devices_2_sharding_none", "steps_per_call_2"])
 def test_ported_flags_render_without_jax(tmp_path, flags):
     """Each flag the port now runs renders 4 frames through cli.main (or,
     --check-deps, reports and exits 0) in a fresh interpreter that loads
@@ -136,9 +136,41 @@ def test_formerly_refused_configs_render(overrides):
 
 
 @pytest.mark.parametrize("flags", [["--steps-per-call", "2"]])
-def test_out_of_slice_flags_exit_2(flags, capsys):
-    assert cli.main(["--input", "x.mp4", *flags]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_out_of_slice_flags_exit_2(flags, tmp_path, monkeypatch, capsys):
+    """The last flag value the port refused (exit 2 until super-batches
+    were ported) renders: exit 0, every frame written, and the frames
+    handed to the encoder are those of ``--steps-per-call 1``, byte for
+    byte (10 frames at batch 2: two super-batches of 4, then a batch)."""
+    from pythoncrt_tpu_torch.io import video as tvio
+
+    got = {}
+    real = tvio.open_writer
+
+    def open_writer(dst, *a, **k):
+        wtr, gpu = real(dst, *a, **k)
+        rec = got[str(dst)] = []
+
+        class Rec:
+            def write_frame(self, f):
+                rec.append(np.array(f))
+                wtr.write_frame(f)
+
+            def close(self):
+                wtr.close()
+        return Rec(), gpu
+    monkeypatch.setattr(tvio, "open_writer", open_writer)
+    inp = tmp_path / "in.mp4"
+    write_clip(inp, n=10)
+    outs = {}
+    for tag, extra in (("flags", flags), ("one", ["--steps-per-call", "1"])):
+        outs[tag] = tmp_path / f"{tag}.mp4"
+        rc = cli.main(["--input", str(inp), "--output", str(outs[tag]), *C4_FLAGS, *extra,
+                       "--batch-size", "2", "--device", "cpu"])
+        assert rc == 0, capsys.readouterr()
+        assert count_frames(outs[tag]) == 10
+    a, b = (np.stack(got[str(outs[t])]) for t in ("flags", "one"))
+    assert a.shape == (10, H, W, 3)
+    np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("argv", [

@@ -27,7 +27,9 @@ preview's engine call (process_at, one frame at 960x540 and 853x480) is
 held to the CPU step within 1 LSB. The frame-sharded engine over 2, 4
 and 8 logical shards of cuda:0, and over every visible card (skipped on
 a one-card host), is held to the single-device engine: 0 LSB without
-persistence, else 1 LSB and the state within 1e-4."""
+persistence, else 1 LSB and the state within 1e-4. process_stack of
+CRTEngine, of a 2-shard ShardedCRTEngine and of MultiClipEngine, into the
+caller's ``out``, is bit for bit its process() loop."""
 
 import numpy as np
 import pytest
@@ -851,3 +853,46 @@ def test_sharded_engine_over_the_visible_cards(cuda_dev, name):
     got, gs = MultiClipEngine(eng, make_mesh(axis=CLIP_AXIS)).process(x, idx)
     want, ws = MultiClipEngine(eng).process(x, idx)
     assert torch.equal(got, want) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar_gbr", [False, True], ids=["nhwc", "planar_gbr"])
+@pytest.mark.parametrize("which", ["crt", "sharded_x2", "multiclip"])
+@pytest.mark.parametrize("name", ["c4", "defaults", "c3"])
+def test_process_stack_on_card_is_the_process_loop(cuda_dev, name, which, planar_gbr):
+    """process_stack (3 chunks of 4 frames, native rng, into the caller's
+    ``out``) on the card: bit for bit three process() calls, frames and
+    state, for CRTEngine, a ShardedCRTEngine over 2 logical shards of
+    cuda:0 and a MultiClipEngine of 2 clips; under torch's CUDA sync debug
+    mode "error", which raises on a synchronizing call."""
+    from pythoncrt_tpu_torch.parallel import DeviceMesh, ShardedCRTEngine
+
+    kw = dict(layout="planar", channel_order="gbr") if planar_gbr else {}
+    h, w, n, b = 64, 200, 3, 4
+    eng = CRTEngine(EffectParams(**VARIANTS[name]), h, w, 24.0, device="cuda:0", **kw)
+    clips = 2 if which == "multiclip" else 1
+    x = frames(clips * n * b, h, w, "cuda:0")
+    if not planar_gbr:
+        x = x.permute(0, 2, 3, 1).contiguous()
+    if which == "multiclip":
+        run = MultiClipEngine(eng)
+        stack = x.reshape(clips, n, b, *x.shape[1:]).transpose(0, 1).contiguous()
+        idx = np.stack([np.arange(n * b), np.arange(n * b) + 40]).reshape(2, n, b)
+        idx = idx.transpose(1, 0, 2)
+    else:
+        run = eng if which == "crt" else ShardedCRTEngine(
+            eng, DeviceMesh([torch.device("cuda", 0)] * 2))
+        stack, idx = x.reshape(n, b, *x.shape[1:]), np.arange(n * b).reshape(n, b) + 9
+    outs, st = [], None
+    for k in range(n):
+        o, st = run.process(stack[k], idx[k], st)
+        outs.append(o)
+    dst = torch.empty_like(stack)
+    torch.cuda.set_sync_debug_mode("error")  # no host sync between the chunks
+    try:
+        got, gst = run.process_stack(stack, idx, out=dst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert got is dst
+    assert torch.equal(got, torch.stack(outs)) and torch.equal(gst, st)

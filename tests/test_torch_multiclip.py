@@ -270,14 +270,14 @@ def test_process_videos_refusals(clip_set, tmp_path):
     assert all(r.ok for r in res) and read_clip(outs[1]).shape == (3, H, W, 3)
 
 
-SPREAD = {"steps_per_call"}  # in the job's signature, not passed on
-# passed on: process_video and process_videos shard across the cards
-CARRIED = {"devices": 0}
+# passed on, as the CLI's jobs carry them: process_video and process_videos
+# shard across the cards and run steps_per_call batches per device call
+CARRIED = {"devices": 0, "steps_per_call": 0}
 
 
 def fake_group(calls, bad=()):
     def run(ins, outs, p, **kw):
-        assert not SPREAD & set(kw) and kw.items() >= CARRIED.items()
+        assert kw.items() >= CARRIED.items()
         calls.append(("group", len(ins), kw.get("device")))
         return [ClipRenderResult(str(i), str(o), ok=k not in bad, frames=1,
                                  error="decode: x" if k in bad else "")
@@ -296,7 +296,7 @@ def test_render_batch_grouping_and_fallback(clip_set, tmp_path, case):
     calls = []
 
     def single(inp, outp, p, **kw):
-        assert not SPREAD & set(kw) and kw.items() >= CARRIED.items()
+        assert kw.items() >= CARRIED.items()
         calls.append(("single", str(inp)))
 
     group = fake_group(calls)
