@@ -9,16 +9,23 @@ Phases (each must pass; any failure exits non-zero):
 2. Build the CUDA kernels from pythoncrt_tpu_torch/csrc (one nvcc per
    source, all started together, sm_90a); ptxas's registers, stack frame
    and spill of each instantiation of the fused kernel (LUT-exact and
-   direct-pow triad), of the stand-alone blooms' row walk
-   (csrc/bloom_walk.cu, its fast source too) and of the warp
-   (csrc/warp.cu), none of which may use local memory.
+   direct-pow triad; full-size and raw grain), of the stand-alone blooms'
+   row walk (csrc/bloom_walk.cu, its fast source too), of the warp
+   (csrc/warp.cu) and of the native draws (csrc/rng.cu), none of which
+   may use local memory.
 3. Each kernel against its plain PyTorch twin on the card, at 1080p with
    a batch of 8 and the operands the main paths give it: the fused
-   kernel with the c3 spec (gaussian core) and the CLI-default spec (fast
-   core), the warp (c3's strength and 1.0, the widest source
+   kernel with the c3 spec (gaussian core; grain size 2: the raw grain
+   upsampled in the kernel, also held bit for bit to the kernel at grain
+   size 1 fed the twin's upsample, the parent tree's computation, and
+   timed beside it) and the CLI-default spec (fast core), the warp (c3's strength and 1.0, the widest source
    footprints), the persistence scan (stream head and carried
    state) and the glitch shear (the c4 band, export and preview offsets,
-   both entries); the stand-alone bloom (gaussian on the c3-angled
+   both entries); the native draws (csrc/rng.cu, one launch per batch and
+   stream: the grain field at c4's and c3's sizes and at c5's 4K, the
+   export glitch offsets at c4's band and c5's, the preview's at c4's),
+   bit for bit their twin, with torch.randn of the same shape as the
+   library yardstick; the stand-alone bloom (gaussian on the c3-angled
    pre-bloom image, fast on the defaults-angled one) and the fused
    kernel's f32-input mode (c4-text); the opt-in blooms on their paths'
    pre-bloom images (bloom2 gaussian on c3-bloom2, bloom2 fast on
@@ -56,7 +63,9 @@ Phases (each must pass; any failure exits non-zero):
    of that call; the least time the card could take (the largest of the
    bytes over the memory rate, the f32 operations over the f32 rate and
    the FP64 operations over the FP64 rate; the direct-pow rows count
-   their pow sites' operations as measured).
+   their pow sites' operations as measured; the draws' rows count
+   Philox's integer operations over the INT32 rate and the Box-Muller
+   FP64 operations, each transcendental as one).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
@@ -101,7 +110,8 @@ Phases (each must pass; any failure exits non-zero):
    every clip's frame count checked, then a second run that resumes all
    4 from the journal. Every kernel of a path must launch during that
    path's run (the counts are set to 0 just before it; c5 must launch
-   the persistence kernel in its multi-clip mode). The text is
+   the persistence kernel in its multi-clip mode); the native draws
+   launch once per batch and stream (the CLI defaults, c3, c4, c4-text). The text is
    rasterized by PIL when the host has it, else a seeded synthetic
    overlay takes its place (the line says which).
    Then the GUI slice: ``gui_qt.render_preview_frame`` (the window's
@@ -143,8 +153,11 @@ Phases (each must pass; any failure exits non-zero):
    (batch 8 and 16); the render fps, wall, of the defaults at both; and
    engine fps from CUDA events, ``process()`` x n against
    ``process_stack`` at the auto steps per call, five turns of three
-   super-batches each, on the defaults, c3, c4 and c4-text at 1080p and
-   c5 at 4K. Then the engine step alone per path (c5 at 3840x2160).
+   super-batches each, on the defaults, c3, c4 and c4-text at 1080p, c5
+   at 4K and c4 through ShardedCRTEngine over 4 logical shards of cuda:0,
+   each with the device's idle share over one super-batch of the stack
+   (torch.profiler). Then the engine step alone per path (c5 at
+   3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
 
@@ -193,6 +206,16 @@ OPTINS = {"c3-bloom2": {"PCRT_BLOOM2_GAUSS": "1"}, "defaults-bloom2": {"PCRT_BLO
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 F64_OPS_PER_S = 34e12      # H100 SXM FP64 outside the tensor cores (the same data sheet)
+# H100 SXM INT32: 64 lanes per SM (Hopper architecture white paper), 132
+# SMs, 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the native draws (csrc/rng.cu), counted from the algorithm: a Philox4x32-10
+# call is ten rounds of two 32x32-bit multiplies (high and low word: four
+# operations) and four XORs, and nine key bumps of two adds; a Box-Muller
+# pair is two conversions, an add and two multiplies (the uniforms), a log,
+# a multiply, a sqrt, a multiply (the angle), a cos, a sin, two multiplies
+# and two conversions to f32 in FP64, each transcendental counted as one
+PHILOX_INT_OPS, BM_F64_OPS = 10 * (4 + 4) + 9 * 2, 15
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
           bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
           vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
@@ -620,14 +643,23 @@ def fused_instances(log: str) -> list:
     def match(line):
         if "fused_strip_kernel" not in line:
             return None
-        core, radius, f32, direct = re.search(r"ILi(\d)ELi(n?\d+)ELb(\d)ELb(\d)E",
-                                              line).groups()
+        core, radius, f32, direct, graw = re.search(
+            r"ILi(\d)ELi(n?\d+)ELb(\d)ELb(\d)ELb(\d)E", line).groups()
         return dict(core="fast" if core == "1" else "gaussian",
                     radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
                             "memory)"}.get(radius) or int(radius),
                     input="f32" if f32 == "1" else "uint8",
-                    triad="direct pow (precision fast)" if direct == "1" else "LUT-exact")
-    return ptxas_instances(log, match, "fused instantiations", 16)
+                    triad="direct pow (precision fast)" if direct == "1" else "LUT-exact",
+                    grain="raw, upsampled here" if graw == "1" else "full-size")
+    return ptxas_instances(log, match, "fused instantiations", 32)
+
+
+def rng_instances(log: str) -> list:
+    """Each kernel of csrc/rng.cu (the grain, export and preview entries)."""
+    def match(line):
+        m = re.search(r"\d(grain|export|preview)_kernel", line)
+        return dict(kernel=m.group(0)[1:]) if m else None
+    return ptxas_instances(log, match, "draw kernels", 3)
 
 
 WALK_SOURCES = {"0": "fold (bloom3)", "1": "clamp (stripe)", "2": "table (bloom2)"}
@@ -810,9 +842,19 @@ def main() -> int:
               f"{inst['stack']} bytes "
               f"stack frame, {inst['spill_stores']} + {inst['spill_loads']} bytes spill "
               f"(stores + loads), {inst['static_smem']} bytes static shared memory (dynamic: "
-              f"the plan's, in [3])")
+              f"the plan's, in [3]); {inst['grain']} grain")
         if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
             fail(f"fused instantiation {inst} uses local memory")
+    for inst in rng_instances(_build.build_log):
+        # the stack frame is the FP64 cos and sin's argument reduction for
+        # arguments past 2^20 or so (libdevice), a path the draws' angles in
+        # [0, 2 pi) never take; a spill would be the kernel's own
+        print(f"[2] draw kernel {inst['kernel']} (csrc/rng.cu): {inst['registers']} registers, "
+              f"{inst['stack']} bytes stack frame (libdevice's cos and sin reduction of large "
+              f"arguments, not taken), {inst['spill_stores']} + {inst['spill_loads']} bytes "
+              f"spill (stores + loads)")
+        if inst["spill_stores"] or inst["spill_loads"]:
+            fail(f"draw kernel {inst} spills to local memory")
     for inst in walk_instances(_build.build_log):
         band = f", band {inst['band']}" if inst["band"] else ""
         print(f"[2] row-walk instance {inst['kernel']}, {inst['source']}{band}: "
@@ -837,8 +879,10 @@ def main() -> int:
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
+    from pythoncrt_tpu_torch.kernels import rng as krng
     from pythoncrt_tpu_torch.kernels import triad as ktriad
     from pythoncrt_tpu_torch.kernels import warp as kwarp
+    from pythoncrt_tpu_torch.ops import resize as oresize
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -857,8 +901,9 @@ def main() -> int:
     table = {}
 
     def row(kname, src, repl, err, lsb, ms, plain_ms, lib_ms, bytes_moved, values_out,
-            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL, f64=0, f32=0):
-        bms, by = bound(kname, bytes_moved, values_out, f64, f32)
+            tol=FUSED_TOL, note="", frames=B, res=(H, W), lsb_tol=LSB_TOL, f64=0, f32=0,
+            bnd=None):
+        bms, by = bnd or bound(kname, bytes_moved, values_out, f64, f32)
         lib = f"{lib_ms:.4f} ms/call" if lib_ms is not None else "none (no one PyTorch call)"
         print(f"[3] {kname}{note}: max |kernel - twin| {err:.3g}, max {int(lsb)} LSB; "
               f"kernel {ms:.4f} ms/call ({ms / frames:.4f} ms/frame), plain twin "
@@ -871,6 +916,31 @@ def main() -> int:
         table[kname] = dict(name=kname, route="cuda", source=src, replaces=repl, launches=0,
                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    def raw_grain_check(eng, x, kw, got, ms) -> str:
+        """The raw-grain mode (grain size above 1: the kernel upsamples the
+        raw field) against the parent tree's computation: the oracle's
+        bilinear upsample as torch ops, then the kernel at grain size 1.
+        Bit for bit, or the smoke fails; both timed."""
+        flat_spec = dataclasses.replace(eng.spec, grain_size=1)
+        flat = kfused.fused_consts(flat_spec, dev, y_map=eng.consts["pix_y"],
+                                   x_maps=eng.consts["pix_x"][list(eng._plane_colors)])
+        t = eng.fused_tables.grain_taps
+
+        def parent():
+            field = oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(), t[3])
+            return kfused.fused_pipeline(x, flat_spec, flat, **{**kw, "grain": field.contiguous()})
+        want = parent()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"the raw-grain mode differs from the upsample then the kernel at grain size 1: "
+                 f"{(got - want).abs().max().item():.3g}")
+        pms = time_ms(parent)
+        gh, gw = eng.spec.grain_hw
+        return (f"; raw grain {gh}x{gw} upsampled in the kernel, bit for bit the torch upsample "
+                f"then the kernel at grain size 1 (the parent tree's path: {pms:.4f} ms/call, "
+                f"{pms / B:.4f} ms/frame, {pms / ms:.2f}x; its grain operand "
+                f"{B * eng.h * eng.w * 4 / 1e6:.1f} MB against {kw['grain'].numel() * 4 / 1e6:.2f})")
 
     # ---- 3. kernels vs plain twins at the main paths' shapes ----
     frames = synth(B, H, W, seed=1)
@@ -890,9 +960,13 @@ def main() -> int:
         ms = time_ms(lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))
         plain = time_ms(lambda: kfused.fused_pipeline_ref(x, eng.spec, eng.fused_tables, **kw),
                         iters=3)
+        raw = ""
+        if eng.spec.grain_size > 1:
+            raw = raw_grain_check(eng, x, kw, got, ms)
         row(kname, "pythoncrt_tpu_torch/csrc/fused.cu", "pythoncrt_tpu/kernels/fused.py:680",
-            err, lsb, ms, plain, None, nbytes(x, got, *kw.values()), got.numel(),
-            note=f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core"
+            err, lsb, ms, plain, None, nbytes(x, got, *kw.values(), *(
+                eng.fused_tables.grain_taps or ())), got.numel(),
+            note=f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core{raw}"
                  f"{plan_note(eng.fused_tables)})")
         fused_out[cfg] = (eng, got)
         del want
@@ -988,6 +1062,83 @@ def main() -> int:
         "pythoncrt_tpu/kernels/glitch.py:165", worst, 0, band_ms, *glitch_times[1:], tol=0.0,
         note=" (the out-of-place band entry shear_planar, export offsets; on no main path)")
     del fused_out, fz, fd, state
+
+    # the native draws (csrc/rng.cu), one launch per batch and stream, at
+    # the main paths' shapes: the grain field of c4 (full size), of c3 (grain
+    # size 2) and of c5 (4K, 32 frames); the export offsets of c4's band and
+    # c5's; the preview offsets of c4's band. Bit for bit the twin;
+    # torch.randn of the output's shape is the library yardstick.
+    def draw_bound(calls: int, pairs: int, out_bytes: int) -> tuple:
+        """The least time for the draws: the output bytes over the memory
+        rate, Philox's integer operations over the INT32 rate, or the
+        Box-Muller FP64 operations over the FP64 rate, whichever is
+        largest."""
+        cands = ((out_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                 (calls * PHILOX_INT_OPS / INT32_OPS_PER_S * 1e3, "operations"),
+                 (pairs * BM_F64_OPS / F64_OPS_PER_S * 1e3, "operations"))
+        return max(cands)
+
+    draw_eng = {m: CRTEngine(configs["c4"], H, W, FPS, engine=m, device=dev)
+                for m in ("export", "preview")}
+    amp = draw_eng["export"]._glitch_amp
+    nseg = draw_eng["export"]._glitch_nseg
+    amp5 = CRTEngine(configs["c5"], H4, W4, FPS, device=dev)
+    draws = (  # name, frames, run, twin, outputs, Philox calls, Box-Muller pairs, note
+        ("rng_grain_normals", B, lambda f: krng.grain_normals(0, f, H, W),
+         lambda f: krng.grain_normals_ref(0, f, H, W), H * W, H * W // 4, H * W // 2,
+         f"c4's grain field, {H}x{W}"),
+        ("rng_grain_normals_c3", B, lambda f: krng.grain_normals(0, f, H // 2, W // 2),
+         lambda f: krng.grain_normals_ref(0, f, H // 2, W // 2), H * W // 4, H * W // 16,
+         H * W // 8, f"c3's raw grain field (grain size 2), {H // 2}x{W // 2}"),
+        ("rng_grain_normals_c5", C5_CLIPS * B, lambda f: krng.grain_normals(0, f, H4, W4),
+         lambda f: krng.grain_normals_ref(0, f, H4, W4), H4 * W4, H4 * W4 // 4, H4 * W4 // 2,
+         f"c5's grain field, {H4}x{W4}, {C5_CLIPS} clips x {B} frames"),
+        ("rng_glitch_export_offsets", B,
+         lambda f: krng.glitch_export_offsets(0, f, nseg, amp),
+         lambda f: krng.glitch_export_offsets_ref(0, f, nseg, amp), amp.numel() * nseg,
+         -(-amp.numel() * nseg // 4) + -(-amp.numel() // 4), (amp.numel() * (nseg + 1) + 1) // 2,
+         f"c4's export offsets, band {amp.numel()} rows x {nseg} segments"),
+        ("rng_glitch_export_offsets_c5", C5_CLIPS * B,
+         lambda f: krng.glitch_export_offsets(0, f, amp5._glitch_nseg, amp5._glitch_amp),
+         lambda f: krng.glitch_export_offsets_ref(0, f, amp5._glitch_nseg, amp5._glitch_amp),
+         amp5._glitch_amp.numel() * amp5._glitch_nseg,
+         -(-amp5._glitch_amp.numel() * amp5._glitch_nseg // 4)
+         + -(-amp5._glitch_amp.numel() // 4),
+         (amp5._glitch_amp.numel() * (amp5._glitch_nseg + 1) + 1) // 2,
+         f"c5's export offsets, band {amp5._glitch_amp.numel()} rows x {amp5._glitch_nseg} "
+         f"segments, {C5_CLIPS} clips x {B} frames"),
+        ("rng_glitch_preview_offsets", B,
+         lambda f: krng.glitch_preview_offsets(0, f, draw_eng["preview"]._glitch_amp),
+         lambda f: krng.glitch_preview_offsets_ref(0, f, draw_eng["preview"]._glitch_amp),
+         draw_eng["preview"]._glitch_rows, draw_eng["preview"]._glitch_rows,
+         draw_eng["preview"]._glitch_rows, f"c4's preview offsets, band "
+         f"{draw_eng['preview']._glitch_rows} rows"))
+    for kname, nb, run, twin, per_frame, calls, pairs, note in draws:
+        fr = torch.arange(nb, device=dev) + 1000
+        n0 = krng.launches
+        got = run(fr)
+        torch.cuda.synchronize()
+        if krng.launches != n0 + 1:
+            fail(f"{kname}: {krng.launches - n0} launches for one batch")
+        same = all(torch.equal(got[k:k + B], twin(fr[k:k + B])) for k in range(0, nb, B))
+        if not same:
+            fail(f"{kname} is not bit for bit its twin")
+        if got.dtype == torch.float32 and not torch.isfinite(got).all():
+            fail(f"{kname}: non-finite draws")
+        ms = time_ms(lambda: run(fr))
+        plain = time_ms(lambda: twin(fr[:B]), iters=2) * nb / B
+        lib = time_ms(lambda: torch.randn(got.shape, device=dev))
+        row(kname, "pythoncrt_tpu_torch/csrc/rng.cu",
+            "none (the JAX package draws with jax.random, XLA ops: "
+            "pythoncrt_tpu/engine.py:942-1014, ops/glitch.py:41-62)", 0.0, 0, ms, plain, lib,
+            got.numel() * 4 + fr.numel() * 8, got.numel(), tol=0.0, lsb_tol=0, frames=nb,
+            res=(H4, W4) if nb > B else (H, W),
+            bnd=draw_bound(calls * nb, pairs * nb, got.numel() * 4),
+            note=f" ({note}; 1 launch per batch, bit for bit the twin; torch.randn of "
+                 f"{tuple(got.shape)} is the library yardstick, another stream)")
+        table[kname]["launches_per_batch"] = 1
+        del got
+    del draw_eng, amp5
 
     # the stand-alone bloom and the fused f32-input mode, each on the
     # pre-bloom image (stages 1-5, synthetic overlay) of its path
@@ -1535,7 +1686,9 @@ def main() -> int:
         "fused_pipeline": (kfused, "launches"), "warp_planar": (kwarp, "launches"),
         "persistence_scan": (kpersist, "launches"), "glitch_shear": (kglitch, "launches"),
         "bloom3": (kbloom3, "launches"), "bloom2": (kbloom2, "launches"),
-        "bloom": (kbloom, "launches"), "persistence_multiclip": (kpersist, "multiclip_launches")}
+        "bloom": (kbloom, "launches"), "persistence_multiclip": (kpersist, "multiclip_launches"),
+        "rng": (krng, "launches"), "rng_grain": (krng, "grain_launches"),
+        "rng_export": (krng, "export_launches"), "rng_preview": (krng, "preview_launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -1545,15 +1698,16 @@ def main() -> int:
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     paths = (  # name, flags, params, frames, kernels that must launch
-        ("defaults", [], configs["defaults"], N_DECODE, ("fused_pipeline", "persistence_scan")),
+        ("defaults", [], configs["defaults"], N_DECODE,
+         ("fused_pipeline", "persistence_scan", "rng")),
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
-         ("fused_pipeline", "glitch_shear", "persistence_scan")),
-        ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar")),
+         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng")),
+        ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar", "rng")),
         ("c3-angled", C3_ANGLED_FLAGS, configs["c3-angled"], N_C3, ("bloom3", "warp_planar")),
         ("defaults-angled", DEF_ANGLED_FLAGS, configs["defaults-angled"], N_MAIN,
          ("bloom3", "persistence_scan")),
         ("c4-text", C4_TEXT_FLAGS, configs["c4-text"], N_MAIN,
-         ("fused_pipeline", "glitch_shear", "persistence_scan")),
+         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng")),
         ("c3-bloom2", C3_FLAGS, configs["c3-bloom2"], N_C3, ("bloom2", "warp_planar")),
         ("defaults-bloom2", [], configs["defaults-bloom2"], N_MAIN,
          ("bloom2", "persistence_scan")),
@@ -1669,6 +1823,14 @@ def main() -> int:
             missing = [k for k in needs if got[k] < 1]
             if missing:
                 fail(f"main path {pname}: kernels never launched: {missing}")
+            if "rng" in needs:  # one launch per batch and stream: grain, and glitch
+                streams = 1 + bool(p.glitch_on)
+                if got["rng"] != -(-n // B) * streams:
+                    fail(f"main path {pname}: {got['rng']} draw launches for {-(-n // B)} "
+                         f"batches of {streams} native streams")
+                print(f"[5] main path {pname}: the native draws launched once per batch and "
+                      f"stream ({got['rng']} launches, {-(-n // B)} batches, {streams} "
+                      f"stream{'s' if streams > 1 else ''})", flush=True)
         del clip
         if not cv2_ver:
             fail("the renders of this slice's flags need a codec backend (cv2); this host has none")
@@ -2404,7 +2566,23 @@ def main() -> int:
                 out[which].append(SPC_REPEATS * frames_per / e0.elapsed_time(e1) * 1e3)
         return out
 
-    def fps_line(pname, shape, spc, out):
+    def idle_share(fn) -> str:
+        """torch.profiler over one call of ``fn`` and a synchronize: the
+        device's busy ms, the wall ms and its idle share."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum((getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0))
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return (f"device busy {busy:.3f} ms of {wall:.3f} ms wall over one super-batch of the "
+                f"stack (torch.profiler), idle {max(0.0, 1.0 - busy / wall) * 100:.1f}%")
+
+    def fps_line(pname, shape, spc, out, idle=""):
         def fmt(v):
             lo, hi = min(v), max(v)
             return (f"median {np.median(v):.2f} (min {lo:.2f}, max {hi:.2f}, spread "
@@ -2413,7 +2591,8 @@ def main() -> int:
         print(f"[5] engine fps, {pname} ({shape}, {spc} steps per call, frames on the card, CUDA "
               f"events, {SPC_TURNS} turns of {SPC_REPEATS} super-batches): process() x {spc} "
               f"{fmt(out['loop'])}; process_stack {fmt(out['stack'])}; stack / loop "
-              f"{np.median(out['stack']) / np.median(out['loop']):.3f} on {card}", flush=True)
+              f"{np.median(out['stack']) / np.median(out['loop']):.3f}; {idle} on {card}",
+              flush=True)
 
     xs_full = planar_gbr(synth(spc_auto * B, H, W, seed=3))
     for pname in ("defaults", "c3", "c4", "c4-text"):
@@ -2437,8 +2616,33 @@ def main() -> int:
         loop()
         stk()
         no_sync(pname, stk)
-        fps_line(pname, f"{W}x{H}, B {B}", spc_auto, fps_turns(loop, stk, spc_auto * B))
+        fps_line(pname, f"{W}x{H}, B {B}", spc_auto, fps_turns(loop, stk, spc_auto * B),
+                 idle_share(stk))
         del eng_f
+    # c4 through ShardedCRTEngine over 4 logical shards of cuda:0, at 2 steps
+    # per call (the sharded render's super-batches of the slice above)
+    sh4 = ShardedCRTEngine(CRTEngine(configs["c4"], H, W, FPS, layout="planar",
+                                     channel_order="gbr", device=dev),
+                           DeviceMesh([torch.device("cuda", 0)] * 4))
+    stack2 = xs_full[:2 * B].reshape(2, B, *xs_full.shape[1:])
+    box_s = {"i": 0, "st": None}
+
+    def nxt_s():
+        box_s["i"] += 1
+        return np.arange(box_s["i"] * 2 * B, (box_s["i"] + 1) * 2 * B).reshape(2, B)
+
+    def loop_s():
+        idx = nxt_s()
+        for k in range(2):
+            _, box_s["st"] = sh4.process(stack2[k], idx[k], box_s["st"])
+
+    def stk_s():
+        _, box_s["st"] = sh4.process_stack(stack2, nxt_s(), box_s["st"])
+    loop_s()
+    stk_s()
+    fps_line("sharded-c4-x4", f"{W}x{H}, B {B}, 4 logical shards of cuda:0", 2,
+             fps_turns(loop_s, stk_s, 2 * B), idle_share(stk_s))
+    del sh4, stack2
     del xs_full
     eng5 = CRTEngine(configs["c5"], H4, W4, FPS, layout="planar", channel_order="gbr",
                      device=dev)
@@ -2463,7 +2667,7 @@ def main() -> int:
     stk5()
     no_sync("c5 (MultiClipEngine)", stk5)
     fps_line("c5", f"{C5_CLIPS} clips x B {B}, {W4}x{H4}", spc_c5,
-             fps_turns(loop5, stk5, spc_c5 * C5_CLIPS * B))
+             fps_turns(loop5, stk5, spc_c5 * C5_CLIPS * B), idle_share(stk5))
     del x5, mc, eng5
     torch.cuda.empty_cache()
 
@@ -2563,6 +2767,22 @@ def main() -> int:
         "glitch_shear_preview": ("glitch_shear", ("preview-c4", "preview-c4-text")),
         "bloom3_planar_preview": ("bloom3", ("preview-c3-angled",)),
         "bloom3_fast_planar_preview": ("bloom3", ("preview-defaults-angled",)),
+        # the native draws: a counter per entry; each row counts the paths of
+        # its shape
+        "rng_grain_normals": ("rng_grain", ("defaults", "c4", "c4-text", "defaults-yuv420p",
+                                            "defaults-decode2", "defaults-angled",
+                                            "defaults-bloom2", "defaults-s11", "defaults-fast",
+                                            "c4-segments-crash", "c4-segments-resume",
+                                            "gui-export", "compat")
+                              + sh_c4 + sh_defaults + spc_c4 + spc_defaults),
+        "rng_grain_normals_c3": ("rng_grain", ("c3", "c3-spc2", "c3-angled", "c3-bloom2",
+                                               "c3-stripe") + sh_c3),
+        "rng_grain_normals_c5": ("rng_grain", ("c5", "c5-stacks") + sh_c5),
+        "rng_glitch_export_offsets": ("rng_export", ("c4", "c4-text", "c4-segments-crash",
+                                                     "c4-segments-resume", "gui-export")
+                                      + sh_c4 + spc_c4),
+        "rng_glitch_export_offsets_c5": ("rng_export", ("c5", "c5-stacks") + sh_c5),
+        "rng_glitch_preview_offsets": ("rng_preview", ()),
     }
     for tag in SIGMAS:  # the stand-alone routes at large radii: on no main path
         runs_on.update({f"{k}_{tag}": (c, ()) for k, c in (

@@ -9,7 +9,10 @@
 // the kernel) or the engine's pre-processed f32 image (`pre=False`,
 // fused.py:325-326: text composited before the bloom), read as it is;
 // and its two triads: the LUT-exact one and the direct-pow one of
-// `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3).
+// `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3);
+// and its two grain operands: the full-size field, or the raw (gh, gw)
+// field upsampled in the kernel (GRAW: the grain branch, fused.py:640-667,
+// for grain sizes above 1; see load_grain).
 // The direct-pow triad's three pow sites per value are f32 double-float
 // fast paths with a rounding test and an out-of-line FP64 fallback
 // (triad_pow.cuh), bit for bit the FP64 expressions. Where the LUT-exact
@@ -18,7 +21,8 @@
 //
 // What bounds it on the card: on paper, bytes. A 1080p frame is 6.2 MB of
 // uint8 in (24.9 MB of f32 in the f32-input mode), plus the 8.3 MB f32
-// grain field when the noise stage is on; the pass writes either 6.2 MB
+// grain field when the noise stage is on (2.07 MB raw at grain size 2,
+// with 24 KB of taps); the pass writes either 6.2 MB
 // of uint8 (nothing downstream) or 24.9 MB of f32 (the warp, glitch or
 // persistence kernel's feed). Measured on an H100 (PERF.md), it runs at
 // 20-30% of that bound and a uint8 emit is no faster than an f32 one: the
@@ -181,6 +185,11 @@ struct FusedArgs {
     int32_t noise_on; float noise_scale;
     // last, so that the other fields keep their offsets
     float tri_g, tri_e;  // triad_mode 3: f32(gamma), f32(1 / gamma)
+    // GRAW: the raw grain's upsample, the oracle's bilinear_taps (lo,
+    // frac) for the rows (H,) and the columns (W,) of a (B, gh, gw) field
+    const int32_t* gylo; const float* gyf;
+    const int32_t* gxlo; const float* gxf;
+    int32_t grain_raw, gh, gw;
 };
 
 namespace {
@@ -379,11 +388,34 @@ __device__ __forceinline__ void finish(const FusedArgs& a, const float* lut, flo
 
 // The grain of nv (1-4) adjacent pixels of row gy from gx: one 16-byte
 // load when the epilogue is vectorized (0 when the noise stage is off).
+// GRAW: the raw field's bilinear upsample in the oracle's order (ops/
+// resize.py resize_bilinear: the two rows' lerp at each of the two
+// columns, then the columns' lerp, each lo * (1 - f) + hi * f in f32, no
+// contraction), read from the field's two rows through the read-only
+// path. (Computing each raw column's row lerp once per group of four, in
+// place of twice, measured no faster on an H100: PERF.md.)
+template <bool GRAW>
 __device__ __forceinline__ void load_grain(const FusedArgs& a, int bi, int gy, int gx, int nv,
                                            float gr[4]) {
     #pragma unroll
     for (int v = 0; v < 4; ++v) gr[v] = 0.0f;
     if (!a.noise_on) return;
+    if constexpr (GRAW) {
+        const int ylo = __ldg(a.gylo + gy), yhi = min(ylo + 1, a.gh - 1);
+        const float fy = __ldg(a.gyf + gy);
+        const float* r0 = a.grain + ((size_t)bi * a.gh + ylo) * a.gw;
+        const float* r1 = a.grain + ((size_t)bi * a.gh + yhi) * a.gw;
+        #pragma unroll
+        for (int v = 0; v < 4; ++v) {
+            if (v < nv) {
+                const int xlo = __ldg(a.gxlo + gx + v), xhi = min(xlo + 1, a.gw - 1);
+                const float lo = lerp_taps(__ldg(r0 + xlo), __ldg(r1 + xlo), fy);
+                const float hi = lerp_taps(__ldg(r0 + xhi), __ldg(r1 + xhi), fy);
+                gr[v] = lerp_taps(lo, hi, __ldg(a.gxf + gx + v));
+            }
+        }
+        return;
+    }
     const float* g = a.grain + ((size_t)bi * a.h + gy) * a.w + gx;
     if (a.vec_ok && nv == 4) {
         const float4 t = __ldg(reinterpret_cast<const float4*>(g));
@@ -682,8 +714,10 @@ __device__ __forceinline__ void vtaps_block(const FusedArgs& a, const Smem& S, c
 // triad (DIRECT, triad_mode 3) is its own instantiation of each, with the
 // same caps (its fast paths are f32 and its FP64 fallback is a call),
 // except the fast core's uint8-input one: at 64 registers it kept a word
-// in local memory, so it takes the gaussian's 80 (3 blocks).
-template <int CORE, int RT, bool F32IN, bool DIRECT>
+// in local memory, so it takes the gaussian's 80 (3 blocks). GRAW (the raw
+// grain upsampled here) is its own instantiation of each, so that the
+// full-size grain's instantiations are the code they were.
+template <int CORE, int RT, bool F32IN, bool DIRECT, bool GRAW>
 __global__ void __launch_bounds__(NT, CORE == FAST && !(DIRECT && !F32IN) ? 4 : 3)
 fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -799,7 +833,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     float gr_next[4];
     if (tid < (ye_next - y0) * nq) {
         const int yy = div_nq(tid), q = tid - yy * nq;
-        load_grain(a, bi, y0 + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+        load_grain<GRAW>(a, bi, y0 + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
     }
 
     for (int d = d_lo, ci = 0; d < d_hi; d += step, ++ci) {
@@ -821,7 +855,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
             ye_next = __ldg(sched + 6 + 2 * ci);
             if (tid < (ye_next - ye) * nq) {
                 const int yy = div_nq(tid), q = tid - yy * nq;
-                load_grain(a, bi, ye + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+                load_grain<GRAW>(a, bi, ye + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
             }
         }
 
@@ -972,7 +1006,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                             #pragma unroll
                             for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                         } else {
-                            load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                            load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
                         }
                         epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
                     }
@@ -1032,7 +1066,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                         #pragma unroll
                         for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                     } else {
-                        load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                        load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
                     }
                     epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
                 }
@@ -1080,7 +1114,7 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                     #pragma unroll
                     for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                 } else {
-                    load_grain(a, bi, y, gx, min(4, xe - gx), gr);
+                    load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
                 }
                 epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
             }
@@ -1090,21 +1124,21 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     }
 }
 
-// The instantiation for a launch: core, radius, input, triad.
-template <bool DIRECT>
+// The instantiation for a launch: core, radius, input, triad, grain operand.
+template <bool DIRECT, bool GRAW>
 void (*pick_kernel(const FusedArgs& a))(const FusedArgs) {
     const bool f32 = !a.pre_on;
     if (a.bloom_on && a.fast_on)
-        return f32 ? fused_strip_kernel<FAST, 0, true, DIRECT>
-                   : fused_strip_kernel<FAST, 0, false, DIRECT>;
+        return f32 ? fused_strip_kernel<FAST, 0, true, DIRECT, GRAW>
+                   : fused_strip_kernel<FAST, 0, false, DIRECT, GRAW>;
     if (a.bloom_on && a.r == 4)
-        return f32 ? fused_strip_kernel<GAUSS, 4, true, DIRECT>
-                   : fused_strip_kernel<GAUSS, 4, false, DIRECT>;
+        return f32 ? fused_strip_kernel<GAUSS, 4, true, DIRECT, GRAW>
+                   : fused_strip_kernel<GAUSS, 4, false, DIRECT, GRAW>;
     if (a.bloom_on && a.r > MAXR)
-        return f32 ? fused_strip_kernel<GAUSS, BIG, true, DIRECT>
-                   : fused_strip_kernel<GAUSS, BIG, false, DIRECT>;
-    return f32 ? fused_strip_kernel<GAUSS, -1, true, DIRECT>
-               : fused_strip_kernel<GAUSS, -1, false, DIRECT>;
+        return f32 ? fused_strip_kernel<GAUSS, BIG, true, DIRECT, GRAW>
+                   : fused_strip_kernel<GAUSS, BIG, false, DIRECT, GRAW>;
+    return f32 ? fused_strip_kernel<GAUSS, -1, true, DIRECT, GRAW>
+               : fused_strip_kernel<GAUSS, -1, false, DIRECT, GRAW>;
 }
 
 }  // namespace
@@ -1112,11 +1146,16 @@ void (*pick_kernel(const FusedArgs& a))(const FusedArgs) {
 extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
     if (a->r < 0 || (a->bloom_on && !a->fast_on && a->r > MAXR && !a->tapdev))
         return (int)cudaErrorInvalidValue;
+    const bool graw = a->noise_on && a->grain_raw;
+    if (graw && (!a->gylo || !a->gyf || !a->gxlo || !a->gxf || a->gh < 1 || a->gw < 1))
+        return (int)cudaErrorInvalidValue;
     const bool direct = a->triad_mode == 3;
     const int total = direct ? smem_layout<true>(*a, nullptr).total
                              : smem_layout<false>(*a, nullptr).total;
     if (total != a->smem) return (int)cudaErrorInvalidValue;
-    void (*kern)(const FusedArgs) = direct ? pick_kernel<true>(*a) : pick_kernel<false>(*a);
+    void (*kern)(const FusedArgs) =
+        direct ? (graw ? pick_kernel<true, true>(*a) : pick_kernel<true, false>(*a))
+               : (graw ? pick_kernel<false, true>(*a) : pick_kernel<false, false>(*a));
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem);
     if (e != cudaSuccess) return (int)e;

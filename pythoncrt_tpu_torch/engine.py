@@ -49,7 +49,13 @@ resize taps, glitch amplitudes and segment index) come from the port's
 NumPy oracle and are uploaded once. Per-frame inputs (scanline phase,
 flicker gain, noise, glitch offsets) are computed per batch from
 absolute frame indices, so every draw is a pure function of (seed, frame
-index): outputs do not depend on how frames are split into batches.
+index): outputs do not depend on how frames are split into batches. The
+native draws (rng="native") run on the device, one launch per batch and
+stream, keyed by the frame indices uploaded with the other inputs
+(kernels/rng.py: Philox4x32-10, the grain on stream 11 and the glitch on
+stream 14, so turning the glitch on leaves the grain as it was; the JAX
+engine's fold_in(key, 11) and fold_in(key, 14)). The grain field reaches
+the fused kernel raw, (gh, gw) per frame, and is upsampled there.
 ``make_aux_at`` and ``process_at`` take times in seconds in place of the
 indices, with the host-rng noise given by the caller (the GUI preview).
 ``upload`` puts the inputs the step reads on the device, one
@@ -83,16 +89,11 @@ from .kernels import bloom_walk as kwalk
 from .kernels import fused as kfused
 from .kernels import glitch as kglitch
 from .kernels import persist as kpersist
+from .kernels import rng as krng
 from .kernels import warp as kwarp
 from .ops import color as ocolor
-from .ops import glitch as oglitch
 from .ops import resize as oresize
 from .params import EffectParams
-
-# SeedSequence tags of the per-frame native-rng streams: the grain's and
-# the glitch's are independent, so turning the glitch on leaves the grain
-# as it was (the JAX engine's fold_in(key, 11) and fold_in(key, 14)).
-_GRAIN_STREAM, _GLITCH_STREAM = 11, 14
 
 
 class FrameAux(NamedTuple):
@@ -110,9 +111,10 @@ class DeviceAux(NamedTuple):
     """The per-frame inputs of a FrameAux that the step reads, on the
     engine's device (``CRTEngine.upload``): each host array copied once,
     from pinned memory without a wait, so the chunks of a stack read
-    slices of them. Slicing every field along axis 0 slices the frames."""
+    slices of them. Slicing every field along axis 0 slices the frames.
+    The host frame indices stay in the FrameAux; none is read back."""
 
-    frame_idx: np.ndarray  # (N,) int64 on the host: the native streams' keys
+    frame_idx: Optional[torch.Tensor] = None  # (N,) int64: the native draws' keys
     sl: Optional[torch.Tensor] = None  # (N, H) 1-D scanline rows, or (N,) 2-D mask phase
     flicker: Optional[torch.Tensor] = None  # (N,) f32 [flicker]
     noise: Optional[torch.Tensor] = None  # (N, gh, gw) f32 (rng="host")
@@ -275,6 +277,8 @@ class CRTEngine:
             own["text_rgb"] = ov[..., :3].astype(np.float32) / 255.0
         g = max(1, int(p.grain_size))
         self._grain_hw = (max(1, h // g), max(1, w // g)) if g > 1 else (h, w)
+        # the native draws' inputs: the keys are uploaded per batch
+        self._draws = self.rng == "native" and (p.noise_on or self._glitch)
 
         def dev_t(a):
             if isinstance(a, tuple):
@@ -325,7 +329,7 @@ class CRTEngine:
             scanlines=p.scanlines_on, vignette=p.vignette_on,
             vig_strength=float(p.vignette_strength),
             flicker=p.flicker_on, noise=p.noise_on,
-            noise_scale=float(p.noise_strength) / 255.0,
+            noise_scale=float(p.noise_strength) / 255.0, grain_size=g,
             emit="f32" if (p.warp_on or temporal or self._text_after) else "u8", corder=pc)
         self._warp_u8 = p.warp_on and not temporal and not self._text_after
         self.bloom3_spec = None  # the staged step's stand-alone bloom
@@ -360,9 +364,8 @@ class CRTEngine:
                                                 x0.to(torch.int32).contiguous(),
                                                 fy.float().contiguous(),
                                                 fx.float().contiguous())
-        if p.noise_on and g > 1:
-            gh, gw = self._grain_hw
-            self._grain_taps = oresize.bilinear_consts(gh, gw, h, w, dev)
+        if self._glitch:
+            self._glitch_amp = c["glitch_amp"].float().contiguous()
 
     # ------------------------------------------------------------------
     # Per-frame inputs
@@ -426,9 +429,10 @@ class CRTEngine:
 
     def upload(self, aux) -> DeviceAux:
         """The inputs of ``aux`` that the step reads, on the device: the
-        1-D scanline rows (host f32 math, _scanline_rows) or the 2-D
-        mask's phase, the flicker gains and the host-rng fields, one
-        non-blocking copy each. A DeviceAux is returned as it is."""
+        native draws' frame indices, the 1-D scanline rows (host f32 math,
+        _scanline_rows) or the 2-D mask's phase, the flicker gains and the
+        host-rng fields, one non-blocking copy each. A DeviceAux is
+        returned as it is."""
         if isinstance(aux, DeviceAux):
             return aux
         p = self.params
@@ -436,9 +440,9 @@ class CRTEngine:
         if p.scanlines_on:
             sl = (self._scanline_rows(aux.phase) if p.scanlines_1d
                   else np.asarray(aux.phase, np.float32))
-        host = (sl, aux.flicker if p.flicker_on else None, aux.noise, aux.glitch_base,
-                aux.glitch_seg)
-        return DeviceAux(np.asarray(aux.frame_idx, np.int64), *(self._put(a) for a in host))
+        host = (np.asarray(aux.frame_idx, np.int64) if self._draws else None, sl,
+                aux.flicker if p.flicker_on else None, aux.noise, aux.glitch_base, aux.glitch_seg)
+        return DeviceAux(*(self._put(a) for a in host))
 
     def _put(self, a) -> Optional[torch.Tensor]:
         """A host array on the device: through pinned memory and one
@@ -451,59 +455,28 @@ class CRTEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def frame_seed(self, frame_idx: int, stream: int) -> int:
-        """The native-rng seed of one frame and stream, a pure function of
-        (seed, frame index, stream)."""
-        ss = np.random.SeedSequence([self.seed % (1 << 64), int(frame_idx) % (1 << 64),
-                                     stream])
-        return int(ss.generate_state(1, np.uint64)[0]) >> 1
-
-    def _frame_generator(self, frame_idx: int, stream: int) -> torch.Generator:
-        """The native-rng generator of one frame and stream (frame_seed)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.frame_seed(frame_idx, stream))
-        return gen
-
-    def _grain_field(self, aux: FrameAux) -> torch.Tensor:
-        """(B, H, W) unscaled stage-11 field: drawn per frame (native) or
-        the host fields, then the oracle's bilinear upsample."""
-        gh, gw = self._grain_hw
+    def _grain_field(self, aux) -> torch.Tensor:
+        """(B, gh, gw) unscaled stage-11 field before its upsample (the
+        fused kernel, or the staged step's epilogue, upsamples it): one
+        launch of the draw kernel (native) or the host fields."""
         aux = self.upload(aux)
-        if aux.noise is None:
-            field = torch.stack([
-                torch.randn((gh, gw), generator=self._frame_generator(i, _GRAIN_STREAM),
-                            device=self.device, dtype=torch.float32)
-                for i in aux.frame_idx])
-        else:
-            field = aux.noise
-        if self.params.grain_size > 1:
-            field = oresize.resize_bilinear(field, *self._grain_taps)
-        return field.contiguous()
+        if aux.noise is not None:
+            return aux.noise
+        return krng.grain_normals(self.seed, aux.frame_idx, *self._grain_hw)
 
-    def glitch_offsets(self, aux: FrameAux) -> torch.Tensor:
-        """(B, rows, NSEG) int32 per-segment offsets of stage 14: the host
-        fields or per-frame native draws, base + segment in f32, then
-        rint (the JAX engine's _glitch_seg_offsets and _band_maps)."""
-        amp = self.consts["glitch_amp"]
+    def glitch_offsets(self, aux) -> torch.Tensor:
+        """(B, rows, NSEG) int32 per-segment offsets of stage 14: one launch
+        of the draw kernel (native), or the host fields, base + segment in
+        f32, then rint (the JAX engine's _glitch_seg_offsets and
+        _band_maps)."""
         aux = self.upload(aux)
-        if self.engine == "preview":
-            if aux.glitch_base is None:
-                base = torch.stack([oglitch.native_preview_offsets(
-                    self._frame_generator(i, _GLITCH_STREAM), self._glitch_rows, amp)
-                    for i in aux.frame_idx])
-            else:
-                base = aux.glitch_base
-            offs = base[:, :, None]
-        else:
-            if aux.glitch_base is None:
-                fields = [oglitch.native_export_fields(
-                    self._frame_generator(i, _GLITCH_STREAM), self._glitch_rows,
-                    self._glitch_nseg, amp) for i in aux.frame_idx]
-                base = torch.stack([f[0] for f in fields])
-                seg = torch.stack([f[1] for f in fields])
-            else:
-                base, seg = aux.glitch_base, aux.glitch_seg
-            offs = base[:, :, None] + seg
+        if aux.glitch_base is None:
+            if self.engine == "preview":
+                return krng.glitch_preview_offsets(self.seed, aux.frame_idx, self._glitch_amp)
+            return krng.glitch_export_offsets(self.seed, aux.frame_idx, self._glitch_nseg,
+                                              self._glitch_amp)
+        offs = (aux.glitch_base[:, :, None] if self.engine == "preview"
+                else aux.glitch_base[:, :, None] + aux.glitch_seg)
         return kglitch.round_offsets(offs).contiguous()
 
     def _scanline_rows(self, phase: np.ndarray) -> np.ndarray:

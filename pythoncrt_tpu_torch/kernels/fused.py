@@ -6,6 +6,16 @@ Port of pythoncrt_tpu/kernels/fused.py (fused_pipeline / _fused_kernel):
   /255 -> grade -> knee -> bloom core -> composite -> triad ->
   scanlines -> vignette -> flicker -> grain -> f32 or uint8
 
+With ``spec.grain_size`` above 1 the grain operand is the raw (gh, gw)
+field of each frame, and the kernel upsamples it (the JAX kernel's
+``grain_raw`` branch, fused.py:640-667): per output pixel the oracle's
+bilinear taps (``FusedConsts.grain_taps``), rows first, then columns,
+each ``lo * (1 - f) + hi * f`` in f32, bit for bit
+``ops/resize.resize_bilinear`` of the field. The TPU kernel's 8-row
+windows and bf16 column dot have no counterpart: they are its layout's,
+and its gate (grain size 2, even H, strength <= 32) is their error
+envelope; the port takes any grain size and H, W.
+
 The bloom core is the exact gaussian (H then V), the fast half-res
 down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
 tables), or off. With ``spec.pre`` False (the JAX kernel's ``pre=False``,
@@ -115,12 +125,22 @@ class FusedSpec:
     flicker: bool = False
     noise: bool = False
     noise_scale: float = 0.0
+    # the grain field's size: above 1 the operand is the raw (gh, gw)
+    # field, upsampled by the kernel (grain_hw)
+    grain_size: int = 1
     emit: str = "f32"  # "f32" [0, 1] or "u8" clip(rint(x * 255))
     corder: tuple = (0, 1, 2)  # plane i holds colour corder[i]
 
     @property
     def r(self) -> int:
         return len(self.taps) // 2
+
+    @property
+    def grain_hw(self) -> tuple[int, int]:
+        """(gh, gw) of the grain operand: the raw field's size (the
+        reference's cv2.resize source, crt_filter.py:640-642)."""
+        g = self.grain_size
+        return (max(1, self.h // g), max(1, self.w // g)) if g > 1 else (self.h, self.w)
 
 
 def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.0,
@@ -135,15 +155,15 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
     gathers and sums. Any H, W and radius: the TPU kernel's shape gates
     (H%8, W%128, even sizes for the fast core) have no counterpart. An
     aberration of W columns or more is taken mod W (the roll wraps: the
-    same index maps)."""
+    same index maps). ``grain_size`` takes the place of the JAX kernel's
+    ``grain_g`` and its window forms (``grain_off``, ``grain_frac``,
+    ``grain_raw``): above 1 the kernel always upsamples the raw field."""
     if kw.get("emit", "f32") not in ("f32", "u8"):
         raise ValueError(f"unknown emit mode {kw.get('emit')!r}")
-    for tpu_only in ("grain_g", "grain_off", "grain_frac", "grain_raw"):
-        kw.pop(tpu_only, None)  # the TPU's in-kernel grain upsample forms
     fast = bool(bloom and fast)
     taps = oblur.gaussian_taps(sigma) if bloom and not fast else ()
-    if int(kw.get("px", 1)) < 1:
-        raise ValueError("pixel size must be >= 1")
+    if int(kw.get("px", 1)) < 1 or int(kw.get("grain_size", 1)) < 1:
+        raise ValueError("pixel size and grain size must be >= 1")
     ab = int(kw.get("ab", 0))
     if abs(ab) >= w:
         kw["ab"] = int(math.fmod(ab, w))
@@ -183,6 +203,10 @@ class FusedConsts(NamedTuple):
     # its consts, the stand-alone bloom's Bloom3Spec, epilogue spec, its
     # consts)
     split: Optional[tuple] = None
+    # the raw grain's upsample (grain_size > 1 with the noise on): the
+    # oracle's bilinear_taps, (lo int32, frac f32) for the rows (H,) and
+    # the columns (W,)
+    grain_taps: Optional[tuple] = None
 
 
 @dataclass(eq=False)
@@ -506,7 +530,11 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32 if a.dtype.kind == "i"
                                                      else np.float32)).to(device)
-    tapdev = split = None
+    tapdev = split = grain_taps = None
+    if spec.noise and spec.grain_size > 1:
+        gh, gw = spec.grain_hw
+        grain_taps = tuple(dev(a) for a in (*oracle.ops.bilinear_taps(gh, spec.h),
+                                             *oracle.ops.bilinear_taps(gw, spec.w)))
     if plan.split:
         split = _split_route(spec, device, y_map, x_maps)
     elif plan.r > MAX_R:
@@ -514,7 +542,7 @@ def fused_consts(spec: FusedSpec, device="cpu", y_map=None, x_maps=None) -> Fuse
         tapdev = dev(np.concatenate([np.asarray(spec.taps, np.float32), left, right]))
     return FusedConsts(dev(y_map), dev(x_maps), fwd, fin,
                        None if taps is None else tuple(dev(a) for a in taps),
-                       plan, plan_tables(plan, device), tapdev, split)
+                       plan, plan_tables(plan, device), tapdev, split, grain_taps)
 
 
 def _split_route(spec: FusedSpec, device, y_map, x_maps) -> tuple:
@@ -605,7 +633,9 @@ def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
                  grain=None, sl=None, vy2=None, vx2=None, tri=None,
                  flicker=None) -> torch.Tensor:
     """Stages 7-11 and the emit. ``sl`` is the kernel's (B, H) scanline
-    multiplier or, in the engine's staged step, the (B, H, W) 2-D mask."""
+    multiplier or, in the engine's staged step, the (B, H, W) 2-D mask;
+    ``grain`` the (B, gh, gw) field (spec.grain_hw), upsampled here with
+    the oracle's taps when the grain size is above 1."""
     s = spec
     if s.triad:
         m = ocolor.apply_triad_planar(m, tri, s.triad_gamma, s.triad_luma, s.corder,
@@ -620,6 +650,9 @@ def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     if s.flicker:
         m = torch.clamp(m * flicker[:, None, None, None], 0.0, 1.0)
     if s.noise:
+        if s.grain_size > 1:
+            t = consts.grain_taps
+            grain = oresize.resize_bilinear(grain, t[0].long(), t[1], t[2].long(), t[3])
         m = torch.clamp(m + (grain * np.float32(s.noise_scale))[:, None], 0.0, 1.0)
     return ocolor.to_uint8(m) if s.emit == "u8" else m
 
@@ -677,6 +710,9 @@ class _FusedArgs(ctypes.Structure):
         ("flicker_on", ctypes.c_int32),
         ("noise_on", ctypes.c_int32), ("noise_scale", ctypes.c_float),
         ("tri_g", ctypes.c_float), ("tri_e", ctypes.c_float),
+        ("gylo", ctypes.c_void_p), ("gyf", ctypes.c_void_p),
+        ("gxlo", ctypes.c_void_p), ("gxf", ctypes.c_void_p),
+        ("grain_raw", ctypes.c_int32), ("gh", ctypes.c_int32), ("gw", ctypes.c_int32),
     ]
 
 
@@ -747,6 +783,16 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
     a.vig_strength = np.float32(s.vig_strength)
     a.flicker_on = int(s.flicker)
     a.noise_on, a.noise_scale = int(s.noise), np.float32(s.noise_scale)
+    a.gh, a.gw = s.grain_hw
+    if s.noise and s.grain_size > 1:
+        if consts.grain_taps is None:
+            raise ValueError("fused_pipeline: consts.grain_taps are required by the spec's "
+                             "grain size; build consts with fused_consts(spec)")
+        a.grain_raw = 1
+        a.gylo, a.gyf, a.gxlo, a.gxf = (
+            _check(n, t, (k,), dt, dev) for n, t, k, dt in zip(
+                ("gylo", "gyf", "gxlo", "gxf"), consts.grain_taps, (s.h, s.h, s.w, s.w),
+                (torch.int32, torch.float32, torch.int32, torch.float32)))
     a.sw, a.step, a.run = plan.sw, plan.step, plan.run
     a.depth, a.hdepth, a.win, a.hwin = plan.depth, plan.hdepth, plan.win, plan.hwin
     a.seg_pitch, a.smem = plan.seg_pitch, plan.smem
@@ -781,7 +827,9 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     False. grain: (B, H, W) f32 unscaled noise field [noise];
     sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
     f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
-    order [triad]; flicker: (B,) f32 [flicker]. Returns (B, 3, H, W)
+    order [triad]; flicker: (B,) f32 [flicker]. With spec.grain_size above
+    1, grain is the raw (B, gh, gw) field (spec.grain_hw), upsampled by
+    the kernel. Returns (B, 3, H, W)
     f32 in [0, 1], or uint8 when spec.emit == "u8", written into ``out``
     when given.
 
@@ -806,7 +854,7 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     else:
         a.imgf = _check("img", img, (b, 3, s.h, s.w), torch.float32, dev)
     if s.noise:
-        a.grain = _check("grain", grain, (b, s.h, s.w), torch.float32, dev)
+        a.grain = _check("grain", grain, (b, *s.grain_hw), torch.float32, dev)
     if s.scanlines:
         a.sl = _check("sl", sl, (b, s.h), torch.float32, dev)
     if s.vignette:
@@ -824,8 +872,9 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     gb = consts.plan.gran * (1 if s.pre else 4)
     ptr = a.img if s.pre else a.imgf
     a.copy_bytes = gb if ptr % gb == 0 else (4 if gb >= 4 and ptr % 4 == 0 else 1)
-    # four values per thread for the grain loads and the stores
-    a.vec_ok = int(s.w % 4 == 0 and all(p % 16 == 0 for p in (a.out, a.grain) if p))
+    # four values per thread for the stores and the full-size grain's loads
+    grain = a.grain if not a.grain_raw else None
+    a.vec_ok = int(s.w % 4 == 0 and all(p % 16 == 0 for p in (a.out, grain) if p))
     _build.launch("crt_fused_launch", a, dev)
     launches += 1
     return out

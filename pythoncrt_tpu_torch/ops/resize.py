@@ -54,11 +54,3 @@ def resize_bilinear(img: torch.Tensor, ylo: torch.Tensor, yfrac: torch.Tensor,
     rows = img[..., ylo, :] * (1.0 - fy) + img[..., yhi, :] * fy
     return rows[..., xlo] * (1.0 - xfrac) + rows[..., xhi] * xfrac
 
-
-def bilinear_consts(src_h: int, src_w: int, dst_h: int, dst_w: int,
-                    device="cpu") -> tuple[torch.Tensor, ...]:
-    """(ylo, yfrac, xlo, xfrac) device tensors from the oracle's taps."""
-    ylo, yf = oracle.ops.bilinear_taps(src_h, dst_h)
-    xlo, xf = oracle.ops.bilinear_taps(src_w, dst_w)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (ylo.astype(np.int64), yf, xlo.astype(np.int64), xf))

@@ -57,6 +57,7 @@ import torch
 
 from . import perf
 from .engine import CRTEngine
+from .kernels.rng import NATIVE_STREAM
 from .io import video as vio
 from .params import EffectParams
 from .segments import SegmentStore
@@ -516,10 +517,12 @@ def process_video(
             # snapshot travels with the batch that closes a segment
             seg_len = max(batch_size, -(-int(segment_frames) // batch_size) * batch_size)
             # the JAX package's signature (the carry is in the engine's
-            # layout) and the package that wrote the journal: a journal of
-            # the JAX package starts afresh (its native rng draws others)
+            # layout), the package that wrote the journal and its native
+            # stream: a journal of the JAX package, or of a port whose
+            # native rng drew another stream, starts afresh
             store = SegmentStore(output_path, {
-                "impl": "pythoncrt_tpu_torch", "w": out_w, "h": out_h, "fps": fps_out,
+                "impl": "pythoncrt_tpu_torch", "native_stream": NATIVE_STREAM,
+                "w": out_w, "h": out_h, "fps": fps_out,
                 "seg": seg_len, "engine": engine_mode, "rng": rng, "seed": seed,
                 "precision": precision, "layout": eng.layout,
                 "params": dataclasses.asdict(params.clamped())})

@@ -210,13 +210,13 @@ def profile_c5(params: dict) -> dict:
     off, seg = eng.glitch_offsets(aux), eng.consts["glitch_seg_index"]
     kernels["glitch_shear"] = events_ms(
         lambda: kglitch.shear_planar_inplace(f, eng._glitch_y0, off, seg), iters=5)
-    kernels["glitch_offsets (native draws, torch ops)"] = events_ms(
+    kernels["glitch_offsets (native draws, one launch)"] = events_ms(
         lambda: eng.glitch_offsets(aux), iters=2)
     states = torch.zeros((CLIPS, 3, H4, W4), device="cuda")
     kernels["persistence_scan (multi-clip)"] = events_ms(
         lambda: kpersist.persistence_scan(f, None, False, eng.params.persistence, emit_u8=True,
                                           clip_states=states), iters=5)
-    kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
+    kernels["grain field (native draws, one launch; raw at grain size > 1)"] = events_ms(
         lambda: eng._grain_field(aux), iters=2)
     del f, states, kw
     return timing("c5", [CLIPS * B, 3, H4, W4], 2 * CLIPS * B, loop, kernels, host)
@@ -295,13 +295,13 @@ def profile(name: str, params: dict, xs) -> dict:
         seg = eng.consts["glitch_seg_index"]
         kernels["glitch_shear"] = events_ms(
             lambda: kglitch.shear_planar_inplace(f, eng._glitch_y0, off, seg))
-        kernels["glitch_offsets (native draws, torch ops)"] = events_ms(
+        kernels["glitch_offsets (native draws, one launch)"] = events_ms(
             lambda: eng.glitch_offsets(aux), iters=5)
     if p.persistence_on:
         state = torch.zeros((3, H, W), device="cuda")
         kernels["persistence_scan"] = events_ms(
             lambda: kpersist.persistence_scan(f, state, False, p.persistence, emit_u8=True))
-    kernels["grain field (native draws + upsample, torch ops)"] = events_ms(
+    kernels["grain field (native draws, one launch; raw at grain size > 1)"] = events_ms(
         lambda: eng._grain_field(aux), iters=5)
 
     return timing(name, [B, 3, H, W], N, loop, kernels, host)

@@ -14,9 +14,9 @@ MultiClipEngine) at the render's auto steps per call n
   super-batches of n * B frames each, the state carried, the modes in
   turns within each turn: n process() calls ("loop"), one
   process_stack ("stack") and, for CRTEngine, one replay of a CUDA graph
-  of the stack ("graph", with the host work of a call: make_aux, the
-  uploads into the graph's input buffers, the per-frame generators
-  reseeded); median, min, max and spread per mode;
+  of the stack ("graph", with the host work of a call: make_aux and the
+  uploads into the graph's input buffers); median, min, max and spread
+  per mode;
 - the graph's frames and state against the eager stack's on the same
   inputs (bit for bit or not);
 - torch.profiler over one super-batch of each mode: device ms, wall ms
@@ -24,14 +24,10 @@ MultiClipEngine) at the render's auto steps per call n
 
 The graph: the n steps captured once for a fixed (n, B, H, W, layout)
 with the state not first, into static frame, input, state and output
-buffers. The native draws come from per-frame generators seeded on the
-host: the capture takes a pool of generators, one per draw of the
-stack in call order, registered with the graph
-(torch.cuda.CUDAGraph.register_generator_state) and reseeded with
-CRTEngine.frame_seed before each replay. Where this torch lacks
-register_generator_state, the native configurations are not captured
-and the line says so. c5 is not captured (MultiClipEngine uploads its
-inputs inside the stack).
+buffers. The native draws are keyed by the frame indices in the input
+buffers (kernels/rng.py), so a replay draws the new frames' values with
+no host state. c5 is not captured (MultiClipEngine uploads its inputs
+inside the stack).
 
 Prints one line per configuration, the card's name and power limit,
 and one JSON object; writes the objects to ``--out`` under chiprun_out/
@@ -101,50 +97,28 @@ class StackGraph:
         self.aux = eng.upload(eng.make_aux(self.flat0))  # the static input buffers
         self.state = state.clone()
         self.out = torch.empty_like(xs)
-        # the draws of one stack, in call order: (position in the stack, stream)
-        self.draws: list = []
-        real = eng._frame_generator
-
-        def record(frame_idx, stream):
-            self.draws.append((int(np.nonzero(self.flat0 == frame_idx)[0][0]), stream))
-            return real(frame_idx, stream)
-        eng._frame_generator = record
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
             self._body()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        self.gens = [torch.Generator(device=eng.device) for _ in self.draws]
-        self._seed(self.flat0)
-        pool = iter(self.gens)
-        eng._frame_generator = lambda frame_idx, stream: next(pool)
         self.graph = torch.cuda.CUDAGraph()
-        for g in self.gens:
-            self.graph.register_generator_state(g)
-        try:
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self._body()
-        finally:
-            del eng._frame_generator  # the class's method again
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self._body()
 
     def _body(self):
         st = self.eng._chunks(self.xs, self.aux, self.state, self.out)
         self.state.copy_(st)
-
-    def _seed(self, flat):
-        for g, (pos, stream) in zip(self.gens, self.draws):
-            g.manual_seed(self.eng.frame_seed(flat[pos], stream))
 
     def replay(self, idx: np.ndarray):
         """One super-batch at frame indices idx: the host work of a call,
         then the replay. Returns (out, state) (the static buffers)."""
         flat = idx.reshape(-1)
         new = self.eng.upload(self.eng.make_aux(flat))
-        for dst, src in zip(self.aux[1:], new[1:]):
+        for dst, src in zip(self.aux, new):
             if dst is not None:
                 dst.copy_(src, non_blocking=True)
-        self._seed(flat)
         self.graph.replay()
         return self.out, self.state
 
@@ -210,28 +184,23 @@ def run_config(name: str, args) -> dict:
         loop()
         stack()
         torch.cuda.synchronize()
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            res["graph"] = (f"not captured: torch {torch.__version__} has no "
-                            "CUDAGraph.register_generator_state")
-        else:
-            t0 = time.perf_counter()
-            sg = StackGraph(eng, xs, idx(), box["st"])
-            res["graph_capture_s"] = time.perf_counter() - t0
-            res["graph_draws"] = len(sg.draws)
-            # the graph against the eager stack from one state and one index set
-            ii = idx()
-            st0 = box["st"].clone()
-            want, wst = eng.process_stack(xs, ii, st0.clone())
-            sg.state.copy_(st0)
-            got, gst = sg.replay(ii)
-            torch.cuda.synchronize()
-            res["graph_bit_for_bit"] = bool(torch.equal(got, want) and torch.equal(gst, wst))
-            res["graph"] = "captured"
-            box["st"] = wst
+        t0 = time.perf_counter()
+        sg = StackGraph(eng, xs, idx(), box["st"])
+        res["graph_capture_s"] = time.perf_counter() - t0
+        # the graph against the eager stack from one state and one index set
+        ii = idx()
+        st0 = box["st"].clone()
+        want, wst = eng.process_stack(xs, ii, st0.clone())
+        sg.state.copy_(st0)
+        got, gst = sg.replay(ii)
+        torch.cuda.synchronize()
+        res["graph_bit_for_bit"] = bool(torch.equal(got, want) and torch.equal(gst, wst))
+        res["graph"] = "captured"
+        box["st"] = wst
 
-            def graph():
-                sg.replay(idx())
-            modes["graph"] = graph
+        def graph():
+            sg.replay(idx())
+        modes["graph"] = graph
     res["steps_per_call"] = n
     for fn in modes.values():
         fn()
@@ -270,8 +239,8 @@ def main() -> int:
         fps = "; ".join(f"{k} {v['median']:.2f} fps ({v['min']:.2f}-{v['max']:.2f}, spread "
                         f"{v['spread_pct']:.1f}%)" for k, v in r["fps"].items())
         idle = ", ".join(f"{k} {v['idle_pct']:.1f}%" for k, v in r["profile"].items())
-        extra = (f"; graph bit for bit the stack: {r['graph_bit_for_bit']}, {r['graph_draws']} "
-                 f"generators, capture {r['graph_capture_s']:.2f}s"
+        extra = (f"; graph bit for bit the stack: {r['graph_bit_for_bit']}, capture "
+                 f"{r['graph_capture_s']:.2f}s"
                  if r["graph"] == "captured" else f"; graph {r['graph']}")
         print(f"[spc] {name} ({r['shape']}, {r['steps_per_call']} steps per call): {fps}; "
               f"device idle over one super-batch: {idle}{extra} on {c}", flush=True)

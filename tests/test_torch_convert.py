@@ -68,7 +68,9 @@ def test_consts_from_jax_carry_text_and_2d_scanlines(after):
 
 def test_native_rng_is_invariant_to_batch_split():
     """Native draws are a pure function of (seed, frame index): frames
-    0-7 as one batch of 8 equal two batches of 4 through fresh engines."""
+    0-7 as one batch of 8 equal two batches of 4 through fresh engines
+    (the draw kernel's twin keyed by the uploaded frame indices; grain
+    size 2: the raw field, upsampled in the fused twin)."""
     p = identity_params(**{**FULL, "noise_strength": 12.0})
     frames = synth_frames(8, H, W, seed=1)
     whole, _ = CRTEngine(p, H, W, FPS, seed=7, device="cpu").process(frames, np.arange(8))

@@ -29,7 +29,12 @@ and 8 logical shards of cuda:0, and over every visible card (skipped on
 a one-card host), is held to the single-device engine: 0 LSB without
 persistence, else 1 LSB and the state within 1e-4. process_stack of
 CRTEngine, of a 2-shard ShardedCRTEngine and of MultiClipEngine, into the
-caller's ``out``, is bit for bit its process() loop."""
+caller's ``out``, is bit for bit its process() loop. The native draws
+(csrc/rng.cu: the grain field, the export and preview glitch offsets, one
+launch per batch) are bit for bit their twin at the engine's shapes and
+invariant to the batch split; the fused kernel's raw-grain mode (grain
+size above 1: the raw field upsampled in the kernel) is bit for bit the
+kernel fed the twin's upsampled field."""
 
 import numpy as np
 import pytest
@@ -42,6 +47,7 @@ from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
 from pythoncrt_tpu_torch.kernels import fused as kfused
 from pythoncrt_tpu_torch.kernels import glitch as kglitch
 from pythoncrt_tpu_torch.kernels import persist as kpersist
+from pythoncrt_tpu_torch.kernels import rng as krng
 from pythoncrt_tpu_torch.kernels import triad as ktriad
 from pythoncrt_tpu_torch.kernels import warp as kwarp
 from pythoncrt_tpu_torch.params import EffectParams
@@ -302,6 +308,85 @@ def test_native_rng_on_card_is_invariant_to_batch_split(cuda_dev):
     head, st = eng.process(x[:4], np.arange(4))
     tail, _ = eng.process(x[4:], np.arange(4, 8), st)
     assert torch.equal(torch.cat([head, tail]), whole)
+
+
+# the draws' shapes: grain (gh, gw) at c4's 1080p, c3's half field, c5's
+# 4K, an odd field; glitch bands (rows, NSEG) of c4 at 1080p and 4K, a
+# ragged one
+RNG_GRAIN = [(8, 1080, 1920), (8, 540, 960), (32, 2160, 3840), (3, 7, 9)]
+RNG_BANDS = [(8, 324, 120), (32, 648, 120), (3, 17, 5)]
+
+
+def rng_frames(b, dev):
+    """Frame indices whose counter words differ in both halves."""
+    return torch.arange(b, device=dev) * ((1 << 32) + 1) + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RNG_GRAIN, ids=["c4", "c3_half", "c5_4k", "odd"])
+def test_grain_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, shape):
+    b, gh, gw = shape
+    fr = rng_frames(b, cuda_dev)
+    n0 = krng.launches
+    got = krng.grain_normals(7, fr, gh, gw)
+    torch.cuda.synchronize()
+    assert krng.launches == n0 + 1
+    for k in range(0, b, 8):  # the twin's int64 intermediates, 8 frames at a time
+        assert torch.equal(got[k:k + 8], krng.grain_normals_ref(7, fr[k:k + 8], gh, gw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RNG_BANDS, ids=["c4", "c5_4k", "ragged"])
+@pytest.mark.parametrize("mode", ["export", "preview"])
+def test_glitch_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, mode, shape):
+    b, rows, nseg = shape
+    fr = rng_frames(b, cuda_dev)
+    amp = torch.linspace(6.0, 0.1, rows, device=cuda_dev)
+    n0 = krng.launches
+    if mode == "export":
+        got = krng.glitch_export_offsets(3, fr, nseg, amp)
+        want = krng.glitch_export_offsets_ref(3, fr, nseg, amp)
+    else:
+        got = krng.glitch_preview_offsets(3, fr, amp)
+        want = krng.glitch_preview_offsets_ref(3, fr, amp)
+    torch.cuda.synchronize()
+    assert krng.launches == n0 + 1 and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_draw_kernels_are_invariant_to_the_batch_split(cuda_dev):
+    """Frames {3, 5} drawn alone equal rows 3 and 5 of a batch of 0-7, for
+    the three entries."""
+    whole, pick = torch.arange(8, device=cuda_dev), torch.tensor([3, 5], device=cuda_dev)
+    amp = torch.linspace(6.0, 0.1, 33, device=cuda_dev)
+    for draw in (lambda f: krng.grain_normals(1, f, 45, 67),
+                 lambda f: krng.glitch_export_offsets(1, f, 9, amp),
+                 lambda f: krng.glitch_preview_offsets(1, f, amp)):
+        assert torch.equal(draw(whole)[pick], draw(pick))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1080, 1920), (2, 45, 251), (1, 7, 9)],
+                         ids=["1080p", "odd", "tiny"])
+@pytest.mark.parametrize("grain_size", [2, 3])
+def test_fused_raw_grain_is_the_upsampled_field_bit_for_bit(cuda_dev, grain_size, shape):
+    """The kernel's raw-grain mode equals the kernel at grain size 1 fed
+    the twin's upsample of the same field (ops/resize.resize_bilinear)."""
+    b, h, w = shape
+    p = EffectParams(**{**C3, "grain_size": grain_size, "noise_strength": 24.0})
+    eng = CRTEngine(p, h, w, 24.0, rng="host", device=cuda_dev)
+    flat = CRTEngine(EffectParams(**{**C3, "grain_size": 1, "noise_strength": 24.0}), h, w,
+                     24.0, rng="host", device=cuda_dev)
+    x = frames(b, h, w, cuda_dev)
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    t = eng.fused_tables.grain_taps
+    field = kfused.oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(), t[3])
+    got = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    want = kfused.fused_pipeline(x, flat.spec, flat.fused_tables,
+                                 **{**kw, "grain": field.contiguous()})
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 BLOOM3 = {  # variant -> (fast, sigma, threshold)

@@ -202,3 +202,29 @@ def test_assoc_scan_matches_jax(first):
     kernel_path = CRTEngine(EffectParams(**p), 8, 16, FPS, device="cpu").process(
         np.ascontiguousarray(np.transpose((imgs * 255).astype(np.uint8), (0, 2, 3, 1))))[0]
     assert lsb(seq.numpy(), kernel_path.numpy())[0] <= 1
+
+
+def test_c3_raw_grain_matches_jax_grain_raw_branch_and_oracle():
+    """c3 (grain size 2), host rng: the fused twin's raw-grain mode (the
+    raw field upsampled in the epilogue, the port's counterpart of the
+    JAX kernel's grain_raw branch) against the JAX engine's kernels in
+    interpret mode, which take that branch: <= 1 LSB, and off on no more
+    values than the JAX path is off the oracle (its bf16 column dot and
+    uint8 warp feed, ROADMAP.md queue 3) plus 1e-3; against the oracle
+    <= 1 LSB on fewer than 1e-3 of values."""
+    p = identity_params(**FULL)
+    frames = synth_frames(B, H, W, seed=9)
+    eng = CRTEngine(p, H, W, FPS, rng="host", device="cpu")
+    assert eng.spec.grain_size == 2 and eng.fused_tables.grain_taps is not None
+    got = eng.process(frames)[0].numpy()
+    want = render_oracle(JaxEngine(p, H, W, FPS, rng="host", pallas="off"), frames)
+    mx, frac = lsb(got, want)
+    assert mx <= 1 and frac < 1e-3, f"vs oracle: max {mx} LSB, {frac:.2e} off"
+    pk = JaxEngine(p, H, W, FPS, rng="host", pallas="on", interpret=True)
+    assert pk._pallas_fused and pk._fused_spec.grain_g == 2 and pk._fused_spec.grain_raw
+    pal = np.asarray(pk.process(frames, np.arange(B))[0])
+    mx, frac = lsb(got, pal)
+    _, frac_pal = lsb(pal, want)
+    assert mx <= 1 and frac <= frac_pal + 1e-3, (
+        f"vs Pallas interpret: max {mx} LSB, {frac:.2e} off (the JAX path vs the oracle: "
+        f"{frac_pal:.2e})")

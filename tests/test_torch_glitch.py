@@ -1,6 +1,6 @@
 """The port's glitch shear (pythoncrt_tpu_torch.kernels.glitch) and
-glitch draws (pythoncrt_tpu_torch.ops.glitch) against the oracle and the
-JAX package. The CUDA kernel against its twin on a card is in
+native glitch draws (the draw kernel's twin, pythoncrt_tpu_torch.kernels.
+rng) against the oracle and the JAX package. The CUDA kernel against its twin on a card is in
 test_torch_cuda.py.
 
 Tolerances: the shear is a copy, so bitwise against the oracle's
@@ -20,6 +20,7 @@ from pythoncrt_tpu.kernels import glitch as jglitch
 from pythoncrt_tpu.ops import glitch as jops
 from pythoncrt_tpu_torch import CRTEngine, EffectParams
 from pythoncrt_tpu_torch.kernels import glitch as tglitch
+from pythoncrt_tpu_torch.kernels import rng as krng
 from pythoncrt_tpu_torch.ops import glitch as tops
 
 B, H, W, L = 2, 48, 256, 16
@@ -122,13 +123,7 @@ def test_native_export_draws_follow_the_reference_distribution():
     rows, nseg = 324, 60
     amp = torch.from_numpy((6.0 * (1.0 - np.arange(rows, dtype=np.float32) / rows))
                            .astype(np.float32))
-    base, seg = [], []
-    for i in range(400):
-        g = torch.Generator().manual_seed(1000 + i)
-        b_, s_ = tops.native_export_fields(g, rows, nseg, amp)
-        base.append(b_)
-        seg.append(s_)
-    base, seg = torch.stack(base), torch.stack(seg)
+    base, seg = krng.export_fields_ref(1000, torch.arange(400), nseg, amp)
     z = seg / (0.7 * amp)[None, :, None]
     assert abs(z.mean().item()) < 0.02 and abs(z.std().item() - 1.0) < 0.02
     assert (base.abs() <= 0.4 * amp[None] + 1e-6).all()
@@ -146,8 +141,7 @@ def test_native_preview_draws_follow_the_reference_distribution():
     rows = 324
     amp = torch.from_numpy((6.0 * np.exp(-3.0 * (np.arange(rows, dtype=np.float32) / rows)))
                            .astype(np.float32))
-    offs = torch.stack([tops.native_preview_offsets(torch.Generator().manual_seed(i), rows, amp)
-                        for i in range(2000)])
+    offs = krng.preview_fields_ref(0, torch.arange(2000), amp)
     z = offs / amp[None]
     assert abs(z.mean().item()) < 0.01
     assert (z.abs() <= 1.0 + 1e-6).all()

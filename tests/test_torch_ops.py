@@ -56,8 +56,11 @@ def test_gaussian_blur_matches_jax_and_oracle(rng):
 
 def test_resize_bilinear_is_the_oracle(rng):
     field = rng.standard_normal((3, H // 2, W // 2), dtype=np.float32)
-    taps = resize.bilinear_consts(H // 2, W // 2, H, W)
-    got = resize.resize_bilinear(torch.from_numpy(field), *taps).numpy()
+    ylo, yf = oracle.ops.bilinear_taps(H // 2, H)
+    xlo, xf = oracle.ops.bilinear_taps(W // 2, W)
+    got = resize.resize_bilinear(torch.from_numpy(field), torch.from_numpy(ylo).long(),
+                                 torch.from_numpy(yf), torch.from_numpy(xlo).long(),
+                                 torch.from_numpy(xf)).numpy()
     for i in range(3):
         np.testing.assert_array_equal(got[i], oracle.ops.resize_bilinear(field[i], H, W))
 

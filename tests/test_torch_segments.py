@@ -175,18 +175,27 @@ def test_snapshot_is_the_state_after_the_segment(monkeypatch):
     np.testing.assert_array_equal(store.marks[0][2], st.numpy())
 
 
-@pytest.mark.parametrize("change", ["params", "jax_journal"])
+@pytest.mark.parametrize("change", ["params", "jax_journal", "native_stream"])
 def test_changed_config_invalidates_journal(tmp_path, monkeypatch, change):
-    """A journal whose signature differs starts afresh: other params, or
-    a journal the JAX package wrote (its native rng draws other numbers,
-    and its signature names no implementation)."""
+    """A journal whose signature differs starts afresh: other params, a
+    journal the JAX package wrote (its native rng draws other numbers,
+    and its signature names no implementation), or one whose signature
+    names no native stream (a port that drew with per-frame generators)."""
     path, frames = clip(tmp_path, n=12)
     seg = tmp_path / "seg3.mp4"
-    if change == "params":
+    if change in ("params", "native_stream"):
         with pytest.raises(RuntimeError):
-            process_video(path, seg, EffectParams(**PARAMS), batch_size=4, segment_frames=8,
+            process_video(path, seg, EffectParams(**PARAMS), batch_size=4,
+                          segment_frames=4 if change == "native_stream" else 8,
                           device="cpu", report=False, _fail_after_frames=8)
         p = EffectParams(**{**PARAMS, "scanline_strength": 0.9})
+        if change == "native_stream":
+            journal = tmp_path / "seg3.mp4.segments" / "journal.jsonl"
+            lines = journal.read_text().splitlines()
+            head = json.loads(lines[0])
+            assert head["sig"].pop("native_stream") == "philox4x32-10"
+            journal.write_text("\n".join([json.dumps(head), *lines[1:]]) + "\n")
+            p = EffectParams(**PARAMS)
     else:
         with pytest.raises(RuntimeError, match="injected failure"):
             jax_process_video(path, seg, JaxParams(**PARAMS), batch_size=4, segment_frames=4,
