@@ -63,9 +63,9 @@ Phases (each must pass; any failure exits non-zero):
    of that call; the least time the card could take (the largest of the
    bytes over the memory rate, the f32 operations over the f32 rate and
    the FP64 operations over the FP64 rate; the direct-pow rows count
-   their pow sites' operations as measured; the draws' rows count
-   Philox's integer operations over the INT32 rate and the Box-Muller
-   FP64 operations, each transcendental as one).
+   their pow sites' operations as measured; the draws' rows count a
+   Philox call's vector integer instructions in its SASS over the INT32
+   rate and the Box-Muller FP64 operations, each transcendental as one).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
@@ -111,7 +111,9 @@ Phases (each must pass; any failure exits non-zero):
    4 from the journal. Every kernel of a path must launch during that
    path's run (the counts are set to 0 just before it; c5 must launch
    the persistence kernel in its multi-clip mode); the native draws
-   launch once per batch and stream (the CLI defaults, c3, c4, c4-text). The text is
+   launch once per stream for each engine step (the CLI defaults, c3, c4
+   and c4-text: per batch; c5: per step and clip device; the sharded
+   paths below: per batch and shard). The text is
    rasterized by PIL when the host has it, else a seeded synthetic
    overlay takes its place (the line says which).
    Then the GUI slice: ``gui_qt.render_preview_frame`` (the window's
@@ -155,8 +157,9 @@ Phases (each must pass; any failure exits non-zero):
    ``process_stack`` at the auto steps per call, five turns of three
    super-batches each, on the defaults, c3, c4 and c4-text at 1080p, c5
    at 4K and c4 through ShardedCRTEngine over 4 logical shards of cuda:0,
-   each with the device's idle share over one super-batch of the stack
-   (torch.profiler). Then the engine step alone per path (c5 at
+   each with the device's idle share of the stack (busy ms of one
+   super-batch under torch.profiler against the unprofiled wall per
+   super-batch: scripts/port_profile.py's helpers). Then the engine step alone per path (c5 at
    3840x2160).
 6. The card's line, one JSON line with the kernel table, then the result
    line.
@@ -209,13 +212,12 @@ F64_OPS_PER_S = 34e12      # H100 SXM FP64 outside the tensor cores (the same da
 # H100 SXM INT32: 64 lanes per SM (Hopper architecture white paper), 132
 # SMs, 1.98 GHz boost clock
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# the native draws (csrc/rng.cu), counted from the algorithm: a Philox4x32-10
-# call is ten rounds of two 32x32-bit multiplies (high and low word: four
-# operations) and four XORs, and nine key bumps of two adds; a Box-Muller
-# pair is two conversions, an add and two multiplies (the uniforms), a log,
-# a multiply, a sqrt, a multiply (the angle), a cos, a sin, two multiplies
-# and two conversions to f32 in FP64, each transcendental counted as one
-PHILOX_INT_OPS, BM_F64_OPS = 10 * (4 + 4) + 9 * 2, 15
+# the native draws (csrc/rng.cu): a Philox4x32-10 call's integer
+# operations are counted from its SASS (philox_int_ops); a Box-Muller pair
+# is two conversions, an add and two multiplies (the uniforms), a log, a
+# multiply, a sqrt, a multiply (the angle), a cos, a sin, two multiplies and
+# two conversions to f32 in FP64, each transcendental counted as one
+BM_F64_OPS = 15
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
           bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
           vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
@@ -470,6 +472,65 @@ def direct_triad_build(nvcc: str, flags: tuple, d: str) -> tuple:
     sass_ops = {k: sum(2 if op.endswith("FMA") else 1 for op in rx.findall(sass))
                 for k, rx in OPS_SASS.items()}
     return sass_ops, static, open(cubin, "rb").read()
+
+
+PHILOX_PROBE_CU = r"""
+#include "rng.cu"
+// a Philox4x32-10 call as the draw kernels make it (the counter from the
+// thread, the stream and the frame; the key from the launch arguments),
+// and the same kernel storing the counter words without it
+extern "C" __global__ void philox_probe(const __grid_constant__ RngArgs a, uint4* out) {
+    const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+    const Words w = draw(a, g, blockIdx.y);
+    out[blockIdx.y * gridDim.x * blockDim.x + g] = make_uint4(w.x, w.y, w.z, w.w);
+}
+extern "C" __global__ void counter_probe(const __grid_constant__ RngArgs a, uint4* out) {
+    const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+    const uint64_t f = (uint64_t)__ldg(a.frames + blockIdx.y);
+    out[blockIdx.y * gridDim.x * blockDim.x + g] = make_uint4(g, a.stream, (uint32_t)f,
+                                                              (uint32_t)(f >> 32));
+}
+"""
+# per-thread (vector) integer instructions in cuobjdump's SASS; the uniform
+# datapath's (UIADD3, ULOP3, ...) serve a whole warp and are left out
+INT_SASS = re.compile(r"^\s*/\*[0-9a-fA-F]+\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"(IMAD|IADD3|LOP3|SHF|LEA|ISETP|IMNMX|SEL|PRMT|IABS|IMUL|BMSK|SGXT)\b")
+
+
+def philox_int_ops(nvcc: str, flags: tuple) -> tuple:
+    """Vector integer instructions of one Philox4x32-10 call as built with
+    the kernels' flags: the SASS of a kernel that makes one call
+    (csrc/rng.cu's ``draw``) less that of the same kernel storing the
+    counter words, each instruction counted once (a three-input LOP3 XOR
+    as one, an IMAD.WIDE as one). Returns (count, the call's instructions
+    by mnemonic)."""
+    with tempfile.TemporaryDirectory() as d:
+        src, cubin = os.path.join(d, "p.cu"), os.path.join(d, "p.cubin")
+        with open(src, "w") as f:
+            f.write(PHILOX_PROBE_CU)
+        subprocess.run([nvcc, *flags, "-I", str(_build_csrc()), "-cubin", "-o", cubin, src],
+                       check=True, capture_output=True, timeout=300)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+    ops, fn = {"philox_probe": {}, "counter_probe": {}}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in ops else None
+            continue
+        m = INT_SASS.match(line)
+        if fn and m:
+            op = line.split("*/", 1)[1].split()
+            op = op[1] if op[0].startswith("@") else op[0]
+            ops[fn][op] = ops[fn].get(op, 0) + 1
+    if not ops["philox_probe"] or not ops["counter_probe"]:
+        fail(f"the Philox probe's SASS has no integer instructions: {ops}")
+    diff = {k: ops["philox_probe"].get(k, 0) - ops["counter_probe"].get(k, 0)
+            for k in ops["philox_probe"].keys() | ops["counter_probe"].keys()}
+    n = sum(diff.values())
+    if n <= 0:
+        fail(f"the Philox call counted {n} integer instructions: {ops}")
+    return n, {k: v for k, v in sorted(diff.items()) if v}
 
 
 def _build_csrc():
@@ -1068,15 +1129,23 @@ def main() -> int:
     # size 2) and of c5 (4K, 32 frames); the export offsets of c4's band and
     # c5's; the preview offsets of c4's band. Bit for bit the twin;
     # torch.randn of the output's shape is the library yardstick.
+    philox_ops, philox_by_op = philox_int_ops(_build.find_nvcc(), _build.NVCC_FLAGS)
+    print(f"[3] a Philox4x32-10 call (csrc/rng.cu's draw) compiled with the kernels' flags: "
+          f"{philox_ops} vector integer instructions in its SASS ({philox_by_op}; the uniform "
+          f"datapath's left out), the draw rows' integer operations per call", flush=True)
+
     def draw_bound(calls: int, pairs: int, out_bytes: int) -> tuple:
         """The least time for the draws: the output bytes over the memory
-        rate, Philox's integer operations over the INT32 rate, or the
-        Box-Muller FP64 operations over the FP64 rate, whichever is
-        largest."""
+        rate, Philox's integer operations (counted from its SASS) over the
+        INT32 rate, or the Box-Muller FP64 operations over the FP64 rate,
+        whichever is largest."""
         cands = ((out_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                 (calls * PHILOX_INT_OPS / INT32_OPS_PER_S * 1e3, "operations"),
+                 (calls * philox_ops / INT32_OPS_PER_S * 1e3, "operations"),
                  (pairs * BM_F64_OPS / F64_OPS_PER_S * 1e3, "operations"))
         return max(cands)
+
+    def draw_launches():
+        return krng.grain_launches + krng.export_launches + krng.preview_launches
 
     draw_eng = {m: CRTEngine(configs["c4"], H, W, FPS, engine=m, device=dev)
                 for m in ("export", "preview")}
@@ -1115,11 +1184,11 @@ def main() -> int:
          f"{draw_eng['preview']._glitch_rows} rows"))
     for kname, nb, run, twin, per_frame, calls, pairs, note in draws:
         fr = torch.arange(nb, device=dev) + 1000
-        n0 = krng.launches
+        n0 = draw_launches()
         got = run(fr)
         torch.cuda.synchronize()
-        if krng.launches != n0 + 1:
-            fail(f"{kname}: {krng.launches - n0} launches for one batch")
+        if draw_launches() != n0 + 1:
+            fail(f"{kname}: {draw_launches() - n0} launches for one batch")
         same = all(torch.equal(got[k:k + B], twin(fr[k:k + B])) for k in range(0, nb, B))
         if not same:
             fail(f"{kname} is not bit for bit its twin")
@@ -1687,8 +1756,8 @@ def main() -> int:
         "persistence_scan": (kpersist, "launches"), "glitch_shear": (kglitch, "launches"),
         "bloom3": (kbloom3, "launches"), "bloom2": (kbloom2, "launches"),
         "bloom": (kbloom, "launches"), "persistence_multiclip": (kpersist, "multiclip_launches"),
-        "rng": (krng, "launches"), "rng_grain": (krng, "grain_launches"),
-        "rng_export": (krng, "export_launches"), "rng_preview": (krng, "preview_launches")}
+        "rng_grain": (krng, "grain_launches"), "rng_export": (krng, "export_launches"),
+        "rng_preview": (krng, "preview_launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -1697,17 +1766,30 @@ def main() -> int:
     def read_counts():
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
+    def check_draws(pname, got, p, units, what):
+        """One native draw launch per stream (the grain; the export glitch)
+        for each of ``units`` engine steps: the path's batches, times its
+        shards or clip devices."""
+        want = {"rng_grain": units if p.noise_on else 0,
+                "rng_export": units if p.glitch_on else 0, "rng_preview": 0}
+        have = {k: got[k] for k in want}
+        if have != want:
+            fail(f"main path {pname}: native draw launches {have}, expected {want} for "
+                 f"{units} {what}")
+        print(f"[5] main path {pname}: the native draws launched once per stream for each of "
+              f"{units} {what} ({have})", flush=True)
+
     paths = (  # name, flags, params, frames, kernels that must launch
         ("defaults", [], configs["defaults"], N_DECODE,
-         ("fused_pipeline", "persistence_scan", "rng")),
+         ("fused_pipeline", "persistence_scan", "rng_grain")),
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
-         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng")),
-        ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar", "rng")),
+         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng_grain", "rng_export")),
+        ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar", "rng_grain")),
         ("c3-angled", C3_ANGLED_FLAGS, configs["c3-angled"], N_C3, ("bloom3", "warp_planar")),
         ("defaults-angled", DEF_ANGLED_FLAGS, configs["defaults-angled"], N_MAIN,
          ("bloom3", "persistence_scan")),
         ("c4-text", C4_TEXT_FLAGS, configs["c4-text"], N_MAIN,
-         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng")),
+         ("fused_pipeline", "glitch_shear", "persistence_scan", "rng_grain", "rng_export")),
         ("c3-bloom2", C3_FLAGS, configs["c3-bloom2"], N_C3, ("bloom2", "warp_planar")),
         ("defaults-bloom2", [], configs["defaults-bloom2"], N_MAIN,
          ("bloom2", "persistence_scan")),
@@ -1823,14 +1905,8 @@ def main() -> int:
             missing = [k for k in needs if got[k] < 1]
             if missing:
                 fail(f"main path {pname}: kernels never launched: {missing}")
-            if "rng" in needs:  # one launch per batch and stream: grain, and glitch
-                streams = 1 + bool(p.glitch_on)
-                if got["rng"] != -(-n // B) * streams:
-                    fail(f"main path {pname}: {got['rng']} draw launches for {-(-n // B)} "
-                         f"batches of {streams} native streams")
-                print(f"[5] main path {pname}: the native draws launched once per batch and "
-                      f"stream ({got['rng']} launches, {-(-n // B)} batches, {streams} "
-                      f"stream{'s' if streams > 1 else ''})", flush=True)
+            if "rng_grain" in needs:
+                check_draws(pname, got, p, -(-n // B), "batches")
         del clip
         if not cv2_ver:
             fail("the renders of this slice's flags need a codec backend (cv2); this host has none")
@@ -1936,6 +2012,7 @@ def main() -> int:
         with open(manifest, "w") as f:
             json.dump(jobs, f)
         from pythoncrt_tpu_torch import cli
+        from pythoncrt_tpu_torch.multiclip import best_mesh_size
 
         argv = ["--batch-manifest", manifest, *C4_FLAGS, "--batch-size", str(B),
                 "--device", "cuda"]
@@ -1959,10 +2036,15 @@ def main() -> int:
                       f"{list(C5_LENGTHS)}; launches {got} on {card}", flush=True)
                 if rc != 0 or counts != list(C5_LENGTHS):
                     fail(f"c5 manifest render: exit {rc}, frames {counts}: {said[-4:]}")
-                missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip")
-                           if got[k] < 1]
+                missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip",
+                                       "rng_grain", "rng_export") if got[k] < 1]
                 if missing:
                     fail(f"main path c5: kernels never launched: {missing}")
+                # the clips in lockstep: one step per batch of the longest
+                # clip, each on every clip device of the CLI's mesh
+                check_draws("c5", got, configs["c5"],
+                            -(-max(C5_LENGTHS) // B) * best_mesh_size(C5_CLIPS),
+                            "steps x clip devices")
             else:
                 print(f"[5] c5 again, the same command: {said[-1] if said else 'no summary'} "
                       f"in {wall:.2f}s", flush=True)
@@ -2132,9 +2214,10 @@ def main() -> int:
     from pythoncrt_tpu_torch.pipeline import render_stream
 
     ncard = torch.cuda.device_count()
-    shard_needs = {"c4": ("fused_pipeline", "glitch_shear", "persistence_scan"),
-                   "defaults": ("fused_pipeline", "persistence_scan"),
-                   "c3": ("fused_pipeline", "warp_planar")}
+    shard_needs = {"c4": ("fused_pipeline", "glitch_shear", "persistence_scan", "rng_grain",
+                          "rng_export"),
+                   "defaults": ("fused_pipeline", "persistence_scan", "rng_grain"),
+                   "c3": ("fused_pipeline", "warp_planar", "rng_grain")}
     # (config, mesh tag, mesh, layout): c4 planar gbr (the ffmpeg pipe's
     # layout), the defaults and c3 NHWC (the OpenCV pipe's)
     shard_runs = [(cfg, f"x{k}", DeviceMesh([torch.device("cuda", 0)] * k), lay)
@@ -2237,6 +2320,7 @@ def main() -> int:
         missing = [k for k in shard_needs[cfg] if got[k] < 1]
         if missing:
             fail(f"main path {pname}: kernels never launched: {missing}")
+        check_draws(pname, got, p, 2 * mesh.size, "batches x shards")
         del x, o1, o2, r1, r2, sh, eng
         # host rng against the oracle, its stream computed once per config
         if cfg not in oracle_ref:
@@ -2271,8 +2355,6 @@ def main() -> int:
     w2, ws2 = mc1.process(x5[:, half:], idx5[:, half:], ws1)
     clip_meshes = [(f"x{k}", DeviceMesh([torch.device("cuda", 0)] * k, CLIP_AXIS)) for k in (2, 4)]
     if ncard > 1:
-        from pythoncrt_tpu_torch.multiclip import best_mesh_size
-
         clip_meshes.append(("cards", make_mesh(best_mesh_size(C5_CLIPS), axis=CLIP_AXIS)))
     for tag, mesh in clip_meshes:
         pname = f"c5-clips-{tag}"
@@ -2294,10 +2376,11 @@ def main() -> int:
               f"wall over the two steps on {card}", flush=True)
         if not same:
             fail(f"{pname} differs from the single-device MultiClipEngine")
-        missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip")
-                   if got[k] < 1]
+        missing = [k for k in ("fused_pipeline", "glitch_shear", "persistence_multiclip",
+                               "rng_grain", "rng_export") if got[k] < 1]
         if missing:
             fail(f"main path {pname}: kernels never launched: {missing}")
+        check_draws(pname, got, configs["c5"], 2 * mesh.size, "steps x clip devices")
         del mc, g1, g2, gs1, gs2
     del x5, w1, w2, ws1, ws2, mc1, eng5
     torch.cuda.empty_cache()
@@ -2361,6 +2444,9 @@ def main() -> int:
         missing = [k for k in shard_needs["c4"] if got[k] < 1]
         if missing:
             fail(f"main path {pname}: kernels never launched: {missing}")
+        # the full batches on the shards, the tail on the engine
+        check_draws(pname, got, configs["c4"], n19 // B * mesh.size + bool(n19 % B),
+                    "batches x shards, and the tail")
     del eng_r, plain, clip19
     torch.cuda.empty_cache()
 
@@ -2566,28 +2652,23 @@ def main() -> int:
                 out[which].append(SPC_REPEATS * frames_per / e0.elapsed_time(e1) * 1e3)
         return out
 
-    def idle_share(fn) -> str:
-        """torch.profiler over one call of ``fn`` and a synchronize: the
-        device's busy ms, the wall ms and its idle share."""
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy = sum((getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0))
-                   for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        return (f"device busy {busy:.3f} ms of {wall:.3f} ms wall over one super-batch of the "
-                f"stack (torch.profiler), idle {max(0.0, 1.0 - busy / wall) * 100:.1f}%")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import port_profile as pprof
 
-    def fps_line(pname, shape, spc, out, idle=""):
+    def fps_line(pname, shape, spc, out, stack, frames_per):
+        """The fps turns' line, with the device's idle share of the stack:
+        busy ms over one super-batch (torch.profiler) against the median
+        turn's unprofiled wall per super-batch (port_profile.idle_share)."""
         def fmt(v):
             lo, hi = min(v), max(v)
             return (f"median {np.median(v):.2f} (min {lo:.2f}, max {hi:.2f}, spread "
                     f"{(hi - lo) / np.median(v) * 100:.1f}%; turns "
                     f"{', '.join(f'{x:.2f}' for x in v)})")
+        d = pprof.device_busy(stack)
+        wall = frames_per / np.median(out["stack"]) * 1e3
+        idle = (f"device busy {d['busy_ms']:.3f} ms per super-batch of the stack of {wall:.3f} ms "
+                f"unprofiled wall, idle {pprof.idle_share(d['busy_ms'], wall) * 100:.1f}% "
+                f"(the profiled window with a sync: {d['wall_ms']:.3f} ms)")
         print(f"[5] engine fps, {pname} ({shape}, {spc} steps per call, frames on the card, CUDA "
               f"events, {SPC_TURNS} turns of {SPC_REPEATS} super-batches): process() x {spc} "
               f"{fmt(out['loop'])}; process_stack {fmt(out['stack'])}; stack / loop "
@@ -2616,8 +2697,8 @@ def main() -> int:
         loop()
         stk()
         no_sync(pname, stk)
-        fps_line(pname, f"{W}x{H}, B {B}", spc_auto, fps_turns(loop, stk, spc_auto * B),
-                 idle_share(stk))
+        fps_line(pname, f"{W}x{H}, B {B}", spc_auto, fps_turns(loop, stk, spc_auto * B), stk,
+                 spc_auto * B)
         del eng_f
     # c4 through ShardedCRTEngine over 4 logical shards of cuda:0, at 2 steps
     # per call (the sharded render's super-batches of the slice above)
@@ -2641,7 +2722,7 @@ def main() -> int:
     loop_s()
     stk_s()
     fps_line("sharded-c4-x4", f"{W}x{H}, B {B}, 4 logical shards of cuda:0", 2,
-             fps_turns(loop_s, stk_s, 2 * B), idle_share(stk_s))
+             fps_turns(loop_s, stk_s, 2 * B), stk_s, 2 * B)
     del sh4, stack2
     del xs_full
     eng5 = CRTEngine(configs["c5"], H4, W4, FPS, layout="planar", channel_order="gbr",
@@ -2667,7 +2748,7 @@ def main() -> int:
     stk5()
     no_sync("c5 (MultiClipEngine)", stk5)
     fps_line("c5", f"{C5_CLIPS} clips x B {B}, {W4}x{H4}", spc_c5,
-             fps_turns(loop5, stk5, spc_c5 * C5_CLIPS * B), idle_share(stk5))
+             fps_turns(loop5, stk5, spc_c5 * C5_CLIPS * B), stk5, spc_c5 * C5_CLIPS * B)
     del x5, mc, eng5
     torch.cuda.empty_cache()
 

@@ -38,10 +38,11 @@
 //   (crt_filter.py:670-679): group row, words 0-1 a normal (the cosine
 //   branch), word 2 the jump's uniform, word 3 the sign's.
 //
-// What bounds it: operations. Per Philox call, ten rounds of two 32x32-bit
-// multiplies (high and low words), four XORs and a key bump; per pair of
-// normals, an FP64 log, sqrt, cos and sin. The grain writes 4 bytes per
-// normal. Design: one thread per group of four elements, the stores 16
+// Work: per Philox call, ten rounds of two 32x32-bit multiplies (high and
+// low words) and two three-input XORs, the key schedule the same for every
+// thread (chip_smoke.py counts the call's integer instructions from its
+// SASS); per pair of normals, an FP64 log, sqrt, cos and sin. The grain
+// writes 4 bytes per normal. Design: one thread per group of four elements, the stores 16
 // bytes where the row allows; the export entry tiles the band's rows, and
 // each block draws the walk's normals of the rows above its tile and sums
 // them in one thread (at most a few hundred rows), so that no launch waits

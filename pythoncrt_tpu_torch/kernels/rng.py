@@ -31,8 +31,8 @@ import torch
 
 from . import _build
 
-launches = 0  # CUDA launches made by grain_normals, glitch_export_offsets, glitch_preview_offsets
-grain_launches = export_launches = preview_launches = 0  # the same, by entry
+# CUDA launches made by grain_normals, glitch_export_offsets, glitch_preview_offsets
+grain_launches = export_launches = preview_launches = 0
 
 NATIVE_STREAM = "philox4x32-10"  # the generator's name, in segment journals' signatures
 GRAIN_STREAM, GLITCH_STREAM = 11, 14  # the JAX engine's fold_in tags
@@ -179,7 +179,7 @@ def _on_card(frames: torch.Tensor, name: str) -> bool:
 
 def _launch(mode: str, out: torch.Tensor, seed: int, frames: torch.Tensor, stream: int,
             n0: int, n1: int, amp=None) -> torch.Tensor:
-    global launches, grain_launches, export_launches, preview_launches
+    global grain_launches, export_launches, preview_launches
     if frames.shape[0] == 0:
         return out
     if not frames.is_contiguous():
@@ -196,7 +196,6 @@ def _launch(mode: str, out: torch.Tensor, seed: int, frames: torch.Tensor, strea
     a.key0, a.key1 = key_words(seed)
     a.stream, a.tile = stream, EXPORT_TILE
     _build.launch("crt_rng_launch", a, frames.device)
-    launches += 1
     if mode == "grain":
         grain_launches += 1
     elif mode == "export":

@@ -19,9 +19,9 @@ planar gbrp frames already on the card:
 - the fused kernel's wrapper on the host: microseconds per
   fused_pipeline call, 200 calls issued back to back (the kernels queue
   behind them; c5: 40), median of 5;
-- a torch.profiler trace of 4 batches: device time per kernel name, the
-  sum, and the profiled loop's wall time, from which the device's idle
-  share of the loop follows;
+- a torch.profiler trace of 4 batches: device time per kernel name and
+  the sum; the device's idle share against the unprofiled loop's wall
+  (device_busy, idle_share), and against the profiled loop's;
 - nvidia-smi clocks and power drawn during the run.
 
 Prints one JSON object per configuration and writes them all to --out
@@ -134,16 +134,24 @@ def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
-def device_split(loop) -> tuple:
-    """torch.profiler over one run of loop: (wall ms, device ms, the top
-    kernels' device ms by name)."""
+def device_busy(fn) -> dict:
+    """torch.profiler (CPU and CUDA activity) over one call of ``fn``,
+    synchronized before and after: ``busy_ms``, the device's time in
+    kernels and copies; ``wall_ms``, the profiled window, the profiler's
+    host overhead and the device's drain included; ``by_kernel``, the
+    device ms of the top 12 names. The idle share comes from ``busy_ms``
+    and an unprofiled wall (idle_share): this window's own wall counts the
+    profiler's cost per host op and the fill of an empty queue as idle.
+    chip_smoke.py and scripts/port_spc.py read the idle share this way."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        loop()
-        prof_wall = time.perf_counter() - t0
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     by_kernel = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -152,7 +160,13 @@ def device_split(loop) -> tuple:
         if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return prof_wall * 1e3, sum(by_kernel.values()), top
+    return {"busy_ms": sum(by_kernel.values()), "wall_ms": wall * 1e3, "by_kernel": top}
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> float:
+    """The device's idle share of ``wall_ms``, the unprofiled wall of the
+    same work run back to back: 1 - busy / wall, floored at 0."""
+    return max(0.0, 1.0 - busy_ms / wall_ms)
 
 
 def timing(name, shape, frames, loop, kernels, host=None) -> dict:
@@ -163,15 +177,17 @@ def timing(name, shape, frames, loop, kernels, host=None) -> dict:
         t0 = time.perf_counter()
         loop()
         fps.append(frames / (time.perf_counter() - t0))
-    prof_wall, device_ms, top = device_split(loop)
+    prof = device_busy(loop)
+    prof_wall, device_ms, top = prof["wall_ms"], prof["busy_ms"], prof["by_kernel"]
     wall = frames / statistics.median(fps) * 1e3
     return dict(
         config=name, shape=shape, frames=frames, card=smi("name,power.limit"),
         engine_fps_median=statistics.median(fps), engine_fps_min=min(fps),
         engine_fps_max=max(fps), kernel_ms_per_call=kernels, host_us_per_call=host or {},
         profiled_loop_wall_ms=prof_wall, device_ms_in_loop=device_ms,
-        device_idle_share_of_profiled_loop=1.0 - device_ms / prof_wall,
-        unprofiled_loop_wall_ms=wall, device_idle_share_of_unprofiled_loop=1.0 - device_ms / wall,
+        device_idle_share_of_profiled_loop=idle_share(device_ms, prof_wall),
+        unprofiled_loop_wall_ms=wall, device_idle_share_of_unprofiled_loop=idle_share(device_ms,
+                                                                                      wall),
         device_ms_by_kernel=top,
         clocks_power=smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 

@@ -1,14 +1,24 @@
 """Steps per call on one GPU: n process() calls, process_stack, and a
-CUDA graph of process_stack.
+CUDA graph of process_stack; engine fps, device idle and the native
+draws' cost, for an A/B of two trees.
 
-    python3 scripts/port_spc.py [--configs defaults,c3,c4,c4-text,c5] [--turns 5]
-                                [--repeats 3] [--out port_spc.json]
+    python3 scripts/port_spc.py [--configs defaults,c3,c4,c4-text,c5,sharded-c4-x4]
+                                [--modes loop,stack,graph] [--turns 5] [--repeats 3]
+                                [--tree DIR] [--tag NAME] [--out port_spc.json]
+
+``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
+built (default: this script's own). An earlier commit unpacked with
+``git archive`` into a git-ignored directory runs its own code, so that
+two trees compare in one call (``--modes stack``: the graph needs this
+tree's keyed draws).
 
 For each configuration (scripts/port_profile.py's: the CLI defaults, c3,
 c4 and c4-text at 1920x1080, batch 8, native rng, planar gbrp frames
 already on the card; c5: the c4 params on 4 clips at 3840x2160 through
-MultiClipEngine) at the render's auto steps per call n
-(pipeline.resolve_steps_per_call; c5: multiclip.auto_steps_per_call):
+MultiClipEngine; sharded-c4-x4: c4 through ShardedCRTEngine over 4
+logical shards of cuda:0, at 2 steps per call) at the render's auto
+steps per call n (pipeline.resolve_steps_per_call; c5:
+multiclip.auto_steps_per_call):
 
 - engine fps from CUDA events, ``--turns`` turns of ``--repeats``
   super-batches of n * B frames each, the state carried, the modes in
@@ -19,15 +29,22 @@ MultiClipEngine) at the render's auto steps per call n
   per mode;
 - the graph's frames and state against the eager stack's on the same
   inputs (bit for bit or not);
-- torch.profiler over one super-batch of each mode: device ms, wall ms
-  and the device's idle share.
+- torch.profiler over one super-batch of each mode: the device's busy ms
+  and its idle share of the mode's unprofiled wall per super-batch (the
+  median turn; port_profile.device_busy and idle_share), and the
+  profiled window's wall;
+- the grain field and the glitch offsets of one step's frames (8; c5:
+  32) from the engine's own uploaded inputs, CUDA events around the call
+  (its host work included): ms per step;
+- a sha256 of one super-batch with rng="host" (the oracle's streams), so
+  that two trees' host-rng outputs can be held bit for bit.
 
 The graph: the n steps captured once for a fixed (n, B, H, W, layout)
 with the state not first, into static frame, input, state and output
 buffers. The native draws are keyed by the frame indices in the input
 buffers (kernels/rng.py), so a replay draws the new frames' values with
-no host state. c5 is not captured (MultiClipEngine uploads its inputs
-inside the stack).
+no host state. c5 and the sharded engine are not captured (they upload
+their inputs inside the stack).
 
 Prints one line per configuration, the card's name and power limit,
 and one JSON object; writes the objects to ``--out`` under chiprun_out/
@@ -38,6 +55,7 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -129,58 +147,61 @@ def run_config(name: str, args) -> dict:
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, TextParams
     from pythoncrt_tpu_torch import pipeline as tpipe
     from pythoncrt_tpu_torch.multiclip import auto_steps_per_call
+    from pythoncrt_tpu_torch.parallel import DeviceMesh, ShardedCRTEngine
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    p = EffectParams(**pp.CONFIGS[name], text=TextParams(**pp.TEXT.get(name, {})))
+    cfg = "c4" if name == "sharded-c4-x4" else name
+    p = EffectParams(**pp.CONFIGS[cfg], text=TextParams(**pp.TEXT.get(cfg, {})))
     res = {"config": name}
+    box = {"i": 0, "st": None}
     if name == "c5":
         n = auto_steps_per_call(pp.H4, pp.W4, pp.CLIPS, B)
-        eng = CRTEngine(p, pp.H4, pp.W4, 24.0, layout="planar", channel_order="gbr", device=dev)
-        mc = MultiClipEngine(eng)
+        engines = {r: CRTEngine(p, pp.H4, pp.W4, 24.0, rng=r, layout="planar",
+                                channel_order="gbr", device=dev) for r in ("native", "host")}
+        runners = {r: MultiClipEngine(e) for r, e in engines.items()}
         xs = torch.randint(0, 256, (n, pp.CLIPS, B, 3, pp.H4, pp.W4), generator=gen,
                            device=dev, dtype=torch.uint8)
-        per = n * pp.CLIPS * B
-        box = {"i": 0, "st": None}
+        per, step_frames = n * pp.CLIPS * B, pp.CLIPS * B
 
-        def idx():
-            box["i"] += 1
-            return (box["i"] * n * B + np.arange(n * B).reshape(n, 1, B)
+        def indices(i):
+            return (i * n * B + np.arange(n * B).reshape(n, 1, B)
                     + np.zeros((1, pp.CLIPS, 1), np.int64))
-
-        def loop():
-            ii = idx()
-            for k in range(n):
-                _, box["st"] = mc.process(xs[k], ii[k], box["st"])
-
-        def stack():
-            _, box["st"] = mc.process_stack(xs, idx(), box["st"])
-        modes = {"loop": loop, "stack": stack}
         res["graph"] = "not captured: MultiClipEngine uploads its inputs inside the stack"
         res["shape"] = f"{pp.CLIPS} clips x B {B}, {pp.W4}x{pp.H4}"
     else:
-        n = tpipe.resolve_steps_per_call(H, W, False, 0)
-        text = pp.synth_overlay() if name in pp.TEXT else None
-        eng = CRTEngine(p, H, W, 24.0, layout="planar", channel_order="gbr", device=dev,
-                        text_rgba=text)
+        sharded = name == "sharded-c4-x4"
+        n = 2 if sharded else tpipe.resolve_steps_per_call(H, W, False, 0)
+        text = pp.synth_overlay() if cfg in pp.TEXT else None
+        engines = {r: CRTEngine(p, H, W, 24.0, rng=r, layout="planar", channel_order="gbr",
+                                device=dev, text_rgba=text) for r in ("native", "host")}
+        runners = dict(engines)
+        if sharded:
+            mesh = DeviceMesh([torch.device("cuda", 0)] * 4)
+            runners = {r: ShardedCRTEngine(e, mesh) for r, e in engines.items()}
+            res["graph"] = "not captured: ShardedCRTEngine uploads its inputs inside the stack"
         xs = torch.randint(0, 256, (n, B, 3, H, W), generator=gen, device=dev,
                            dtype=torch.uint8)
-        per = n * B
-        box = {"i": 0, "st": None}
+        per, step_frames = n * B, B
 
-        def idx():
-            box["i"] += 1
-            return np.arange(box["i"] * per, (box["i"] + 1) * per).reshape(n, B)
+        def indices(i):
+            return np.arange(i * per, (i + 1) * per).reshape(n, B)
+        res["shape"] = f"{W}x{H}, B {B}" + (", 4 logical shards of cuda:0" if sharded else "")
+    eng, run = engines["native"], runners["native"]
 
-        def loop():
-            ii = idx()
-            for k in range(n):
-                _, box["st"] = eng.process(xs[k], ii[k], box["st"])
+    def idx():
+        box["i"] += 1
+        return indices(box["i"])
 
-        def stack():
-            _, box["st"] = eng.process_stack(xs, idx(), box["st"])
-        modes = {"loop": loop, "stack": stack}
-        res["shape"] = f"{W}x{H}, B {B}"
+    def loop():
+        ii = idx()
+        for k in range(n):
+            _, box["st"] = run.process(xs[k], ii[k], box["st"])
+
+    def stack():
+        _, box["st"] = run.process_stack(xs, idx(), box["st"])
+    modes = {"loop": loop, "stack": stack}
+    if "graph" in args.modes and "graph" not in res:
         loop()
         stack()
         torch.cuda.synchronize()
@@ -201,6 +222,7 @@ def run_config(name: str, args) -> dict:
         def graph():
             sg.replay(idx())
         modes["graph"] = graph
+    modes = {k: v for k, v in modes.items() if k in args.modes}
     res["steps_per_call"] = n
     for fn in modes.values():
         fn()
@@ -209,9 +231,19 @@ def run_config(name: str, args) -> dict:
     res["fps"] = {k: summary(v) for k, v in fps.items()}
     res["profile"] = {}
     for k, fn in modes.items():
-        wall_ms, dev_ms, _ = pp.device_split(fn)
-        res["profile"][k] = {"wall_ms": wall_ms, "device_ms": dev_ms,
-                             "idle_pct": max(0.0, 1.0 - dev_ms / wall_ms) * 100.0}
+        d = pp.device_busy(fn)
+        wall = per / res["fps"][k]["median"] * 1e3
+        res["profile"][k] = {"device_ms": d["busy_ms"], "wall_ms": wall,
+                             "idle_pct": pp.idle_share(d["busy_ms"], wall) * 100.0,
+                             "profiled_wall_ms": d["wall_ms"],
+                             "profiled_idle_pct": pp.idle_share(d["busy_ms"], d["wall_ms"]) * 100}
+    aux = eng.upload(eng.make_aux(np.arange(step_frames) + 1000))
+    if p.noise_on:
+        res["grain_ms_per_step"] = pp.events_ms(lambda: eng._grain_field(aux))
+    if p.glitch_on:
+        res["glitch_offsets_ms_per_step"] = pp.events_ms(lambda: eng.glitch_offsets(aux))
+    out, _ = runners["host"].process_stack(xs, indices(0))
+    res["host_rng_sha256"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
     return res
 
 
@@ -219,11 +251,16 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--configs", default="defaults,c3,c4,c4-text,c5")
+    ap.add_argument("--configs", default="defaults,c3,c4,c4-text,c5,sharded-c4-x4")
+    ap.add_argument("--modes", default="loop,stack,graph")
     ap.add_argument("--turns", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    args.modes = args.modes.split(",")
+    sys.path.insert(0, os.path.abspath(args.tree))
     if not torch.cuda.is_available():
         print("port_spc: no CUDA device available", file=sys.stderr)
         return 2
@@ -234,16 +271,21 @@ def main() -> int:
     results = []
     for name in args.configs.split(","):
         r = run_config(name, args)
-        r["card"] = c
+        r["card"], r["tree"], r["tag"] = c, os.path.abspath(args.tree), args.tag
         results.append(r)
         fps = "; ".join(f"{k} {v['median']:.2f} fps ({v['min']:.2f}-{v['max']:.2f}, spread "
                         f"{v['spread_pct']:.1f}%)" for k, v in r["fps"].items())
-        idle = ", ".join(f"{k} {v['idle_pct']:.1f}%" for k, v in r["profile"].items())
+        idle = ", ".join(f"{k} {v['idle_pct']:.1f}% (busy {v['device_ms']:.3f} of {v['wall_ms']:.3f}"
+                         f" ms; profiled window {v['profiled_wall_ms']:.3f} ms, "
+                         f"{v['profiled_idle_pct']:.1f}%)" for k, v in r["profile"].items())
         extra = (f"; graph bit for bit the stack: {r['graph_bit_for_bit']}, capture "
-                 f"{r['graph_capture_s']:.2f}s"
-                 if r["graph"] == "captured" else f"; graph {r['graph']}")
-        print(f"[spc] {name} ({r['shape']}, {r['steps_per_call']} steps per call): {fps}; "
-              f"device idle over one super-batch: {idle}{extra} on {c}", flush=True)
+                 f"{r['graph_capture_s']:.2f}s" if r.get("graph") == "captured"
+                 else f"; graph {r['graph']}" if "graph" in r else "")
+        draws = "".join(f"; {k} {r[k]:.4f}" for k in ("grain_ms_per_step",
+                                                     "glitch_offsets_ms_per_step") if k in r)
+        print(f"[spc {args.tag}] {name} ({r['shape']}, {r['steps_per_call']} steps per call): "
+              f"{fps}; device idle per super-batch: {idle}{extra}{draws}; host-rng sha256 "
+              f"{r['host_rng_sha256']} on {c}", flush=True)
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -327,10 +327,10 @@ def rng_frames(b, dev):
 def test_grain_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, shape):
     b, gh, gw = shape
     fr = rng_frames(b, cuda_dev)
-    n0 = krng.launches
+    n0 = krng.grain_launches
     got = krng.grain_normals(7, fr, gh, gw)
     torch.cuda.synchronize()
-    assert krng.launches == n0 + 1
+    assert krng.grain_launches == n0 + 1
     for k in range(0, b, 8):  # the twin's int64 intermediates, 8 frames at a time
         assert torch.equal(got[k:k + 8], krng.grain_normals_ref(7, fr[k:k + 8], gh, gw))
 
@@ -342,7 +342,7 @@ def test_glitch_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, mode, shape):
     b, rows, nseg = shape
     fr = rng_frames(b, cuda_dev)
     amp = torch.linspace(6.0, 0.1, rows, device=cuda_dev)
-    n0 = krng.launches
+    n0 = getattr(krng, f"{mode}_launches")
     if mode == "export":
         got = krng.glitch_export_offsets(3, fr, nseg, amp)
         want = krng.glitch_export_offsets_ref(3, fr, nseg, amp)
@@ -350,7 +350,7 @@ def test_glitch_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, mode, shape):
         got = krng.glitch_preview_offsets(3, fr, amp)
         want = krng.glitch_preview_offsets_ref(3, fr, amp)
     torch.cuda.synchronize()
-    assert krng.launches == n0 + 1 and got.dtype == torch.int32
+    assert getattr(krng, f"{mode}_launches") == n0 + 1 and got.dtype == torch.int32
     assert torch.equal(got, want)
 
 
