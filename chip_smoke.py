@@ -25,7 +25,13 @@ Phases (each must pass; any failure exits non-zero):
    stream: the grain field at c4's and c3's sizes and at c5's 4K, the
    export glitch offsets at c4's band and c5's, the preview's at c4's),
    bit for bit their twin, with torch.randn of the same shape as the
-   library yardstick; the stand-alone bloom (gaussian on the c3-angled
+   library yardstick (the kernels' device times in [6]); before them the Box-Muller fast path
+   (csrc/box_muller.cuh) swept on the card by csrc/rng_sweep.cu (lines
+   ``[3] rng sweep, ...``): the fast radius over all 2^32 words u and the
+   fast cos and sin over all 2^32 words v against the FP64 expression,
+   each deviation inside the bound the rounding test assumes, then 2^31
+   pairs of grain words, no accepted value other than the FP64
+   expression's, the fallback share printed; the stand-alone bloom (gaussian on the c3-angled
    pre-bloom image, fast on the defaults-angled one) and the fused
    kernel's f32-input mode (c4-text); the opt-in blooms on their paths'
    pre-bloom images (bloom2 gaussian on c3-bloom2, bloom2 fast on
@@ -64,8 +70,11 @@ Phases (each must pass; any failure exits non-zero):
    bytes over the memory rate, the f32 operations over the f32 rate and
    the FP64 operations over the FP64 rate; the direct-pow rows count
    their pow sites' operations as measured; the draws' rows count a
-   Philox call's vector integer instructions in its SASS over the INT32
-   rate and the Box-Muller FP64 operations, each transcendental as one).
+   Philox call's and a Box-Muller pair's vector integer instructions in
+   their SASS over the INT32 rate, the pair's FP64 instructions (the fast
+   path's, and the fallback's at its measured share) over the FP64 rate
+   and its 64-bit conversions over theirs, and say which of bytes, INT32
+   and FP64 sets the bound).
 4. The engine on the card (rng="host") against the NumPy oracle at 1080p:
    c3 and c3-angled on two frames; the CLI defaults, c4, defaults-angled
    and c4-text on four frames in two batches with the persistence state
@@ -161,8 +170,11 @@ Phases (each must pass; any failure exits non-zero):
    super-batch under torch.profiler against the unprofiled wall per
    super-batch: scripts/port_profile.py's helpers). Then the engine step alone per path (c5 at
    3840x2160).
-6. The card's line, one JSON line with the kernel table, then the result
-   line.
+6. The draw kernels' device time (torch.profiler's kernel durations, after
+   the main paths so that no window of it shortens [5]'s device-busy
+   readings), each beside torch.randn of its shape in the same window and
+   against its event time per wrapper call; then the card's line, one
+   JSON line with the kernel table, then the result line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
 exits 2 and prints no result; without the port's package beside it (the
@@ -212,12 +224,18 @@ F64_OPS_PER_S = 34e12      # H100 SXM FP64 outside the tensor cores (the same da
 # H100 SXM INT32: 64 lanes per SM (Hopper architecture white paper), 132
 # SMs, 1.98 GHz boost clock
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# H100 SXM FP64 instructions outside the tensor cores: 64 lanes per SM (the
+# same white paper; 34 TFLOP/s counts an FMA as two), and conversions to or
+# from 64-bit types and MUFU's 64H functions at 16 per SM and clock (the
+# CUDA C++ Programming Guide's throughput table, compute capability 9.0)
+F64_INSTR_PER_S = 64 * 132 * 1.98e9
+CONV64_PER_S = 16 * 132 * 1.98e9
 # the native draws (csrc/rng.cu): a Philox4x32-10 call's integer
-# operations are counted from its SASS (philox_int_ops); a Box-Muller pair
-# is two conversions, an add and two multiplies (the uniforms), a log, a
-# multiply, a sqrt, a multiply (the angle), a cos, a sin, two multiplies and
-# two conversions to f32 in FP64, each transcendental counted as one
-BM_F64_OPS = 15
+# instructions (philox_int_ops) and a Box-Muller pair's FP64, conversion and
+# integer instructions (bm_sass_counts) are counted from the SASS of probes
+# built with the kernels' flags; the rounding test's fallback share is
+# measured by the sweep over BM_PAIR_GROUPS groups of Philox words
+BM_PAIR_GROUPS = 1 << 30
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
           bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
           vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
@@ -481,7 +499,7 @@ PHILOX_PROBE_CU = r"""
 // and the same kernel storing the counter words without it
 extern "C" __global__ void philox_probe(const __grid_constant__ RngArgs a, uint4* out) {
     const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
-    const Words w = draw(a, g, blockIdx.y);
+    const Words w = draw(a, g, (uint64_t)__ldg(a.frames + blockIdx.y));
     out[blockIdx.y * gridDim.x * blockDim.x + g] = make_uint4(w.x, w.y, w.z, w.w);
 }
 extern "C" __global__ void counter_probe(const __grid_constant__ RngArgs a, uint4* out) {
@@ -531,6 +549,86 @@ def philox_int_ops(nvcc: str, flags: tuple) -> tuple:
     if n <= 0:
         fail(f"the Philox call counted {n} integer instructions: {ops}")
     return n, {k: v for k, v in sorted(diff.items()) if v}
+
+
+BM_PROBE_CU = r"""
+#include "box_muller.cuh"
+// one Box-Muller pair from a pair of words: the fast path alone (the
+// rounding test's verdict stored), the FP64 expression (the stream's
+// definition and the fallback), and the same kernel storing the words
+#define PROBE(name, body) \
+    extern "C" __global__ void name(const uint2* in, float2* out, int* ok) { \
+        __shared__ bm::Tabs t; \
+        bm::load_tabs(t); \
+        __syncthreads(); \
+        const int i = blockIdx.x * blockDim.x + threadIdx.x; \
+        const uint2 w = in[i]; \
+        float z0, z1; \
+        body \
+        out[i] = make_float2(z0, z1); \
+    }
+PROBE(bm_fast_probe, ok[i] = bm::fast_pair(t.ang, t.lg, w.x, w.y, z0, z1);)
+PROBE(bm_fp64_probe, const float2 e = bm::box_muller_fp64(w.x, w.y); z0 = e.x; z1 = e.y;
+      ok[i] = (w.x ^ w.y) & 1;)
+PROBE(bm_base_probe, z0 = __uint_as_float(w.x); z1 = __uint_as_float(w.y); ok[i] = (w.x ^ w.y) & 1;)
+"""
+# FP64 arithmetic, conversions to or from 64-bit floats, and MUFU's 64H
+# functions in cuobjdump's SASS
+F64_SASS = {"fp64": re.compile(r"^(DFMA|DADD|DMUL|DSETP|DMNMX|DSET)\b"),
+            "conv64": re.compile(r"^(F2F|I2F|F2I)\.\S*F64"),
+            "mufu64": re.compile(r"^MUFU\.\w+64H")}
+
+
+def bm_sass_counts(nvcc: str, flags: tuple) -> dict:
+    """Per probe of BM_PROBE_CU built with the kernels' flags: FP64
+    arithmetic, 64-bit conversions, MUFU 64H and vector integer
+    instructions in the kernel's body ("body": before the first address it
+    calls, where the subroutines sit: libdevice's reduction of large
+    arguments and its slow paths, which the draws never take) and in all
+    its code ("all"). The integer counts are the probe's less the
+    word-storing probe's."""
+    with tempfile.TemporaryDirectory() as d:
+        src, cubin = os.path.join(d, "b.cu"), os.path.join(d, "b.cubin")
+        with open(src, "w") as f:
+            f.write(BM_PROBE_CU)
+        subprocess.run([nvcc, *flags, "-I", str(_build_csrc()), "-cubin", "-o", cubin, src],
+                       check=True, capture_output=True, timeout=300)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+    probes = ("bm_fast_probe", "bm_fp64_probe", "bm_base_probe")
+    code, fn = {p: [] for p in probes}, None  # per probe: (address, instruction), "$" labels
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in code else None
+            continue
+        lab = re.match(r"^\s*(\$[\w.$]*):\s*$", line)  # a subroutine's label, where printed
+        m = re.match(r"^\s*/\*([0-9a-fA-F]+)\*/\s+(.*?)\s*;", line)
+        if fn and lab:
+            code[fn].append((None, None))
+        elif fn and m:
+            op = m.group(2).split()
+            code[fn].append((int(m.group(1), 16), " ".join(op[1:] if op[0].startswith("@") else op)))
+    if not all(code.values()):
+        fail(f"the Box-Muller probes' SASS lacks a function: "
+             f"{sorted(k for k, v in code.items() if not v)}")
+    out = {}
+    for p, ins in code.items():
+        calls = [int(t, 16) for _, o in ins if o for t in re.findall(r"^CALL\S*\s+(0x[0-9a-fA-F]+)", o)]
+        first_sub = next((i for i, (at, _) in enumerate(ins)
+                          if at is None or (calls and at >= min(calls))), len(ins))
+        out[p] = {}
+        for which, part in (("body", ins[:first_sub]), ("all", ins)):
+            ops = [o for _, o in part if o]
+            c = {k: sum(bool(rx.match(o)) for o in ops) for k, rx in F64_SASS.items()}
+            c["int"] = sum(bool(INT_SASS.match("/*0*/ " + o)) for o in ops)
+            out[p][which] = c
+    for p in probes[:2]:
+        for which in out[p]:
+            out[p][which]["int"] -= out["bm_base_probe"][which]["int"]
+    if out["bm_fast_probe"]["body"]["fp64"] <= 0 or out["bm_fp64_probe"]["body"]["fp64"] <= 0:
+        fail(f"the Box-Muller probes counted no FP64 instructions: {out}")
+    return out
 
 
 def _build_csrc():
@@ -668,6 +766,78 @@ def triad_sweep_phase(dev, gammas) -> None:
                      f"expression, the first at input {x0!r} (bits {first:#010x})")
     del buf
     print(f"[3] triad sweep: {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def rng_sweep_phase(dev) -> float:
+    """The draws' Box-Muller fast path (csrc/box_muller.cuh) against the
+    FP64 expression on the card (csrc/rng_sweep.cu, kernels/rng.py sweep):
+    the fast radius over all 2^32 u, the fast cos and sin over all 2^32 v,
+    each against the bound the rounding test assumes (fails on any word
+    where the bound does not cover the deviation), then the whole pair on
+    the Philox words of BM_PAIR_GROUPS grain groups (fails on any accepted
+    value that is not the FP64 expression's). Prints the maxima, the
+    bounds and the fallback share; returns the share."""
+    from pythoncrt_tpu_torch.kernels import rng as krng
+
+    t0 = time.perf_counter()
+    res = {m: krng.sweep(m, count=BM_PAIR_GROUPS if m == "pairs" else 1 << 32, device=dev)
+           for m in krng.SWEEP_MODES}
+    secs = time.perf_counter() - t0
+    lg = lambda x: f"{x:.3e} (2^{np.log2(max(x, 1e-300)):.2f})"  # noqa: E731
+    rad, ang, pairs = res["radius"], res["angle"], res["pairs"]
+    print(f"[3] rng sweep, radius: {rad['n']} words u; {rad['over']} reach the bound "
+          f"{lg(krng.BM_RAD_REL)} (relative); largest deviation from sqrt(-2 log u1) "
+          f"{lg(rad['max_dev'][0])}, margin {krng.BM_RAD_REL / max(rad['max_dev'][0], 1e-300):.1f}x; "
+          f"{rad['fallbacks']} word left to the fallback (u = 2^32 - 1)", flush=True)
+    print(f"[3] rng sweep, angle: {ang['n']} words v; {ang['over']} reach the bound "
+          f"{lg(krng.BM_ANG_ABS)} (absolute); largest deviation from cos(TWO_PI u2) "
+          f"{lg(ang['max_dev'][0])}, from sin {lg(ang['max_dev'][1])}, margin "
+          f"{krng.BM_ANG_ABS / max(max(ang['max_dev']), 1e-300):.1f}x", flush=True)
+    share = pairs["fallbacks"] / (2 * pairs["n"])
+    print(f"[3] rng sweep, pairs: {2 * pairs['n']} pairs of the grain stream's words (seed 0, "
+          f"frame 0, groups 0-{pairs['n'] - 1}); {pairs['fallbacks']} take the FP64 fallback "
+          f"(share {share:.3e}); {pairs['over']} groups with an accepted value other than the "
+          f"FP64 expression's; {secs:.2f}s", flush=True)
+    for m, r in res.items():
+        if r["over"]:
+            fail(f"rng sweep, {m}: {r['over']} words over the bound the rounding test assumes, "
+                 f"the first at word {r['first']}")
+    return share
+
+
+def draw_device_ms(fn, lib, match: str, calls: int = 20) -> tuple:
+    """Device time per call of the kernels whose name holds ``match`` over
+    ``calls`` calls of ``fn``, and of every kernel of ``calls`` calls of
+    ``lib`` (the library yardstick) in the same torch.profiler window: the
+    kernels' durations, the host work of the calls left out. Run after the
+    main paths: profiler windows opened earlier in the process would
+    leave [5]'s device-busy readings short."""
+    import torch
+
+    fn()
+    lib()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a window whose kernel records did not arrive is taken again
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                lib()
+            torch.cuda.synchronize()
+        ours = theirs = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+            if match in ev.key:
+                ours += us
+            else:
+                theirs += us
+        if ours > 0 and theirs > 0:
+            return ours / 1e3 / calls, theirs / 1e3 / calls
+    fail(f"torch.profiler recorded no device time for kernels named {match!r} in three windows")
 
 
 def ptxas_instances(log: str, match, what: str, count: int) -> list:
@@ -1128,20 +1298,44 @@ def main() -> int:
     # the main paths' shapes: the grain field of c4 (full size), of c3 (grain
     # size 2) and of c5 (4K, 32 frames); the export offsets of c4's band and
     # c5's; the preview offsets of c4's band. Bit for bit the twin;
-    # torch.randn of the output's shape is the library yardstick.
+    # torch.randn of the output's shape is the library yardstick. First the
+    # Box-Muller fast path swept over its domains, and the instructions of a
+    # Philox call and of a Box-Muller pair counted from their SASS.
+    bm_share = rng_sweep_phase(dev)
     philox_ops, philox_by_op = philox_int_ops(_build.find_nvcc(), _build.NVCC_FLAGS)
     print(f"[3] a Philox4x32-10 call (csrc/rng.cu's draw) compiled with the kernels' flags: "
           f"{philox_ops} vector integer instructions in its SASS ({philox_by_op}; the uniform "
           f"datapath's left out), the draw rows' integer operations per call", flush=True)
+    bm = bm_sass_counts(_build.find_nvcc(), _build.NVCC_FLAGS)
+    fast, fp64 = bm["bm_fast_probe"]["body"], bm["bm_fp64_probe"]
+    print(f"[3] a Box-Muller pair compiled with the kernels' flags, SASS instructions (FP64 "
+          f"arithmetic, 64-bit conversions, MUFU 64H, vector integer): the fast path "
+          f"(csrc/box_muller.cuh fast_pair, straight-line) "
+          f"{fast['fp64']}, {fast['conv64']}, {fast['mufu64']}, {fast['int']}; the parent's "
+          f"libdevice transform (box_muller_fp64, now the fallback) {fp64['body']['fp64']}, "
+          f"{fp64['body']['conv64']}, {fp64['body']['mufu64']}, {fp64['body']['int']} outside "
+          f"the subroutines it calls (the reduction of large arguments and the slow paths, never "
+          f"taken by the draws), {fp64['all']['fp64']} FP64 arithmetic in all its code. Per pair: "
+          f"{fast['fp64']} + {bm_share:.3e} x {fp64['body']['fp64']} FP64 instructions (the "
+          f"fallback share measured above)", flush=True)
+    fb = fp64["body"]
+    bm_f64 = fast["fp64"] + bm_share * fb["fp64"]
+    bm_conv = fast["conv64"] + fast["mufu64"] + bm_share * (fb["conv64"] + fb["mufu64"])
+    bm_int = fast["int"] + bm_share * fb["int"]
+    table_bm = dict(fast=fast, fallback=fb, fallback_all_fp64=fp64["all"]["fp64"],
+                    fallback_share=bm_share)
 
     def draw_bound(calls: int, pairs: int, out_bytes: int) -> tuple:
-        """The least time for the draws: the output bytes over the memory
-        rate, Philox's integer operations (counted from its SASS) over the
-        INT32 rate, or the Box-Muller FP64 operations over the FP64 rate,
-        whichever is largest."""
+        """The least time for the draws, and what sets it: the output bytes
+        over the memory rate, the integer instructions (Philox's per call,
+        the Box-Muller's per pair) over the INT32 rate, the Box-Muller's
+        FP64 instructions over the FP64 rate, or its 64-bit conversions and
+        MUFU 64H over theirs, whichever is largest (the fallback's counted
+        at its measured share)."""
         cands = ((out_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                 (calls * philox_ops / INT32_OPS_PER_S * 1e3, "operations"),
-                 (pairs * BM_F64_OPS / F64_OPS_PER_S * 1e3, "operations"))
+                 ((calls * philox_ops + pairs * bm_int) / INT32_OPS_PER_S * 1e3, "INT32"),
+                 (pairs * bm_f64 / F64_INSTR_PER_S * 1e3, "FP64"),
+                 (pairs * bm_conv / CONV64_PER_S * 1e3, "FP64 conversions"))
         return max(cands)
 
     def draw_launches():
@@ -1182,6 +1376,8 @@ def main() -> int:
          draw_eng["preview"]._glitch_rows, draw_eng["preview"]._glitch_rows,
          draw_eng["preview"]._glitch_rows, f"c4's preview offsets, band "
          f"{draw_eng['preview']._glitch_rows} rows"))
+    kernel_of = {"grain": "grain_kernel", "export": "export_kernel", "preview": "preview_kernel"}
+    draw_device = {}  # the draw rows' runs, timed on the device at the end ([6])
     for kname, nb, run, twin, per_frame, calls, pairs, note in draws:
         fr = torch.arange(nb, device=dev) + 1000
         n0 = draw_launches()
@@ -1197,17 +1393,20 @@ def main() -> int:
         ms = time_ms(lambda: run(fr))
         plain = time_ms(lambda: twin(fr[:B]), iters=2) * nb / B
         lib = time_ms(lambda: torch.randn(got.shape, device=dev))
+        bms, kind = draw_bound(calls * nb, pairs * nb, got.numel() * 4)
         row(kname, "pythoncrt_tpu_torch/csrc/rng.cu",
             "none (the JAX package draws with jax.random, XLA ops: "
             "pythoncrt_tpu/engine.py:942-1014, ops/glitch.py:41-62)", 0.0, 0, ms, plain, lib,
             got.numel() * 4 + fr.numel() * 8, got.numel(), tol=0.0, lsb_tol=0, frames=nb,
             res=(H4, W4) if nb > B else (H, W),
-            bnd=draw_bound(calls * nb, pairs * nb, got.numel() * 4),
-            note=f" ({note}; 1 launch per batch, bit for bit the twin; torch.randn of "
-                 f"{tuple(got.shape)} is the library yardstick, another stream)")
-        table[kname]["launches_per_batch"] = 1
+            bnd=(bms, "bytes" if kind == "bytes" else "operations"),
+            note=f" ({note}; 1 launch per batch, bit for bit the twin; bound by {kind}; "
+                 f"torch.randn of {tuple(got.shape)} is the library yardstick, another stream; "
+                 f"the kernel's device time: [6])")
+        table[kname].update(launches_per_batch=1, bound_kind=kind, box_muller=table_bm)
+        draw_device[kname] = (nb, tuple(got.shape), functools.partial(run, fr),
+                              next(v for k, v in kernel_of.items() if k in kname))
         del got
-    del draw_eng, amp5
 
     # the stand-alone bloom and the fused f32-input mode, each on the
     # pre-bloom image (stages 1-5, synthetic overlay) of its path
@@ -2873,6 +3072,17 @@ def main() -> int:
         by_path = {pn: v for pn, v in launches[counter].items()
                    if (pn in on if on is not None else not pn.startswith("preview-"))}
         entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
+    # ---- 6. the draw kernels' device time, beside torch.randn's in one window ----
+    for kname, (nb, shape, run_draw, kern) in draw_device.items():
+        dev_ms, lib_dev = draw_device_ms(run_draw, lambda: torch.randn(shape, device=dev), kern)
+        entry = table[kname]
+        entry.update(device_ms=dev_ms, library_device_ms=lib_dev)
+        print(f"[6] {kname}: the kernel's device time {dev_ms:.4f} ms per launch "
+              f"({dev_ms / nb:.4f} ms/frame; {100 * entry['bound_ms'] / dev_ms:.1f}% of the bound, "
+              f"{entry['bound_kind']}), torch.randn of {shape} {lib_dev:.4f} ms in the same window "
+              f"(torch.profiler; the kernel / torch.randn {dev_ms / lib_dev:.3f}); event time per "
+              f"wrapper call {entry['ms']:.4f} ms, so {max(0.0, entry['ms'] - dev_ms):.4f} ms of "
+              f"it the wrapper's host path and the launch, on {card}", flush=True)
     print(f"card: {card}")
     print(card)
     print(json.dumps({"kernels": list(table.values())}))

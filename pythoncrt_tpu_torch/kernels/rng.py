@@ -19,12 +19,23 @@ Box-Muller in FP64 rounded once to f32, uniforms ``(x >> 8) * 2^-24``,
 and the export glitch's random walk summed row by row in f32. CPU tensors
 run the twin; CUDA tensors launch the kernel (a failed build or launch
 raises). The twin runs on the card too, as the smoke's reference.
+
+The kernel reaches the twin's FP64 Box-Muller bits by a table-driven
+fast path with a rounding test and the FP64 expression as its fallback
+(csrc/box_muller.cuh). ``bm_tables`` recomputes its tables in decimal,
+``bm_model`` models it in NumPy, operation for operation but for the
+square root's seed (``bm_sqrt_model``); neither is on any engine path.
+``sweep`` runs csrc/rng_sweep.cu, which holds the fast factors to the
+bounds the rounding test assumes over whole domains.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from decimal import Decimal, localcontext
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -37,7 +48,7 @@ grain_launches = export_launches = preview_launches = 0
 NATIVE_STREAM = "philox4x32-10"  # the generator's name, in segment journals' signatures
 GRAIN_STREAM, GLITCH_STREAM = 11, 14  # the JAX engine's fold_in tags
 WALK_PART = 1 << 31  # the export glitch's walk normals: groups WALK_PART + row // 4
-EXPORT_TILE = 16  # band rows per block of the export entry
+SMEM_MAX = 232448  # bytes of shared memory a block may use: the export entry's walk, 4 per row
 M0, M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85  # its key schedule's increments
 MASK32 = 0xFFFFFFFF
@@ -48,6 +59,14 @@ def key_words(seed: int) -> tuple[int, int]:
     """The Philox key: the seed mod 2^64 as (low, high) 32-bit words."""
     s = int(seed) % (1 << 64)
     return s & MASK32, s >> 32
+
+
+def round_keys(seed: int) -> list[int]:
+    """Philox4x32-10's ten round keys under the seed's key, (low, high)
+    word of each round in order: the key bumped by the schedule's
+    increments, as the kernel reads them from its launch arguments."""
+    k0, k1 = key_words(seed)
+    return [w for i in range(10) for w in ((k0 + i * W0) & MASK32, (k1 + i * W1) & MASK32)]
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,6 +108,157 @@ def box_muller(u: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     r = torch.sqrt(-2.0 * torch.log(u1))
     th = (2.0 * math.pi) * u2
     return (r * torch.cos(th)).float(), (r * torch.sin(th)).float()
+
+
+# --- the kernel's Box-Muller fast path (csrc/box_muller.cuh) ---------------
+# The constants as the header writes them; bm_tables recomputes its tables.
+BM_RAD_REL, BM_ANG_ABS = 2.0 ** -46, 2.0 ** -48  # the fast factors' deviation bounds
+BM_ER, BM_EA = 2.0 ** -44, 2.0 ** -46  # the rounding test's error terms: e = r' (EA + ER)
+BM_STEP = float.fromhex("0x1.921fb54442d18p-30")  # pi 2^-31
+BM_LN2X2 = float.fromhex("0x1.62e42fefa39efp+0")  # 2 ln 2
+BM_ANGLES, BM_LOGS = 1024, 256  # the tables' entries: the whole circle; f's intervals
+# -2 log1p(r) = r P(r): P's coefficients from r^5 down (the r^5 one kept to 20
+# bits, an immediate operand on the card: 2^-21 of a term below 2^-54)
+BM_P = (float.fromhex("0x1.55555p-2"),) + tuple(
+    float(Fraction(n, d)) for n, d in ((-2, 5), (1, 2), (-2, 3), (1, 1), (-2, 1)))
+# sin d = d + d^3 (S3 + d^2 S5), cos d = 1 + d^2 (C2 + d^2 C4); S5 to 20 bits
+# (2^-21 of a term below 2^-43)
+BM_S3, BM_S5 = float(Fraction(-1, 6)), float.fromhex("0x1.11111p-7")
+BM_C2, BM_C4 = -0.5, float(Fraction(1, 24))
+
+
+def _dsin(x: Decimal) -> Decimal:
+    term = s = x
+    n = 1
+    while abs(term) > Decimal(10) ** -60:
+        term = -term * x * x / ((2 * n) * (2 * n + 1))
+        s += term
+        n += 1
+    return s
+
+
+@functools.lru_cache(maxsize=1)
+def bm_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The fast path's tables, from 70-digit decimals rounded once:
+    (BM_ANGLES, 2) (sin a, cos a) at a = k 2 pi / BM_ANGLES (the first
+    quadrant's sines, the others by symmetry, so that the table's zeros and
+    ones are exact); (BM_LOGS, 2) (1/c, 2 ln(1/c)) of the intervals of f in
+    [0.5, 1), BM_LOGS of them, c the interval's centre (the last one's: 1),
+    1/c rounded to 21 significant bits."""
+    with localcontext() as ctx:
+        ctx.prec = 70
+        pi = Decimal("3.14159265358979323846264338327950288419716939937510582097494459230781")
+        n4 = BM_ANGLES // 4
+        q = [float(_dsin(pi * k / (2 * n4))) for k in range(n4 + 1)]  # the first quadrant
+        ang = []
+        for k in range(BM_ANGLES):
+            i = k % n4
+            sin, cos = [(q[i], q[n4 - i]), (q[n4 - i], -q[i]), (-q[i], -q[n4 - i]),
+                        (-q[n4 - i], q[i])][k // n4]
+            ang.append((sin + 0.0, cos + 0.0))  # + 0.0: no negative zeros
+        lg = []
+        for i in range(BM_LOGS):
+            c = (Decimal(1) if i == BM_LOGS - 1
+                 else Decimal(0.5) + (Decimal(i) + Decimal(0.5)) / (2 * BM_LOGS))
+            inv = float(Fraction(int((Decimal(1 << 20) / c).to_integral_value()), 1 << 20))
+            lg.append((inv, float(2 * Decimal(inv).ln())))
+    return np.array(ang), np.array(lg)
+
+
+def _split(a):
+    t = a * 134217729.0  # 2^27 + 1: Veltkamp's split
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def bm_fma(a, b, c) -> np.ndarray:
+    """fma(a, b, c) on float64 arrays, rounded once to nearest: the exact
+    product (Dekker), an exact sum, the tail added rounding to odd, then
+    one rounding to nearest (Boldo and Melquiond, IEEE TC 57(4), 2008).
+    Exact for the fast path's operands (no underflow or overflow)."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(x, np.float64) for x in (a, b, c)))
+    p = a * b
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    v, w = _two_sum(tl, e)
+    odd = (w != 0) & ((v.view(np.int64) & 1) == 0)
+    v = np.where(odd, np.nextafter(v, np.where(w > 0, np.inf, -np.inf)), v)
+    return th + v
+
+
+def bm_sqrt_model(x: np.ndarray) -> np.ndarray:
+    """sqrt_fast: a reciprocal square root refined once to second order,
+    then times x. The card seeds it with MUFU's approximation
+    (rsqrt.approx.f64); the model seeds it with the CPU's 1/sqrt(x), so the
+    two may differ in the last bit: the model's one step that is not the
+    kernel's operation."""
+    y = 1.0 / np.sqrt(x)
+    e = bm_fma(-x, y * y, 1.0)
+    y = bm_fma(y * e, bm_fma(e, 0.375, 0.5), y)
+    return x * y
+
+
+def bm_radius_model(u: np.ndarray) -> np.ndarray:
+    """The fast radius of uint32 words u (radius_fast; u = 2^32 - 1 gives a
+    value the fast path does not use)."""
+    _, lg = bm_tables()
+    m = (u.astype(np.uint64) + 1) & MASK32
+    bits = m.astype(np.float64).view(np.uint64)
+    hi = (bits >> 32).astype(np.int64)
+    e = (hi >> 20) - 1023  # m in [2^e, 2^(e + 1))
+    t = lg[(hi >> 12) & 0xFF]
+    f = (((bits & 0x800FFFFFFFFFFFFF) | 0x3FE0000000000000).view(np.float64))  # in [0.5, 1)
+    r = bm_fma(f, t[:, 0], -1.0)
+    p = bm_fma(r, BM_P[0], BM_P[1])
+    for c in BM_P[2:]:
+        p = bm_fma(r, p, c)
+    return bm_sqrt_model(bm_fma((31 - e).astype(np.float64), BM_LN2X2, t[:, 1] + r * p))
+
+
+def bm_angle_model(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The fast cos and sin of 2 pi v 2^-32 for uint32 words v (angle_fast)."""
+    ang, _ = bm_tables()
+    v = v.astype(np.uint64)
+    t = ang[(v >> 22).astype(np.int64)]
+    d = (v & 0x3FFFFF).astype(np.float64) * BM_STEP
+    d2 = d * d
+    sd = bm_fma(d * d2, bm_fma(d2, BM_S5, BM_S3), d)
+    cd = bm_fma(d2, bm_fma(d2, BM_C4, BM_C2), 1.0)
+    return bm_fma(t[:, 1], cd, -(t[:, 0] * sd)), bm_fma(t[:, 0], cd, t[:, 1] * sd)
+
+
+def bm_round_checked(e: np.ndarray, d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The rounding test (round_checked): d = r' c' rounded to f32, and
+    whether d - e and d + e, e = r' (EA + ER), round to the same f32."""
+    lo, hi = (d - e).astype(np.float32), (d + e).astype(np.float32)
+    return lo, lo.view(np.uint32) == hi.view(np.uint32)
+
+
+def bm_model(u: np.ndarray, v: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A model of the kernel's Box-Muller (box_muller), on the CPU and on
+    no engine path: (z0, z1, fast) for uint32 word arrays u and v, where
+    ``fast`` marks the pairs the rounding test accepted; the others take
+    the twin's FP64 expression (box_muller), as the kernel's fallback
+    takes that expression."""
+    u = np.asarray(u, np.uint32)
+    v = np.asarray(v, np.uint32)
+    r = bm_radius_model(u)
+    c, s = bm_angle_model(v)
+    e = r * (BM_EA + BM_ER)
+    (z0, ok0), (z1, ok1) = bm_round_checked(e, r * c), bm_round_checked(e, r * s)
+    fast = (u != MASK32) & ok0 & ok1
+    if not fast.all():
+        w = torch.from_numpy(u[~fast].astype(np.int64)), torch.from_numpy(v[~fast].astype(np.int64))
+        f0, f1 = box_muller(*w)
+        z0[~fast], z1[~fast] = f0.numpy(), f1.numpy()
+    return z0, z1, fast
 
 
 def uniform24(x: torch.Tensor) -> torch.Tensor:
@@ -161,8 +331,7 @@ class _RngArgs(ctypes.Structure):
     _fields_ = [
         ("out", ctypes.c_void_p), ("frames", ctypes.c_void_p), ("amp", ctypes.c_void_p),
         ("mode", ctypes.c_int32), ("b", ctypes.c_int32), ("n0", ctypes.c_int32),
-        ("n1", ctypes.c_int32), ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
-        ("stream", ctypes.c_uint32), ("tile", ctypes.c_int32),
+        ("n1", ctypes.c_int32), ("stream", ctypes.c_uint32), ("keys", ctypes.c_uint32 * 20),
     ]
 
 
@@ -193,8 +362,8 @@ def _launch(mode: str, out: torch.Tensor, seed: int, frames: torch.Tensor, strea
                              f"{frames.device}")
         a.amp = amp.data_ptr()
     a.mode, a.b, a.n0, a.n1 = MODES[mode], frames.shape[0], n0, n1
-    a.key0, a.key1 = key_words(seed)
-    a.stream, a.tile = stream, EXPORT_TILE
+    a.keys[:] = round_keys(seed)
+    a.stream = stream
     _build.launch("crt_rng_launch", a, frames.device)
     if mode == "grain":
         grain_launches += 1
@@ -223,7 +392,7 @@ def glitch_export_offsets(seed: int, frames: torch.Tensor, nseg: int,
     if not _on_card(frames, "glitch_export_offsets"):
         return glitch_export_offsets_ref(seed, frames, nseg, amp)
     rows = amp.shape[0]
-    if -(-rows * nseg // 4) >= WALK_PART or (rows + EXPORT_TILE) * 4 > 232448:
+    if -(-rows * nseg // 4) >= WALK_PART or rows * 4 > SMEM_MAX:
         raise ValueError(f"glitch_export_offsets: a band of {rows} rows x {nseg} segments "
                          "does not fit the kernel")
     out = torch.empty((frames.shape[0], rows, nseg), dtype=torch.int32, device=frames.device)
@@ -238,3 +407,47 @@ def glitch_preview_offsets(seed: int, frames: torch.Tensor, amp: torch.Tensor) -
     rows = amp.shape[0]
     out = torch.empty((frames.shape[0], rows, 1), dtype=torch.int32, device=frames.device)
     return _launch("preview", out, seed, frames, GLITCH_STREAM, rows, 1, amp)
+
+
+class _SweepArgs(ctypes.Structure):
+    """Mirror of RngSweepArgs in csrc/rng_sweep.cu."""
+    _fields_ = [
+        ("counts", ctypes.c_void_p), ("n", ctypes.c_int64), ("start", ctypes.c_uint32),
+        ("mode", ctypes.c_int32), ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
+        ("stream", ctypes.c_uint32),
+    ]
+
+
+SWEEP_MODES = ("radius", "angle", "pairs")
+
+
+def sweep(mode: str, start: int = 0, count: int = 1 << 32, device="cuda", seed: int = 0,
+          stream: int = GRAIN_STREAM) -> dict:
+    """The fast path against the FP64 expression on the card
+    (csrc/rng_sweep.cu, one launch), over the words start, start + 1, ...
+    (``count`` of them, mod 2^32): ``radius`` (the words as u), ``angle``
+    (as v) or ``pairs`` (the Philox words of those groups of frame 0 under
+    ``seed`` and ``stream``, two pairs a group). Returns ``over`` (words
+    whose fast factor reaches its bound; for pairs, groups with an accepted
+    value that is not the FP64 expression's) and the ``first`` of them,
+    ``fallbacks`` (pairs left to the fallback; for radius, u = 2^32 - 1),
+    and the largest deviations ``max_dev`` (radius: relative; angle:
+    absolute, cos and sin)."""
+    if mode not in SWEEP_MODES:
+        raise ValueError(f"mode must be one of {SWEEP_MODES}, got {mode!r}")
+    if not 1 <= count <= 1 << 32 or not 0 <= start < 1 << 32:
+        raise ValueError("a sweep needs 1 <= count <= 2^32 words from a start in [0, 2^32)")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the sweep runs on a CUDA device, not {dev}")
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
+    counts[2] = -1  # the first word over its bound: the largest unsigned value until one is found
+    k0, k1 = key_words(seed)
+    a = _SweepArgs(counts=counts.data_ptr(), n=count, start=start, mode=SWEEP_MODES.index(mode),
+                   key0=k0, key1=k1, stream=stream)
+    _build.launch("crt_rng_sweep_launch", a, dev)
+    c = counts.cpu().numpy()
+    dev_max = np.array(c[3:5], np.int64).view(np.float64)
+    return dict(n=count, over=int(c[0]), fallbacks=int(c[1]),
+                first=None if c[2] == -1 else int(c[2]),
+                max_dev=tuple(float(x) for x in dev_max[:1 if mode == "radius" else 2]))

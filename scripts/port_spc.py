@@ -39,6 +39,15 @@ multiclip.auto_steps_per_call):
 - a sha256 of one super-batch with rng="host" (the oracle's streams), so
   that two trees' host-rng outputs can be held bit for bit.
 
+Then each native draw entry at the main paths'
+shapes (kernels/rng.py: the grain field at 1080x1920, c3's 540x960 and
+c5's 2160x3840; the export offsets of c4's and c5's bands; the preview
+offsets of c4's band) over DRAW_FRAMES frames, one launch per batch of 8
+(c5: 32): a sha256 of the values, so that two trees' native draws can be
+held bit for bit, and ms per launch from CUDA events around the wrapper
+call beside the kernel's device time from torch.profiler (``--configs ""``
+runs these alone).
+
 The graph: the n steps captured once for a fixed (n, B, H, W, layout)
 with the state not first, into static frame, input, state and output
 buffers. The native draws are keyed by the frame indices in the input
@@ -139,6 +148,57 @@ class StackGraph:
                 dst.copy_(src, non_blocking=True)
         self.graph.replay()
         return self.out, self.state
+
+
+DRAW_FRAMES = 64
+
+
+def draw_entries() -> list:
+    """Per native draw entry: sha256 of DRAW_FRAMES frames (1000 on), event
+    ms per call (the wrapper's host path included) and the kernel's device
+    ms per call (torch.profiler)."""
+    import torch
+
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch.kernels import rng as krng
+
+    dev = torch.device("cuda")
+    c4 = {m: CRTEngine(EffectParams(**pp.CONFIGS["c4"]), H, W, 24.0, engine=m, device=dev)
+          for m in ("export", "preview")}
+    c5 = CRTEngine(EffectParams(**pp.CONFIGS["c4"]), pp.H4, pp.W4, 24.0, device=dev)
+    amp, nseg = c4["export"]._glitch_amp, c4["export"]._glitch_nseg
+    entries = (  # name, kernel, frames per launch, draw
+        ("grain 1080x1920", "grain_kernel", B, lambda f: krng.grain_normals(0, f, H, W)),
+        ("grain 540x960 (c3)", "grain_kernel", B,
+         lambda f: krng.grain_normals(0, f, H // 2, W // 2)),
+        ("grain 2160x3840 (c5)", "grain_kernel", pp.CLIPS * B,
+         lambda f: krng.grain_normals(0, f, pp.H4, pp.W4)),
+        (f"export {amp.numel()}x{nseg} (c4)", "export_kernel", B,
+         lambda f: krng.glitch_export_offsets(0, f, nseg, amp)),
+        (f"export {c5._glitch_amp.numel()}x{c5._glitch_nseg} (c5)", "export_kernel",
+         pp.CLIPS * B, lambda f: krng.glitch_export_offsets(0, f, c5._glitch_nseg, c5._glitch_amp)),
+        (f"preview {c4['preview']._glitch_rows} (c4)", "preview_kernel", B,
+         lambda f: krng.glitch_preview_offsets(0, f, c4["preview"]._glitch_amp)))
+    out = []
+    for name, kernel, nb, draw in entries:
+        h = hashlib.sha256()
+        for k in range(1000, 1000 + DRAW_FRAMES, nb):
+            h.update(draw(torch.arange(k, k + nb, device=dev)).cpu().numpy().tobytes())
+        fr = torch.arange(1000, 1000 + nb, device=dev)
+        ms = pp.events_ms(lambda: draw(fr))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        draw(fr)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(20):
+                draw(fr)
+            torch.cuda.synchronize()
+        us = sum((getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0))
+                 for ev in prof.key_averages()
+                 if kernel in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA)
+        out.append(dict(entry=name, frames=DRAW_FRAMES, frames_per_launch=nb,
+                        sha256=h.hexdigest()[:16], ms_per_call=ms, device_ms_per_call=us / 1e3 / 20))
+    return out
 
 
 def run_config(name: str, args) -> dict:
@@ -269,7 +329,7 @@ def main() -> int:
     _build.library()
     c = card()
     results = []
-    for name in args.configs.split(","):
+    for name in filter(None, args.configs.split(",")):
         r = run_config(name, args)
         r["card"], r["tree"], r["tag"] = c, os.path.abspath(args.tree), args.tag
         results.append(r)
@@ -287,6 +347,12 @@ def main() -> int:
               f"{fps}; device idle per super-batch: {idle}{extra}{draws}; host-rng sha256 "
               f"{r['host_rng_sha256']} on {c}", flush=True)
         torch.cuda.empty_cache()
+    for d in draw_entries():
+        print(f"[spc {args.tag}] draw {d['entry']}: sha256 {d['sha256']} over {d['frames']} "
+              f"frames, {d['frames_per_launch']} per launch; {d['ms_per_call']:.4f} ms per "
+              f"call (CUDA events), kernel {d['device_ms_per_call']:.4f} ms (torch.profiler) "
+              f"on {c}", flush=True)
+        results.append(dict(d, card=c, tree=os.path.abspath(args.tree), tag=args.tag))
     if args.out:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", args.out), "w") as f:

@@ -31,8 +31,11 @@ persistence, else 1 LSB and the state within 1e-4. process_stack of
 CRTEngine, of a 2-shard ShardedCRTEngine and of MultiClipEngine, into the
 caller's ``out``, is bit for bit its process() loop. The native draws
 (csrc/rng.cu: the grain field, the export and preview glitch offsets, one
-launch per batch) are bit for bit their twin at the engine's shapes and
-invariant to the batch split; the fused kernel's raw-grain mode (grain
+launch per batch) are bit for bit their twin at the engine's shapes and at
+edge shapes (rows 1, 15, 16, 17, 324 and 648; 1 and 120 segments; batches
+1 and 9), and invariant to the batch split; their Box-Muller fast path
+(csrc/box_muller.cuh) stays inside the bounds its rounding test assumes on
+words next to its domains' edges (csrc/rng_sweep.cu); the fused kernel's raw-grain mode (grain
 size above 1: the raw field upsampled in the kernel) is bit for bit the
 kernel fed the twin's upsampled field."""
 
@@ -352,6 +355,81 @@ def test_glitch_draw_kernel_is_the_twin_bit_for_bit(cuda_dev, mode, shape):
     torch.cuda.synchronize()
     assert getattr(krng, f"{mode}_launches") == n0 + 1 and got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+EDGE_ROWS, EDGE_NSEG, EDGE_BATCH = (1, 15, 16, 17, 324, 648), (1, 120), (1, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", EDGE_BATCH)
+@pytest.mark.parametrize("nseg", EDGE_NSEG)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_export_draw_kernel_at_edge_shapes(cuda_dev, rows, nseg, batch):
+    """The export entry (one cluster per frame: the walk summed once, the
+    segments split over its blocks) bit for bit its twin, one launch."""
+    fr = rng_frames(batch, cuda_dev)
+    amp = torch.linspace(6.25, 0.25, rows, device=cuda_dev)
+    n0 = krng.export_launches
+    got = krng.glitch_export_offsets(5, fr, nseg, amp)
+    torch.cuda.synchronize()
+    assert krng.export_launches == n0 + 1
+    assert torch.equal(got, krng.glitch_export_offsets_ref(5, fr, nseg, amp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nseg", [(13000, 3), (30000, 1)], ids=["smem_attr", "lim_global"])
+def test_export_draw_kernel_on_tall_bands(cuda_dev, rows, nseg):
+    """Bands past 48 KB of shared memory (the launcher raises the limit)
+    and past the rows whose clip limits fit beside the walk (read from
+    global memory), bit for bit the twin."""
+    fr = rng_frames(2, cuda_dev)
+    amp = torch.linspace(6.25, 0.25, rows, device=cuda_dev)
+    got = krng.glitch_export_offsets(5, fr, nseg, amp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, krng.glitch_export_offsets_ref(5, fr, nseg, amp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", EDGE_BATCH)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_grain_and_preview_draw_kernels_at_edge_shapes(cuda_dev, rows, batch):
+    """The grain entry on (rows, 120) and (rows, 1) fields and the preview
+    entry on a band of ``rows``, each bit for bit its twin, one launch per
+    batch and entry."""
+    fr = rng_frames(batch, cuda_dev)
+    for gw in EDGE_NSEG[::-1]:
+        n0 = krng.grain_launches
+        got = krng.grain_normals(5, fr, rows, gw)
+        torch.cuda.synchronize()
+        assert krng.grain_launches == n0 + 1
+        assert torch.equal(got, krng.grain_normals_ref(5, fr, rows, gw))
+    amp = torch.linspace(6.25, 0.25, rows, device=cuda_dev)
+    n0 = krng.preview_launches
+    got = krng.glitch_preview_offsets(5, fr, amp)
+    torch.cuda.synchronize()
+    assert krng.preview_launches == n0 + 1
+    assert torch.equal(got, krng.glitch_preview_offsets_ref(5, fr, amp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,start,count", [
+    ("radius", 0, 1 << 24), ("radius", (1 << 32) - (1 << 24), 1 << 24),
+    ("angle", (1 << 32) - (1 << 20), 1 << 22), ("angle", (1 << 30) - (1 << 20), 1 << 21),
+    ("angle", (3 << 30) - (1 << 20), 1 << 21), ("pairs", 0, 1 << 22)])
+def test_box_muller_fast_path_within_its_bounds(cuda_dev, mode, start, count):
+    """csrc/rng_sweep.cu on words next to the domains' edges (u near 0 and
+    2^32, v across quadrant starts) and on 2^23 grain pairs: no fast factor
+    reaches its bound, no accepted value differs from the FP64 expression,
+    and only u = 2^32 - 1 of the radius words is left to the fallback."""
+    r = krng.sweep(mode, start=start, count=count, device=cuda_dev)
+    assert r["over"] == 0, r
+    if mode == "radius":
+        assert r["fallbacks"] == (start + count == 1 << 32)
+        assert 0 < r["max_dev"][0] < krng.BM_RAD_REL
+    elif mode == "angle":
+        assert max(r["max_dev"]) < krng.BM_ANG_ABS
+    else:
+        assert r["fallbacks"] < 1e-4 * 2 * count
 
 
 @pytest.mark.cuda

@@ -12,7 +12,12 @@ Moments: N(0, 1) draws over about 1e5 values, |mean| and |std - 1| within
 0.02 (six standard errors); the glitch offsets normalized by their
 amplitude over 400 (export) and 1000 (preview) frames of 324 rows."""
 
+import hashlib
 import inspect
+import math
+import re
+from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -177,3 +182,199 @@ def test_raw_grain_twin_is_the_upsample_then_the_epilogue(shape, grain_size):
     got = tfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
     want = tfused.fused_pipeline(x, flat.spec, flat.fused_tables, **{**kw, "grain": field})
     assert torch.equal(got, want)
+
+
+# --- the kernel's Box-Muller fast path (csrc/box_muller.cuh), modelled ----
+# Its tables and constants recomputed in decimal against the header's
+# literals; the NumPy model (kernels/rng.py bm_model: the fast path
+# operation for operation, FMAs rounded once) against the FP64 twin on
+# edge and seeded words: every value the rounding test accepts is the
+# twin's f32, and the fast factors stay inside the bounds the test assumes
+# (the card sweeps all 2^32 words of each factor: chip_smoke.py [3]).
+BM_HEADER = Path(krng.__file__).resolve().parent.parent / "csrc" / "box_muller.cuh"
+
+
+def header_table(name):
+    body = re.search(name + r"\[\d+\] = \{(.*?)\n\};", BM_HEADER.read_text(), re.S).group(1)
+    return np.array([[float.fromhex(x) for x in pair]
+                     for pair in re.findall(r"\{(\S+), (\S+)\}", body)])
+
+
+def header_consts():
+    src = BM_HEADER.read_text()
+    return {k: float.fromhex(v) for k, v in re.findall(r"\b(\w+) = (-?0x[0-9a-f.]+p[+-]\d+)", src)}
+
+
+def test_bm_tables_are_the_headers():
+    ang, lg = krng.bm_tables()
+    assert ang.shape == (1024, 2) and lg.shape == (256, 2)
+    # the whole circle: the quadrants' points exact, every entry on the circle
+    assert [tuple(ang[k]) for k in (0, 256, 512, 768)] == [(0, 1), (1, 0), (0, -1), (-1, 0)]
+    assert np.abs(ang[:, 0] ** 2 + ang[:, 1] ** 2 - 1).max() <= 2.0 ** -52
+    assert np.array_equal(header_table("kAngle"), ang)
+    assert np.array_equal(header_table("kLog"), lg)
+    c = header_consts()
+    assert [c[f"P{k}"] for k in range(5, -1, -1)] == list(krng.BM_P)
+    assert (c["S3"], c["S5"], c["C2"], c["C4"]) == (krng.BM_S3, krng.BM_S5, krng.BM_C2, krng.BM_C4)
+    # the coefficients kept to 20 bits (immediates) are within 2^-20 of theirs
+    assert abs(krng.BM_P[0] * 3 - 1) < 2.0 ** -20 and abs(krng.BM_S5 * 120 - 1) < 2.0 ** -20
+    assert (c["STEP"], c["LN2X2"], c["RAD_REL"], c["ANG_ABS"]) == (
+        krng.BM_STEP, krng.BM_LN2X2, krng.BM_RAD_REL, krng.BM_ANG_ABS)
+    assert (c["ER"], c["EA"], c["RSQ2"]) == (krng.BM_ER, krng.BM_EA, 0.375)
+    # the rounding test's error terms cover the factors' bounds and both
+    # products' roundings at least 3.5 times over
+    assert krng.BM_ER >= 3.9 * (krng.BM_RAD_REL + 2.0 ** -52)
+    assert krng.BM_EA >= 3.9 * krng.BM_ANG_ABS
+    # the log table: 1/c to 21 bits (f * (1/c) exact in a double), the
+    # intervals' centres, the last one 1
+    inv = lg[:, 0]
+    assert inv[-1] == 1.0 and lg[-1, 1] == 0.0
+    assert np.all(inv * 2 ** 20 == np.round(inv * 2 ** 20))
+    centres = 0.5 + (np.arange(255) + 0.5) / 512
+    assert np.abs(inv[:-1] * centres - 1).max() < 2.0 ** -20
+
+
+def test_bm_fma_rounds_once():
+    """The model's FMA against the exact value rounded once (fractions), on
+    seeded triples and on ones whose exact value sits on or next to a
+    rounding midpoint."""
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(4000) * 2.0 ** rng.integers(-30, 30, 4000)
+    b = rng.standard_normal(4000) * 2.0 ** rng.integers(-30, 30, 4000)
+    c = -(a * b) * (1 + rng.standard_normal(4000) * 2.0 ** -rng.integers(1, 60, 4000))
+    x = 1.0 + 2.0 ** -27  # (1 + 2^-27)^2 = 1 + 2^-26 + 2^-54: a midpoint after -1 ...
+    a = np.concatenate([a, [x, x, x, 1.0 + 2.0 ** -52]])
+    b = np.concatenate([b, [x, x, -x, 1.0 - 2.0 ** -53]])
+    c = np.concatenate([c, [-1.0, 0.0, 1.0, -1.0]])
+    got = krng.bm_fma(a, b, c)
+    want = [float(Fraction(p) * Fraction(q) + Fraction(r)) for p, q, r in zip(a, b, c)]
+    assert np.array_equal(got, np.array(want))
+
+
+def edge_words():
+    """u: 0, 1, 2^31, 2^32 - 1 and the log table's interval edges +-1 at
+    several leading-zero counts; v: every table boundary +-1 (the
+    quadrants' among them)."""
+    us = {0, 1, 1 << 31, (1 << 32) - 1, (1 << 32) - 2}
+    for lz in (0, 1, 8, 23, 24):
+        for i in range(256):
+            m = ((1 << 31) + (i << 23)) >> lz
+            us.update(m - 1 + d for d in (-1, 0, 1) if 0 <= m - 1 + d < 1 << 32)
+    vs = {(k << 22) + d for k in range(1024) for d in (-1, 0, 1)}
+    vs = {v % (1 << 32) for v in vs} | {(1 << 32) - 1}
+    return np.array(sorted(us), np.uint32), np.array(sorted(vs), np.uint32)
+
+
+def check_model(u, v):
+    """The model's pairs against the twin: bit for bit; returns the mask of
+    pairs the rounding test accepted."""
+    z0, z1, fast = krng.bm_model(u, v)
+    t = (torch.from_numpy(x.astype(np.int64)) for x in (u, v))
+    w0, w1 = (x.numpy() for x in krng.box_muller(*t))
+    assert np.array_equal(z0.view(np.uint32), w0.view(np.uint32))
+    assert np.array_equal(z1.view(np.uint32), w1.view(np.uint32))
+    return fast
+
+
+def factor_deviations(u, v):
+    keep = u != (1 << 32) - 1
+    rp = torch.sqrt(-2.0 * torch.log((torch.from_numpy(u[keep].astype(np.float64)) + 1.0)
+                                     * 2.0 ** -32)).numpy()
+    th = (2.0 * math.pi) * (torch.from_numpy(v.astype(np.float64)) * 2.0 ** -32)
+    c, s = krng.bm_angle_model(v)
+    rad = np.abs(krng.bm_radius_model(u[keep]) - rp) / rp
+    return rad.max(), max(np.abs(c - torch.cos(th).numpy()).max(),
+                          np.abs(s - torch.sin(th).numpy()).max())
+
+
+def test_bm_model_is_the_twin_on_edge_words():
+    """Each edge u with 64 seeded v, each edge v with 64 seeded u, and the
+    four named u with every edge v."""
+    eu, ev = edge_words()
+    rng = np.random.default_rng(11)
+    seeded = lambda n: rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)  # noqa
+    u = np.concatenate([np.repeat(eu, 64), seeded(ev.size * 64),
+                        np.repeat(np.array([0, 1, 1 << 31, (1 << 32) - 1], np.uint32), ev.size)])
+    v = np.concatenate([seeded(eu.size * 64), np.repeat(ev, 64), np.tile(ev, 4)])
+    fast = check_model(u, v)
+    # by design the fallback takes u = 2^32 - 1 (the FP64 expression's r is
+    # -0) and v within 1 of a quadrant's start (a factor below 2^-20)
+    near = (u == (1 << 32) - 1) | (((v.astype(np.int64) + 1) & ((1 << 30) - 1)) <= 2)
+    print(f"edge words: {u.size} pairs, fallback share {1 - fast.mean():.3e}, "
+          f"{(~fast & ~near).mean():.3e} away from those words")
+    assert not fast[near].any() and (~fast & ~near).mean() < 1e-4
+    rad, ang = factor_deviations(eu, ev)
+    assert rad < krng.BM_RAD_REL and ang < krng.BM_ANG_ABS
+
+
+def test_bm_model_is_the_twin_on_seeded_words():
+    """2^18 seeded pairs: bit for bit, a fallback share below 1e-4, and the
+    fast factors inside the rounding test's bounds by a margin."""
+    rng = np.random.default_rng(12)
+    u, v = (rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint64).astype(np.uint32)
+            for _ in range(2))
+    share = float(1 - check_model(u, v).mean())
+    rad, ang = factor_deviations(u, v)
+    print(f"seeded words: fallback share {share:.3e}; largest deviations from the twin's "
+          f"factors: radius 2^{np.log2(rad):.2f} (relative), cos and sin 2^{np.log2(ang):.2f}")
+    assert share < 1e-4
+    assert rad < krng.BM_RAD_REL / 16 and ang < krng.BM_ANG_ABS / 2
+
+
+# the export twin's offsets (seed 5; frames 3, 2^32 + 4, ...; amp 6.25 down to
+# 0.25) as the parent of the redesigned draw kernel gave them: sha256[:16]
+EXPORT_DIGESTS = {
+    (1, 1, 1): "9d9f290527a6be62", (1, 1, 9): "ec72d3f8e79c233c",
+    (1, 120, 1): "f597db575a3c18e2", (1, 120, 9): "00e6bc882f0ea1dd",
+    (15, 1, 1): "bce0ed0c08e2c028", (15, 1, 9): "f6c4b578ebd38215",
+    (15, 120, 1): "20d5d32010f769cd", (15, 120, 9): "e7dce97a400fdda9",
+    (16, 1, 1): "155d3fc39dc3f4b9", (16, 1, 9): "a38bb2a577d9e4c7",
+    (16, 120, 1): "9c3fad43b4d10dcd", (16, 120, 9): "48793d0674c7125c",
+    (17, 1, 1): "f75bcc33039e1118", (17, 1, 9): "95bd6771e691d785",
+    (17, 120, 1): "83db795464a8b8ed", (17, 120, 9): "e5ff0d435d75048d",
+    (324, 1, 1): "231a9e66cf1d630d", (324, 1, 9): "ca1150a8c1c0875f",
+    (324, 120, 1): "341af589181847b5", (324, 120, 9): "ca5c8b0e57f31702",
+    (648, 1, 1): "ae2e74e908c8a9b2", (648, 1, 9): "1559d882db9789f0",
+    (648, 120, 1): "faed20795f367c77", (648, 120, 9): "99774a497256dee6",
+}
+
+
+def edge_amp(rows):
+    return torch.from_numpy((6.0 * (1.0 - np.arange(rows, dtype=np.float32) / rows))
+                            .astype(np.float32) + np.float32(0.25))
+
+
+def edge_frames(b):
+    return torch.arange(b, dtype=torch.int64) * ((1 << 32) + 1) + 3
+
+
+@pytest.mark.parametrize("batch", [1, 9])
+@pytest.mark.parametrize("nseg", [1, 120])
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 324, 648])
+def test_export_twin_unchanged_and_the_model_gives_it(rows, nseg, batch):
+    """The export twin's offsets at the edge shapes have the parent's
+    digests, and the offsets built from the fast path's model (its walk
+    summed in the same order) are the twin's, bit for bit."""
+    amp, fr = edge_amp(rows), edge_frames(batch)
+    got = krng.glitch_export_offsets_ref(5, fr, nseg, amp)
+    assert got.shape == (batch, rows, nseg) and got.dtype == torch.int32
+    assert hashlib.sha256(got.numpy().tobytes()).hexdigest()[:16] == EXPORT_DIGESTS[
+        (rows, nseg, batch)]
+
+    def normals(n, part=0):
+        groups = part + torch.arange(-(-n // 4), dtype=torch.int64)
+        w = [x.numpy().astype(np.uint32).reshape(-1)
+             for x in krng._words(5, fr, krng.GLITCH_STREAM, groups)]
+        z0, z1, _ = krng.bm_model(w[0], w[1])
+        z2, z3, _ = krng.bm_model(w[2], w[3])
+        return np.stack([z0, z1, z2, z3], -1).reshape(batch, -1)[:, :n]
+    a = amp.numpy()
+    seg = normals(rows * nseg).reshape(batch, rows, nseg) * (a * np.float32(0.7))[:, None]
+    walk = normals(rows, krng.WALK_PART)
+    s = np.zeros(batch, np.float32)
+    base = np.empty_like(walk)
+    for r in range(rows):
+        s = s + walk[:, r]
+        base[:, r] = np.clip(s * np.float32(0.1), -a[r] * np.float32(0.4), a[r] * np.float32(0.4))
+    want = np.rint(base[:, :, None] + seg).astype(np.int32)
+    assert np.array_equal(got.numpy(), want)
