@@ -12,13 +12,17 @@ Phases (each must pass; any failure exits non-zero):
    direct-pow triad; full-size and raw grain), of the stand-alone blooms'
    row walk (csrc/bloom_walk.cu, its fast source too), of the warp
    (csrc/warp.cu) and of the native draws (csrc/rng.cu), none of which
-   may use local memory.
+   may use local memory; the raw-grain instantiations' plans (their raw
+   stage, shared memory and blocks per SM at c3's pixel sizes 1-3 and for
+   the CLI defaults at grain size 2, beside grain size 1).
 3. Each kernel against its plain PyTorch twin on the card, at 1080p with
    a batch of 8 and the operands the main paths give it: the fused
    kernel with the c3 spec (gaussian core; grain size 2: the raw grain
-   upsampled in the kernel, also held bit for bit to the kernel at grain
-   size 1 fed the twin's upsample, the parent tree's computation, and
-   timed beside it) and the CLI-default spec (fast core), the warp (c3's strength and 1.0, the widest source
+   staged and upsampled in the kernel, also held bit for bit to the
+   kernel at grain size 1 fed the twin's upsample, that two-step path and
+   the grain-size-1 kernel alone on the upsampled field timed beside it),
+   the CLI-default spec (fast core) and the CLI defaults at grain size 2
+   (the fast core's raw grain, held and timed the same way), the warp (c3's strength and 1.0, the widest source
    footprints), the persistence scan (stream head and carried
    state) and the glitch shear (the c4 band, export and preview offsets,
    both entries); the native draws (csrc/rng.cu, one launch per batch and
@@ -291,6 +295,7 @@ PATH_KW = {"defaults-fast": dict(precision="fast"), "c3-fast": dict(precision="f
 # operations its three pow sites (csrc/triad_pow.cuh) were counted to run
 # per value (pow_site_ops).
 OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_planar": 12,
+                 "fused_pipeline_raw_grain": 40,
                  "warp_planar_strength1": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
                  "bloom3_planar": 45, "bloom3_fast_planar": 16, "bloom2_planar": 45,
@@ -881,7 +886,7 @@ def fused_instances(log: str) -> list:
                             "memory)"}.get(radius) or int(radius),
                     input="f32" if f32 == "1" else "uint8",
                     triad="direct pow (precision fast)" if direct == "1" else "LUT-exact",
-                    grain="raw, upsampled here" if graw == "1" else "full-size")
+                    grain="raw, staged and upsampled here" if graw == "1" else "full-size")
     return ptxas_instances(log, match, "fused instantiations", 32)
 
 
@@ -945,6 +950,30 @@ def plan_note(tables) -> str:
     return (f"; strips of {p.sw} columns, runs of {p.run} rows, chunks of {p.step} distinct "
             f"rows, ring {p.depth}{f' + {p.hdepth} half-res' if p.fast else ''} rows, "
             f"{p.smem} bytes of shared memory per block")
+
+
+def graw_plans(n_inst: int) -> None:
+    """[2]: the raw-grain instantiations' dynamic shared memory, which their
+    plans size (kernels/fused.py fused_plan, on the host): the raw stage
+    and the blocks per SM it leaves, for c3's gaussian core at pixel sizes
+    1-3 and the CLI defaults' fast core at grain size 2, beside the same
+    plan at grain size 1."""
+    from pythoncrt_tpu_torch import CRTEngine, EffectParams
+    from pythoncrt_tpu_torch.kernels import fused as kfused
+
+    print(f"[2] the {n_inst} raw-grain instantiations' shared memory is their plans' (host):")
+    for name, kw in (("c3", dict(C3, pixel_size=1)), ("c3", C3), ("c3", dict(C3, pixel_size=3)),
+                     ("defaults --grain-size 2", dict(grain_size=2, pixel_size=1)),
+                     ("defaults --grain-size 2", dict(grain_size=2))):
+        p, flat = (CRTEngine(EffectParams(**{**kw, "grain_size": g}), H, W, FPS, rng="host",
+                             device="cpu").fused_tables.plan for g in (kw["grain_size"], 1))
+        print(f"[2] raw-grain plan, {name} at pixel size {kw.get('pixel_size', 2)}: "
+              f"{p.smem} bytes of shared memory "
+              f"per block ({kfused.blocks_per_sm(p.smem)} per SM), chunks of {p.step} distinct "
+              f"rows, the raw stage {p.gdepth} rows of {p.gpitch} floats and {p.grows} rows' taps "
+              f"per buffer, two buffers, {p.sw} column taps and the run's schedule; at grain "
+              f"size 1 {flat.smem} bytes ({kfused.blocks_per_sm(flat.smem)} per SM), chunks of "
+              f"{flat.step}")
 
 
 @contextlib.contextmanager
@@ -1076,6 +1105,7 @@ def main() -> int:
               f"the plan's, in [3]); {inst['grain']} grain")
         if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
             fail(f"fused instantiation {inst} uses local memory")
+    graw_plans(sum(i["grain"].startswith("raw") for i in fused_instances(_build.build_log)))
     for inst in rng_instances(_build.build_log):
         # the stack frame is the FP64 cos and sin's argument reduction for
         # arguments past 2^20 or so (libdevice), a path the draws' angles in
@@ -1127,7 +1157,9 @@ def main() -> int:
                "defaults-angled-s11": EffectParams(**DEF_ANGLED, fast_bloom=False,
                                                    bloom_sigma=11.0),
                "ab8-w8": EffectParams(aberration_px=8),
-               "defaults-fast": EffectParams(), "c3-fast": EffectParams(**C3)}
+               "defaults-fast": EffectParams(), "c3-fast": EffectParams(**C3),
+               # the CLI defaults with --grain-size 2: the fast core's raw-grain mode
+               "defaults-g2": EffectParams(grain_size=2)}
     ov_synth = synth_overlay(H, W, seed=4)  # the parity phases need no font
     table = {}
 
@@ -1148,36 +1180,57 @@ def main() -> int:
                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
-    def raw_grain_check(eng, x, kw, got, ms) -> str:
-        """The raw-grain mode (grain size above 1: the kernel upsamples the
-        raw field) against the parent tree's computation: the oracle's
-        bilinear upsample as torch ops, then the kernel at grain size 1.
-        Bit for bit, or the smoke fails; both timed."""
+    def raw_grain_check(eng, x, kw, got, ms) -> tuple:
+        """The raw-grain mode (grain size above 1: the kernel stages the raw
+        rows and upsamples them) against the upsample as torch ops (the
+        oracle's bilinear taps), then the kernel at grain size 1. Bit for
+        bit, or the smoke fails. Timed: that two-step path, the kernel at
+        grain size 1 alone on the upsampled field (what the raw-grain
+        kernel should not be slower than: it reads 4x fewer grain bytes at
+        grain size 2), and the raw-grain kernel again after both. Returns
+        the row's note and its numbers."""
         flat_spec = dataclasses.replace(eng.spec, grain_size=1)
         flat = kfused.fused_consts(flat_spec, dev, y_map=eng.consts["pix_y"],
                                    x_maps=eng.consts["pix_x"][list(eng._plane_colors)])
         t = eng.fused_tables.grain_taps
 
-        def parent():
-            field = oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(), t[3])
-            return kfused.fused_pipeline(x, flat_spec, flat, **{**kw, "grain": field.contiguous()})
-        want = parent()
+        def upsample():
+            return oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(),
+                                           t[3]).contiguous()
+
+        def two_step():
+            return kfused.fused_pipeline(x, flat_spec, flat, **{**kw, "grain": upsample()})
+        want = two_step()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"the raw-grain mode differs from the upsample then the kernel at grain size 1: "
                  f"{(got - want).abs().max().item():.3g}")
-        pms = time_ms(parent)
+        pms = time_ms(two_step)
+        field = upsample()
+        fms = time_ms(lambda: kfused.fused_pipeline(x, flat_spec, flat, **{**kw, "grain": field}))
+        again = time_ms(lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))
         gh, gw = eng.spec.grain_hw
-        return (f"; raw grain {gh}x{gw} upsampled in the kernel, bit for bit the torch upsample "
-                f"then the kernel at grain size 1 (the parent tree's path: {pms:.4f} ms/call, "
-                f"{pms / B:.4f} ms/frame, {pms / ms:.2f}x; its grain operand "
-                f"{B * eng.h * eng.w * 4 / 1e6:.1f} MB against {kw['grain'].numel() * 4 / 1e6:.2f})")
+        p = eng.fused_tables.plan
+        nums = dict(two_step_ms=pms, full_field_kernel_ms=fms, raw_grain_ms_again=again,
+                    raw_stage=dict(gdepth=p.gdepth, gpitch=p.gpitch, grows=p.grows),
+                    smem=p.smem, blocks_per_sm=kfused.blocks_per_sm(p.smem))
+        note = (f"; raw grain {gh}x{gw} staged and upsampled in the kernel ({p.gdepth} raw rows "
+                f"of {p.gpitch} floats and {p.grows} rows' taps per chunk, two buffers; "
+                f"{kfused.blocks_per_sm(p.smem)} blocks per SM by shared memory), bit for bit "
+                f"the torch upsample then the kernel at grain size 1 (that path {pms:.4f} ms/call, "
+                f"{pms / B:.4f} ms/frame, {pms / ms:.2f}x; the kernel at grain size 1 alone on "
+                f"the upsampled field {fms:.4f} ms/call, {fms / B:.4f} ms/frame, the raw-grain "
+                f"kernel {ms / fms:.3f}x it, {again / B:.4f} ms/frame timed again after it; its "
+                f"grain operand {B * eng.h * eng.w * 4 / 1e6:.1f} MB against "
+                f"{kw['grain'].numel() * 4 / 1e6:.2f})")
+        return note, nums
 
     # ---- 3. kernels vs plain twins at the main paths' shapes ----
     frames = synth(B, H, W, seed=1)
     x = planar_gbr(frames)
     fused_out = {}
-    for cfg, kname in (("c3", "fused_pipeline_gaussian"), ("defaults", "fused_pipeline")):
+    for cfg, kname in (("c3", "fused_pipeline_gaussian"), ("defaults", "fused_pipeline"),
+                       ("defaults-g2", "fused_pipeline_raw_grain")):
         eng = CRTEngine(configs[cfg], H, W, FPS, rng="host", layout="planar",
                         channel_order="gbr", device=dev)
         kw = eng.fused_operands(eng.make_aux(np.arange(B)))
@@ -1191,14 +1244,16 @@ def main() -> int:
         ms = time_ms(lambda: kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))
         plain = time_ms(lambda: kfused.fused_pipeline_ref(x, eng.spec, eng.fused_tables, **kw),
                         iters=3)
-        raw = ""
+        raw, raw_nums = "", None
         if eng.spec.grain_size > 1:
-            raw = raw_grain_check(eng, x, kw, got, ms)
+            raw, raw_nums = raw_grain_check(eng, x, kw, got, ms)
         row(kname, "pythoncrt_tpu_torch/csrc/fused.cu", "pythoncrt_tpu/kernels/fused.py:680",
             err, lsb, ms, plain, None, nbytes(x, got, *kw.values(), *(
                 eng.fused_tables.grain_taps or ())), got.numel(),
             note=f" ({cfg} spec, {'fast' if eng.spec.fast else 'gaussian'} core{raw}"
                  f"{plan_note(eng.fused_tables)})")
+        if raw_nums:
+            table[kname]["raw_grain"] = raw_nums
         fused_out[cfg] = (eng, got)
         del want
 
@@ -3012,6 +3067,7 @@ def main() -> int:
                            + sh_c4 + sh_defaults + spc_c4 + spc_defaults),
         "fused_pipeline_c5": ("fused_pipeline", ("c5", "c5-stacks") + sh_c5),
         "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
+        "fused_pipeline_raw_grain": ("fused_pipeline", ()),  # the defaults at grain size 2
         "warp_planar": ("warp_planar", None),  # every path but the previews
         "warp_planar_strength1": ("warp_planar", ()),
         "persistence_scan": ("persistence_scan", ("defaults", "c4", "defaults-angled",

@@ -12,7 +12,7 @@
 // `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3);
 // and its two grain operands: the full-size field, or the raw (gh, gw)
 // field upsampled in the kernel (GRAW: the grain branch, fused.py:640-667,
-// for grain sizes above 1; see load_grain).
+// for grain sizes above 1; see stage_grain and grain_staged).
 // The direct-pow triad's three pow sites per value are f32 double-float
 // fast paths with a rounding test and an out-of-line FP64 fallback
 // (triad_pow.cuh), bit for bit the FP64 expressions. Where the LUT-exact
@@ -50,7 +50,11 @@
 //    rows in the f32-input mode. The window's offsets into the staged
 //    row are computed once per block: the maps do not change down the
 //    strip. The grain of each thread's first output of the next chunk is
-//    loaded a chunk ahead.
+//    loaded a chunk ahead. GRAW: the raw grain rows the next chunk's
+//    output rows read, over the strip's raw column window, and their row
+//    taps are staged a chunk ahead in a double buffer of their own; the
+//    strip's column taps are staged once per block; the epilogue
+//    upsamples from shared memory alone.
 // 2. The prologue (/255, grade) runs once per distinct source pixel: a
 //    row whose map entry equals the row above's is the same row (one
 //    ring slot per distinct row), and a column whose three plane maps
@@ -190,6 +194,13 @@ struct FusedArgs {
     const int32_t* gylo; const float* gyf;
     const int32_t* gxlo; const float* gxf;
     int32_t grain_raw, gh, gw;
+    // GRAW: the raw stage's size (kernels/fused.py fused_plan): raw rows a
+    // chunk's outputs read at most, the staged row pitch (floats), output
+    // rows a chunk completes at most; per run and chunk (first raw row, raw
+    // rows, output rows), gstride ints a run
+    int32_t gdepth, gpitch, grows;
+    const int32_t* grawtab;
+    int32_t gstride;
 };
 
 namespace {
@@ -215,17 +226,28 @@ struct Smem {
                            // pow sites' [triad::TAB] (triad_pow.cuh)
     float* tri;            // [3][sw] the strip's triad rows
     float* vx;             // [sw] the strip's vignette nx^2
-    int* misc;             // [12] this strip's staged ranges, [12] the leader count
+    int* misc;             // [12] this strip's staged ranges, [12] the leader count; GRAW:
+                           // [13] the strip's first raw column, [14] its raw columns
     float* taps;           // radius above MAXR: [4r + 1] taps, edge_l, edge_r
+    int* gx_lo; float* gx_f;  // GRAW: [sw] the strip's column taps, lo less the raw window's first
+    float* graw;           // GRAW: [2][gdepth * gpitch + 2 * grows] a chunk's raw rows, then its
+                           // rows' taps (gylo as int, gyf)
+    int* gq;               // GRAW: [gstride] the run's (first raw row, raw rows, output rows)
+                           // per chunk (grawtab)
     int total;
 };
 
 __host__ __device__ __forceinline__ int a16h(int n) { return (n + 15) & ~15; }
 
+// GRAW: floats of one buffer of the raw stage.
+__host__ __device__ __forceinline__ int graw_floats(const FusedArgs& a) {
+    return a.gdepth * a.gpitch + 2 * a.grows;
+}
+
 // DIRECT: the direct-pow triad's layout, which holds the pow sites' table in
 // place of the two LUTs; a template argument, so that the LUT-exact
 // instantiations test nothing at run time.
-template <bool DIRECT>
+template <bool DIRECT, bool GRAW>
 __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* base) {
     Smem s;
     const bool fast = a.bloom_on && a.fast_on;
@@ -258,8 +280,16 @@ __host__ __device__ inline Smem smem_layout(const FusedArgs& a, unsigned char* b
     o += a16h((luts + 4 * a.sw) * 4);
     s.misc = (int*)(base + o); o += 64;
     s.taps = nullptr;
+    s.gx_lo = s.gq = nullptr; s.gx_f = s.graw = nullptr;
     if (!fast && r > MAXR) {
         s.taps = (float*)(base + o); o += a16h((4 * r + 1) * 4);
+    }
+    if constexpr (GRAW) {
+        s.gx_lo = (int*)(base + o);
+        s.gx_f = (float*)(base + o + a.sw * 4);
+        o += a16h(a.sw * 8);
+        s.graw = (float*)(base + o); o += a16h(2 * graw_floats(a) * 4);
+        s.gq = (int*)(base + o); o += a16h(a.gstride * 4);
     }
     s.total = o;
     return s;
@@ -388,34 +418,11 @@ __device__ __forceinline__ void finish(const FusedArgs& a, const float* lut, flo
 
 // The grain of nv (1-4) adjacent pixels of row gy from gx: one 16-byte
 // load when the epilogue is vectorized (0 when the noise stage is off).
-// GRAW: the raw field's bilinear upsample in the oracle's order (ops/
-// resize.py resize_bilinear: the two rows' lerp at each of the two
-// columns, then the columns' lerp, each lo * (1 - f) + hi * f in f32, no
-// contraction), read from the field's two rows through the read-only
-// path. (Computing each raw column's row lerp once per group of four, in
-// place of twice, measured no faster on an H100: PERF.md.)
-template <bool GRAW>
 __device__ __forceinline__ void load_grain(const FusedArgs& a, int bi, int gy, int gx, int nv,
                                            float gr[4]) {
     #pragma unroll
     for (int v = 0; v < 4; ++v) gr[v] = 0.0f;
     if (!a.noise_on) return;
-    if constexpr (GRAW) {
-        const int ylo = __ldg(a.gylo + gy), yhi = min(ylo + 1, a.gh - 1);
-        const float fy = __ldg(a.gyf + gy);
-        const float* r0 = a.grain + ((size_t)bi * a.gh + ylo) * a.gw;
-        const float* r1 = a.grain + ((size_t)bi * a.gh + yhi) * a.gw;
-        #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-            if (v < nv) {
-                const int xlo = __ldg(a.gxlo + gx + v), xhi = min(xlo + 1, a.gw - 1);
-                const float lo = lerp_taps(__ldg(r0 + xlo), __ldg(r1 + xlo), fy);
-                const float hi = lerp_taps(__ldg(r0 + xhi), __ldg(r1 + xhi), fy);
-                gr[v] = lerp_taps(lo, hi, __ldg(a.gxf + gx + v));
-            }
-        }
-        return;
-    }
     const float* g = a.grain + ((size_t)bi * a.h + gy) * a.w + gx;
     if (a.vec_ok && nv == 4) {
         const float4 t = __ldg(reinterpret_cast<const float4*>(g));
@@ -423,6 +430,38 @@ __device__ __forceinline__ void load_grain(const FusedArgs& a, int bi, int gy, i
     } else {
         #pragma unroll
         for (int v = 0; v < 4; ++v) if (v < nv) gr[v] = __ldg(g + v);
+    }
+}
+
+// GRAW: the grain of nv (1-4) adjacent pixels of the chunk's output row yy
+// (its index among the chunk's rows) from strip column lx, upsampled from
+// the raw stage gb, which holds raw rows g0 .. and the chunk's row taps
+// (stage_grain): the oracle's bilinear upsample (ops/resize.py
+// resize_bilinear: the two rows' lerp at each of the two columns, then the
+// columns' lerp, each lo * (1 - f) + hi * f in f32, no contraction). The
+// stage holds each tap's lo + 1 row and column, clamped to the field as
+// the oracle clamps them, so that hi is lo + 1 there: one address per row
+// and output. Shared memory only: the column taps are the strip's
+// (S.gx_lo, S.gx_f, one 16-byte load each), the row's tap the chunk's.
+__device__ __forceinline__ void grain_staged(const FusedArgs& a, const Smem& S, const float* gb,
+                                             int g0, int yy, int lx, int nv, float gr[4]) {
+    const float* gt = gb + a.gdepth * a.gpitch;
+    const int ylo = reinterpret_cast<const int*>(gt)[yy];
+    const float fy = gt[a.grows + yy];
+    const float* r0 = gb + (ylo - g0) * a.gpitch;
+    const float* r1 = r0 + a.gpitch;
+    const int4 xl4 = *reinterpret_cast<const int4*>(S.gx_lo + lx);
+    const float4 xf4 = *reinterpret_cast<const float4*>(S.gx_f + lx);
+    const int xl[4] = {xl4.x, xl4.y, xl4.z, xl4.w};
+    const float xf[4] = {xf4.x, xf4.y, xf4.z, xf4.w};
+    #pragma unroll
+    for (int v = 0; v < 4; ++v) {
+        gr[v] = 0.0f;
+        if (v < nv) {  // the strip's columns past the frame hold no taps
+            const float lo = lerp_taps(r0[xl[v]], r1[xl[v]], fy);
+            const float hi = lerp_taps(r0[xl[v] + 1], r1[xl[v] + 1], fy);
+            gr[v] = lerp_taps(lo, hi, xf[v]);
+        }
     }
 }
 
@@ -561,6 +600,31 @@ __device__ void stage_rows(const FusedArgs& a, unsigned char* buf, const int* se
             }
             dst += n;
         }
+    }
+}
+
+// GRAW: stage into gb what chunk c's output rows (ny from ya) of frame bi
+// read of the raw grain field: its gn rows from g0 (gylo[ya] .. gylo[ya +
+// ny - 1] + 1: the row taps rise with the row; the run's grawtab in S.gq),
+// each over the strip's raw columns [jr0, jr0 + nraw) (S.misc), then the
+// rows' taps (gylo, gyf). A row or column past the field's last is that
+// last one (the oracle's hi tap, min(lo + 1, n - 1), where n is 1).
+// 4-byte copies: a raw window need not start on a 16-byte word. The
+// schedule is read from shared memory: no global load stalls the block.
+__device__ void stage_grain(const FusedArgs& a, const Smem& S, float* gb, int bi, int ya, int c) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g0 = S.gq[3 * c], gn = S.gq[3 * c + 1], ny = S.gq[3 * c + 2];
+    const int jr0 = S.misc[13], nraw = S.misc[14];
+    const float* field = a.grain + (size_t)bi * a.gh * a.gw;
+    for (int k = warp; k < gn; k += NWARP) {
+        const float* src = field + (size_t)min(g0 + k, a.gh - 1) * a.gw;
+        for (int c = lane; c < nraw; c += 32)
+            cp_async<4>(gb + k * a.gpitch + c, src + min(jr0 + c, a.gw - 1));
+    }
+    float* gt = gb + a.gdepth * a.gpitch;
+    for (int i = threadIdx.x; i < ny; i += NT) {
+        cp_async<4>(gt + i, a.gylo + ya + i);
+        cp_async<4>(gt + a.grows + i, a.gyf + ya + i);
     }
 }
 
@@ -716,12 +780,14 @@ __device__ __forceinline__ void vtaps_block(const FusedArgs& a, const Smem& S, c
 // except the fast core's uint8-input one: at 64 registers it kept a word
 // in local memory, so it takes the gaussian's 80 (3 blocks). GRAW (the raw
 // grain upsampled here) is its own instantiation of each, so that the
-// full-size grain's instantiations are the code they were.
+// full-size grain's instantiations are the code they were; its direct-pow
+// fast core with the f32 input kept a word in local memory at 64 registers
+// too, and takes 80.
 template <int CORE, int RT, bool F32IN, bool DIRECT, bool GRAW>
-__global__ void __launch_bounds__(NT, CORE == FAST && !(DIRECT && !F32IN) ? 4 : 3)
+__global__ void __launch_bounds__(NT, CORE == FAST && !(DIRECT && (!F32IN || GRAW)) ? 4 : 3)
 fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem S = smem_layout<DIRECT>(a, smem);
+    const Smem S = smem_layout<DIRECT, GRAW>(a, smem);
     const int tid = threadIdx.x;
     const int h = a.h, w = a.w, bi = blockIdx.z;
     const int sw = a.sw, step = a.step, depth = a.depth;
@@ -776,6 +842,22 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
             S.ux_f[x] = __ldg(a.fu_xf + x0 + x);
         }
     }
+    // GRAW, once per block: the strip's raw columns [jr0, jr0 + nraw), each
+    // lo tap and lo + 1 (the oracle's column taps rise with the column), its
+    // column taps, and the run's raw schedule
+    if constexpr (GRAW) {
+        const int jr0 = __ldg(a.gxlo + x0);
+        for (int x = tid; x < ncen; x += NT) {
+            S.gx_lo[x] = __ldg(a.gxlo + x0 + x) - jr0;
+            S.gx_f[x] = __ldg(a.gxf + x0 + x);
+        }
+        if (tid == 0) {
+            S.misc[13] = jr0;
+            S.misc[14] = __ldg(a.gxlo + xe - 1) + 2 - jr0;
+        }
+        for (int i = tid; i < a.gstride; i += NT)
+            S.gq[i] = __ldg(a.grawtab + blockIdx.y * a.gstride + i);
+    }
     __syncthreads();
 
     // ---- staged offsets and the leader flags of the window's columns ----
@@ -819,6 +901,12 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     int nh = __ldg(sched + 2);
     const size_t stage_buf = (size_t)step * 3 * a.seg_pitch * (F32IN ? 4 : 1);
     stage_rows<F32IN>(a, S.stage, seg, bi, d_lo, min(step, d_hi - d_lo));
+    // GRAW: the raw grain of a chunk's output rows is staged in its own
+    // buffer of two, a chunk ahead: chunk 0's with its source rows, chunk
+    // ci + 1's after chunk ci's first barrier (the last reader of that
+    // buffer, chunk ci - 1's epilogue, has passed it), in a commit group of
+    // its own that the next chunk's wait_group 1 completes.
+    if constexpr (GRAW) stage_grain(a, S, S.graw, bi, y0, 0);
     cp_commit();
     __syncthreads();
     const int nl = S.misc[12];
@@ -831,9 +919,9 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     // the grain of this thread's first output of a chunk is loaded a chunk
     // ahead, so that its latency hides behind a whole chunk
     float gr_next[4];
-    if (tid < (ye_next - y0) * nq) {
+    if (!GRAW && tid < (ye_next - y0) * nq) {
         const int yy = div_nq(tid), q = tid - yy * nq;
-        load_grain<GRAW>(a, bi, y0 + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+        load_grain(a, bi, y0 + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
     }
 
     for (int d = d_lo, ci = 0; d < d_hi; d += step, ++ci) {
@@ -850,12 +938,16 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
         float gr0[4];
         #pragma unroll
         for (int v = 0; v < 4; ++v) gr0[v] = gr_next[v];
+        const float* gb = GRAW ? S.graw + (ci & 1) * graw_floats(a) : nullptr;
         if (e < d_hi) {
             he_next = __ldg(sched + 5 + 2 * ci);
             ye_next = __ldg(sched + 6 + 2 * ci);
-            if (tid < (ye_next - ye) * nq) {
+            if constexpr (GRAW) {
+                stage_grain(a, S, S.graw + ((ci + 1) & 1) * graw_floats(a), bi, ye, ci + 1);
+                cp_commit();
+            } else if (tid < (ye_next - ye) * nq) {
                 const int yy = div_nq(tid), q = tid - yy * nq;
-                load_grain<GRAW>(a, bi, ye + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
+                load_grain(a, bi, ye + yy, x0 + 4 * q, min(4, ncen - 4 * q), gr_next);
             }
         }
 
@@ -1002,11 +1094,13 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                             m[p][0] = v4.x; m[p][1] = v4.y; m[p][2] = v4.z; m[p][3] = v4.w;
                         }
                         float gr[4];
-                        if (ya == nxt && it == tid) {
+                        if constexpr (GRAW) {
+                            grain_staged(a, S, gb, S.gq[3 * ci], y - nxt, 4 * q, min(4, xe - gx), gr);
+                        } else if (ya == nxt && it == tid) {
                             #pragma unroll
                             for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                         } else {
-                            load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
+                            load_grain(a, bi, y, gx, min(4, xe - gx), gr);
                         }
                         epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
                     }
@@ -1062,11 +1156,13 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                         for (int v = 0; v < 4; ++v) m[p][v] = clip01(xv[v] + a.strength * acc[v]);
                     }
                     float gr[4];
-                    if (it == tid) {
+                    if constexpr (GRAW) {
+                        grain_staged(a, S, gb, S.gq[3 * ci], yy, 4 * q, min(4, xe - gx), gr);
+                    } else if (it == tid) {
                         #pragma unroll
                         for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                     } else {
-                        load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
+                        load_grain(a, bi, y, gx, min(4, xe - gx), gr);
                     }
                     epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
                 }
@@ -1110,11 +1206,13 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
                     }
                 }
                 float gr[4];
-                if (it == tid) {
+                if constexpr (GRAW) {
+                    grain_staged(a, S, gb, S.gq[3 * ci], yy, 4 * q, min(4, xe - gx), gr);
+                } else if (it == tid) {
                     #pragma unroll
                     for (int v = 0; v < 4; ++v) gr[v] = gr0[v];
                 } else {
-                    load_grain<GRAW>(a, bi, y, gx, min(4, xe - gx), gr);
+                    load_grain(a, bi, y, gx, min(4, xe - gx), gr);
                 }
                 epilogue4<DIRECT>(a, S, bi, y, gx, 4 * q, min(4, xe - gx), m, gr);
             }
@@ -1147,11 +1245,15 @@ extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
     if (a->r < 0 || (a->bloom_on && !a->fast_on && a->r > MAXR && !a->tapdev))
         return (int)cudaErrorInvalidValue;
     const bool graw = a->noise_on && a->grain_raw;
-    if (graw && (!a->gylo || !a->gyf || !a->gxlo || !a->gxf || a->gh < 1 || a->gw < 1))
+    if (graw && (!a->gylo || !a->gyf || !a->gxlo || !a->gxf || a->gh < 1 || a->gw < 1
+                 || a->gdepth < 1 || a->gpitch < 1 || a->grows < 1 || !a->grawtab
+                 || a->gstride < 3))
         return (int)cudaErrorInvalidValue;
     const bool direct = a->triad_mode == 3;
-    const int total = direct ? smem_layout<true>(*a, nullptr).total
-                             : smem_layout<false>(*a, nullptr).total;
+    const int total = direct ? (graw ? smem_layout<true, true>(*a, nullptr).total
+                                     : smem_layout<true, false>(*a, nullptr).total)
+                             : (graw ? smem_layout<false, true>(*a, nullptr).total
+                                     : smem_layout<false, false>(*a, nullptr).total);
     if (total != a->smem) return (int)cudaErrorInvalidValue;
     void (*kern)(const FusedArgs) =
         direct ? (graw ? pick_kernel<true, true>(*a) : pick_kernel<true, false>(*a))

@@ -14,7 +14,10 @@ each ``lo * (1 - f) + hi * f`` in f32, bit for bit
 ``ops/resize.resize_bilinear`` of the field. The TPU kernel's 8-row
 windows and bf16 column dot have no counterpart: they are its layout's,
 and its gate (grain size 2, even H, strength <= 32) is their error
-envelope; the port takes any grain size and H, W.
+envelope; the port takes any grain size and H, W. The plan sizes the
+kernel's raw stage (``FusedPlan.gdepth``, ``gpitch``, ``grows``,
+``grawtab``): per chunk the raw rows its output rows read, over the
+strip's raw columns, staged a chunk ahead.
 
 The bloom core is the exact gaussian (H then V), the fast half-res
 down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
@@ -88,6 +91,12 @@ BIG_ROWS = 4  # csrc/fused.cu BR: output rows a thread sums at once past MAX_R
 # groups of rows to fill a block: two blocks per SM are sought only at
 # this width and wider (PERF.md)
 BIG_MIN_SW = 32
+# the raw grain's stage: where it leaves room for fewer blocks per SM than
+# the same walk at grain size 1 (by shared memory and the register cap),
+# the first of these shorter chunks that restores them is taken (the CLI
+# defaults at --grain-size 2: 8 in place of 12 keeps 4 fast-core blocks
+# per SM, faster on an H100, PERF.md)
+GRAW_STEPS = (8, 6)
 
 
 @dataclass(frozen=True)
@@ -228,7 +237,15 @@ class FusedPlan:
     ``split``: no strip fits a block (the three-launch route of
     ``fused_pipeline``; the walk's sizes and tables are then unset).
     ``direct``: the direct-pow triad (triad_mode 3), which stages its pow
-    sites' table (DIRECT_TAB floats) in place of the LUTs."""
+    sites' table (DIRECT_TAB floats) in place of the LUTs.
+
+    ``grain``: (grain size, gh, gw) where the kernel upsamples the raw
+    grain field (the noise on at a grain size above 1; else None). Its
+    raw stage holds, per chunk, the raw rows its output rows read over
+    the strip's raw columns (``gwindows``, from the oracle's column taps)
+    and the rows' taps, in two buffers: ``gdepth`` raw rows of ``gpitch``
+    floats and ``grows`` output rows at most (grain_stage). ``grawtab``:
+    per run and chunk, its first raw row, raw rows and output rows."""
     fast: bool
     pre: bool
     knee: bool
@@ -254,6 +271,12 @@ class FusedPlan:
     halftab: np.ndarray = None  # (H2, 4) fast core: ring offsets of the half-res rows
     split: bool = False
     direct: bool = False
+    grain: Optional[tuple] = None
+    gwindows: np.ndarray = None  # (strips, 2) GRAW: raw columns [jr0, jr1] of each strip
+    grawtab: np.ndarray = None   # (runs, 3 * chunks) GRAW: (g0, gn, rows) per chunk
+    gdepth: int = 0
+    gpitch: int = 0
+    grows: int = 0
 
     @property
     def strips(self) -> int:
@@ -266,7 +289,7 @@ class FusedPlan:
     @property
     def key(self) -> tuple:
         """The plan_key of the specs this plan serves."""
-        return (self.h, self.w, self.pre, self.fast, self.r, self.knee, self.direct)
+        return (self.h, self.w, self.pre, self.fast, self.r, self.knee, self.direct, self.grain)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -364,12 +387,15 @@ def plan_chunks(plan: FusedPlan, y0: int, fast_taps=None) -> list:
 
 
 def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hdepth: int,
-              win: int, hwin: int, seg_pitch: int, knee: bool, direct: bool = False) -> int:
+              win: int, hwin: int, seg_pitch: int, knee: bool, direct: bool = False,
+              graw: Optional[tuple] = None) -> int:
     """Shared memory of one block in bytes: csrc/fused.cu's smem_layout
     (the fast core without a knee reads the pre-knee strip from its
     knee'd ring; the direct-pow triad holds its pow sites' table,
     DIRECT_TAB floats, in place of the two LUTs; a radius above MAX_R adds
-    its taps and border coefficients, 4r + 1 floats, at the end)."""
+    its taps and border coefficients, 4r + 1 floats; ``graw``, the raw
+    grain's (gdepth, gpitch, grows, gstride), adds the strip's column taps,
+    the raw stage's two buffers and the run's raw schedule, at the end)."""
     def a16(n):
         return _round_up(n, 16)
     n = a16(2 * step * 3 * seg_pitch * (1 if pre else 4))  # staged rows, two buffers
@@ -385,6 +411,11 @@ def plan_smem(fast: bool, pre: bool, r: int, sw: int, step: int, depth: int, hde
     n += 64  # the strip's staged ranges
     if not fast and r > MAX_R:
         n += a16((4 * r + 1) * 4)  # the taps, edge_l and edge_r
+    if graw:
+        gdepth, gpitch, grows, gstride = graw
+        n += a16(sw * 8)  # the strip's column taps (lo, frac)
+        n += a16(2 * (gdepth * gpitch + 2 * grows) * 4)  # the raw stage, two buffers
+        n += a16(gstride * 4)  # the run's grawtab row
     return n
 
 
@@ -393,13 +424,42 @@ def blocks_per_sm(smem: int) -> int:
     return SMEM_SM // (smem + 1024)
 
 
+def register_blocks(fast: bool, pre: bool, direct: bool, graw: bool) -> int:
+    """Blocks per SM an instantiation's register cap leaves room for
+    (csrc/fused.cu's __launch_bounds__: 64 registers a thread for the fast
+    core, 80 for the gaussian one and for the fast core's direct-pow triad
+    with the uint8 input, or with the raw grain)."""
+    return 4 if fast and not (direct and (pre or graw)) else 3
+
+
 def plan_key(spec: "FusedSpec") -> tuple:
     """What of a spec its plan is made for: (H, W, pre, fast core,
-    gaussian radius, knee, direct-pow triad). Taps of one radius share a
-    plan."""
+    gaussian radius, knee, direct-pow triad, raw grain: (grain size, gh,
+    gw) or None). Taps of one radius share a plan."""
     fast = bool(spec.bloom and spec.fast)
+    graw = (spec.grain_size, *spec.grain_hw) if spec.noise and spec.grain_size > 1 else None
     return (spec.h, spec.w, bool(spec.pre), fast, spec.r if spec.bloom and not fast else 0,
-            bool(spec.bloom and spec.threshold > 0.0), triad_mode(spec) == 3)
+            bool(spec.bloom and spec.threshold > 0.0), triad_mode(spec) == 3, graw)
+
+
+def grain_windows(w: int, sw: int, gxlo: np.ndarray) -> np.ndarray:
+    """(strips, 2): the raw grain columns [jr0, jr1] a strip stages, each
+    output's lo tap and lo + 1 (the oracle's column taps rise with the
+    column; lo + 1 is the hi tap but where the field is one column wide,
+    and the stage holds column 0 there; csrc/fused.cu computes the same at
+    block start)."""
+    x0 = np.arange(0, w, sw)
+    xe = np.minimum(x0 + sw, w)
+    return np.stack([gxlo[x0], gxlo[xe - 1] + 1], 1).astype(np.int64)
+
+
+def grain_stage(chunks, gylo: np.ndarray) -> list:
+    """Per chunk of a run, what the raw stage holds for its output rows
+    [nxt, ye): (first raw row, raw rows, output rows), the raw rows
+    gylo[nxt] .. gylo[ye - 1] + 1 (each lo tap and lo + 1, as the
+    columns); (0, 0, 0) where the chunk completes no row."""
+    return [(int(gylo[nxt]), int(gylo[ye - 1]) + 2 - int(gylo[nxt]), ye - nxt) if ye > nxt
+            else (0, 0, 0) for _, _, _, _, nxt, ye, _, _ in chunks]
 
 
 def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
@@ -410,8 +470,14 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     chunk and run sizes from WALK. Past MAX_R the widest strip of at least
     BIG_MIN_SW columns that leaves room for two blocks per SM is taken
     where there is one, and where WALK's "big" chunk fits no strip the
-    gaussian one is tried. A plan that fits no strip is ``split``."""
-    h, w, _, fast, r, knee, direct = plan_key(spec)
+    gaussian one is tried. With the raw grain, where its stage leaves
+    fewer blocks per SM than the first walk's block at grain size 1, the
+    first of GRAW_STEPS' shorter chunks that gives them back is taken (else
+    that first walk). A plan that fits no strip is ``split``."""
+    h, w, _, fast, r, knee, direct, grain = plan_key(spec)
+    if grain:
+        gylo = oracle.ops.bilinear_taps(grain[1], h)[0]
+        gxlo = oracle.ops.bilinear_taps(grain[2], w)[0]
     if spec.pre:
         ydist, ysrc = distinct_rows(y_map)
         gran = 16 if w % 16 == 0 else 4 if w % 4 == 0 else 1
@@ -423,13 +489,19 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     walks = [WALK[core, bool(spec.pre)]]
     if core == "big":  # the gaussian chunk where the big one fits no strip: no earlier split
         walks.append(WALK["gaussian", bool(spec.pre)])
+    if grain:  # shorter chunks where the raw stage costs blocks per SM (GRAW_STEPS)
+        walks += [(s, walks[0][1]) for s in GRAW_STEPS if s < walks[0][0]]
+    # the first walk that fits, and the blocks per SM of its block at grain
+    # size 1, which a shorter chunk must give back where the raw stage costs
+    first = target = None
     for step, run in walks:
         run = min(run, h)
         plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran,
                          0, ydist, ysrc, np.zeros((0, 3, 4), np.int32),
-                         np.zeros((0, 4), np.int64), direct=direct)
+                         np.zeros((0, 4), np.int64), direct=direct, grain=grain)
         depth = hdepth = 1
-        sched = []
+        gdepth = grows = 0
+        sched, gsched = [], []
         for y0 in range(0, h, run):
             chunks = plan_chunks(plan, y0, fast_taps)
             sched.append([chunks[0][0], chunks[-1][1], chunks[0][2]]
@@ -437,6 +509,10 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
             for d, e, nh, he, nxt, ye, alive, halive in chunks:
                 depth = max(depth, e - alive)
                 hdepth = max(hdepth, he - halive)
+            if grain:
+                gsched.append([v for c in grain_stage(chunks, gylo) for v in c])
+                gdepth = max(gdepth, *gsched[-1][1::3])
+                grows = max(grows, *gsched[-1][2::3])
         depth = min(depth, len(ysrc))  # a ring of every distinct row never evicts one
         fits = None
         for cand in STRIP_WIDTHS:
@@ -445,28 +521,53 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
             # the fast core shifts its window by up to 3 columns (csrc/fused.cu ksh)
             win = _round_up(int((windows[:, 1] - windows[:, 0]).max()) + 3 * fast, 4)
             hwin = _round_up(int((windows[:, 3] - windows[:, 2] + 1).max()), 4) if fast else 0
+            gwin = graw = None
+            if grain:
+                gwin = grain_windows(w, cand, gxlo)
+                graw = (gdepth, int((gwin[:, 1] - gwin[:, 0] + 1).max()), grows,
+                        max(map(len, gsched)))
             smem = plan_smem(fast, spec.pre, r, cand, step, depth, hdepth, win, hwin, pitch,
-                             knee, direct)
+                             knee, direct, graw)
             if smem > SMEM_MAX:
                 continue
-            this = (cand, windows, segs, pitch, win, hwin, smem)
+            this = (cand, windows, segs, pitch, win, hwin, smem, gwin, graw)
             fits = fits or this  # the widest strip that fits
             if core != "big" or (cand >= BIG_MIN_SW and blocks_per_sm(smem) >= 2):
                 fits = this
                 break
         if fits:
-            break
+            walk = (plan, depth, hdepth, sched, gsched, fits)
+            if first is None:
+                first, target = walk, min(blocks_per_sm(plan_smem(
+                    fast, spec.pre, r, fits[0], step, depth, hdepth, fits[4], fits[5], fits[3],
+                    knee, direct)), register_blocks(fast, spec.pre, direct, False))
+            if not grain or min(blocks_per_sm(fits[6]),
+                                register_blocks(fast, spec.pre, direct, True)) >= target:
+                break
     else:
-        plan.split, plan.depth, plan.hdepth = True, depth, hdepth
-        return plan
-    cand, windows, segs, pitch, win, hwin, smem = fits
+        if first is None:
+            plan.split, plan.depth, plan.hdepth = True, depth, hdepth
+            return plan
+        walk = first
+    plan, depth, hdepth, sched, gsched, fits = walk
+    cand, windows, segs, pitch, win, hwin, smem, gwin, graw = fits
     plan.sw, plan.depth, plan.hdepth, plan.win, plan.hwin = cand, depth, hdepth, win, hwin
     plan.seg_pitch, plan.smem, plan.segs, plan.windows = pitch, smem, segs, windows
-    plan.runtab = np.zeros((len(sched), max(map(len, sched))), np.int32)
-    for i, row in enumerate(sched):
-        plan.runtab[i, :len(row)] = row
+    plan.runtab = _pad_rows(sched)
+    plan.grawtab = np.zeros((1, 3), np.int32)
+    if graw:
+        plan.gwindows, (plan.gdepth, plan.gpitch, plan.grows, _) = gwin, graw
+        plan.grawtab = _pad_rows(gsched)
     plan.rowtab, plan.halftab = _ring_tables(plan, fast_taps)
     return plan
+
+
+def _pad_rows(rows: list) -> np.ndarray:
+    """Rows of ints as one int32 table, each padded with zeros."""
+    out = np.zeros((len(rows), max(map(len, rows))), np.int32)
+    for i, row in enumerate(rows):
+        out[i, :len(row)] = row
+    return out
 
 
 def _ring_tables(plan: FusedPlan, fast_taps) -> tuple:
@@ -578,12 +679,13 @@ def check_plan(spec: FusedSpec, consts: FusedConsts) -> FusedPlan:
 
 
 def plan_tables(plan: FusedPlan, device) -> tuple:
-    """The plan's device tables: ysrc, segs, runtab, rowtab, halftab (none
-    for a split plan)."""
+    """The plan's device tables: ysrc, segs, runtab, rowtab, halftab,
+    grawtab (none for a split plan)."""
     if plan.split:
         return ()
     return tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
-                 for t in (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab))
+                 for t in (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab,
+                           plan.grawtab))
 
 
 def knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
@@ -713,6 +815,8 @@ class _FusedArgs(ctypes.Structure):
         ("gylo", ctypes.c_void_p), ("gyf", ctypes.c_void_p),
         ("gxlo", ctypes.c_void_p), ("gxf", ctypes.c_void_p),
         ("grain_raw", ctypes.c_int32), ("gh", ctypes.c_int32), ("gw", ctypes.c_int32),
+        ("gdepth", ctypes.c_int32), ("gpitch", ctypes.c_int32), ("grows", ctypes.c_int32),
+        ("grawtab", ctypes.c_void_p), ("gstride", ctypes.c_int32),
     ]
 
 
@@ -735,10 +839,10 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
     a = _FusedArgs()
     plan = check_plan(s, consts)
     a.xmap = _check("x_maps", consts.x_maps, (3, s.w), torch.int32, dev)
-    a.ysrc, a.segs, a.runtab, a.rowtab, a.halftab = (
+    a.ysrc, a.segs, a.runtab, a.rowtab, a.halftab, a.grawtab = (
         _check(n, t, tuple(ref.shape), torch.int32, dev) for n, t, ref in zip(
-            ("ysrc", "segs", "runtab", "rowtab", "halftab"), consts.plan_tables,
-            (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab)))
+            ("ysrc", "segs", "runtab", "rowtab", "halftab", "grawtab"), consts.plan_tables,
+            (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab, plan.grawtab)))
     a.triad_mode = triad_mode(s)
     if a.triad_mode == 2:
         a.lut_fwd = _check("lut_fwd", consts.lut_fwd, (1025,), torch.float32, dev)
@@ -789,6 +893,8 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
             raise ValueError("fused_pipeline: consts.grain_taps are required by the spec's "
                              "grain size; build consts with fused_consts(spec)")
         a.grain_raw = 1
+        a.gdepth, a.gpitch, a.grows = plan.gdepth, plan.gpitch, plan.grows
+        a.gstride = plan.grawtab.shape[1]
         a.gylo, a.gyf, a.gxlo, a.gxf = (
             _check(n, t, (k,), dt, dev) for n, t, k, dt in zip(
                 ("gylo", "gyf", "gxlo", "gxf"), consts.grain_taps, (s.h, s.h, s.w, s.w),

@@ -25,7 +25,9 @@ built (default: this script's own; an earlier commit unpacked with
   before the bloom: the f32-input mode) and, past radius 31 (taps from
   shared memory), the CLI defaults with ``--no-fast-bloom --bloom-sigma
   11`` and ``20`` (radius 33 and 60) and c4-text with ``--no-fast-bloom
-  --bloom-sigma 11``, each with ``precision="exact"`` (the 1024-bin triad tables)
+  --bloom-sigma 11``; the raw grain (grain size above 1) on c3 at pixel
+  size 2 and 3 and on the CLI defaults with ``--grain-size 2`` (the fast
+  core), beside c3 at grain size 1 (a full-size field); each with ``precision="exact"`` (the 1024-bin triad tables)
   and ``"fast"`` (the direct-pow triad; a tree without it records the
   refusal); and a digest of each fused instantiation's SASS (its
   instructions, without the kernel's name and the encodings), so that
@@ -43,7 +45,9 @@ times the fused kernel past radius 31 (sigma 11 and 20 on the CLI
 defaults, sigma 11 on c4-text and on c4: uint8 input at pixel 1) with the
 tree's own plans, then at each strip width, chunk and run length of
 SWEEP_FUSED (STRIP_WIDTHS, WALK's "big" entries), with each plan's shared
-memory and the blocks per SM it leaves room for.
+memory and the blocks per SM it leaves room for; ``--sweep graw`` times
+the raw-grain cases (c3, the CLI defaults with ``--grain-size 2``) at the
+strips and chunks of SWEEP_GRAW.
 ``--only fused`` times the fused cases alone. Prints one JSON
 object and writes it to --out. Imports nothing of JAX; exits 2 without a
 CUDA device.
@@ -85,6 +89,11 @@ C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_str
           fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
           pixel_size=1, glitch_amp_px=6, glitch_height_frac=0.3, scanline_speed_px_s=120.0)
 FUSED = {"defaults": ({}, False), "c3": (C3, False), "c4-text": (C4, True),  # params, text
+         # the raw-grain mode's other cases: c3 at grain size 1 (a full-size
+         # field, the kernel the raw grain should not be slower than), c3 at
+         # pixel size 3, the CLI defaults with --grain-size 2 (the fast core)
+         "c3-g1": (dict(C3, grain_size=1), False), "c3-px3": (dict(C3, pixel_size=3), False),
+         "defaults-g2": (dict(grain_size=2), False),
          "defaults-s11": (dict(fast_bloom=False, bloom_sigma=11.0), False),
          "defaults-s20": (dict(fast_bloom=False, bloom_sigma=20.0), False),
          "c4-text-s11": (dict(C4, fast_bloom=False, bloom_sigma=11.0), True)}
@@ -93,6 +102,10 @@ BIG_CASES = {"defaults-s11": FUSED["defaults-s11"], "defaults-s20": FUSED["defau
              "c4-text-s11": FUSED["c4-text-s11"],
              "c4-s11": (dict(C4, fast_bloom=False, bloom_sigma=11.0), False)}  # pixel 1, uint8
 SWEEP_FUSED = dict(sw=(128, 64, 32, 16), step=(8, 12, 16, 24), run=(64, 128, 256, 540))
+# --sweep graw: the raw-grain cases at other strips and chunks (WALK's
+# uint8-input entry of their core), with the blocks per SM each leaves
+GRAW_CASES = {"c3": ("gaussian", FUSED["c3"]), "defaults-g2": ("fast", FUSED["defaults-g2"])}
+SWEEP_GRAW = dict(sw=(128, 64), step={"gaussian": (8, 6), "fast": (12, 10, 8, 6)})
 SMEM_PER_SM = 233472  # an H100 SM's shared memory for blocks (228 KB), 1 KB reserved per block
 
 
@@ -186,7 +199,7 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="port_bloom_ab.json")
-    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast", "fused"))
+    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast", "fused", "graw"))
     ap.add_argument("--only", choices=("fused",))
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
@@ -371,6 +384,22 @@ def main() -> int:
                     print(f"{a.tag} sweep {row}", flush=True)
                     sweep.append(row)
         kfused.STRIP_WIDTHS, kfused.WALK = keep
+    if a.sweep == "graw":  # the raw-grain mode at other strips and chunks, each as set
+        keep = (kfused.STRIP_WIDTHS, dict(kfused.WALK), kfused.GRAW_STEPS)
+        kfused.GRAW_STEPS = ()
+        for cfg, (core, (params, text)) in GRAW_CASES.items():
+            ref = results[f"fused_{cfg}_exact"]
+            for sw in SWEEP_GRAW["sw"]:
+                for step in SWEEP_GRAW["step"][core]:
+                    kfused.STRIP_WIDTHS = (sw,)
+                    kfused.WALK[core, True] = (step, keep[1][core, True][1])
+                    r = fused_case(params, text, "exact")
+                    row = dict(case=cfg, sw=sw, step=step, ms_per_frame=r["ms_per_frame"],
+                               same=r["sha256"] == ref["sha256"], plan=r["plan"])
+                    print(f"{a.tag} sweep {row}", flush=True)
+                    sweep.append(row)
+            kfused.STRIP_WIDTHS, kfused.WALK = keep[0], dict(keep[1])
+        kfused.GRAW_STEPS = keep[2]
     if a.sweep == "fast":
         from pythoncrt_tpu_torch.kernels import bloom_walk as kwalk
 

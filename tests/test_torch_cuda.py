@@ -37,7 +37,9 @@ edge shapes (rows 1, 15, 16, 17, 324 and 648; 1 and 120 segments; batches
 (csrc/box_muller.cuh) stays inside the bounds its rounding test assumes on
 words next to its domains' edges (csrc/rng_sweep.cu); the fused kernel's raw-grain mode (grain
 size above 1: the raw field upsampled in the kernel) is bit for bit the
-kernel fed the twin's upsampled field."""
+kernel fed the twin's upsampled field, in every instantiation (each core,
+both inputs, both triads) at grain sizes 2, 3 and 5 and with a raw field
+one row or one column wide."""
 
 import numpy as np
 import pytest
@@ -444,24 +446,51 @@ def test_draw_kernels_are_invariant_to_the_batch_split(cuda_dev):
         assert torch.equal(draw(whole)[pick], draw(pick))
 
 
+# the raw-grain instantiations (GRAW): each core (fast, gaussian r = 4, a
+# runtime radius, past 31, and the bloom off: radius 0, no tap pass, the
+# split route's epilogue launch), the uint8 and the f32 input, both triads; grain
+# sizes 2, 3 and 5 at 1080p, at odd shapes shorter than a run (a last
+# strip whose raw window ends at the field's edge; W % 4 != 0), and with a
+# raw field one row (gh == 1) or one column (gw == 1) wide
+RAW_CORES = {"fast": dict(fast_bloom=True), "r4": dict(fast_bloom=False, bloom_sigma=1.2),
+             "runtime": dict(fast_bloom=False, bloom_sigma=4.0),
+             "big": dict(fast_bloom=False, bloom_sigma=11.0), "off": dict(bloom_strength=0.0)}
+RAW_MODES = {"exact": ("exact", False), "f32_input": ("exact", True), "direct": ("fast", False)}
+RAW_SHAPES = [(8, 1080, 1920), (2, 45, 251), (1, 7, 9), (2, 3, 130), (2, 33, 3)]
+RAW_IDS = ["1080p", "odd", "tiny", "gh1", "gw1"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 1080, 1920), (2, 45, 251), (1, 7, 9)],
-                         ids=["1080p", "odd", "tiny"])
-@pytest.mark.parametrize("grain_size", [2, 3])
-def test_fused_raw_grain_is_the_upsampled_field_bit_for_bit(cuda_dev, grain_size, shape):
-    """The kernel's raw-grain mode equals the kernel at grain size 1 fed
-    the twin's upsample of the same field (ops/resize.resize_bilinear)."""
+@pytest.mark.parametrize("mode", sorted(RAW_MODES))
+@pytest.mark.parametrize("core", sorted(RAW_CORES))
+@pytest.mark.parametrize("shape", RAW_SHAPES, ids=RAW_IDS)
+@pytest.mark.parametrize("grain_size", [2, 3, 5])
+def test_fused_raw_grain_is_the_upsampled_field_bit_for_bit(cuda_dev, grain_size, shape, core,
+                                                           mode):
+    """The kernel's raw-grain mode (the raw rows staged a chunk ahead, the
+    upsample from shared memory) equals the kernel at grain size 1 fed the
+    twin's upsample of the same field (ops/resize.resize_bilinear), in
+    every instantiation."""
     b, h, w = shape
-    p = EffectParams(**{**C3, "grain_size": grain_size, "noise_strength": 24.0})
-    eng = CRTEngine(p, h, w, 24.0, rng="host", device=cuda_dev)
-    flat = CRTEngine(EffectParams(**{**C3, "grain_size": 1, "noise_strength": 24.0}), h, w,
-                     24.0, rng="host", device=cuda_dev)
+    precision, f32_input = RAW_MODES[mode]
+    p = {**C3, **RAW_CORES[core], "noise_strength": 24.0}
+    text = {}
+    if f32_input:
+        p["text"] = TextParams(text="T", after=False)
+        text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
+    eng, flat = (CRTEngine(EffectParams(**{**p, "grain_size": g}), h, w, 24.0, rng="host",
+                           precision=precision, device=cuda_dev, **text)
+                 for g in (grain_size, 1))
+    assert eng.fused_tables.plan.grain == (grain_size, *eng.spec.grain_hw)
+    assert flat.fused_tables.plan.grain is None and eng.spec.pre != f32_input
+    assert eng.spec.bloom == (core != "off")
     x = frames(b, h, w, cuda_dev)
+    feed = eng._pre_bloom(x) if f32_input else x
     kw = eng.fused_operands(eng.make_aux(np.arange(b)))
     t = eng.fused_tables.grain_taps
     field = kfused.oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(), t[3])
-    got = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
-    want = kfused.fused_pipeline(x, flat.spec, flat.fused_tables,
+    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    want = kfused.fused_pipeline(feed, flat.spec, flat.fused_tables,
                                  **{**kw, "grain": field.contiguous()})
     torch.cuda.synchronize()
     assert torch.equal(got, want)

@@ -12,6 +12,8 @@ staged offsets, and hold them to the ones ``fused_pipeline_ref`` reads
 (the index maps over the gaussian window, or the bilinear taps of the
 fast core's down and up passes)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -256,12 +258,14 @@ def test_plan_smem_is_the_kernels_layout():
 
 @pytest.mark.parametrize("other", [
     dict(), dict(sigma=31 / 3), dict(sigma=4.0, fast=True),
-    dict(sigma=4.0, threshold=0.35), dict(sigma=4.0, pre=False), dict(sigma=4.0, h=44)])
+    dict(sigma=4.0, threshold=0.35), dict(sigma=4.0, pre=False), dict(sigma=4.0, h=44),
+    dict(sigma=4.0, noise=True, grain_size=2), dict(sigma=4.0, noise=True, grain_size=3)])
 def test_plan_is_checked_against_the_spec(other):
     """The wrapper launches only with a plan made for the spec's frame,
-    input, core, radius and knee (the kernel takes its taps and knee from
-    the spec and its ring sizes from the plan); another spec's consts are
-    refused, and taps of the same radius share a plan."""
+    input, core, radius, knee and raw grain (the kernel takes its taps and
+    knee from the spec and its ring sizes and raw stage from the plan);
+    another spec's consts are refused, and taps of the same radius share a
+    plan."""
     spec = kfused.build_fused_spec(45, 251, sigma=4.0, strength=0.25, px=2, ab=1)
     kw = dict(dict(sigma=3.9, h=45), **other)  # sigma 3.9: radius 12 as well
     consts = kfused.fused_consts(kfused.build_fused_spec(
@@ -481,3 +485,154 @@ def test_aberration_of_the_width_or_more_is_taken_mod_w(w, ab):
     plan, y_map = consts.plan, consts.y_map.numpy()
     assert row_reads(plan, consts, y_map) == ref_rows(plan, consts, y_map)
     assert col_reads(plan, consts, xm) == ref_cols(plan, consts, xm)
+
+
+# the raw-grain mode (GRAW: grain size above 1 with the noise on): frames at
+# the main paths' width and at narrow ones (W % 4 != 0 at 130), and one
+# whose raw field is one column wide (W < 2 * grain size)
+GRAW_SHAPES = {"1080p": (1080, 1920), "small": (45, 200), "h_mod_px": (43, 130),
+               "gw1": (33, 3)}
+
+
+def make_graw(shape, grain_size, px, fast=False, pre=True):
+    h, w = SHAPES.get(shape) or GRAW_SHAPES[shape]
+    spec = kfused.build_fused_spec(h, w, strength=0.25, px=px, ab=1 if w > 1 else 0, pre=pre,
+                                   corder=(1, 2, 0), noise=True, noise_scale=0.1,
+                                   grain_size=grain_size,
+                                   **(dict(fast=True) if fast else dict(sigma=1.2)))
+    return spec, kfused.fused_consts(spec)
+
+
+def staged_grain(plan, consts, field):
+    """csrc/fused.cu's raw-grain path at index level, in f32 NumPy: per
+    strip its raw column window and column taps (less the window's first
+    column), per run and chunk the raw rows grawtab names staged in a
+    (gdepth, gpitch) buffer with the rows' taps, and each output's
+    upsample from that buffer alone (stage_grain, grain_staged). Checks
+    every index against the stage's bounds; returns the (H, W) grain."""
+    h, w, sw = plan.h, plan.w, plan.sw
+    gh, gw = field.shape
+    gylo, gyf, gxlo, gxf = (t.numpy() for t in consts.grain_taps)
+    one = np.float32(1.0)
+    out = np.full((h, w), np.nan, np.float32)
+    for s, (jr0, jr1) in enumerate(plan.gwindows):
+        x0, xe = s * sw, min(s * sw + sw, w)
+        assert (jr0, jr1) == (gxlo[x0], gxlo[xe - 1] + 1)
+        nraw = jr1 - jr0 + 1
+        assert nraw <= plan.gpitch
+        lx, xf = gxlo[x0:xe] - jr0, gxf[x0:xe]
+        # the window holds each output's lo column and lo + 1
+        assert lx.min() >= 0 and lx.max() + 1 < nraw
+        cols = np.minimum(np.arange(jr0, jr0 + nraw), gw - 1)  # past the field: its last
+        for i, y0 in enumerate(range(0, h, plan.run)):
+            chunks = kfused.plan_chunks(plan, y0, taps_np(consts))
+            for ci, (*_, nxt, ye, _, _) in enumerate(chunks):
+                g0, gn, ny = plan.grawtab[i, 3 * ci:3 * ci + 3]
+                assert ny == ye - nxt
+                if ye == nxt:
+                    continue
+                assert g0 == gylo[nxt] and gn == gylo[ye - 1] + 2 - g0
+                assert gn <= plan.gdepth and ye - nxt <= plan.grows
+                stage = np.full((plan.gdepth, plan.gpitch), np.nan, np.float32)
+                rows = np.minimum(np.arange(g0, g0 + gn), gh - 1)
+                stage[:gn, :nraw] = field[rows[:, None], cols[None, :]]
+                for y in range(nxt, ye):
+                    k = gylo[y] - g0
+                    assert 0 <= k and k + 1 < gn
+                    r0, r1, fy = stage[k], stage[k + 1], gyf[y]
+                    lo = r0[lx] * (one - fy) + r1[lx] * fy
+                    hi = r0[lx + 1] * (one - fy) + r1[lx + 1] * fy
+                    out[y, x0:xe] = lo * (one - xf) + hi * xf
+    return out
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["gaussian", "fast"])
+@pytest.mark.parametrize("px", [1, 2, 3])
+@pytest.mark.parametrize("shape", sorted(GRAW_SHAPES))
+@pytest.mark.parametrize("grain_size", [2, 3, 5])
+def test_raw_grain_stage_holds_what_each_output_reads(grain_size, shape, px, fast):
+    """Each strip's raw column window holds every lo and hi column its
+    outputs read, each chunk's raw rows fit the stage's depth and its rows
+    the taps' room, and the upsample from the stage alone is bit for bit
+    the twin's resize_bilinear of the field (at 1080p: the windows and the
+    row ranges, without the upsample)."""
+    spec, consts = make_graw(shape, grain_size, px, fast)
+    plan = consts.plan
+    gh, gw = spec.grain_hw
+    assert plan.grain == (grain_size, gh, gw) and plan.key == kfused.plan_key(spec)
+    assert shape != "gw1" or gw == 1
+    if shape == "1080p":  # the windows and row ranges only: the upsample is per pixel
+        gylo, gxlo = (consts.grain_taps[i].numpy() for i in (0, 2))
+        for s, (jr0, jr1) in enumerate(plan.gwindows):
+            x0, xe = s * plan.sw, min(s * plan.sw + plan.sw, plan.w)
+            assert jr0 == gxlo[x0] and jr1 - jr0 + 1 <= plan.gpitch
+            assert gxlo[x0:xe].max() + 1 <= jr1 <= gw - 1
+        for i, y0 in enumerate(range(0, plan.h, plan.run)):
+            stage = kfused.grain_stage(kfused.plan_chunks(plan, y0, taps_np(consts)), gylo)
+            assert list(plan.grawtab[i, :3 * len(stage)]) == [v for c in stage for v in c]
+            assert not plan.grawtab[i, 3 * len(stage):].any()
+            for g0, gn, ny in stage:
+                assert gn <= plan.gdepth and ny <= plan.grows
+                assert ny == 0 or g0 + gn - 1 <= gh  # lo + 1 of the last row: at most gh
+        return
+    field = np.random.default_rng(grain_size).standard_normal((gh, gw)).astype(np.float32)
+    t = [a.long() if i % 2 == 0 else a for i, a in enumerate(consts.grain_taps)]
+    want = kfused.oresize.resize_bilinear(torch.from_numpy(field), *t).numpy()
+    got = staged_grain(plan, consts, field)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("px", [1, 2, 3])
+@pytest.mark.parametrize("fast", [False, True], ids=["gaussian", "fast"])
+def test_raw_grain_plan_smem_is_the_layout(fast, px):
+    """plan_smem with the raw stage equals the kernel's layout: the walk's
+    block at grain size 1 plus the strip's column taps, two buffers of
+    (gdepth, gpitch) raw floats and the rows' taps, and the run's row of
+    grawtab. At 1080p and grain size
+    2 the block leaves room for as many blocks per SM as the grain-size-1
+    plan's: c3's gaussian core keeps its walk (3 per SM at pixel size 2
+    and 3, 2 at 1), and the fast core at pixel size 2, whose raw stage
+    would cost a block at WALK's chunk of 12 rows, takes GRAW_STEPS' 8."""
+    spec, consts = make_graw("1080p", 2, px, fast)
+    p = consts.plan
+    base = kfused.plan_smem(p.fast, True, p.r, p.sw, p.step, p.depth, p.hdepth, p.win, p.hwin,
+                            p.seg_pitch, p.knee)
+    stage = 2 * (p.gdepth * p.gpitch + 2 * p.grows) * 4
+    gstride = p.grawtab.shape[1]
+    assert gstride == 3 * max(len(kfused.plan_chunks(p, y0, taps_np(consts)))
+                              for y0 in range(0, p.h, p.run))
+    assert p.smem == kfused.plan_smem(p.fast, True, p.r, p.sw, p.step, p.depth, p.hdepth, p.win,
+                                      p.hwin, p.seg_pitch, p.knee, False,
+                                      (p.gdepth, p.gpitch, p.grows, gstride))
+    assert p.smem == base + p.sw * 8 + -(-stage // 16) * 16 + -(-gstride * 4 // 16) * 16
+    flat = kfused.fused_consts(dataclasses.replace(spec, grain_size=1)).plan
+    assert kfused.blocks_per_sm(p.smem) == kfused.blocks_per_sm(flat.smem)
+    assert (p.sw, p.run) == (flat.sw, flat.run) == (128, 128 if fast else 64)
+    shorter = fast and px == 2
+    assert p.step == (kfused.GRAW_STEPS[0] if shorter else flat.step)
+    if not shorter:
+        assert (p.depth, base) == (flat.depth, flat.smem)
+    if not fast:
+        assert kfused.blocks_per_sm(p.smem) == {1: 2, 2: 3, 3: 3}[px]
+        assert (p.gpitch, p.gdepth, p.grows) == {1: (66, 6, 8), 2: (66, 10, 16),
+                                                 3: (66, 14, 24)}[px]
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_raw_grain_chunk_rule_counts_the_register_cap(precision):
+    """A shorter chunk is taken only where it gives back the blocks per SM
+    the raw stage costs: the CLI defaults at grain size 2 (fast core,
+    pixel size 2) take GRAW_STEPS' 8 with the LUT-exact triad (four
+    64-register blocks by shared memory again), but keep WALK's 12 with
+    the direct-pow triad, whose 80-register cap allows three blocks at
+    either chunk."""
+    direct = precision == "fast"
+    spec = kfused.build_fused_spec(1080, 1920, fast=True, strength=0.25, px=2, ab=1, triad=True,
+                                   lut_exact=not direct, noise=True, noise_scale=0.1,
+                                   grain_size=2)
+    p = kfused.fused_consts(spec).plan
+    assert p.direct == direct and p.grain == (2, 540, 960)
+    assert kfused.register_blocks(True, True, direct, True) == (3 if direct else 4)
+    assert p.step == (kfused.WALK["fast", True][0] if direct else kfused.GRAW_STEPS[0])
+    assert min(kfused.blocks_per_sm(p.smem), kfused.register_blocks(True, True, direct, True)) \
+        == (3 if direct else 4)
