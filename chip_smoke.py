@@ -177,8 +177,11 @@ Phases (each must pass; any failure exits non-zero):
 6. The draw kernels' device time (torch.profiler's kernel durations, after
    the main paths so that no window of it shortens [5]'s device-busy
    readings), each beside torch.randn of its shape in the same window and
-   against its event time per wrapper call; then the card's line, one
-   JSON line with the kernel table, then the result line.
+   against its event time per wrapper call; the glitch shear's the same way
+   at its four rows' shapes and offsets (c4's band in place and out of
+   place, c5's, the preview's) on fresh frames, beside torch.gather of the
+   same band and index; then the card's line, one JSON line with the
+   kernel table, then the result line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
 exits 2 and prints no result; without the port's package beside it (the
@@ -810,41 +813,6 @@ def rng_sweep_phase(dev) -> float:
     return share
 
 
-def draw_device_ms(fn, lib, match: str, calls: int = 20) -> tuple:
-    """Device time per call of the kernels whose name holds ``match`` over
-    ``calls`` calls of ``fn``, and of every kernel of ``calls`` calls of
-    ``lib`` (the library yardstick) in the same torch.profiler window: the
-    kernels' durations, the host work of the calls left out. Run after the
-    main paths: profiler windows opened earlier in the process would
-    leave [5]'s device-busy readings short."""
-    import torch
-
-    fn()
-    lib()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a window whose kernel records did not arrive is taken again
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            for _ in range(calls):
-                lib()
-            torch.cuda.synchronize()
-        ours = theirs = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-            if match in ev.key:
-                ours += us
-            else:
-                theirs += us
-        if ours > 0 and theirs > 0:
-            return ours / 1e3 / calls, theirs / 1e3 / calls
-    fail(f"torch.profiler recorded no device time for kernels named {match!r} in three windows")
-
-
 def ptxas_instances(log: str, match, what: str, count: int) -> list:
     """ptxas's lines for each kernel entry that ``match`` names (it returns
     the entry's identity as a dict, or None): registers, stack frame,
@@ -1310,6 +1278,16 @@ def main() -> int:
         note=" (CLI defaults, stream head and carried state)")
     del got, want, gst, wst
 
+    # the glitch rows' shapes and offsets, timed on the device at the end
+    # ([6]) on fresh frames: (frames, frame shape, y0, offsets, seg, in place)
+    glitch_device = {}
+
+    def glitch_plan_note():
+        """The plan the latest glitch launch took (kernels/glitch.py last_plan)."""
+        plan = kglitch.last_plan
+        return (f"plan: {'16-byte' if plan.vec else 'scalar'} copies, {plan.tx} threads a row, "
+                f"grid {plan.grid}, {plan.smem} B shared memory")
+
     worst, glitch_times = 0.0, None
     for mode in ("export", "preview"):
         ge = CRTEngine(configs["c4"], H, W, FPS, rng="host", engine=mode, device=dev)
@@ -1339,14 +1317,19 @@ def main() -> int:
                 time_ms(lambda: kglitch.shear_planar_ref(band, off, seg), iters=3),
                 time_ms(lambda: torch.gather(band, 3, idx)),
                 nbytes(band, got_band, off, seg), band.numel())
+            c4_note = glitch_plan_note()  # the in-place timing's
+            for kname, inplace in (("glitch_shear", True), ("glitch_shear_band", False)):
+                glitch_device[kname] = (B, (B, 3, H, W), y0, off, seg, inplace)
             del idx, work
         del got_band, got_full, want, band
     row("glitch_shear", "pythoncrt_tpu_torch/csrc/glitch.cu",
         "pythoncrt_tpu/kernels/glitch.py:194", worst, 0, *glitch_times, tol=0.0,
-        note=" (c4 band 756+324, export and preview, both entries)")
+        note=f" (c4 band 756+324, export and preview, both entries; {c4_note}; the kernel's "
+             f"device time: [6])")
     row("glitch_shear_band", "pythoncrt_tpu_torch/csrc/glitch.cu",
         "pythoncrt_tpu/kernels/glitch.py:165", worst, 0, band_ms, *glitch_times[1:], tol=0.0,
-        note=" (the out-of-place band entry shear_planar, export offsets; on no main path)")
+        note=" (the out-of-place band entry shear_planar, export offsets; on no main path; "
+             "the kernel's device time: [6])")
     del fused_out, fz, fd, state
 
     # the native draws (csrc/rng.cu), one launch per batch and stream, at
@@ -1765,8 +1748,11 @@ def main() -> int:
         time_ms(lambda: kglitch.shear_planar_ref(band5, off5, seg5), iters=3),
         time_ms(lambda: torch.gather(band5, 3, idx5)),
         nbytes(band5, want, off5, seg5), band5.numel(), tol=0.0,
-        note=f" (c5: band {y5}+{rows5}, in place, {C5_CLIPS} clips x {B} frames flat)",
+        note=f" (c5: band {y5}+{rows5}, in place, {C5_CLIPS} clips x {B} frames flat; "
+             f"{glitch_plan_note()}; the kernel's device time: [6])",
         frames=C5_CLIPS * B, res=(H4, W4))
+    glitch_device["glitch_shear_c5"] = (C5_CLIPS * B, (C5_CLIPS * B, 3, H4, W4), y5, off5, seg5,
+                                        True)
     del want, work, idx5, band5, f5
 
     imgs5 = eng5._effects(x5, aux5)
@@ -1863,12 +1849,15 @@ def main() -> int:
     band, work = fz[:, :, y0:].contiguous(), fz.clone()
     gidx = torch.remainder(torch.arange(pw_, device=dev) + off.long()[:, :, seg.long()],
                            pw_)[:, None].expand(1, 3, rows, pw_).contiguous()
+    kglitch.shear_planar_inplace(fz.clone(), y0, off, seg)  # the plan the row's launches take
     prow.append(("glitch_shear_preview", "pythoncrt_tpu_torch/csrc/glitch.cu",
                  "pythoncrt_tpu/kernels/glitch.py:194",
                  lambda: kglitch.shear_planar_inplace(fz.clone(), y0, off, seg)[:, :, y0:],
                  functools.partial(kglitch.shear_planar_ref, band, off, seg),
                  functools.partial(torch.gather, band, 3, gidx), [band, off, seg], 0.0,
-                 f" (c4 band {y0}+{rows}, the preview's one offset per row, in place)"))
+                 f" (c4 band {y0}+{rows}, the preview's one offset per row, in place; "
+                 f"{glitch_plan_note()}; the kernel's device time: [6])"))
+    glitch_device["glitch_shear_preview"] = (1, (1, 3, ph_, pw_), y0, off, seg, True)
     for cfg, kname in (("c3-angled", "bloom3_planar_preview"),
                        ("defaults-angled", "bloom3_fast_planar_preview")):
         eng, _ = preview_step(cfg)
@@ -3129,8 +3118,16 @@ def main() -> int:
                    if (pn in on if on is not None else not pn.startswith("preview-"))}
         entry["launches"], entry["launches_by_path"] = sum(by_path.values()), by_path
     # ---- 6. the draw kernels' device time, beside torch.randn's in one window ----
+    def kernel_device_ms(fn, lib, match):
+        """port_profile.kernel_device_ms, after the main paths: a profiler
+        window opened earlier would leave [5]'s device-busy readings short."""
+        try:
+            return pprof.kernel_device_ms(fn, lib, match)
+        except RuntimeError as e:
+            fail(str(e))
+
     for kname, (nb, shape, run_draw, kern) in draw_device.items():
-        dev_ms, lib_dev = draw_device_ms(run_draw, lambda: torch.randn(shape, device=dev), kern)
+        dev_ms, lib_dev = kernel_device_ms(run_draw, lambda: torch.randn(shape, device=dev), kern)
         entry = table[kname]
         entry.update(device_ms=dev_ms, library_device_ms=lib_dev)
         print(f"[6] {kname}: the kernel's device time {dev_ms:.4f} ms per launch "
@@ -3139,6 +3136,28 @@ def main() -> int:
               f"(torch.profiler; the kernel / torch.randn {dev_ms / lib_dev:.3f}); event time per "
               f"wrapper call {entry['ms']:.4f} ms, so {max(0.0, entry['ms'] - dev_ms):.4f} ms of "
               f"it the wrapper's host path and the launch, on {card}", flush=True)
+    # the glitch rows: the kernel's device time on fresh frames of each
+    # row's shape and offsets, torch.gather of the same band and index in
+    # the same window
+    for kname, (nb, shape, y0, off, seg, inplace) in glitch_device.items():
+        frames = torch.rand(shape, device=dev)
+        band = frames[:, :, y0:].contiguous()
+        gidx = torch.remainder(torch.arange(shape[3], device=dev) + off.long()[:, :, seg.long()],
+                               shape[3])[:, None].expand(band.shape).contiguous()
+        run = (functools.partial(kglitch.shear_planar_inplace, frames, y0, off, seg) if inplace
+               else functools.partial(kglitch.shear_planar, band, off, seg))
+        dev_ms, lib_dev = kernel_device_ms(run, functools.partial(torch.gather, band, 3, gidx),
+                                           "glitch_kernel")
+        entry = table[kname]
+        entry.update(device_ms=dev_ms, library_device_ms=lib_dev)
+        print(f"[6] {kname}: the kernel's device time {dev_ms:.4f} ms per launch "
+              f"({dev_ms / nb:.4f} ms/frame; {100 * entry['bound_ms'] / dev_ms:.1f}% of the bound, "
+              f"bytes), torch.gather of the band {lib_dev:.4f} ms in the same window "
+              f"(torch.profiler; the kernel / torch.gather {dev_ms / lib_dev:.3f}); event time per "
+              f"wrapper call {entry['ms']:.4f} ms (torch.gather {entry['library_ms']:.4f}), so "
+              f"{max(0.0, entry['ms'] - dev_ms):.4f} ms of it the wrapper's host path and the "
+              f"launch, on {card}", flush=True)
+        del frames, band, gidx, run
     print(f"card: {card}")
     print(card)
     print(json.dumps({"kernels": list(table.values())}))

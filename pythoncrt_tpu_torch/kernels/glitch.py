@@ -17,19 +17,25 @@ On the card this is a pure copy (csrc/glitch.cu), bitwise equal to the
 oracle's apply_glitch_gather; the TPU kernel's one-hot bf16 MXU matmuls
 and their window/dual/clamp variants have no counterpart. One kernel
 serves both entries: ``shear_planar_inplace`` on full frames (the
-engine's) and ``shear_planar`` out of place on a band. CPU tensors run
-the plain twin ``shear_planar_ref``.
+engine's) and ``shear_planar`` out of place on a band. Its launch plan
+(``glitch_plan``: 16-byte or scalar copies, threads along a row; one
+block per band row, plane and frame) is plain Python, replayed at index
+level by the CPU tests. CPU
+tensors run the plain twin ``shear_planar_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 launches = 0  # CUDA launches made by shear_planar and shear_planar_inplace
+last_plan = None  # the GlitchPlan of the latest launch
 
 
 def round_offsets(seg_offsets_px: torch.Tensor) -> torch.Tensor:
@@ -47,6 +53,38 @@ def shear_planar_ref(band: torch.Tensor, off: torch.Tensor,
     return torch.gather(band, 3, src[:, None].expand(b, 3, r, w))
 
 
+# Threads along a row at most: a wider row takes turns, each thread's
+# 16-byte copies all in flight (two at 1080p, four at 4K), eight blocks
+# resident per SM. Of 64 to 1024 threads, 256 measured fastest at the
+# preview's, c4's and c5's widths (scripts/port_bloom_ab.py --sweep glitch).
+MAX_TX = 256
+SMEM_DEFAULT = 48 * 1024  # dynamic shared memory a launch may take unasked
+
+
+class GlitchPlan(NamedTuple):
+    """How csrc/glitch.cu walks a band: ``vec`` 1 for 16-byte copies, 0
+    for scalar ones; ``tx`` threads along a row, each taking
+    units (four columns, or one) t, t + tx, ...; ``grid`` (band rows,
+    planes, frames), one block each; ``smem`` bytes: the row (padded to
+    four columns) and its reduced offsets."""
+    vec: int
+    tx: int
+    grid: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def glitch_plan(b: int, rows: int, w: int, nseg: int, aligned: bool) -> GlitchPlan:
+    """The launch plan for B frames of a ``rows`` x ``w`` band with
+    ``nseg`` offsets per row; ``aligned``: the buffers and seg start on
+    16 bytes. A block owns one (row, plane) pair."""
+    vec = int(aligned and w % 4 == 0)
+    units = w // 4 if vec else w
+    per_turn = -(-units // -(-units // MAX_TX))  # the turns evenly filled
+    tx = 32 * -(-per_turn // 32)  # whole warps
+    return GlitchPlan(vec, tx, (rows, 3, b), 4 * (-(-w // 4) * 4 + nseg))
+
+
 class _GlitchArgs(ctypes.Structure):
     """Mirror of GlitchArgs in csrc/glitch.cu (checked by size at launch)."""
     _fields_ = [
@@ -54,12 +92,17 @@ class _GlitchArgs(ctypes.Structure):
         ("off", ctypes.c_void_p), ("seg", ctypes.c_void_p),
         ("b", ctypes.c_int32), ("hs", ctypes.c_int32), ("w", ctypes.c_int32),
         ("y0", ctypes.c_int32), ("rows", ctypes.c_int32), ("nseg", ctypes.c_int32),
+        ("tx", ctypes.c_int32), ("vec", ctypes.c_int32), ("smem", ctypes.c_int32),
+        ("raise_smem", ctypes.c_int32),
     ]
+
+
+_smem_raised = set()  # devices whose kernel may take more than SMEM_DEFAULT
 
 
 def _launch(src: torch.Tensor, dst: torch.Tensor, y0: int, off: torch.Tensor,
             seg_index: torch.Tensor) -> None:
-    global launches
+    global launches, last_plan
     b, c, hs, w = src.shape
     rows = hs - y0
     if c != 3 or src.dtype != torch.float32 or not src.is_contiguous():
@@ -76,12 +119,19 @@ def _launch(src: torch.Tensor, dst: torch.Tensor, y0: int, off: torch.Tensor,
                          f"tensor on {src.device}")
     if b == 0:
         return
-    a = _GlitchArgs()
-    a.src, a.dst = src.data_ptr(), dst.data_ptr()
-    a.off, a.seg = off.data_ptr(), seg_index.data_ptr()
-    a.b, a.hs, a.w, a.y0, a.rows, a.nseg = b, hs, w, y0, rows, off.shape[2]
+    if b > 65535:
+        raise ValueError(f"glitch shear: {b} frames, more than a launch's 65535")
+    ptrs = (src.data_ptr(), dst.data_ptr(), off.data_ptr(), seg_index.data_ptr())
+    nseg = off.shape[2]
+    plan = glitch_plan(b, rows, w, nseg, ptrs[0] % 16 == 0 and ptrs[1] % 16 == 0
+                       and ptrs[3] % 16 == 0)
+    raise_smem = plan.smem > SMEM_DEFAULT and src.device not in _smem_raised
+    a = _GlitchArgs(*ptrs, b, hs, w, y0, rows, nseg, plan.tx, plan.vec, plan.smem, raise_smem)
     _build.launch("crt_glitch_launch", a, src.device)
+    if raise_smem:
+        _smem_raised.add(src.device)
     launches += 1
+    last_plan = plan
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:

@@ -1,8 +1,9 @@
-"""The stand-alone blooms', the warp's and the fused kernels timed on one
-GPU, for an A/B of two trees.
+"""The stand-alone blooms', the warp's, the fused and the glitch kernels
+timed on one GPU, for an A/B of two trees.
 
     python3 scripts/port_bloom_ab.py [--tree DIR] [--tag NAME] [--out FILE]
-                                     [--sweep [walk|fast|fused]] [--only fused]
+                                     [--sweep [walk|fast|fused|graw|glitch]]
+                                     [--only fused|glitch]
 
 ``--tree`` is the checkout whose ``pythoncrt_tpu_torch`` is imported and
 built (default: this script's own; an earlier commit unpacked with
@@ -32,7 +33,15 @@ built (default: this script's own; an earlier commit unpacked with
   refusal); and a digest of each fused instantiation's SASS (its
   instructions, without the kernel's name and the encodings), so that
   two trees' instantiations can be held equal, with ptxas's registers,
-  stack frame and spill for each.
+  stack frame and spill for each;
+- the glitch shear (stage 14) with the c4 params and host-rng offsets:
+  in place at the GUI preview's shape (B = 1, 960x540, the preview
+  engine's one offset per row), at 1080p B = 8 (the export offsets, 120
+  segments) in place and out of place on the band, and at c5's 4K on 32
+  frames in place; each with its kernel's device time and torch.gather's
+  (the same band and index) in one torch.profiler window beside both
+  event times and both host times per call (port_profile.host_us: calls
+  issued back to back without waiting for the card).
 
 Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
 per frame, the bytes bound (inputs and outputs once, tables once, at
@@ -47,8 +56,9 @@ tree's own plans, then at each strip width, chunk and run length of
 SWEEP_FUSED (STRIP_WIDTHS, WALK's "big" entries), with each plan's shared
 memory and the blocks per SM it leaves room for; ``--sweep graw`` times
 the raw-grain cases (c3, the CLI defaults with ``--grain-size 2``) at the
-strips and chunks of SWEEP_GRAW.
-``--only fused`` times the fused cases alone. Prints one JSON
+strips and chunks of SWEEP_GRAW; ``--sweep glitch`` times the glitch
+cases under each plan of SWEEP_GLITCH (kernels/glitch.py's MAX_TX).
+``--only fused`` (``glitch``) times those cases alone. Prints one JSON
 object and writes it to --out. Imports nothing of JAX; exits 2 without a
 CUDA device.
 """
@@ -68,6 +78,8 @@ import sys
 import time
 
 import numpy as np
+
+from port_profile import host_us, kernel_device_ms
 
 H, W, B = 1080, 1920, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -106,6 +118,8 @@ SWEEP_FUSED = dict(sw=(128, 64, 32, 16), step=(8, 12, 16, 24), run=(64, 128, 256
 # uint8-input entry of their core), with the blocks per SM each leaves
 GRAW_CASES = {"c3": ("gaussian", FUSED["c3"]), "defaults-g2": ("fast", FUSED["defaults-g2"])}
 SWEEP_GRAW = dict(sw=(128, 64), step={"gaussian": (8, 6), "fast": (12, 10, 8, 6)})
+# --sweep glitch: the glitch plan's threads along a row, at most
+SWEEP_GLITCH = dict(MAX_TX=(64, 128, 256, 512))
 SMEM_PER_SM = 233472  # an H100 SM's shared memory for blocks (228 KB), 1 KB reserved per block
 
 
@@ -199,8 +213,9 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default="port_bloom_ab.json")
-    ap.add_argument("--sweep", nargs="?", const="walk", choices=("walk", "fast", "fused", "graw"))
-    ap.add_argument("--only", choices=("fused",))
+    ap.add_argument("--sweep", nargs="?", const="walk",
+                    choices=("walk", "fast", "fused", "graw", "glitch"))
+    ap.add_argument("--only", choices=("fused", "glitch"))
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
@@ -214,6 +229,7 @@ def main() -> int:
     from pythoncrt_tpu_torch.kernels import bloom2 as kbloom2
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
     from pythoncrt_tpu_torch.kernels import fused as kfused
+    from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import warp as kwarp
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -341,10 +357,58 @@ def main() -> int:
                               smem=plan.smem,
                               blocks_per_sm_by_smem=SMEM_PER_SM // (plan.smem + 1024)))
 
-    for cfg, (params, text) in FUSED.items():
-        for precision in ("exact", "fast"):
-            run(f"fused_{cfg}_{precision}", lambda: fused_case(params, text, precision))
-    if a.only != "fused":  # the stand-alone blooms and the warp
+    # the glitch shear's operands: (frames, y0, offsets, seg) per shape
+    glitch_ops = {}
+
+    def glitch_operands(shape):
+        if shape not in glitch_ops:
+            mode, nb, h, w, clips = {"preview": ("preview", 1, 540, 960, 1),
+                                     "c4": ("export", B, H, W, 1),
+                                     "c5": ("export", B, 2160, 3840, 4)}[shape]
+            eng = CRTEngine(EffectParams(**C4), h, w, 24.0, rng="host", engine=mode,
+                            device="cuda")
+            off = eng.glitch_offsets(eng.make_aux(np.tile(np.arange(nb), clips)))
+            frames = torch.from_numpy(np.random.default_rng(5).random(
+                (nb * clips, 3, h, w), dtype=np.float32)).cuda()
+            glitch_ops[shape] = (frames, eng._glitch_y0, off, eng.consts["glitch_seg_index"])
+        return glitch_ops[shape]
+
+    def glitch_case(shape, inplace=True):
+        frames, y0, off, seg = glitch_operands(shape)
+        band = frames[:, :, y0:].contiguous()
+        w = frames.shape[3]
+        gidx = torch.remainder(torch.arange(w, device="cuda") + off.long()[:, :, seg.long()],
+                               w)[:, None].expand(band.shape).contiguous()
+        if inplace:
+            out = kglitch.shear_planar_inplace(frames.clone(), y0, off, seg)[:, :, y0:]
+            work = frames.clone()
+            fn = lambda: kglitch.shear_planar_inplace(work, y0, off, seg)  # noqa: E731
+        else:
+            out = kglitch.shear_planar(band, off, seg)
+            fn = lambda: kglitch.shear_planar(band, off, seg)  # noqa: E731
+        lib = lambda: torch.gather(band, 3, gidx)  # noqa: E731
+        same = torch.equal(out, lib())
+        nb = frames.shape[0]
+        ms, lib_ms = events_ms(fn), events_ms(lib)
+        dev, lib_dev = kernel_device_ms(fn, lib, "glitch_kernel")
+        host, lib_host = host_us(fn), host_us(lib)
+        bms = bound_ms(2 * band.numel() * 4 + off.numel() * 4 + seg.numel() * 4)
+        return dict(ms=ms, ms_per_frame=ms / nb, device_ms=dev, device_ms_per_frame=dev / nb,
+                    gather_ms=lib_ms, gather_device_ms=lib_dev, host_us=host,
+                    gather_host_us=lib_host, bound_ms=bms,
+                    share_of_bound=bms / ms, device_share_of_bound=bms / dev,
+                    frames=nb, gather_equal=same, sha256=digest(out))
+
+    GLITCH = {"glitch_preview": ("preview", True), "glitch_c4": ("c4", True),
+              "glitch_band": ("c4", False), "glitch_c5": ("c5", True)}
+    if a.only in (None, "glitch"):
+        for name, (shape, inplace) in GLITCH.items():
+            run(name, lambda: glitch_case(shape, inplace))
+    if a.only != "glitch":
+        for cfg, (params, text) in FUSED.items():
+            for precision in ("exact", "fast"):
+                run(f"fused_{cfg}_{precision}", lambda: fused_case(params, text, precision))
+    if a.only is None:  # the stand-alone blooms and the warp
         run("bloom3_planar", lambda: bloom3_case(None))
         run("bloom3_fast_planar", bloom3_fast_case)
         run("warp_planar", lambda: warp_case("u8"))
@@ -363,6 +427,21 @@ def main() -> int:
             run(f"bloom_stripe_{tag}", lambda: stripe_case(sigma))
 
     sweep = []
+    if a.sweep == "glitch":  # the glitch kernel's threads along a row, at most
+        keep = kglitch.MAX_TX
+        for max_tx in SWEEP_GLITCH["MAX_TX"]:
+            kglitch.MAX_TX = max_tx
+            kglitch.glitch_plan.cache_clear()
+            row = dict(MAX_TX=max_tx)
+            for name, (shape, inplace) in GLITCH.items():
+                r = glitch_case(shape, inplace)
+                row[name] = (r["ms_per_frame"], r["device_ms_per_frame"])
+                row[name + "_same"] = r["sha256"] == results[name]["sha256"]
+                row[name + "_plan"] = kglitch.last_plan
+            print(f"{a.tag} sweep {row}", flush=True)
+            sweep.append(row)
+        kglitch.MAX_TX = keep
+        kglitch.glitch_plan.cache_clear()
     if a.sweep == "fused":  # the fused kernel's walk past radius 31: strip, chunk and run
         ref = {}
         for cfg, (params, text) in BIG_CASES.items():  # the tree's own plans first

@@ -134,6 +134,41 @@ def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
+def kernel_device_ms(fn, lib, match: str, calls: int = 20) -> tuple:
+    """Device time per call of the kernels whose name holds ``match`` over
+    ``calls`` calls of ``fn``, and of every kernel of ``calls`` calls of
+    ``lib`` (the library yardstick) in the same torch.profiler window: the
+    kernels' durations, the host work of the calls left out. Raises
+    RuntimeError when three windows recorded no device time for either.
+    A profiler window opened before a device_busy reading in the same
+    process leaves that reading short, so take these after it."""
+    import torch
+
+    fn()
+    lib()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a window whose kernel records did not arrive is taken again
+        with torch.profiler.profile(activities=acts) as prof:
+            for f in (fn, lib):
+                for _ in range(calls):
+                    f()
+                torch.cuda.synchronize()
+        ours = theirs = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+            if match in ev.key:
+                ours += us
+            else:
+                theirs += us
+        if ours > 0 and theirs > 0:
+            return ours / 1e3 / calls, theirs / 1e3 / calls
+    raise RuntimeError(f"torch.profiler recorded no device time for kernels named {match!r} "
+                       f"in three windows")
+
+
 def device_busy(fn) -> dict:
     """torch.profiler (CPU and CUDA activity) over one call of ``fn``,
     synchronized before and after: ``busy_ms``, the device's time in

@@ -12,8 +12,9 @@ order (the kernels build with -fmad=false and round pow once from
 double, as the twins do), so fused f32 outputs agree to 2e-6 and uint8
 outputs to 1 LSB; the stand-alone blooms' row walk (csrc/bloom_walk.cu:
 bloom3's gaussian and fast bloom, the stripe, bloom2), the warp, the
-persistence scan (its multi-clip mode too) and the glitch shear are
-bitwise, and so is the fused kernel past radius 31 (its register-blocked
+persistence scan (its multi-clip mode too) and the glitch shear (also at
+the GUI preview's B = 1, c5's width, offsets of +-3W, a frame base off 16
+bytes and a row past 48 KB of shared memory) are bitwise, and so is the fused kernel past radius 31 (its register-blocked
 tap loops; both inputs, both triads). The fused kernel's direct-pow
 triad (``--precision fast``, triad_mode 3) is held to the same 2e-6 /
 1 LSB in every instantiation
@@ -262,12 +263,31 @@ def test_persist_kernel_matches_twin(cuda_dev, shape, first, emit_u8):
     assert got.dtype == want.dtype and torch.equal(got, want) and torch.equal(gs, ws)
 
 
+# the glitch shear at the engine's shapes and at the GUI preview's B = 1
+# (960x540, 162 band rows) and c5's width (3840, 120 segments), a few frames
+GLITCH_SHAPES = SHAPES + [(1, 540, 960), (4, 2160, 3840)]
+GLITCH_IDS = SHAPE_IDS + ["preview", "c5_width"]
+
+
+def glitch_entries(imgs, y0, off, seg):
+    """Both entries, each counted: (in place on a copy of the frames, out of
+    place on a contiguous copy of the band)."""
+    n0 = kglitch.launches
+    got = kglitch.shear_planar_inplace(imgs.clone(), y0, off, seg)
+    assert kglitch.launches == n0 + 1
+    band = kglitch.shear_planar(imgs[:, :, y0:].contiguous(), off, seg)
+    assert kglitch.launches == n0 + 2
+    torch.cuda.synchronize()
+    return got, band
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", GLITCH_SHAPES, ids=GLITCH_IDS)
 @pytest.mark.parametrize("engine_mode", ["export", "preview"])
 def test_glitch_kernel_matches_twin(cuda_dev, shape, engine_mode):
     """Both entries (in place on frames, out of place on the band) are
-    bitwise the twin's gather, with the c4 band and host-rng offsets."""
+    bitwise the twin's gather, with the c4 band and host-rng offsets; each
+    launches once."""
     b, h, w = shape
     eng = CRTEngine(EffectParams(**VARIANTS["c4"]), h, w, 24.0, rng="host",
                     engine=engine_mode, device=cuda_dev)
@@ -278,10 +298,46 @@ def test_glitch_kernel_matches_twin(cuda_dev, shape, engine_mode):
     imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
     want = imgs.clone()
     want[:, :, y0:] = kglitch.shear_planar_ref(imgs[:, :, y0:], off, seg)
-    band = kglitch.shear_planar(imgs[:, :, y0:].contiguous(), off, seg)
-    got = kglitch.shear_planar_inplace(imgs.clone(), y0, off, seg)
-    torch.cuda.synchronize()
+    got, band = glitch_entries(imgs, y0, off, seg)
     assert torch.equal(got, want) and torch.equal(band, want[:, :, y0:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wrap_3w", "unaligned", "unaligned_3w", "wide"])
+def test_glitch_kernel_edges(cuda_dev, case):
+    """Offsets over +-3W (wrapping both ways), frames whose base is 4 bytes
+    off 16 (the scalar path, W % 4 == 0 all the same), and a row past 48 KB
+    of shared memory (the limit lifted once per device), both entries
+    bitwise the twin; a row past the card's shared memory is refused."""
+    b, h, w, y0, seg_len = {"wrap_3w": (3, 40, 1920, 13, 16), "unaligned": (2, 45, 1920, 30, 16),
+                            "unaligned_3w": (1, 540, 960, 378, 960),
+                            "wide": (1, 5, 16384, 2, 32)}[case]
+    g = torch.Generator(device=cuda_dev).manual_seed(5)
+    seg = (torch.arange(w, device=cuda_dev) // seg_len).to(torch.int32)
+    nseg = int(seg.max().item()) + 1
+    if case.endswith("3w"):
+        off = torch.randint(-3 * w, 3 * w + 1, (b, h - y0, nseg), generator=g, device=cuda_dev,
+                            dtype=torch.int32)
+    else:
+        off = torch.randint(-40, 41, (b, h - y0, nseg), generator=g, device=cuda_dev,
+                            dtype=torch.int32)
+    if case.startswith("unaligned"):  # a contiguous view 4 bytes into its storage
+        imgs = torch.rand(b * 3 * h * w + 1, generator=g, device=cuda_dev)[1:].view(b, 3, h, w)
+        assert imgs.data_ptr() % 16 == 4 and imgs.is_contiguous()
+    else:
+        imgs = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    want = imgs.clone()
+    want[:, :, y0:] = kglitch.shear_planar_ref(imgs[:, :, y0:], off, seg)
+    got, band = glitch_entries(imgs, y0, off, seg)
+    assert torch.equal(got, want) and torch.equal(band, want[:, :, y0:])
+    if case == "wide":
+        w2 = 60000  # 240 KB a row: more than a block may take
+        band2 = torch.zeros((1, 3, 1, w2), device=cuda_dev)
+        with pytest.raises(RuntimeError, match="crt_glitch_launch"):
+            kglitch.shear_planar(band2, torch.zeros((1, 1, 1), dtype=torch.int32,
+                                                    device=cuda_dev),
+                                 torch.zeros(w2, dtype=torch.int32, device=cuda_dev))
+        torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -92,6 +92,95 @@ def test_plain_shear_band_matches_jax(per_row):
     np.testing.assert_array_equal(got.transpose(1, 2, 0), want)
 
 
+def replay_plan(imgs, y0, off, seg, plan):
+    """csrc/glitch.cu's walk replayed at index level, in place on ``imgs``
+    (B, 3, H, W) f32 as the engine's entry runs: each block of the plan's
+    grid (band row, plane, frame) with its tx threads; the load turns
+    (16-byte chunks or scalars) into a shared row filled with NaN, the
+    offsets reduced once per segment with C's truncating %, then the store
+    turns, each output x + o[seg[x]] less W at most once. Returns the
+    frames and how often each value was written."""
+    b, _, hs, w = imgs.shape
+    rows, nseg = hs - y0, off.shape[2]
+    unit = 4 if plan.vec else 1
+    wp = -(-w // 4) * 4
+    assert plan.tx % 32 == 0 and plan.tx <= 1024
+    assert plan.grid == (rows, 3, b)
+    assert plan.smem == 4 * (wp + nseg)
+    t = np.arange(plan.tx)
+    writes = np.zeros(imgs.shape, np.int32)
+    for r, p, bi in np.ndindex(*plan.grid):
+        shared = np.full(wp, np.nan, np.float32)
+        o = np.full(nseg, -1, np.int64)
+        for k in range(-(-nseg // plan.tx)):  # before the barrier: offsets, then the row
+            s = t + k * plan.tx
+            s = s[s < nseg]
+            m = np.fmod(off[bi, r, s].astype(np.int64), w)
+            o[s] = np.where(m < 0, m + w, m)
+        for k in range(-(-(w // unit) // plan.tx)):
+            q = t + k * plan.tx
+            cols = (q[q < w // unit][:, None] * unit + np.arange(unit)).ravel()
+            shared[cols] = imgs[bi, p, y0 + r, cols]
+        assert (o >= 0).all() and (o < w).all()
+        for k in range(-(-(w // unit) // plan.tx)):  # after it: the stores
+            q = t + k * plan.tx
+            x = (q[q < w // unit][:, None] * unit + np.arange(unit)).ravel()
+            sx = x + o[seg[x]]
+            sx = np.where(sx >= w, sx - w, sx)
+            imgs[bi, p, y0 + r, x] = shared[sx]
+            writes[bi, p, y0 + r, x] += 1
+    return imgs, writes
+
+
+# (B, H, W, y0, segment length or None for one offset per row or "col" for
+# one segment per column, offsets: normal scale or "3w" for integers in
+# [-3W, 3W], 16-byte aligned buffers)
+PLAN_CASES = {
+    "48x256": (2, 48, 256, 21, 16, 200.0, True),       # one turn of 64 threads
+    "odd": (2, 45, 250, 31, 8, 200.0, True),            # scalar: W % 4 != 0
+    "preview": (1, 540, 960, 378, None, 6.0, True),     # the GUI's B = 1, one offset per row
+    "wrap_3w": (2, 32, 128, 9, 8, "3w", True),           # wraps both ways
+    "nseg_1": (2, 20, 64, 5, None, "3w", True),
+    "nseg_w": (1, 24, 200, 13, "col", "3w", True),
+    "y0_37": (2, 50, 128, 37, 32, 40.0, True),
+    "unaligned": (2, 30, 256, 11, 16, 40.0, False),     # W % 4 == 0, a base off 16 bytes
+    "c5_width": (1, 10, 3840, 4, 32, 200.0, True),      # 120 segments, four turns a thread
+    "scalar_turns": (1, 9, 1001, 2, 7, "3w", True),     # scalar, four turns a thread
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES), ids=list(PLAN_CASES))
+def test_kernel_plan_replay_is_the_oracle_gather(case):
+    """The kernel's walk under glitch_plan, replayed at index level, is
+    bit for bit shear_planar_ref and the oracle's apply_glitch_gather;
+    each band value is written once, the rows above y0 not at all."""
+    b, h, w, y0, seg_len, scale, aligned = PLAN_CASES[case]
+    rng = np.random.default_rng(w + h)
+    imgs = rng.random((b, 3, h, w), dtype=np.float32)
+    if seg_len is None:
+        seg = np.zeros(w, np.int32)
+    elif seg_len == "col":
+        seg = np.arange(w, dtype=np.int32)
+    else:
+        seg = (np.arange(w) // seg_len).astype(np.int32)
+    nseg = int(seg.max()) + 1
+    if scale == "3w":
+        offs = rng.integers(-3 * w, 3 * w + 1, (b, h - y0, nseg)).astype(np.float32)
+    else:
+        offs = rng.normal(0, scale, (b, h - y0, nseg)).astype(np.float32)
+    off = tglitch.round_offsets(torch.from_numpy(offs))
+    plan = tglitch.glitch_plan(b, h - y0, w, nseg, aligned)
+    assert plan.vec == (aligned and w % 4 == 0)
+    got, writes = replay_plan(imgs.copy(), y0, off.numpy(), seg, plan)
+    np.testing.assert_array_equal(writes[:, :, y0:], 1)
+    np.testing.assert_array_equal(writes[:, :, :y0], 0)
+    want = oracle_shear(imgs, y0, offs, seg)
+    np.testing.assert_array_equal(got, want)
+    ref = tglitch.shear_planar_ref(torch.from_numpy(imgs[:, :, y0:].copy()), off,
+                                   torch.from_numpy(seg)).numpy()
+    np.testing.assert_array_equal(got[:, :, y0:], ref)
+
+
 def c4(**kw):
     d = dict(scanline_strength=0.0, triad_strength=0.0, aberration_px=0, bloom_strength=0.0,
              noise_strength=1.5, vignette_strength=0.0, persistence=0.0, pixel_size=1,
