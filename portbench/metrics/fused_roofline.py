@@ -1,0 +1,15 @@
+"""Fused kernel (csrc/fused.cu): its least time over its device time per
+launch, in %. The least time is the yardstick's for the frames of a launch
+(portbench/yardstick.py fused_work)."""
+
+from portbench import yardstick
+
+
+def read(ctx):
+    tr = ctx.trace
+    ks = tr.kernels("fused_strip_kernel") if tr is not None else []
+    if not ks:
+        return None
+    per_launch_s = sum(k[3] for k in ks) / len(ks) / 1e6
+    return yardstick.bound_s(*yardstick.fused_work(ctx.cfg, tr.frames / len(ks))) \
+        / per_launch_s * 100.0
