@@ -81,7 +81,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import oracle
+from . import oracle, perf
 from .kernels import bloom as kbloom
 from .kernels import bloom2 as kbloom2
 from .kernels import bloom3 as kbloom3
@@ -376,13 +376,14 @@ class CRTEngine:
         ``idx / fps`` (time: crt_filter.py:1064); the host-rng noise is
         one stream per (seed, frame index)."""
         idx = np.asarray(frame_indices, dtype=np.int64).reshape(-1)
-        noise = None
-        if self.rng == "host" and self.params.noise_on:
-            gh, gw = self._grain_hw
-            noise = np.stack([
-                np.random.default_rng((self.seed, int(i))).standard_normal(
-                    (gh, gw), dtype=np.float32) for i in idx])
-        return self._aux_at(idx / float(self.fps), idx, noise)
+        with perf.span("crt.aux"):
+            noise = None
+            if self.rng == "host" and self.params.noise_on:
+                gh, gw = self._grain_hw
+                noise = np.stack([
+                    np.random.default_rng((self.seed, int(i))).standard_normal(
+                        (gh, gw), dtype=np.float32) for i in idx])
+            return self._aux_at(idx / float(self.fps), idx, noise)
 
     def make_aux_at(self, times_sec, noise_fields=None) -> FrameAux:
         """Per-frame inputs for arbitrary times in seconds: the GUI
@@ -397,7 +398,8 @@ class CRTEngine:
             if noise_fields is None:
                 raise ValueError("host-rng preview aux needs injected noise_fields")
             noise = np.asarray(noise_fields, np.float32)
-        return self._aux_at(t, np.rint(t * self.fps).astype(np.int64), noise)
+        with perf.span("crt.aux"):
+            return self._aux_at(t, np.rint(t * self.fps).astype(np.int64), noise)
 
     def _aux_at(self, t: np.ndarray, idx: np.ndarray, noise) -> FrameAux:
         """The inputs that follow from the f64 times t: the host f64 scalar
@@ -435,14 +437,16 @@ class CRTEngine:
         returned as it is."""
         if isinstance(aux, DeviceAux):
             return aux
-        p = self.params
-        sl = None
-        if p.scanlines_on:
-            sl = (self._scanline_rows(aux.phase) if p.scanlines_1d
-                  else np.asarray(aux.phase, np.float32))
-        host = (np.asarray(aux.frame_idx, np.int64) if self._draws else None, sl,
-                aux.flicker if p.flicker_on else None, aux.noise, aux.glitch_base, aux.glitch_seg)
-        return DeviceAux(*(self._put(a) for a in host))
+        with perf.span("crt.upload"):
+            p = self.params
+            sl = None
+            if p.scanlines_on:
+                sl = (self._scanline_rows(aux.phase) if p.scanlines_1d
+                      else np.asarray(aux.phase, np.float32))
+            host = (np.asarray(aux.frame_idx, np.int64) if self._draws else None, sl,
+                    aux.flicker if p.flicker_on else None, aux.noise, aux.glitch_base,
+                    aux.glitch_seg)
+            return DeviceAux(*(self._put(a) for a in host))
 
     def _put(self, a) -> Optional[torch.Tensor]:
         """A host array on the device: through pinned memory and one
@@ -462,7 +466,8 @@ class CRTEngine:
         aux = self.upload(aux)
         if aux.noise is not None:
             return aux.noise
-        return krng.grain_normals(self.seed, aux.frame_idx, *self._grain_hw)
+        with perf.span("crt.draws"):
+            return krng.grain_normals(self.seed, aux.frame_idx, *self._grain_hw)
 
     def glitch_offsets(self, aux) -> torch.Tensor:
         """(B, rows, NSEG) int32 per-segment offsets of stage 14: one launch
@@ -471,13 +476,16 @@ class CRTEngine:
         _band_maps)."""
         aux = self.upload(aux)
         if aux.glitch_base is None:
-            if self.engine == "preview":
-                return krng.glitch_preview_offsets(self.seed, aux.frame_idx, self._glitch_amp)
-            return krng.glitch_export_offsets(self.seed, aux.frame_idx, self._glitch_nseg,
-                                              self._glitch_amp)
-        offs = (aux.glitch_base[:, :, None] if self.engine == "preview"
-                else aux.glitch_base[:, :, None] + aux.glitch_seg)
-        return kglitch.round_offsets(offs).contiguous()
+            with perf.span("crt.draws"):
+                if self.engine == "preview":
+                    return krng.glitch_preview_offsets(self.seed, aux.frame_idx,
+                                                       self._glitch_amp)
+                return krng.glitch_export_offsets(self.seed, aux.frame_idx, self._glitch_nseg,
+                                                  self._glitch_amp)
+        with perf.span("crt.torch_ops"):
+            offs = (aux.glitch_base[:, :, None] if self.engine == "preview"
+                    else aux.glitch_base[:, :, None] + aux.glitch_seg)
+            return kglitch.round_offsets(offs).contiguous()
 
     def _scanline_rows(self, phase: np.ndarray) -> np.ndarray:
         """(B, H) stage-8 1-D multiplier, f32 in the JAX engine's op order
@@ -518,17 +526,23 @@ class CRTEngine:
             out = self._staged_stages(x, aux)
         else:
             feed = x if self.spec.pre else self._pre_bloom(x)
-            out = kfused.fused_pipeline(feed, self.spec, self.fused_tables,
-                                        out=dst if self.spec.emit == "u8" else None,
-                                        **self.fused_operands(aux))
+            # the operands first: the grain draw is a wrapper span of its own
+            kw = self.fused_operands(aux)
+            with perf.span("crt.fused"):
+                out = kfused.fused_pipeline(feed, self.spec, self.fused_tables,
+                                            out=dst if self.spec.emit == "u8" else None, **kw)
         if p.warp_on:  # stage 12
-            out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8,
-                                    out=dst if self._warp_u8 else None)
+            with perf.span("crt.warp"):
+                out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8,
+                                        out=dst if self._warp_u8 else None)
         if self._text_after:  # stage 13
-            out = ocolor.composite_text(out, *self._text)
+            with perf.span("crt.torch_ops"):
+                out = ocolor.composite_text(out, *self._text)
         if self._glitch:  # stage 14
-            kglitch.shear_planar_inplace(out, self._glitch_y0, self.glitch_offsets(aux),
-                                         self.consts["glitch_seg_index"])
+            offs = self.glitch_offsets(aux)
+            with perf.span("crt.glitch"):
+                kglitch.shear_planar_inplace(out, self._glitch_y0, offs,
+                                             self.consts["glitch_seg_index"])
         return out
 
     def _finish(self, imgs: torch.Tensor, state: torch.Tensor, first: bool, dst=None):
@@ -536,16 +550,18 @@ class CRTEngine:
         frames, new (3, H, W) f32 state); the persistence kernel writes
         its frames into ``dst`` when given."""
         p = self.params
-        if p.persistence_on:  # stage 15
-            if self.assoc_scan:
+        if p.persistence_on and not self.assoc_scan:  # stage 15
+            with perf.span("crt.persist"):
+                return kpersist.persistence_scan(imgs, state, first, p.persistence,
+                                                 emit_u8=True, out=dst)
+        with perf.span("crt.torch_ops"):
+            if p.persistence_on:
                 return self._assoc_persistence(imgs, state, first)
-            return kpersist.persistence_scan(imgs, state, first, p.persistence, emit_u8=True,
-                                             out=dst)
-        if imgs.dtype == torch.uint8:
-            # the carried state is the quantized last frame in [0, 1];
-            # nothing reads it back while persistence is off
-            return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
-        return ocolor.to_uint8(imgs), imgs[-1]
+            if imgs.dtype == torch.uint8:
+                # the carried state is the quantized last frame in [0, 1];
+                # nothing reads it back while persistence is off
+                return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
+            return ocolor.to_uint8(imgs), imgs[-1]
 
     def _step(self, x: torch.Tensor, aux, state: torch.Tensor, first: bool, dst=None):
         """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
@@ -583,10 +599,11 @@ class CRTEngine:
         """Stages 1-5 as torch ops on (B, 3, H, W) uint8: the fused twin's
         prologue (so the staged and fused paths agree bit for bit up to
         the bloom input), then the text composited before the bloom."""
-        img = kfused.prologue_ref(x, self.spec, self.fused_tables)
-        if self._text_before:
-            img = ocolor.composite_text(img, *self._text)
-        return img
+        with perf.span("crt.torch_ops"):
+            img = kfused.prologue_ref(x, self.spec, self.fused_tables)
+            if self._text_before:
+                img = ocolor.composite_text(img, *self._text)
+            return img
 
     def _staged_stages(self, x: torch.Tensor, aux: FrameAux) -> torch.Tensor:
         """Stages 1-11 for the configurations the fused kernel does not
@@ -594,17 +611,19 @@ class CRTEngine:
         the route (an opt-in's, else bloom3), then the fused twin's
         epilogue (stages 7-11, the 1-D rows or the 2-D mask) as torch ops."""
         img = self._pre_bloom(x)
-        if self.bloom_route == "stripe":  # stage 6
-            img = kbloom.bloom_planar(img, self.bloom_spec)
-        elif self.bloom_route == "bloom2":
-            img = kbloom2.bloom2_planar(img, self.bloom_spec, self.bloom2_tables)
-        elif self.bloom3_spec is not None:
-            if self.bloom3_spec.fast:
-                img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec, self.bloom3_tables)
-            else:
-                img = kbloom3.bloom3_planar(img, self.bloom3_spec)
-        return kfused.epilogue_ref(img, self.spec, self.fused_tables,
-                                   **self.fused_operands(aux))
+        if self.bloom3_spec is not None:  # stage 6, the bloom on
+            with perf.span("crt.bloom"):
+                if self.bloom_route == "stripe":
+                    img = kbloom.bloom_planar(img, self.bloom_spec)
+                elif self.bloom_route == "bloom2":
+                    img = kbloom2.bloom2_planar(img, self.bloom_spec, self.bloom2_tables)
+                elif self.bloom3_spec.fast:
+                    img = kbloom3.bloom3_fast_planar(img, self.bloom3_spec, self.bloom3_tables)
+                else:
+                    img = kbloom3.bloom3_planar(img, self.bloom3_spec)
+        kw = self.fused_operands(aux)
+        with perf.span("crt.torch_ops"):
+            return kfused.epilogue_ref(img, self.spec, self.fused_tables, **kw)
 
     def fused_operands(self, aux) -> dict:
         """The per-batch operands of stages 7-11, as the fused kernel (or
@@ -618,7 +637,8 @@ class CRTEngine:
         if s.scanlines and self.params.scanlines_1d:
             kw["sl"] = aux.sl
         elif s.scanlines:
-            kw["sl"] = self._scanline_mask_2d(aux.sl)
+            with perf.span("crt.torch_ops"):
+                kw["sl"] = self._scanline_mask_2d(aux.sl)
         if s.vignette:
             kw["vy2"], kw["vx2"] = c["vig_ny2"], c["vig_nx2"]
         if s.triad:
@@ -643,16 +663,18 @@ class CRTEngine:
         engine's device, state). Pass state=None for the first batch of a
         stream (its first frame passes through unblended); thereafter the
         returned state carries the persistence tail across batches."""
-        x = self._frames(frames_u8)
-        if frame_indices is None:
-            frame_indices = np.arange(x.shape[0])
-        return self._process(x, self.make_aux(frame_indices), state)
+        with perf.span("crt.call"):
+            x = self._frames(frames_u8)
+            if frame_indices is None:
+                frame_indices = np.arange(x.shape[0])
+            return self._process(x, self.make_aux(frame_indices), state)
 
     def process_at(self, frames_u8, times_sec, noise_fields=None, state=None):
         """process() addressed by time instead of frame index (the GUI
         preview's access; see make_aux_at): the same checks and step."""
-        x = self._frames(frames_u8)
-        return self._process(x, self.make_aux_at(times_sec, noise_fields), state)
+        with perf.span("crt.call"):
+            x = self._frames(frames_u8)
+            return self._process(x, self.make_aux_at(times_sec, noise_fields), state)
 
     def process_stack(self, frames_stack, frame_indices, state=None, out=None):
         """n process() calls over (n, B, ...) frames with (n, B) frame
@@ -663,18 +685,19 @@ class CRTEngine:
         written into ``out[i]`` (a (n, B, ...) uint8 tensor on the device;
         None: a new one). Returns (out, final state), bit for bit n
         process() calls: the native draws are keyed by frame index."""
-        x = torch.as_tensor(frames_stack)
-        exp = self._frame_shape()
-        if x.dtype != torch.uint8 or x.ndim != 2 + len(exp) or tuple(x.shape[2:]) != exp:
-            raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (n, B) + {exp} "
-                             f"for layout={self.layout!r}")
-        idx = np.asarray(frame_indices, dtype=np.int64)
-        if idx.size != x.shape[0] * x.shape[1]:
-            raise ValueError(f"frame_indices {idx.shape} do not pair with frames "
-                             f"{tuple(x.shape[:2])}")
-        out = stack_out(out, x.shape, self.device)
-        x = x.to(self.device, non_blocking=True)
-        return out, self._chunks(x, self.make_aux(idx.reshape(-1)), state, out)
+        with perf.span("crt.call"):
+            x = torch.as_tensor(frames_stack)
+            exp = self._frame_shape()
+            if x.dtype != torch.uint8 or x.ndim != 2 + len(exp) or tuple(x.shape[2:]) != exp:
+                raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (n, B) + {exp} "
+                                 f"for layout={self.layout!r}")
+            idx = np.asarray(frame_indices, dtype=np.int64)
+            if idx.size != x.shape[0] * x.shape[1]:
+                raise ValueError(f"frame_indices {idx.shape} do not pair with frames "
+                                 f"{tuple(x.shape[:2])}")
+            out = stack_out(out, x.shape, self.device)
+            x = x.to(self.device, non_blocking=True)
+            return out, self._chunks(x, self.make_aux(idx.reshape(-1)), state, out)
 
     def _frames(self, frames_u8) -> torch.Tensor:
         x = torch.as_tensor(frames_u8).to(self.device, non_blocking=True)
@@ -708,11 +731,13 @@ class CRTEngine:
         dev_aux = self.upload(aux)
         b = x.shape[1]
         for i in range(x.shape[0]):
-            dst = None if nhwc else out[i]
-            chunk = aux_slice(dev_aux, slice(i * b, (i + 1) * b))
-            frames, state = self._step(x[i].contiguous(), chunk, state, first and i == 0, dst)
-            if nhwc:
-                out[i].copy_(frames.permute(0, 2, 3, 1))
-            elif frames is not dst:
-                dst.copy_(frames)
+            with perf.span("crt.step"):
+                dst = None if nhwc else out[i]
+                chunk = aux_slice(dev_aux, slice(i * b, (i + 1) * b))
+                frames, state = self._step(x[i].contiguous(), chunk, state, first and i == 0,
+                                           dst)
+                if nhwc:
+                    out[i].copy_(frames.permute(0, 2, 3, 1))
+                elif frames is not dst:
+                    dst.copy_(frames)
         return (state.permute(1, 2, 0) if nhwc else state).contiguous()

@@ -32,7 +32,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import oracle
+from . import oracle, perf
 from .params import (
     EffectParams,
     TextParams,
@@ -143,20 +143,17 @@ def render_preview_frame(
     to uint8 before that blend (a <= 1-LSB-class preview-only deviation;
     the export path is untouched). An engine failure raises.
 
-    Each step of the engine path runs in a
-    ``torch.profiler.record_function`` range ("preview.<step>"), which
-    scripts/port_preview_profile.py reads."""
-    from torch.profiler import record_function as span
-
+    Each step of the engine path runs in a ``perf.span`` range
+    ("preview.<step>"), which scripts/port_preview_profile.py reads."""
     h, w = frame.shape[:2]
     pw, ph = _preview_size(w, h)
-    with span("preview.fit"):
+    with perf.span("preview.fit"):
         if (pw, ph) != (w, h):
             import cv2
 
             frame = cv2.resize(frame, (pw, ph), interpolation=cv2.INTER_LINEAR)
     phase = t * p.scanline_speed_px_s
-    with span("preview.grain"):
+    with perf.span("preview.grain"):
         noise = (
             np.random.default_rng(int(t * 1000)).standard_normal(
                 (max(1, ph // p.grain_size), max(1, pw // p.grain_size)),
@@ -167,12 +164,12 @@ def render_preview_frame(
         )
     shown = None
     if os.environ.get("PCRT_PREVIEW_ENGINE") != "0":
-        with span("preview.engine"):
+        with perf.span("preview.engine"):
             eng = _get_preview_engine(p, pw, ph, device)
             out, _ = eng.process_at(
                 frame[None], np.asarray([t], np.float64),
                 None if noise is None else noise[None])
-        with span("preview.d2h"):
+        with perf.span("preview.d2h"):
             # the engine's uint8 frame is what to_uint8(frame / 255) gives
             # back, so it is shown as it is; the f32 copy is only the carry
             shown = out[0].cpu().numpy()
@@ -185,7 +182,7 @@ def render_preview_frame(
     new_prev = None
     if stateful:
         if p.persistence_on:
-            with span("preview.blend"):
+            with perf.span("preview.blend"):
                 # a resolution change mid-preview resizes the carried state
                 # (persistence_blend matches crt_filter.py:689-693)
                 img = oracle.persistence_blend(prev_img, img, p.persistence)
@@ -196,7 +193,7 @@ def render_preview_frame(
         # latest frame instead of wiping or freezing the carry
         new_prev = img
     if shown is None:
-        with span("preview.to_uint8"):
+        with perf.span("preview.to_uint8"):
             shown = oracle.ops.to_uint8(img)
     return shown, new_prev
 

@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from .. import perf
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
@@ -124,13 +126,14 @@ def launch(fn_name: str, args: ctypes.Structure, device) -> None:
     memory above 48 KB) acts on the current device only."""
     import torch
 
-    lib = library()
-    size = getattr(lib, fn_name.replace("_launch", "_args_bytes"))()
-    if size != ctypes.sizeof(args):
-        raise RuntimeError(f"{fn_name}: argument struct is {ctypes.sizeof(args)} "
-                           f"bytes in Python but {size} in C")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream))
+    with perf.span("crt.launch"):
+        lib = library()
+        size = getattr(lib, fn_name.replace("_launch", "_args_bytes"))()
+        if size != ctypes.sizeof(args):
+            raise RuntimeError(f"{fn_name}: argument struct is {ctypes.sizeof(args)} "
+                               f"bytes in Python but {size} in C")
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, fn_name)(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {rc}")

@@ -392,7 +392,7 @@ def process_videos(
                     break
                 kind, items, idx0s = item
                 n = spc if kind == "stack" else 1
-                with perf.timed("fx.dispatch"), perf.device_trace("fx.step"):
+                with perf.timed("fx.dispatch"):
                     # each clip's frames go to their slot, batch by batch
                     x = torch.empty((n, c, batch_size, *fshape), dtype=torch.uint8, device=dev)
                     ins = []

@@ -52,6 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import perf
 from ..engine import CRTEngine, FrameAux, aux_slice, stack_out
 from ..kernels import persist as kpersist
 from ..ops import color as ocolor
@@ -185,10 +186,11 @@ class ShardedCRTEngine:
         self._om = np.float32(1.0 - p.persistence)
 
     def process(self, frames_u8, frame_indices=None, state=None):
-        x, aux, state, first = self._inputs(torch.as_tensor(frames_u8)[None], frame_indices,
-                                            state)
-        out = torch.empty(x.shape[1:], dtype=torch.uint8, device=self.engine.device)
-        return out, self._chunks(x, aux, state, first, out[None])
+        with perf.span("crt.call"):
+            x, aux, state, first = self._inputs(torch.as_tensor(frames_u8)[None],
+                                                frame_indices, state)
+            out = torch.empty(x.shape[1:], dtype=torch.uint8, device=self.engine.device)
+            return out, self._chunks(x, aux, state, first, out[None])
 
     def process_stack(self, frames_stack, frame_indices, state=None, out=None):
         """n process() calls over (n, B, ...) frames with (n, B) frame
@@ -198,9 +200,11 @@ class ShardedCRTEngine:
         corrections as in process(), chunk i gathered into ``out[i]`` (a
         (n, B, ...) uint8 tensor on the engine's device; None: a new one).
         Returns (out, final state), bit for bit n process() calls."""
-        x, aux, state, first = self._inputs(torch.as_tensor(frames_stack), frame_indices, state)
-        out = stack_out(out, x.shape, self.engine.device)
-        return out, self._chunks(x, aux, state, first, out)
+        with perf.span("crt.call"):
+            x, aux, state, first = self._inputs(torch.as_tensor(frames_stack), frame_indices,
+                                                state)
+            out = stack_out(out, x.shape, self.engine.device)
+            return out, self._chunks(x, aux, state, first, out)
 
     def _chunks(self, x: torch.Tensor, aux: FrameAux, state, first: bool,
                 out: torch.Tensor):
@@ -211,15 +215,16 @@ class ShardedCRTEngine:
         auxes = _uploads(self.mesh, self._reps, aux)
         b = x.shape[1]
         for i in range(x.shape[0]):
-            if i:  # the carry after chunk i - 1, where the next composition starts
-                state = state.to(self.mesh.devices[0], non_blocking=True)
-            local = self._local(x[i], auxes, i * b)
-            if self._persist:
-                carries, state = self._carry(local, state, first and i == 0)
-                outs = self._correct(local, carries)
-            else:
-                outs, state = [y for y, _ in local], local[-1][1]
-            _gather(outs, nhwc, self.engine.device, out[i])
+            with perf.span("crt.step"):
+                if i:  # the carry after chunk i - 1, where the next composition starts
+                    state = state.to(self.mesh.devices[0], non_blocking=True)
+                local = self._local(x[i], auxes, i * b)
+                if self._persist:
+                    carries, state = self._carry(local, state, first and i == 0)
+                    outs = self._correct(local, carries)
+                else:
+                    outs, state = [y for y, _ in local], local[-1][1]
+                _gather(outs, nhwc, self.engine.device, out[i])
         return self._state_out(state)
 
     # -- the steps of process() (chip_smoke.py times them one by one) --
@@ -270,8 +275,9 @@ class ShardedCRTEngine:
                                                                   off + sl.stop)))
                 if self._persist:
                     zero = torch.zeros(imgs.shape[1:], dtype=torch.float32, device=dev)
-                    local.append(kpersist.persistence_scan(imgs, zero, False, p.persistence,
-                                                           emit_u8=False))
+                    with perf.span("crt.persist"):
+                        local.append(kpersist.persistence_scan(imgs, zero, False,
+                                                               p.persistence, emit_u8=False))
                 else:
                     local.append(rep._finish(imgs, None, True))
         return local
@@ -364,8 +370,9 @@ class MultiClipEngine:
                 dst=None):
         p = eng.params
         if p.persistence_on and not eng.assoc_scan:
-            return kpersist.persistence_scan(imgs, None, first, p.persistence, emit_u8=True,
-                                             clip_states=states, out=dst)
+            with perf.span("crt.persist"):
+                return kpersist.persistence_scan(imgs, None, first, p.persistence,
+                                                 emit_u8=True, clip_states=states, out=dst)
         b = imgs.shape[0] // states.shape[0]
         outs, ends = zip(*(eng._finish(imgs[k * b:(k + 1) * b], states[k], first)
                            for k in range(states.shape[0])))
@@ -373,13 +380,14 @@ class MultiClipEngine:
 
     def process(self, frames_u8, frame_indices, states=None):
         eng = self.engine
-        x = torch.as_tensor(frames_u8)
-        fshape = eng._frame_shape()
-        if x.dtype != torch.uint8 or x.ndim != 5 or tuple(x.shape[2:]) != fshape:
-            raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (C, B, *{fshape}) "
-                             f"for layout={eng.layout!r}")
-        out, states = self._chunks(x[None], frame_indices, states, None)
-        return out[0], states
+        with perf.span("crt.call"):
+            x = torch.as_tensor(frames_u8)
+            fshape = eng._frame_shape()
+            if x.dtype != torch.uint8 or x.ndim != 5 or tuple(x.shape[2:]) != fshape:
+                raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 "
+                                 f"(C, B, *{fshape}) for layout={eng.layout!r}")
+            out, states = self._chunks(x[None], frame_indices, states, None)
+            return out[0], states
 
     def process_stack(self, frames_stack, frame_indices, states=None, out=None):
         """n process() calls over (n, C, B, ...) frames with (n, C, B)
@@ -392,12 +400,13 @@ class MultiClipEngine:
         chunks. Returns (out, final states), bit for bit n process()
         calls."""
         eng = self.engine
-        x = torch.as_tensor(frames_stack)
-        fshape = eng._frame_shape()
-        if x.dtype != torch.uint8 or x.ndim != 6 or tuple(x.shape[3:]) != fshape:
-            raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 (n, C, B, *{fshape}) "
-                             f"for layout={eng.layout!r}")
-        return self._chunks(x, frame_indices, states, out)
+        with perf.span("crt.call"):
+            x = torch.as_tensor(frames_stack)
+            fshape = eng._frame_shape()
+            if x.dtype != torch.uint8 or x.ndim != 6 or tuple(x.shape[3:]) != fshape:
+                raise ValueError(f"frames {x.dtype} {tuple(x.shape)} != uint8 "
+                                 f"(n, C, B, *{fshape}) for layout={eng.layout!r}")
+            return self._chunks(x, frame_indices, states, out)
 
     def _chunks(self, x: torch.Tensor, frame_indices, states, out):
         """The steps of a checked (n, C, B, ...) stack (process_stack)."""
@@ -428,15 +437,16 @@ class MultiClipEngine:
                 sts.append(_planar(states[s * k:(s + 1) * k].to(dev, non_blocking=True), nhwc))
         same = [not nhwc and dev == _canonical(eng.device) for dev in self.mesh.devices]
         for i in range(n):
-            outs = []
-            for s, (dev, rep) in enumerate(zip(self.mesh.devices, self._reps)):
-                fs = slice(s * k * b, (s + 1) * k * b)
-                with _on(dev):
-                    f = _planar(flat[i, fs].to(dev, non_blocking=True), nhwc)
-                    imgs = rep._effects(f, aux_slice(auxes[s], slice(i * c * b + fs.start,
-                                                                     i * c * b + fs.stop)))
-                    o, sts[s] = self._finish(rep, imgs, sts[s], first and i == 0,
-                                             out_flat[i, fs] if same[s] else None)
-                outs.append(o)
-            _gather(outs, nhwc, eng.device, out_flat[i])
+            with perf.span("crt.step"):
+                outs = []
+                for s, (dev, rep) in enumerate(zip(self.mesh.devices, self._reps)):
+                    fs = slice(s * k * b, (s + 1) * k * b)
+                    with _on(dev):
+                        f = _planar(flat[i, fs].to(dev, non_blocking=True), nhwc)
+                        imgs = rep._effects(f, aux_slice(auxes[s], slice(
+                            i * c * b + fs.start, i * c * b + fs.stop)))
+                        o, sts[s] = self._finish(rep, imgs, sts[s], first and i == 0,
+                                                 out_flat[i, fs] if same[s] else None)
+                    outs.append(o)
+                _gather(outs, nhwc, eng.device, out_flat[i])
         return out, _gather(sts, nhwc, eng.device)

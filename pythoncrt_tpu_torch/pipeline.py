@@ -342,7 +342,7 @@ def render_stream(reader, writer, engine: CRTEngine, *, batch_size: int = DEFAUL
                         break
                     except queue.Empty:
                         continue
-                with perf.timed("fx.dispatch"), perf.device_trace("fx.step"):
+                with perf.timed("fx.dispatch"):
                     snap = None
                     if spc > 1 and got == feed:
                         # a full super-batch: one copy each way, n steps

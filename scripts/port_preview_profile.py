@@ -51,12 +51,12 @@ def smi() -> str:
 
 
 def span_cost_us(n: int = 20000) -> float:
-    """µs of one record_function range, entered and left, with no profiler."""
-    from torch.profiler import record_function
+    """µs of one preview range (``perf.span``), entered and left, with no profiler."""
+    from pythoncrt_tpu_torch import perf
 
     t0 = time.perf_counter()
     for _ in range(n):
-        with record_function("preview.cost"):
+        with perf.span("preview.cost"):
             pass
     return (time.perf_counter() - t0) / n * 1e6
 
