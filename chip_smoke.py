@@ -301,6 +301,7 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "fused_pipeline_raw_grain": 40,
                  "warp_planar_strength1": 12,
                  "persistence_scan": 6, "glitch_shear": 0, "fused_pipeline_f32in": 40,
+                 "fused_pipeline_text": 40,
                  "bloom3_planar": 45, "bloom3_fast_planar": 16, "bloom2_planar": 45,
                  "bloom2_planar_fast": 30, "bloom2_planar_pipelined": 45, "bloom_stripe": 45,
                  "persistence_scan_multiclip": 6, "glitch_shear_band": 0,
@@ -324,7 +325,7 @@ PREVIEW_CONFIGS = {"defaults": ({}, None), "c3": (C3, None), "c4": (C4, None),
                    "c3-angled": (C3_ANGLED, C3_ANGLED_TEXT),
                    "defaults-angled": (DEF_ANGLED, None), "c4-text": (C4, C4_TEXT)}
 OPS_PER_VALUE.update({f"{k}_preview": OPS_PER_VALUE[k] for k in (
-    "fused_pipeline", "fused_pipeline_gaussian", "fused_pipeline_f32in", "warp_planar",
+    "fused_pipeline", "fused_pipeline_gaussian", "fused_pipeline_text", "warp_planar",
     "bloom3_planar", "bloom3_fast_planar")}, glitch_shear_preview=0)
 
 
@@ -843,19 +844,32 @@ def ptxas_instances(log: str, match, what: str, count: int) -> list:
 
 def fused_instances(log: str) -> list:
     """Each instantiation of csrc/fused.cu's template (core, radius, input,
-    triad)."""
+    triad, grain, text)."""
     def match(line):
         if "fused_strip_kernel" not in line:
             return None
-        core, radius, f32, direct, graw = re.search(
-            r"ILi(\d)ELi(n?\d+)ELb(\d)ELb(\d)ELb(\d)E", line).groups()
+        core, radius, f32, direct, graw, text = re.search(
+            r"ILi(\d)ELi(n?\d+)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line).groups()
         return dict(core="fast" if core == "1" else "gaussian",
                     radius={"n1": "runtime", "n2": "runtime above 31 (taps in shared "
                             "memory)"}.get(radius) or int(radius),
                     input="f32" if f32 == "1" else "uint8",
                     triad="direct pow (precision fast)" if direct == "1" else "LUT-exact",
-                    grain="raw, staged and upsampled here" if graw == "1" else "full-size")
-    return ptxas_instances(log, match, "fused instantiations", 32)
+                    grain="raw, staged and upsampled here" if graw == "1" else "full-size",
+                    text="composited in the prologue" if text == "1" else "none")
+    return ptxas_instances(log, match, "fused instantiations", 48)
+
+
+def f32_input(eng):
+    """The fused kernel's f32-input mode (pre=False) for an engine's spec,
+    fed ``eng._pre_bloom``'s image (stages 1-5, the text composited by
+    torch ops): its spec and consts. The engine's step composites the text
+    in the kernel's prologue instead."""
+    from pythoncrt_tpu_torch.kernels import fused as kfused
+
+    spec = dataclasses.replace(eng.spec, pre=False, text_box=())
+    t = eng.fused_tables
+    return spec, kfused.fused_consts(spec, eng.device, t.y_map, t.x_maps)
 
 
 def rng_instances(log: str) -> list:
@@ -1070,7 +1084,7 @@ def main() -> int:
               f"{inst['stack']} bytes "
               f"stack frame, {inst['spill_stores']} + {inst['spill_loads']} bytes spill "
               f"(stores + loads), {inst['static_smem']} bytes static shared memory (dynamic: "
-              f"the plan's, in [3]); {inst['grain']} grain")
+              f"the plan's, in [3]); {inst['grain']} grain; text {inst['text']}")
         if inst["stack"] or inst["spill_stores"] or inst["spill_loads"]:
             fail(f"fused instantiation {inst} uses local memory")
     graw_plans(sum(i["grain"].startswith("raw") for i in fused_instances(_build.build_log)))
@@ -1447,23 +1461,37 @@ def main() -> int:
         del got
 
     # the stand-alone bloom and the fused f32-input mode, each on the
-    # pre-bloom image (stages 1-5, synthetic overlay) of its path
+    # pre-bloom image (stages 1-5, synthetic overlay) of its path; the fused
+    # kernel's text mode (the overlay composited in its prologue) on the
+    # uint8 frames
     for cfg, kname in (("c3-angled", "bloom3_planar"), ("defaults-angled", "bloom3_fast_planar"),
-                       ("c4-text", "fused_pipeline_f32in")):
+                       ("c4-text", "fused_pipeline_f32in"), ("c4-text", "fused_pipeline_text")):
         eng = CRTEngine(configs[cfg], H, W, FPS, rng="host", layout="planar",
                         channel_order="gbr", device=dev, text_rgba=ov_synth)
-        feed = eng._pre_bloom(x)
-        if kname == "fused_pipeline_f32in":
-            if eng._staged or eng.spec.pre:
-                fail(f"{cfg} does not take the fused kernel's f32-input mode")
+        feed = x if kname == "fused_pipeline_text" else eng._pre_bloom(x)
+        if kname == "fused_pipeline_text":
+            if eng._staged or not eng.spec.text_box:
+                fail(f"{cfg} does not composite its text in the fused kernel")
             kw = eng.fused_operands(eng.make_aux(np.arange(B)))
             run = functools.partial(kfused.fused_pipeline, feed, eng.spec, eng.fused_tables, **kw)
             twin = functools.partial(kfused.fused_pipeline_ref, feed, eng.spec, eng.fused_tables,
                                      **kw)
             src, repl, extra = ("pythoncrt_tpu_torch/csrc/fused.cu",
                                 "pythoncrt_tpu/kernels/fused.py:680", list(kw.values()))
+            note = (f" (c4-text spec: the text composited in the prologue over its box "
+                    f"{eng.spec.text_box}, fast core{plan_note(eng.fused_tables)})")
+        elif kname == "fused_pipeline_f32in":
+            if eng._staged or eng.text_route != "fused":
+                fail(f"{cfg} does not take the fused kernel")
+            spec, consts = f32_input(eng)
+            kw = eng.fused_operands(eng.make_aux(np.arange(B)))
+            kw = {k: v for k, v in kw.items() if k not in ("talpha", "trgb")}
+            run = functools.partial(kfused.fused_pipeline, feed, spec, consts, **kw)
+            twin = functools.partial(kfused.fused_pipeline_ref, feed, spec, consts, **kw)
+            src, repl, extra = ("pythoncrt_tpu_torch/csrc/fused.cu",
+                                "pythoncrt_tpu/kernels/fused.py:680", list(kw.values()))
             note = (" (c4-text spec: text before the bloom, fast core"
-                    f"{plan_note(eng.fused_tables)})")
+                    f"{plan_note(consts)})")
         else:
             if not eng._staged or eng.bloom3_spec is None:
                 fail(f"{cfg} does not take the staged step")
@@ -1485,7 +1513,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"{kname}: non-finite output")
-        if kname == "fused_pipeline_f32in":
+        if kname.startswith("fused_pipeline"):
             tol = FUSED_TOL
         row(kname, src, repl, (got - want).abs().max().item(),
             (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
@@ -1620,12 +1648,14 @@ def main() -> int:
     # bloom) with --no-fast-bloom --bloom-sigma 11
     eng = CRTEngine(configs["c4-text-s11"], H, W, FPS, rng="host", layout="planar",
                     channel_order="gbr", device=dev, text_rgba=ov_synth)
-    if eng._staged or eng.spec.pre or eng.spec.fast or eng.spec.r != 33:
-        fail("c4-text at sigma 11 does not take the fused kernel's f32 input past radius 31")
+    if eng._staged or eng.text_route != "fused" or eng.spec.fast or eng.spec.r != 33:
+        fail("c4-text at sigma 11 does not take the fused kernel past radius 31")
+    spec, consts = f32_input(eng)
     feed = eng._pre_bloom(x)
     kw = eng.fused_operands(eng.make_aux(np.arange(B)))
-    run = functools.partial(kfused.fused_pipeline, feed, eng.spec, eng.fused_tables, **kw)
-    twin = functools.partial(kfused.fused_pipeline_ref, feed, eng.spec, eng.fused_tables, **kw)
+    kw = {k: v for k, v in kw.items() if k not in ("talpha", "trgb")}
+    run = functools.partial(kfused.fused_pipeline, feed, spec, consts, **kw)
+    twin = functools.partial(kfused.fused_pipeline_ref, feed, spec, consts, **kw)
     got, want = run(), twin()
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -1635,8 +1665,8 @@ def main() -> int:
         (torch.round(got * 255) - torch.round(want * 255)).abs().max().item(),
         time_ms(run), time_ms(twin, iters=2), None, nbytes(feed, got, *kw.values()), got.numel(),
         note=f" (c4-text with --no-fast-bloom --bloom-sigma 11: text before the bloom, radius "
-             f"{eng.spec.r}{plan_note(eng.fused_tables)})")
-    del got, want, feed, kw, run, twin, eng
+             f"{eng.spec.r}{plan_note(consts)})")
+    del got, want, feed, kw, run, twin, eng, spec, consts
 
     # --precision fast: the fused kernel's direct-pow triad (triad_mode 3,
     # its own instantiations) on the CLI defaults (fast core), c3
@@ -1644,7 +1674,7 @@ def main() -> int:
     # memory), each beside the LUT-exact mode timed in turn on the same
     # operands
     direct = (("defaults", "fused_pipeline"), ("c3", "fused_pipeline_gaussian"),
-              ("c4-text", "fused_pipeline_f32in"), ("defaults-s11", "fused_pipeline_s11"))
+              ("c4-text", "fused_pipeline_text"), ("defaults-s11", "fused_pipeline_s11"))
     gammas = sorted({configs[cfg].triad_gamma for cfg, _ in direct})
     ops = pow_site_ops(_build.find_nvcc(), _build.NVCC_FLAGS, gammas)
     print(f"[3] the direct-pow triad's three pow sites (csrc/triad_pow.cuh) compiled alone with "
@@ -1813,7 +1843,7 @@ def main() -> int:
     prow = []  # kname, src, repl, run, twin, library call, operands, tol, note
     for cfg, kname in (("defaults", "fused_pipeline_preview"),
                        ("c3", "fused_pipeline_gaussian_preview"),
-                       ("c4-text", "fused_pipeline_f32in_preview")):
+                       ("c4-text", "fused_pipeline_text_preview")):
         eng, aux = preview_step(cfg)
         feed = xp if eng.spec.pre else eng._pre_bloom(xp)
         kw = eng.fused_operands(aux)
@@ -3055,7 +3085,8 @@ def main() -> int:
                                               "c4-segments-resume", "gui-export", "compat")
                            + sh_c4 + sh_defaults + spc_c4 + spc_defaults),
         "fused_pipeline_c5": ("fused_pipeline", ("c5", "c5-stacks") + sh_c5),
-        "fused_pipeline_f32in": ("fused_pipeline", ("c4-text",)),
+        "fused_pipeline_f32in": ("fused_pipeline", ()),
+        "fused_pipeline_text": ("fused_pipeline", ("c4-text",)),
         "fused_pipeline_raw_grain": ("fused_pipeline", ()),  # the defaults at grain size 2
         "warp_planar": ("warp_planar", None),  # every path but the previews
         "warp_planar_strength1": ("warp_planar", ()),
@@ -3081,12 +3112,12 @@ def main() -> int:
         "fused_pipeline_f32in_s11": ("fused_pipeline", ()),
         "fused_pipeline_direct": ("fused_pipeline", ("defaults-fast",)),
         "fused_pipeline_gaussian_direct": ("fused_pipeline", ()),
-        "fused_pipeline_f32in_direct": ("fused_pipeline", ()),
+        "fused_pipeline_text_direct": ("fused_pipeline", ()),
         "fused_pipeline_s11_direct": ("fused_pipeline", ()),
         # the GUI preview, one frame per tick at 960x540 (853x480 for c3 too)
         "fused_pipeline_preview": ("fused_pipeline", ("preview-defaults", "preview-c4")),
         "fused_pipeline_gaussian_preview": ("fused_pipeline", ("preview-c3", "preview-c3-853")),
-        "fused_pipeline_f32in_preview": ("fused_pipeline", ("preview-c4-text",)),
+        "fused_pipeline_text_preview": ("fused_pipeline", ("preview-c4-text",)),
         "warp_planar_preview": ("warp_planar", ("preview-c3", "preview-c3-angled",
                                                 "preview-c3-853")),
         "glitch_shear_preview": ("glitch_shear", ("preview-c4", "preview-c4-text")),

@@ -12,7 +12,12 @@
 // `lut_exact=False` (fused.py:601-631, `--precision fast`; triad_mode 3);
 // and its two grain operands: the full-size field, or the raw (gh, gw)
 // field upsampled in the kernel (GRAW: the grain branch, fused.py:640-667,
-// for grain sizes above 1; see stage_grain and grain_staged).
+// for grain sizes above 1; see stage_grain and grain_staged); and, with
+// the uint8 input, the text overlay composited before the bloom (TEXT,
+// stage 5) in the prologue, over the box its alpha covers (see
+// composite_run), in place of the f32 input of stages 1-5 done by torch
+// ops: the box's alpha and colour are read from device memory, a crop of
+// a few hundred KB to a few MB that stays in L2 across frames.
 // The direct-pow triad's three pow sites per value are f32 double-float
 // fast paths with a rounding test and an out-of-line FP64 fallback
 // (triad_pow.cuh), bit for bit the FP64 expressions. Where the LUT-exact
@@ -201,6 +206,14 @@ struct FusedArgs {
     int32_t gdepth, gpitch, grows;
     const int32_t* grawtab;
     int32_t gstride;
+    // TEXT: the text overlay's box, columns [tx0, tx0 + tw) of the box rows
+    // trow names: per distinct row its row of the box, or -1 outside it
+    // (each output row of the box is a distinct row of the walk); the box's
+    // alpha (th, tw) and colour (3, th, tw, plane order), u8 / 255 in f32
+    const int32_t* trow;
+    const float* talpha;
+    const float* trgb;
+    int32_t text_on, tx0, th, tw;
 };
 
 namespace {
@@ -550,6 +563,51 @@ __device__ __forceinline__ void epilogue4(const FusedArgs& a, const Smem& S, int
     }
 }
 
+// TEXT: the prologue's stores for the window columns [c, ce) of a leader
+// run of distinct row k (ring slot `slot`), a row of the text box (its row
+// ty of the box), whose graded value is x and knee'd value kx: per column,
+// inside the box (columns tx0 .. tx0 + tw - 1), the composite
+// clip(x * (1 - a) + rgb * a) of ops/color.composite_text, each step
+// rounded as torch rounds it, then the knee; outside the box the composite
+// is the identity (a = 0), and the run's values are stored as they are.
+template <int CORE>
+__device__ __forceinline__ void composite_run(const FusedArgs& a, const Smem& S, int k, int slot,
+                                              int c, int ce, int ty, int win0, int cofs, int ksh,
+                                              int r, bool xsep, int ncen, const float x[3],
+                                              const float kx[3]) {
+    const int sw = a.sw;
+    for (int cc = c; cc < ce; ++cc) {
+        float xc[3], kc[3];
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            xc[p] = x[p];
+            kc[p] = kx[p];
+        }
+        const int tx = win0 + cc - a.tx0;
+        if (tx >= 0 && tx < a.tw) {
+            const size_t o = (size_t)ty * a.tw + tx;
+            const float al = __ldg(a.talpha + o);
+            const float om = __fsub_rn(1.0f, al);
+            #pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                const float rgb = __ldg(a.trgb + (size_t)p * a.th * a.tw + o);
+                xc[p] = clip01(__fadd_rn(__fmul_rn(x[p], om), __fmul_rn(rgb, al)));
+                kc[p] = knee(a, xc[p]);
+            }
+        }
+        #pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            if constexpr (CORE == GAUSS) {
+                if (r > 0) S.kw[(k * 3 + p) * a.win + cc] = kc[p];
+            } else {
+                S.ring[(slot * 3 + p) * a.win + cc + ksh] = kc[p];
+            }
+            const int lc = cc - cofs;
+            if (xsep && lc >= 0 && lc < ncen) S.xr[(slot * 3 + p) * sw + lc] = xc[p];
+        }
+    }
+}
+
 // n / d for 0 <= n, d < 2^16 by a 64-bit multiply-high, exact there: the
 // phases' flat item indices split without a runtime division.
 struct FastDiv {
@@ -782,8 +840,10 @@ __device__ __forceinline__ void vtaps_block(const FusedArgs& a, const Smem& S, c
 // grain upsampled here) is its own instantiation of each, so that the
 // full-size grain's instantiations are the code they were; its direct-pow
 // fast core with the f32 input kept a word in local memory at 64 registers
-// too, and takes 80.
-template <int CORE, int RT, bool F32IN, bool DIRECT, bool GRAW>
+// too, and takes 80. TEXT (the text composited in the prologue; uint8 input
+// only) is its own instantiation of each uint8 one, with its caps, so that
+// the others are the code they were.
+template <int CORE, int RT, bool F32IN, bool DIRECT, bool GRAW, bool TEXT>
 __global__ void __launch_bounds__(NT, CORE == FAST && !(DIRECT && (!F32IN || GRAW)) ? 4 : 3)
 fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -968,6 +1028,14 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
             float kx[3];
             #pragma unroll
             for (int p = 0; p < 3; ++p) kx[p] = knee(a, x[p]);
+            if constexpr (TEXT) {  // rows outside the box: the identity, stored below
+                const int ty = __ldg(a.trow + d + k);
+                if (ty >= 0) {
+                    composite_run<CORE>(a, S, k, slot, c, ce, ty, win0, cofs, ksh, r, xsep, ncen,
+                                        x, kx);
+                    continue;
+                }
+            }
             for (int cc = c; cc < ce; ++cc) {
                 #pragma unroll
                 for (int p = 0; p < 3; ++p) {
@@ -1222,21 +1290,32 @@ fused_strip_kernel(const __grid_constant__ FusedArgs a) {
     }
 }
 
-// The instantiation for a launch: core, radius, input, triad, grain operand.
-template <bool DIRECT, bool GRAW>
-void (*pick_kernel(const FusedArgs& a))(const FusedArgs) {
+using KernelFn = void (*)(const FusedArgs);
+
+// The instantiation of a core and radius for the input: the f32 or the
+// uint8 one, or with TEXT the uint8 one that composites the text.
+template <int CORE, int RT, bool DIRECT, bool GRAW, bool TEXT>
+KernelFn input_kernel(bool f32) {
+    if constexpr (TEXT)
+        return fused_strip_kernel<CORE, RT, false, DIRECT, GRAW, true>;
+    else
+        return f32 ? fused_strip_kernel<CORE, RT, true, DIRECT, GRAW, false>
+                   : fused_strip_kernel<CORE, RT, false, DIRECT, GRAW, false>;
+}
+
+// The instantiation for a launch: core, radius, input, triad, grain operand, text.
+template <bool DIRECT, bool GRAW, bool TEXT>
+KernelFn pick_kernel(const FusedArgs& a) {
     const bool f32 = !a.pre_on;
-    if (a.bloom_on && a.fast_on)
-        return f32 ? fused_strip_kernel<FAST, 0, true, DIRECT, GRAW>
-                   : fused_strip_kernel<FAST, 0, false, DIRECT, GRAW>;
-    if (a.bloom_on && a.r == 4)
-        return f32 ? fused_strip_kernel<GAUSS, 4, true, DIRECT, GRAW>
-                   : fused_strip_kernel<GAUSS, 4, false, DIRECT, GRAW>;
-    if (a.bloom_on && a.r > MAXR)
-        return f32 ? fused_strip_kernel<GAUSS, BIG, true, DIRECT, GRAW>
-                   : fused_strip_kernel<GAUSS, BIG, false, DIRECT, GRAW>;
-    return f32 ? fused_strip_kernel<GAUSS, -1, true, DIRECT, GRAW>
-               : fused_strip_kernel<GAUSS, -1, false, DIRECT, GRAW>;
+    if (a.bloom_on && a.fast_on) return input_kernel<FAST, 0, DIRECT, GRAW, TEXT>(f32);
+    if (a.bloom_on && a.r == 4) return input_kernel<GAUSS, 4, DIRECT, GRAW, TEXT>(f32);
+    if (a.bloom_on && a.r > MAXR) return input_kernel<GAUSS, BIG, DIRECT, GRAW, TEXT>(f32);
+    return input_kernel<GAUSS, -1, DIRECT, GRAW, TEXT>(f32);
+}
+
+template <bool DIRECT, bool GRAW>
+KernelFn pick_text(const FusedArgs& a) {
+    return a.text_on ? pick_kernel<DIRECT, GRAW, true>(a) : pick_kernel<DIRECT, GRAW, false>(a);
 }
 
 }  // namespace
@@ -1249,15 +1328,17 @@ extern "C" int crt_fused_launch(const FusedArgs* a, void* stream) {
                  || a->gdepth < 1 || a->gpitch < 1 || a->grows < 1 || !a->grawtab
                  || a->gstride < 3))
         return (int)cudaErrorInvalidValue;
+    if (a->text_on && (!a->pre_on || !a->trow || !a->talpha || !a->trgb || a->th < 1
+                       || a->tw < 1 || a->tx0 < 0 || a->tx0 + a->tw > a->w))
+        return (int)cudaErrorInvalidValue;
     const bool direct = a->triad_mode == 3;
     const int total = direct ? (graw ? smem_layout<true, true>(*a, nullptr).total
                                      : smem_layout<true, false>(*a, nullptr).total)
                              : (graw ? smem_layout<false, true>(*a, nullptr).total
                                      : smem_layout<false, false>(*a, nullptr).total);
     if (total != a->smem) return (int)cudaErrorInvalidValue;
-    void (*kern)(const FusedArgs) =
-        direct ? (graw ? pick_kernel<true, true>(*a) : pick_kernel<true, false>(*a))
-               : (graw ? pick_kernel<false, true>(*a) : pick_kernel<false, false>(*a));
+    KernelFn kern = direct ? (graw ? pick_text<true, true>(*a) : pick_text<true, false>(*a))
+                           : (graw ? pick_text<false, true>(*a) : pick_text<false, false>(*a));
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem);
     if (e != cudaSuccess) return (int)e;

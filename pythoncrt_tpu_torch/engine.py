@@ -13,11 +13,16 @@ follows it. On CUDA tensors those are the hand-written kernels under
 csrc/; on CPU tensors their plain PyTorch twins, so the CPU tests
 exercise the same step.
 
-Three kinds of configuration take another route to stage 11:
+Text composited before the bloom (stage 5) runs in the fused kernel's
+prologue, over the box the overlay's alpha covers (``spec.text_box``,
+found once when the engine is built; the overlay's alpha and colour
+cropped to it are the kernel's ``talpha`` and ``trgb`` operands).
+``text_route`` records where the text is composited: "fused" (in the
+fused kernel), "torch" (the staged step's ``_pre_bloom``), "after"
+(stage 13, torch ops) or "none".
 
-- text composited before the bloom (stage 5): stages 1-5 run as torch
-  ops (the fused twin's prologue, then the composite) and the fused
-  kernel takes the f32 image (its ``pre=False`` mode);
+Two kinds of configuration take another route to stage 11:
+
 - 2-D scanlines (angled or shaped): the staged step, stages 1-5 as torch
   ops, the stand-alone bloom kernel (kernels/bloom3.py), then stages
   7-11 as torch ops with the per-pixel mask (the JAX engine sends these
@@ -31,7 +36,8 @@ Three kinds of configuration take another route to stage 11:
   that variant (kernels/bloom2.py). A selected kernel sends the
   configuration to the staged step as its stage 6, with 1-D scanlines
   and text before the bloom too (the JAX engine's fused path steps aside
-  for them, engine.py:402-403). ``bloom_route`` records the choice:
+  for them, engine.py:402-403; the staged step composites it in
+  ``_pre_bloom``). ``bloom_route`` records the choice:
   "fused", "bloom3", "bloom2", "stripe" or "none" (bloom off). The JAX
   shape gates of those routes (H%8, W%128) have no counterpart: the
   port's kernels take any H and W. The JAX variables that select an XLA
@@ -307,6 +313,21 @@ class CRTEngine:
         self._staged = (p.scanlines_on and not p.scanlines_1d) or optin is not None
         self.bloom_route = ("none" if not p.bloom_on
                             else optin or ("bloom3" if self._staged else "fused"))
+        self.text_route = ("after" if self._text_after else "none" if not self._text_before
+                           else "torch" if self._staged else "fused")
+        text_box, self._text_box_ops = (), {}
+        if self.text_route == "fused":
+            # the rows and columns where the alpha is not 0: outside them the
+            # composite is the identity (none where the overlay is clear)
+            alpha = self._text[0]
+            rows = torch.nonzero(alpha.amax(1) > 0).flatten().tolist()
+            cols = torch.nonzero(alpha.amax(0) > 0).flatten().tolist()
+            if rows:
+                text_box = (rows[0], rows[-1] + 1, cols[0], cols[-1] + 1)
+                y0, y1, x0, x1 = text_box
+                self._text_box_ops = dict(
+                    talpha=alpha[y0:y1, x0:x1].contiguous(),
+                    trgb=self._text[1][:, y0:y1, x0:x1].contiguous())
         if p.scanlines_on and not p.scanlines_1d:
             self._sl_omega = np.float32(2.0 * np.pi / max(1e-6, p.scanline_period_px))
             self._sl_inv_sharp = np.float32(
@@ -319,7 +340,7 @@ class CRTEngine:
         self.spec = kfused.build_fused_spec(
             h, w, sigma=float(p.bloom_sigma), strength=float(p.bloom_strength),
             threshold=float(p.bloom_threshold), fast=bool(p.fast_bloom), bloom=p.bloom_on,
-            pre=not self._text_before, px=int(p.pixel_size) if p.pixelate_on else 1,
+            text_box=text_box, px=int(p.pixel_size) if p.pixelate_on else 1,
             ab=int(p.aberration_px) if p.aberration_on else 0,
             saturation=float(p.saturation), temp_r=temp_r, temp_b=temp_b,
             brightness=float(p.brightness), contrast=float(p.contrast),
@@ -525,11 +546,10 @@ class CRTEngine:
         if self._staged:
             out = self._staged_stages(x, aux)
         else:
-            feed = x if self.spec.pre else self._pre_bloom(x)
             # the operands first: the grain draw is a wrapper span of its own
             kw = self.fused_operands(aux)
             with perf.span("crt.fused"):
-                out = kfused.fused_pipeline(feed, self.spec, self.fused_tables,
+                out = kfused.fused_pipeline(x, self.spec, self.fused_tables,
                                             out=dst if self.spec.emit == "u8" else None, **kw)
         if p.warp_on:  # stage 12
             with perf.span("crt.warp"):
@@ -626,12 +646,12 @@ class CRTEngine:
             return kfused.epilogue_ref(img, self.spec, self.fused_tables, **kw)
 
     def fused_operands(self, aux) -> dict:
-        """The per-batch operands of stages 7-11, as the fused kernel (or
-        the staged step's epilogue) takes them, from a FrameAux or its
-        upload."""
+        """The per-batch operands of stages 7-11 (and the text box's of
+        stage 5), as the fused kernel (or the staged step's epilogue) takes
+        them, from a FrameAux or its upload."""
         s, c = self.spec, self.consts
         aux = self.upload(aux)
-        kw = {}
+        kw = dict(self._text_box_ops)
         if s.noise:
             kw["grain"] = self._grain_field(aux)
         if s.scanlines and self.params.scanlines_1d:

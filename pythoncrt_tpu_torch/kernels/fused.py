@@ -21,9 +21,15 @@ strip's raw columns, staged a chunk ahead.
 
 The bloom core is the exact gaussian (H then V), the fast half-res
 down+up (the oracle's resize_bilinear twice, driven by its bilinear_taps
-tables), or off. With ``spec.pre`` False (the JAX kernel's ``pre=False``,
-text composited before the bloom) the input is the engine's f32 image
-after stages 1-5 and the kernel starts at the knee. The triad reads the
+tables), or off. With ``spec.text_box`` the uint8 input's prologue also
+composites the text overlay before the bloom (stage 5, the engine's
+route for text before the bloom): after the grade, over the box the
+overlay's alpha covers, from crops of its alpha and colour (the
+``talpha`` and ``trgb`` operands); outside the box the composite is the
+identity, so the kernel skips it there, and each output row inside the
+box is a distinct row of the walk (``distinct_rows``). With
+``spec.pre`` False (the JAX kernel's ``pre=False``) the input is an f32
+image after stages 1-5 and the kernel starts at the knee. The triad reads the
 1024-bin tables (the reference's bytes), or with ``spec.lut_exact``
 False (``--precision fast``, the JAX kernel's direct-pow branch) takes
 pow on the clipped values: csrc/fused.cu's direct-pow instantiations.
@@ -113,6 +119,9 @@ class FusedSpec:
     # stages 2-4 (prologue): run by the kernel when pre, else by the
     # caller (prologue_ref) before it hands the kernel an f32 image
     pre: bool = True
+    # stage 5 with pre: (y0, y1, x0, x1), the rows and columns of the text
+    # overlay's box, composited after the grade; () without text
+    text_box: tuple = ()
     px: int = 1
     ab: int = 0
     saturation: float = 1.0
@@ -176,6 +185,12 @@ def build_fused_spec(h: int, w: int, *, sigma: float = 0.0, strength: float = 0.
     ab = int(kw.get("ab", 0))
     if abs(ab) >= w:
         kw["ab"] = int(math.fmod(ab, w))
+    box = tuple(int(v) for v in kw.get("text_box", ()))
+    if box and (not pre or len(box) != 4 or not (0 <= box[0] < box[1] <= h)
+                or not (0 <= box[2] < box[3] <= w)):
+        raise ValueError(f"text_box {box} must be (y0, y1, x0, x1) inside the {h}x{w} frame, "
+                         "with the uint8 input (pre)")
+    kw["text_box"] = box
     return FusedSpec(h=int(h), w=int(w), bloom=bool(bloom), taps=taps, fast=fast,
                      strength=float(strength), threshold=float(threshold), pre=bool(pre),
                      lut_exact=bool(lut_exact), **kw)
@@ -245,7 +260,10 @@ class FusedPlan:
     the strip's raw columns (``gwindows``, from the oracle's column taps)
     and the rows' taps, in two buffers: ``gdepth`` raw rows of ``gpitch``
     floats and ``grows`` output rows at most (grain_stage). ``grawtab``:
-    per run and chunk, its first raw row, raw rows and output rows."""
+    per run and chunk, its first raw row, raw rows and output rows.
+
+    ``text``: the spec's text box, whose rows are distinct rows each;
+    ``trow``: per distinct row, its row in the box, or -1 outside it."""
     fast: bool
     pre: bool
     knee: bool
@@ -277,6 +295,8 @@ class FusedPlan:
     gdepth: int = 0
     gpitch: int = 0
     grows: int = 0
+    text: tuple = ()
+    trow: np.ndarray = None      # (ND,) TEXT: the box row of each distinct row, or -1
 
     @property
     def strips(self) -> int:
@@ -289,19 +309,25 @@ class FusedPlan:
     @property
     def key(self) -> tuple:
         """The plan_key of the specs this plan serves."""
-        return (self.h, self.w, self.pre, self.fast, self.r, self.knee, self.direct, self.grain)
+        return (self.h, self.w, self.pre, self.fast, self.r, self.knee, self.direct, self.grain,
+                self.text)
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def distinct_rows(y_map: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def distinct_rows(y_map: np.ndarray, rows: tuple = ()) -> tuple[np.ndarray, np.ndarray]:
     """(ydist (H,), ysrc (ND,)): rows with the y_map entry of the row
-    above share its distinct index, and ysrc holds each index's row."""
+    above share its distinct index, and ysrc holds each index's row.
+    Each row of the range ``rows`` (y0, y1), the text box's, where the
+    composite makes rows of one source row differ, is a distinct row of
+    its own."""
     y = np.asarray(y_map, np.int64)
     new = np.ones(len(y), bool)
     new[1:] = y[1:] != y[:-1]
+    if rows:
+        new[rows[0]:rows[1] + 1] = True  # the box's rows and the row after it
     return (np.cumsum(new) - 1).astype(np.int32), y[new].astype(np.int32)
 
 
@@ -435,11 +461,12 @@ def register_blocks(fast: bool, pre: bool, direct: bool, graw: bool) -> int:
 def plan_key(spec: "FusedSpec") -> tuple:
     """What of a spec its plan is made for: (H, W, pre, fast core,
     gaussian radius, knee, direct-pow triad, raw grain: (grain size, gh,
-    gw) or None). Taps of one radius share a plan."""
+    gw) or None, text box). Taps of one radius share a plan."""
     fast = bool(spec.bloom and spec.fast)
     graw = (spec.grain_size, *spec.grain_hw) if spec.noise and spec.grain_size > 1 else None
     return (spec.h, spec.w, bool(spec.pre), fast, spec.r if spec.bloom and not fast else 0,
-            bool(spec.bloom and spec.threshold > 0.0), triad_mode(spec) == 3, graw)
+            bool(spec.bloom and spec.threshold > 0.0), triad_mode(spec) == 3, graw,
+            spec.text_box)
 
 
 def grain_windows(w: int, sw: int, gxlo: np.ndarray) -> np.ndarray:
@@ -474,12 +501,12 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
     fewer blocks per SM than the first walk's block at grain size 1, the
     first of GRAW_STEPS' shorter chunks that gives them back is taken (else
     that first walk). A plan that fits no strip is ``split``."""
-    h, w, _, fast, r, knee, direct, grain = plan_key(spec)
+    h, w, _, fast, r, knee, direct, grain, text = plan_key(spec)
     if grain:
         gylo = oracle.ops.bilinear_taps(grain[1], h)[0]
         gxlo = oracle.ops.bilinear_taps(grain[2], w)[0]
     if spec.pre:
-        ydist, ysrc = distinct_rows(y_map)
+        ydist, ysrc = distinct_rows(y_map, text[:2])
         gran = 16 if w % 16 == 0 else 4 if w % 4 == 0 else 1
     else:
         ydist = ysrc = np.arange(h, dtype=np.int32)
@@ -498,7 +525,7 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
         run = min(run, h)
         plan = FusedPlan(fast, bool(spec.pre), knee, r, h, w, 0, step, run, 0, 0, 0, 0, 0, gran,
                          0, ydist, ysrc, np.zeros((0, 3, 4), np.int32),
-                         np.zeros((0, 4), np.int64), direct=direct, grain=grain)
+                         np.zeros((0, 4), np.int64), direct=direct, grain=grain, text=text)
         depth = hdepth = 1
         gdepth = grows = 0
         sched, gsched = [], []
@@ -559,6 +586,9 @@ def fused_plan(spec: "FusedSpec", y_map, x_maps, fast_taps=None) -> FusedPlan:
         plan.gwindows, (plan.gdepth, plan.gpitch, plan.grows, _) = gwin, graw
         plan.grawtab = _pad_rows(gsched)
     plan.rowtab, plan.halftab = _ring_tables(plan, fast_taps)
+    if text:
+        plan.trow = np.full(len(ysrc), -1, np.int32)
+        plan.trow[ydist[text[0]:text[1]]] = np.arange(text[1] - text[0])
     return plan
 
 
@@ -660,7 +690,7 @@ def _split_route(spec: FusedSpec, device, y_map, x_maps) -> tuple:
         pre = dataclasses.replace(spec, **none, triad=False, scanlines=False, vignette=False,
                                   flicker=False, noise=False, emit="f32")
         pre_consts = fused_consts(pre, device, y_map, x_maps)
-    post = dataclasses.replace(spec, **none, pre=False)
+    post = dataclasses.replace(spec, **none, pre=False, text_box=())
     bloom = Bloom3Spec(h=spec.h, w=spec.w, taps=spec.taps, strength=spec.strength,
                        threshold=spec.threshold)
     return pre, pre_consts, bloom, post, fused_consts(post, device, y_map, x_maps)
@@ -680,12 +710,12 @@ def check_plan(spec: FusedSpec, consts: FusedConsts) -> FusedPlan:
 
 def plan_tables(plan: FusedPlan, device) -> tuple:
     """The plan's device tables: ysrc, segs, runtab, rowtab, halftab,
-    grawtab (none for a split plan)."""
+    grawtab, and trow with a text box (none for a split plan)."""
     if plan.split:
         return ()
     return tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(device)
                  for t in (plan.ysrc, plan.segs, plan.runtab, plan.rowtab, plan.halftab,
-                           plan.grawtab))
+                           plan.grawtab, plan.trow) if t is not None)
 
 
 def knee_consts(threshold: float) -> tuple[np.float32, np.float32]:
@@ -759,11 +789,24 @@ def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     return ocolor.to_uint8(m) if s.emit == "u8" else m
 
 
+def text_ref(x: torch.Tensor, spec: FusedSpec, talpha: torch.Tensor,
+             trgb: torch.Tensor) -> torch.Tensor:
+    """Stage 5 in place on the prologue's (B, 3, H, W) f32 output: the
+    text composited over the spec's box (ops/color.composite_text), from
+    its alpha (bh, bw) and colour (3, bh, bw) there; outside the box the
+    composite is the identity (alpha 0)."""
+    y0, y1, x0, x1 = spec.text_box
+    x[..., y0:y1, x0:x1] = ocolor.composite_text(x[..., y0:y1, x0:x1], talpha, trgb)
+    return x
+
+
 def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
                        grain=None, sl=None, vy2=None, vx2=None, tri=None,
-                       flicker=None) -> torch.Tensor:
+                       flicker=None, talpha=None, trgb=None) -> torch.Tensor:
     """The fused kernel's plain PyTorch twin, on any device."""
     x = prologue_ref(img, spec, consts) if spec.pre else img
+    if spec.text_box:
+        x = text_ref(x, spec, talpha, trgb)
     return epilogue_ref(bloom_ref(x, spec, consts), spec, consts, grain=grain, sl=sl,
                         vy2=vy2, vx2=vx2, tri=tri, flicker=flicker)
 
@@ -817,6 +860,9 @@ class _FusedArgs(ctypes.Structure):
         ("grain_raw", ctypes.c_int32), ("gh", ctypes.c_int32), ("gw", ctypes.c_int32),
         ("gdepth", ctypes.c_int32), ("gpitch", ctypes.c_int32), ("grows", ctypes.c_int32),
         ("grawtab", ctypes.c_void_p), ("gstride", ctypes.c_int32),
+        ("trow", ctypes.c_void_p), ("talpha", ctypes.c_void_p), ("trgb", ctypes.c_void_p),
+        ("text_on", ctypes.c_int32), ("tx0", ctypes.c_int32), ("th", ctypes.c_int32),
+        ("tw", ctypes.c_int32),
     ]
 
 
@@ -899,6 +945,10 @@ def _static_args(s: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
             _check(n, t, (k,), dt, dev) for n, t, k, dt in zip(
                 ("gylo", "gyf", "gxlo", "gxf"), consts.grain_taps, (s.h, s.h, s.w, s.w),
                 (torch.int32, torch.float32, torch.int32, torch.float32)))
+    if s.text_box:
+        y0, y1, a.tx0, x1 = s.text_box
+        a.text_on, a.th, a.tw = 1, y1 - y0, x1 - a.tx0
+        a.trow = _check("trow", consts.plan_tables[6], plan.trow.shape, torch.int32, dev)
     a.sw, a.step, a.run = plan.sw, plan.step, plan.run
     a.depth, a.hdepth, a.win, a.hwin = plan.depth, plan.hdepth, plan.win, plan.hwin
     a.seg_pitch, a.smem = plan.seg_pitch, plan.smem
@@ -925,7 +975,7 @@ def static_args(spec: FusedSpec, consts: FusedConsts, dev) -> _FusedArgs:
 
 def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
                    grain=None, sl=None, vy2=None, vx2=None, tri=None,
-                   flicker=None, out=None) -> torch.Tensor:
+                   flicker=None, talpha=None, trgb=None, out=None) -> torch.Tensor:
     """Run stages 1-11.
 
     img: (B, 3, H, W) uint8 planar frames, plane i holding colour
@@ -933,7 +983,9 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     False. grain: (B, H, W) f32 unscaled noise field [noise];
     sl: (B, H) f32 scanline multiplier [scanlines]; vy2/vx2: (H,)/(W,)
     f32 vignette vectors [vignette]; tri: (3, W) f32 triad rows in plane
-    order [triad]; flicker: (B,) f32 [flicker]. With spec.grain_size above
+    order [triad]; flicker: (B,) f32 [flicker]; talpha/trgb: (bh, bw)/(3,
+    bh, bw) f32 text alpha and colour over spec.text_box, in plane order
+    [text box]. With spec.grain_size above
     1, grain is the raw (B, gh, gw) field (spec.grain_hw), upsampled by
     the kernel. Returns (B, 3, H, W)
     f32 in [0, 1], or uint8 when spec.emit == "u8", written into ``out``
@@ -944,13 +996,14 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     global launches
     if img.device.type == "cpu":
         return into(out, fused_pipeline_ref(img, spec, consts, grain=grain, sl=sl, vy2=vy2,
-                                            vx2=vx2, tri=tri, flicker=flicker))
+                                            vx2=vx2, tri=tri, flicker=flicker, talpha=talpha,
+                                            trgb=trgb))
     if img.device.type != "cuda":
         raise ValueError(f"fused_pipeline: unsupported device {img.device}")
     if consts.plan is not None and consts.plan.split:
         check_plan(spec, consts)
         return _split_pipeline(img, spec, consts, grain=grain, sl=sl, vy2=vy2, vx2=vx2,
-                               tri=tri, flicker=flicker, out=out)
+                               tri=tri, flicker=flicker, talpha=talpha, trgb=trgb, out=out)
     s = spec
     b = img.shape[0]
     dev = img.device
@@ -970,6 +1023,9 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
         a.flicker = _check("flicker", flicker, (b,), torch.float32, dev)
     if s.triad:
         a.tri = _check("tri", tri, (3, s.w), torch.float32, dev)
+    if s.text_box:
+        a.talpha = _check("talpha", talpha, (a.th, a.tw), torch.float32, dev)
+        a.trgb = _check("trgb", trgb, (3, a.th, a.tw), torch.float32, dev)
     out = dest(out, (b, 3, s.h, s.w), torch.uint8 if s.emit == "u8" else torch.float32, dev,
                "fused_pipeline")
     a.out = out.data_ptr()
@@ -986,13 +1042,14 @@ def fused_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
     return out
 
 
-def _split_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts,
-                    **operands) -> torch.Tensor:
-    """A split plan's chain (fused_consts): the fused kernel's prologue,
-    the stand-alone bloom, the fused kernel's epilogue. Each launch counts
-    in its own module."""
+def _split_pipeline(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *, talpha,
+                    trgb, **operands) -> torch.Tensor:
+    """A split plan's chain (fused_consts): the fused kernel's prologue
+    (with the text composite), the stand-alone bloom, the fused kernel's
+    epilogue. Each launch counts in its own module."""
     from .bloom3 import bloom3_planar  # bloom3 imports this module
 
     pre, pre_consts, bloom, post, post_consts = consts.split
-    x = fused_pipeline(img, pre, pre_consts) if pre is not None else img
+    x = (fused_pipeline(img, pre, pre_consts, talpha=talpha, trgb=trgb) if pre is not None
+         else img)
     return fused_pipeline(bloom3_planar(x, bloom), post, post_consts, **operands)

@@ -153,25 +153,36 @@ def events_ms(fn, repeats: int = 5, calls: int = 20) -> float:
     return statistics.median(times)
 
 
+# a fused_strip_kernel instantiation's mangled name: core, radius, f32 input,
+# then the direct-pow triad, the raw grain and the text where the tree has them
+FUSED_NAME = (r"fused_strip_kernelILi(\d)ELi(n?\d+)ELb(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?"
+              r"(?:Lb(\d)E)?")
+
+
+def fused_key(m) -> str:
+    """"core/radius/f32-input/direct", then "/raw" and "/text" where set."""
+    return ("/".join((*m.groups()[:3], m.group(4) or "0")) + ("/raw" if m.group(5) == "1" else "")
+            + ("/text" if m.group(6) == "1" else ""))
+
+
 def fused_sass(lib_path: str, nvcc: str) -> dict:
     """sha256 of each fused_strip_kernel instantiation's SASS in the
     built library, keyed "core/radius/f32-input/direct" from its mangled
     name (a tree without the direct-pow triad has no fourth argument), and
     "/raw" after it for the raw-grain instantiations (a fifth argument of
-    1; a tree without them has none), with its instruction count and its
-    count of each opcode."""
+    1; a tree without them has none), then "/text" for the instantiations
+    that composite the text (a sixth argument of 1), with its instruction
+    count and its count of each opcode."""
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib_path],
                           check=True, capture_output=True, text=True, timeout=300).stdout
     out = {}
     for fn in sass.split("Function : ")[1:]:
         name, _, body = fn.partition("\n")
-        m = re.search(r"fused_strip_kernelILi(\d)ELi(n?\d+)ELb(\d)E(?:Lb(\d)E)?(?:Lb(\d)E)?",
-                      name)
+        m = re.search(FUSED_NAME, name)
         if m:
             code = [ln.split("*/", 1)[1].split(";")[0].strip() for ln in body.splitlines()
                     if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln)]
-            key = "/".join((*m.groups()[:3], m.group(4) or "0")) + (
-                "/raw" if m.group(5) == "1" else "")
+            key = fused_key(m)
             opcodes = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", c).split(" ")[0]
                                           .split(".")[0] for c in code)
             out[key] = dict(instructions=len(code), sha256=hashlib.sha256(
@@ -185,10 +196,8 @@ def fused_ptxas(log: str) -> dict:
     out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"fused_strip_kernelILi(\d)ELi(n?\d+)ELb(\d)E(?:Lb(\d)E)?"
-                          r"(?:Lb(\d)E)?", line)
-            key = ("/".join((*m.groups()[:3], m.group(4) or "0"))
-                   + ("/raw" if m.group(5) == "1" else "")) if m else None
+            m = re.search(FUSED_NAME, line)
+            key = fused_key(m) if m else None
             if key:
                 out[key] = {}
         elif key:

@@ -40,7 +40,13 @@ words next to its domains' edges (csrc/rng_sweep.cu); the fused kernel's raw-gra
 size above 1: the raw field upsampled in the kernel) is bit for bit the
 kernel fed the twin's upsampled field, in every instantiation (each core,
 both inputs, both triads) at grain sizes 2, 3 and 5 and with a raw field
-one row or one column wide."""
+one row or one column wide. The fused kernel's text mode (TEXT: the
+overlay composited in the uint8 prologue over its box) is held to its
+twin and to the bits of the f32-input mode fed the torch ops' stages 1-5,
+in every instantiation, and the instantiations without it to the SASS
+they had before it was added."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -126,6 +132,51 @@ def frames(b, h, w, dev):
     return torch.randint(0, 256, (b, 3, h, w), generator=g, device=dev, dtype=torch.uint8)
 
 
+def f32_input(eng):
+    """The fused kernel's f32-input mode (pre=False) for an engine's spec:
+    the spec and consts of the kernel fed ``eng._pre_bloom``'s f32 image
+    (stages 1-5, the text before the bloom composited by torch ops). The
+    engine's step composites that text in the kernel's prologue instead
+    (its spec's text box); the text operands are not read here."""
+    spec = dataclasses.replace(eng.spec, pre=False, text_box=())
+    t = eng.fused_tables
+    return spec, kfused.fused_consts(spec, eng.device, t.y_map, t.x_maps)
+
+
+# the text composited in the fused kernel's prologue (TEXT): boxes
+# (fractions of H and W) inside the frame, touching each of its edges and
+# covering it, a clear overlay (no box), and a box whose alpha is 255
+# throughout or 0 inside its border; "seeded" alphas hold 0 and 255 too
+TEXT_BOXES = {"inner": (0.2, 0.5, 0.1, 0.33), "top": (0.0, 0.25, 0.25, 0.5),
+              "bottom": (0.75, 1.0, 0.33, 0.67), "left": (0.17, 0.67, 0.0, 0.17),
+              "right": (0.25, 0.75, 0.8, 1.0), "whole": (0.0, 1.0, 0.0, 1.0), "clear": None,
+              "opaque": (0.2, 0.5, 0.1, 0.33), "hollow": (0.2, 0.5, 0.1, 0.33)}
+
+
+def text_overlay(h, w, box, seed=4):
+    """An (H, W, 4) uint8 overlay for the TEXT_BOXES entry ``box`` and
+    the (y0, y1, x0, x1) its alpha covers (() when clear)."""
+    ov = np.zeros((h, w, 4), np.uint8)
+    frac = TEXT_BOXES[box]
+    if frac is None:
+        return ov, ()
+    rng = np.random.default_rng(seed)
+    y0, y1 = int(frac[0] * h), max(int(frac[1] * h), int(frac[0] * h) + 1)
+    x0, x1 = int(frac[2] * w), max(int(frac[3] * w), int(frac[2] * w) + 1)
+    bh, bw = y1 - y0, x1 - x0
+    a = rng.integers(0, 256, (bh, bw))
+    a[rng.random((bh, bw)) < 0.25] = 0
+    a[rng.random((bh, bw)) < 0.25] = 255
+    if box == "opaque":
+        a[:] = 255
+    elif box == "hollow":
+        a[1:-1, 1:-1] = 0
+    a[0, 0] = a[-1, -1] = 255  # the box is the bounding box of the alpha
+    ov[y0:y1, x0:x1, :3] = rng.integers(0, 256, (bh, bw, 3))
+    ov[y0:y1, x0:x1, 3] = a
+    return ov, (y0, y1, x0, x1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FUSED_SHAPES, ids=FUSED_IDS)
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -171,12 +222,14 @@ SPLIT_R = {True: 13923, False: 13779}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pre", [True, False])
+@pytest.mark.parametrize("pre", [True, False, "text"])
 def test_fused_split_route_matches_twin(cuda_dev, pre):
+    text, pre = pre == "text", bool(pre)
     r = SPLIT_R[pre]
     spec = kfused.build_fused_spec(1, 1, sigma=r / 3, strength=0.6, threshold=0.2, px=1, ab=1,
                                    pre=pre, triad=True, scanlines=True, noise=True,
-                                   noise_scale=0.01, emit="u8", corder=(1, 2, 0))
+                                   noise_scale=0.01, emit="u8", corder=(1, 2, 0),
+                                   text_box=(0, 1, 0, 1) if text else ())
     consts = kfused.fused_consts(spec, cuda_dev)
     assert consts.plan.split and spec.r == r
     g = torch.Generator(device=cuda_dev).manual_seed(17)
@@ -185,6 +238,9 @@ def test_fused_split_route_matches_twin(cuda_dev, pre):
     kw = dict(grain=torch.randn((3, 1, 1), generator=g, device=cuda_dev),
               sl=torch.rand((3, 1), generator=g, device=cuda_dev),
               tri=torch.ones((3, 1), device=cuda_dev))
+    if text:  # the prologue launch composites it
+        kw.update(talpha=torch.rand((1, 1), generator=g, device=cuda_dev),
+                  trgb=torch.rand((3, 1, 1), generator=g, device=cuda_dev))
     n0 = (kfused.launches, kbloom3.launches)
     got = kfused.fused_pipeline(x, spec, consts, **kw)
     torch.cuda.synchronize()
@@ -504,14 +560,15 @@ def test_draw_kernels_are_invariant_to_the_batch_split(cuda_dev):
 
 # the raw-grain instantiations (GRAW): each core (fast, gaussian r = 4, a
 # runtime radius, past 31, and the bloom off: radius 0, no tap pass, the
-# split route's epilogue launch), the uint8 and the f32 input, both triads; grain
-# sizes 2, 3 and 5 at 1080p, at odd shapes shorter than a run (a last
+# split route's epilogue launch), the uint8 and the f32 input and the text
+# mode, both triads; grain sizes 2, 3 and 5 at 1080p, at odd shapes shorter than a run (a last
 # strip whose raw window ends at the field's edge; W % 4 != 0), and with a
 # raw field one row (gh == 1) or one column (gw == 1) wide
 RAW_CORES = {"fast": dict(fast_bloom=True), "r4": dict(fast_bloom=False, bloom_sigma=1.2),
              "runtime": dict(fast_bloom=False, bloom_sigma=4.0),
              "big": dict(fast_bloom=False, bloom_sigma=11.0), "off": dict(bloom_strength=0.0)}
-RAW_MODES = {"exact": ("exact", False), "f32_input": ("exact", True), "direct": ("fast", False)}
+RAW_MODES = {"exact": ("exact", "u8"), "f32_input": ("exact", "f32"), "direct": ("fast", "u8"),
+             "text": ("exact", "text"), "text_direct": ("fast", "text")}
 RAW_SHAPES = [(8, 1080, 1920), (2, 45, 251), (1, 7, 9), (2, 3, 130), (2, 33, 3)]
 RAW_IDS = ["1080p", "odd", "tiny", "gh1", "gw1"]
 
@@ -528,26 +585,27 @@ def test_fused_raw_grain_is_the_upsampled_field_bit_for_bit(cuda_dev, grain_size
     twin's upsample of the same field (ops/resize.resize_bilinear), in
     every instantiation."""
     b, h, w = shape
-    precision, f32_input = RAW_MODES[mode]
+    precision, feed_kind = RAW_MODES[mode]
     p = {**C3, **RAW_CORES[core], "noise_strength": 24.0}
     text = {}
-    if f32_input:
+    if feed_kind != "u8":
         p["text"] = TextParams(text="T", after=False)
         text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
     eng, flat = (CRTEngine(EffectParams(**{**p, "grain_size": g}), h, w, 24.0, rng="host",
                            precision=precision, device=cuda_dev, **text)
                  for g in (grain_size, 1))
-    assert eng.fused_tables.plan.grain == (grain_size, *eng.spec.grain_hw)
-    assert flat.fused_tables.plan.grain is None and eng.spec.pre != f32_input
-    assert eng.spec.bloom == (core != "off")
+    (spec, consts), (fspec, fconsts) = ((e.spec, e.fused_tables) if feed_kind != "f32"
+                                        else f32_input(e) for e in (eng, flat))
+    assert consts.plan.grain == (grain_size, *spec.grain_hw)
+    assert fconsts.plan.grain is None and spec.pre != (feed_kind == "f32")
+    assert spec.bloom == (core != "off") and bool(spec.text_box) == (feed_kind == "text")
     x = frames(b, h, w, cuda_dev)
-    feed = eng._pre_bloom(x) if f32_input else x
+    feed = eng._pre_bloom(x) if feed_kind == "f32" else x
     kw = eng.fused_operands(eng.make_aux(np.arange(b)))
-    t = eng.fused_tables.grain_taps
+    t = consts.grain_taps
     field = kfused.oresize.resize_bilinear(kw["grain"], t[0].long(), t[1], t[2].long(), t[3])
-    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
-    want = kfused.fused_pipeline(feed, flat.spec, flat.fused_tables,
-                                 **{**kw, "grain": field.contiguous()})
+    got = kfused.fused_pipeline(feed, spec, consts, **kw)
+    want = kfused.fused_pipeline(feed, fspec, fconsts, **{**kw, "grain": field.contiguous()})
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -602,26 +660,130 @@ TEXT_BEFORE = {"c4_text": VARIANTS["c4"], "c3_text": C3, "r31_text": VARIANTS["r
 @pytest.mark.parametrize("shape", FUSED_SHAPES, ids=FUSED_IDS)
 @pytest.mark.parametrize("name", sorted(TEXT_BEFORE))
 def test_fused_f32_input_matches_twin(cuda_dev, name, shape):
-    """The fused kernel's f32-input mode on the engine's own feed (stages
+    """The fused kernel's f32-input mode on the torch ops' feed (stages
     1-5 with a text overlay composited before the bloom)."""
     b, h, w = shape
     ov = np.random.default_rng(4).integers(0, 256, (h, w, 4), dtype=np.uint8)
     p = EffectParams(**TEXT_BEFORE[name], text=TextParams(text="T", after=False))
     eng = CRTEngine(p, h, w, 24.0, rng="host", layout="planar", channel_order="gbr",
                     device=cuda_dev, text_rgba=ov)
-    assert not eng.spec.pre
+    spec, consts = f32_input(eng)
+    assert not spec.pre
     feed = eng._pre_bloom(frames(b, h, w, cuda_dev))
     kw = eng.fused_operands(eng.make_aux(np.arange(b)))
     n0 = kfused.launches
-    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    got = kfused.fused_pipeline(feed, spec, consts, **kw)
     torch.cuda.synchronize()
     assert kfused.launches == n0 + 1
 
     def twin(i, j):
         return kfused.fused_pipeline_ref(
-            feed[i:j], eng.spec, eng.fused_tables,
+            feed[i:j], spec, consts,
             **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
     assert_fused_close(got, twin, b, False)
+
+
+# the SASS of each fused instantiation without TEXT (scripts/port_bloom_ab.py
+# fused_sass: "core/radius/f32-input/direct[/raw]", a digest of its
+# instructions without names and encodings) at the commit before TEXT was
+# added, as the nvcc named here built it on an H100: TEXT, an instantiation
+# of its own, leaves the others the code they were
+SASS_NVCC = "release 12.9, V12.9.86"
+SASS_BEFORE_TEXT = {
+    "0/4/0/0": "4a31be5b6b70e024", "0/4/0/0/raw": "e5f0f63f77b0084b",
+    "0/4/0/1": "65ea91f607b30651", "0/4/0/1/raw": "a5027f3b58cd6740",
+    "0/4/1/0": "37750f7f39c0b686", "0/4/1/0/raw": "5f3c84066bb912e0",
+    "0/4/1/1": "6b6c10fe6c9d81fe", "0/4/1/1/raw": "ae005a63747a385f",
+    "0/n1/0/0": "87cb4f3e5d5f75a3", "0/n1/0/0/raw": "f46af72fc48362b3",
+    "0/n1/0/1": "04c9090f71fac779", "0/n1/0/1/raw": "fccb9da21a79f7d0",
+    "0/n1/1/0": "b399ffc14602a4ab", "0/n1/1/0/raw": "45c4a5b9a548001a",
+    "0/n1/1/1": "e513a17d07aca909", "0/n1/1/1/raw": "99e163de1eaed32f",
+    "0/n2/0/0": "151ba3e25a50491b", "0/n2/0/0/raw": "99da9481dcce6137",
+    "0/n2/0/1": "08c0a93492737853", "0/n2/0/1/raw": "8fdb9ea67b41836e",
+    "0/n2/1/0": "add5d649cf722044", "0/n2/1/0/raw": "3cc4384bb6e9b115",
+    "0/n2/1/1": "a7e6c7cfa12afb09", "0/n2/1/1/raw": "f4ef7a3c806d1444",
+    "1/0/0/0": "4d482c524468ffdc", "1/0/0/0/raw": "7fb0ff3a96ca95a2",
+    "1/0/0/1": "f784397658e257b5", "1/0/0/1/raw": "4020520362389f41",
+    "1/0/1/0": "beb3edd3809bb18a", "1/0/1/0/raw": "6206ba3705ef78c4",
+    "1/0/1/1": "c9d2cb9dfda968a2", "1/0/1/1/raw": "f44ac76e22afdb90"
+}
+
+
+@pytest.mark.cuda
+def test_fused_instantiations_without_text_keep_their_sass(cuda_dev, monkeypatch):
+    """The 32 instantiations without TEXT compile to the SASS they had
+    before it, and TEXT adds 16: one for each uint8-input instantiation."""
+    import pathlib
+    import subprocess
+
+    from pythoncrt_tpu_torch.kernels import _build
+
+    nvcc = _build.find_nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
+    if SASS_NVCC not in version:
+        pytest.skip(f"the digests were recorded with nvcc {SASS_NVCC}, not {version!r}")
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve().parents[1] / "scripts"))
+    from port_bloom_ab import fused_sass
+
+    sass = {k: v["sha256"] for k, v in fused_sass(_build.library()._name, nvcc).items()}
+    text = sorted(k for k in sass if k.endswith("/text"))
+    assert {k: v for k, v in sass.items() if k not in text} == SASS_BEFORE_TEXT
+    assert len(text) == 16 and {k.removesuffix("/text") for k in text} == {
+        k for k in SASS_BEFORE_TEXT if k.split("/")[2] == "0"}
+
+
+# the TEXT instantiations: each core (fast, gaussian r = 4, a runtime
+# radius, past 31, the bloom off), both triads, the full-size and the raw
+# grain, pixel sizes 1-3 with and without aberration
+TEXT_CORES = {"fast": dict(fast_bloom=True, pixel_size=1, aberration_px=1),
+              "fast_knee_px3": dict(fast_bloom=True, bloom_threshold=0.35, pixel_size=3),
+              "r4_px2": dict(fast_bloom=False, bloom_sigma=1.2, pixel_size=2, aberration_px=1),
+              "runtime_px3": dict(fast_bloom=False, bloom_sigma=4.0, pixel_size=3,
+                                  aberration_px=-2, bloom_threshold=0.3),
+              "big_px2": dict(fast_bloom=False, bloom_sigma=11.0, pixel_size=2),
+              "off_px1": dict(bloom_strength=0.0, pixel_size=1)}
+TEXT_MODES = {"exact": ("exact", 1), "direct": ("fast", 1), "raw": ("exact", 2),
+              "raw_direct": ("fast", 2)}
+
+
+# every box at an odd shape; at 1080p the inner box and the whole frame
+TEXT_CASES = [((2, 45, 251), box) for box in sorted(TEXT_BOXES)] + [
+    ((2, 1080, 1920), box) for box in ("inner", "whole")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(TEXT_MODES))
+@pytest.mark.parametrize("core", sorted(TEXT_CORES))
+@pytest.mark.parametrize("shape,box", TEXT_CASES,
+                         ids=[f"{s[1]}x{s[2]}_{b}" for s, b in TEXT_CASES])
+def test_fused_text_is_the_twin_and_the_f32_route(cuda_dev, shape, box, core, mode):
+    """The text composited in the kernel's prologue (TEXT) gives the
+    twin's values within the fused contract, and the bits of the route it
+    replaces: the torch ops' stages 1-5 (``_pre_bloom``, the composite
+    over the whole frame) fed to the f32-input mode."""
+    b, h, w = shape
+    precision, grain = TEXT_MODES[mode]
+    ov, want_box = text_overlay(h, w, box)
+    p = EffectParams(**{**C3, "warp_strength": 0.0, **TEXT_CORES[core], "grain_size": grain},
+                     text=TextParams(text="T", after=False))
+    eng = CRTEngine(p, h, w, 24.0, rng="host", precision=precision, layout="planar",
+                    channel_order="gbr", device=cuda_dev, text_rgba=ov)
+    assert eng.text_route == "fused" and eng.spec.pre and eng.spec.text_box == want_box
+    assert not eng.fused_tables.plan.split
+    x = frames(b, h, w, cuda_dev)
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    n0 = kfused.launches
+    got = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    torch.cuda.synchronize()
+    assert kfused.launches == n0 + 1
+
+    def twin(i, j):
+        return kfused.fused_pipeline_ref(
+            x[i:j], eng.spec, eng.fused_tables,
+            **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
+    assert_fused_close(got, twin, b, eng.spec.emit == "u8")
+    spec, consts = f32_input(eng)
+    assert torch.equal(got, kfused.fused_pipeline(eng._pre_bloom(x), spec, consts, **kw))
 
 
 # the fused kernel past radius 31 (the BIG instantiations: register-blocked
@@ -635,35 +797,36 @@ BIG_IDS = ["96x160", "48x256", "narrow", "column", "interior"]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["exact", "fast"])
-@pytest.mark.parametrize("f32_input", [False, True], ids=["u8_input", "f32_input"])
+@pytest.mark.parametrize("feed_kind", ["u8_input", "f32_input", "text"])
 @pytest.mark.parametrize("px", [1, 2])
 @pytest.mark.parametrize("shape", BIG_SHAPES, ids=BIG_IDS)
 @pytest.mark.parametrize("radius", sorted(BIG_SIGMAS))
-def test_fused_big_radius_is_the_twin_bit_for_bit(cuda_dev, radius, shape, px, f32_input,
+def test_fused_big_radius_is_the_twin_bit_for_bit(cuda_dev, radius, shape, px, feed_kind,
                                                   precision):
-    """The four BIG instantiations (uint8 and f32 input, LUT-exact and
-    direct-pow triad) give the twin's bits: every tap sum in the twin's
-    order, the border fold included."""
+    """The six BIG instantiations (uint8 and f32 input and the uint8 input
+    with the text composited, LUT-exact and direct-pow triad) give the
+    twin's bits: every tap sum in the twin's order, the border fold
+    included."""
     b, h, w = shape
     p = dict(fast_bloom=False, bloom_sigma=BIG_SIGMAS[radius], pixel_size=px)
     text = {}
-    if f32_input:
+    if feed_kind != "u8_input":
         p["text"] = TextParams(text="T", after=False)
         text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
     eng = CRTEngine(EffectParams(**p), h, w, 24.0, rng="host", precision=precision,
                     layout="planar", channel_order="gbr", device=cuda_dev, **text)
-    plan = eng.fused_tables.plan
-    assert eng.spec.r == int(radius[1:]) > kfused.MAX_R and not plan.split
-    assert eng.spec.pre != f32_input and (kfused.triad_mode(eng.spec) == 3) == (
-        precision == "fast")
+    spec, consts = f32_input(eng) if feed_kind == "f32_input" else (eng.spec, eng.fused_tables)
+    assert spec.r == int(radius[1:]) > kfused.MAX_R and not consts.plan.split
+    assert spec.pre != (feed_kind == "f32_input") and (kfused.triad_mode(spec) == 3) == (
+        precision == "fast") and bool(spec.text_box) == (feed_kind == "text")
     x = frames(b, h, w, cuda_dev)
-    feed = eng._pre_bloom(x) if f32_input else x
+    feed = eng._pre_bloom(x) if feed_kind == "f32_input" else x
     kw = eng.fused_operands(eng.make_aux(np.arange(b)))
     n0 = kfused.launches
-    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    got = kfused.fused_pipeline(feed, spec, consts, **kw)
     torch.cuda.synchronize()
     assert kfused.launches == n0 + 1
-    assert torch.equal(got, kfused.fused_pipeline_ref(feed, eng.spec, eng.fused_tables, **kw))
+    assert torch.equal(got, kfused.fused_pipeline_ref(feed, spec, consts, **kw))
 
 
 NEW_PATHS = {
@@ -677,7 +840,7 @@ NEW_PATHS = {
 @pytest.mark.parametrize("name", sorted(NEW_PATHS))
 def test_staged_and_text_engine_on_card_matches_cpu(cuda_dev, name):
     """The angled-scanline and text paths on the card (bloom3, the fused
-    f32-input mode) against the CPU step, two batches, state carried."""
+    kernel's text mode) against the CPU step, two batches, state carried."""
     overrides, after = NEW_PATHS[name]
     text = TextParams() if after is None else TextParams(text="T", after=after)
     ov = np.random.default_rng(6).integers(0, 256, (96, 320, 4), dtype=np.uint8)
@@ -873,8 +1036,10 @@ def test_multiclip_engine_on_card(cuda_dev, layout):
 FAST_CORES = {"gauss_r4": C3, "gauss_r12": {**C3, "bloom_sigma": 4.0},
               "gauss_big": VARIANTS["s11"], "fast": VARIANTS["c4"],
               "fast_knee": VARIANTS["fast_knee_px3"],
-              # text before the bloom: the f32-input instantiations
-              "gauss_r4_f32": C3, "fast_f32": VARIANTS["c4"]}
+              # text before the bloom: the f32-input instantiations, and the
+              # uint8 ones that composite it (TEXT)
+              "gauss_r4_f32": C3, "fast_f32": VARIANTS["c4"],
+              "gauss_r4_text": C3, "fast_text": VARIANTS["c4"]}
 FAST_SHAPES = [(2, 45, 251), (1, 7, 9), (2, 33, 130), (8, 1080, 1920)]
 FAST_IDS = ["odd", "tiny", "ragged_strip", "1080p"]
 
@@ -890,26 +1055,28 @@ def test_fused_direct_pow_triad_matches_twin(cuda_dev, core, gamma, luma, shape)
     b, h, w = shape
     over = {**FAST_CORES[core], "triad_gamma": gamma, "triad_preserve_luma": luma}
     text = {}
-    if core.endswith("_f32"):
+    if core.endswith(("_f32", "_text")):
         over["text"] = TextParams(text="T", after=False)
         text = dict(text_rgba=np.random.default_rng(4).integers(0, 256, (h, w, 4), np.uint8))
     eng = CRTEngine(EffectParams(**over), h, w, 24.0, rng="host", precision="fast",
                     layout="planar", channel_order="gbr", device=cuda_dev, **text)
-    assert kfused.triad_mode(eng.spec) == 3 and eng.spec.pre == (not core.endswith("_f32"))
-    assert eng.fused_tables.lut_fwd is None and not eng.fused_tables.plan.split
+    spec, consts = f32_input(eng) if core.endswith("_f32") else (eng.spec, eng.fused_tables)
+    assert kfused.triad_mode(spec) == 3 and spec.pre == (not core.endswith("_f32"))
+    assert bool(spec.text_box) == core.endswith("_text")
+    assert consts.lut_fwd is None and not consts.plan.split
     x = frames(b, h, w, cuda_dev)
-    feed = x if eng.spec.pre else eng._pre_bloom(x)
+    feed = x if spec.pre else eng._pre_bloom(x)
     kw = eng.fused_operands(eng.make_aux(np.arange(b)))
     n0 = kfused.launches
-    got = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
+    got = kfused.fused_pipeline(feed, spec, consts, **kw)
     torch.cuda.synchronize()
     assert kfused.launches == n0 + 1
 
     def twin(i, j):
         return kfused.fused_pipeline_ref(
-            feed[i:j], eng.spec, eng.fused_tables,
+            feed[i:j], spec, consts,
             **{k: v[i:j] if k in PER_FRAME else v for k, v in kw.items()})
-    assert_fused_close(got, twin, b, eng.spec.emit == "u8")
+    assert_fused_close(got, twin, b, spec.emit == "u8")
 
 
 @pytest.mark.cuda

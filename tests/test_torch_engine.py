@@ -228,3 +228,47 @@ def test_c3_raw_grain_matches_jax_grain_raw_branch_and_oracle():
     assert mx <= 1 and frac <= frac_pal + 1e-3, (
         f"vs Pallas interpret: max {mx} LSB, {frac:.2e} off (the JAX path vs the oracle: "
         f"{frac_pal:.2e})")
+
+
+TEXT_ROUTES = {  # text_route -> (params overrides, text after or None)
+    "fused": (C4, False),
+    "torch": ({**C4, "scanline_angle": 12.0, "scanline_thickness": 2.0}, False),
+    "after": (C4, True),
+    "none": (C4, None),
+}
+
+
+@pytest.mark.parametrize("route", sorted(TEXT_ROUTES))
+def test_text_route_names_where_the_text_is_composited(route, monkeypatch):
+    """``text_route``: "fused" (text before the bloom in the fused
+    kernel's prologue: no torch ops of stages 1-5), "torch" (the staged
+    step's ``_pre_bloom``), "after" (stage 13) or "none"; chosen from the
+    overlay and the step's kind alone. A clear overlay has no box to
+    composite: the fused kernel runs without one."""
+    from pythoncrt_tpu_torch import EffectParams, TextParams
+
+    import torch
+
+    over, after = TEXT_ROUTES[route]
+    text = TextParams() if after is None else TextParams(text="T", after=after)
+    ov = np.zeros((H, W, 4), np.uint8)
+    ov[5:20, 30:90] = np.random.default_rng(2).integers(0, 256, (15, 60, 4))
+    ov[5, 30, 3] = ov[19, 89, 3] = 200
+    eng = CRTEngine(EffectParams(**over, text=text), H, W, FPS, rng="host", device="cpu",
+                    text_rgba=ov, layout="planar")
+    assert eng.text_route == route and eng.spec.pre
+    assert eng.spec.text_box == ((5, 20, 30, 90) if route == "fused" else ())
+    calls = []
+    orig = eng._pre_bloom
+    monkeypatch.setattr(eng, "_pre_bloom", lambda x: calls.append(1) or orig(x))
+    x = np.ascontiguousarray(np.transpose(synth_frames(B, H, W, seed=2), (0, 3, 1, 2)))
+    out, _ = eng.process(x)
+    assert bool(calls) == (route == "torch")
+    if route == "fused":
+        clear = CRTEngine(EffectParams(**over, text=text), H, W, FPS, rng="host", device="cpu",
+                          text_rgba=np.zeros_like(ov), layout="planar")
+        plain = CRTEngine(EffectParams(**over), H, W, FPS, rng="host", device="cpu",
+                          layout="planar")
+        assert clear.text_route == "fused" and clear.spec.text_box == ()
+        assert torch.equal(clear.process(x)[0], plain.process(x)[0])
+        assert not torch.equal(out, plain.process(x)[0])

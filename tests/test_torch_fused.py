@@ -9,7 +9,11 @@ FMA-contraction class of tests/test_fused.py) and the uint8 emit to
 <= 1 LSB with fewer than 1e-3 of values off. The grain operand is a
 plain (B, H, W) field (grain_g=1): the JAX kernel's half-field bf16
 window forms are TPU workarounds, covered at engine level by
-test_torch_engine.py."""
+test_torch_engine.py. The twin's text mode (the overlay composited over
+its box after the prologue) is held bit for bit to the route it replaces:
+the torch ops' stages 1-5 fed to the f32-input mode."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,11 +21,13 @@ import torch
 
 from pythoncrt_tpu import oracle
 from pythoncrt_tpu.kernels import fused as jfused
-from pythoncrt_tpu_torch import EffectParams
+from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams
 from pythoncrt_tpu_torch.kernels import fused as tfused
+from pythoncrt_tpu_torch.ops import color as ocolor
 
 from test_engine_vs_oracle import identity_params
 from test_fused import CASES
+from test_torch_cuda import TEXT_BOXES, text_overlay
 
 H, W, B = 48, 256, 2
 
@@ -172,3 +178,48 @@ def test_fast_core_twin_matches_the_oracle(shape, threshold):
     d = np.abs(got.transpose(0, 2, 3, 1).astype(np.int32) - want.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, f"{shape}: max {d.max()} LSB"
 
+
+
+# the text composited in the prologue: per pixel size a core (1: the fast
+# core with the full-size grain, 2: the gaussian with the raw grain, 3: the
+# fast core with a knee and the grade on), the aberration off and on
+TEXT_PX = {1: (dict(fast_bloom=True, noise_strength=1.5), 1),
+           2: (dict(fast_bloom=False, bloom_sigma=1.2, grain_size=2, noise_strength=1.5), 1),
+           3: (dict(fast_bloom=True, bloom_threshold=0.35, saturation=0.8, gamma=1.1,
+                    contrast=1.05), -2)}
+
+
+@pytest.mark.parametrize("box", sorted(TEXT_BOXES))
+@pytest.mark.parametrize("ab", [False, True], ids=["ab_off", "ab_on"])
+@pytest.mark.parametrize("px", sorted(TEXT_PX))
+def test_fused_text_twin_is_the_f32_route(px, ab, box):
+    """The twin's text mode (the composite over the box the engine finds
+    from the overlay's alpha, after the prologue) gives the bits of the
+    route it replaces, the torch ops' stages 1-5 over the whole frame
+    (``_pre_bloom``) fed to the f32-input mode, at boxes touching each edge
+    of the frame, covering it and none, with alpha 0 and 255 inside."""
+    h, w, b = 45, 251, 2
+    over, shift = TEXT_PX[px]
+    ov, want_box = text_overlay(h, w, box)
+    p = EffectParams(**{**over, "pixel_size": px, "aberration_px": shift if ab else 0,
+                        "triad_strength": 0.35, "scanline_strength": 0.6,
+                        "vignette_strength": 0.25, "bloom_strength": 0.25},
+                     text=TextParams(text="T", after=False))
+    eng = CRTEngine(p, h, w, 24.0, rng="host", layout="planar", channel_order="gbr",
+                    device="cpu", text_rgba=ov)
+    assert eng.text_route == "fused" and eng.spec.text_box == want_box
+    assert set(eng.fused_operands(eng.make_aux(np.arange(b)))) >= (
+        {"talpha", "trgb"} if want_box else set())
+    x = torch.from_numpy(np.random.default_rng(px).integers(0, 256, (b, 3, h, w), np.uint8))
+    kw = eng.fused_operands(eng.make_aux(np.arange(b)))
+    got = tfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw)
+    spec = dataclasses.replace(eng.spec, pre=False, text_box=())
+    consts = tfused.fused_consts(spec)
+    assert torch.equal(got, tfused.fused_pipeline(eng._pre_bloom(x), spec, consts, **kw))
+    if want_box:  # outside the box the composite is the identity on the grade's output
+        pre = tfused.prologue_ref(x, eng.spec, eng.fused_tables)
+        y0, y1, x0, x1 = want_box
+        full = ocolor.composite_text(pre, *eng._text)
+        outside = torch.ones((h, w), dtype=torch.bool)
+        outside[y0:y1, x0:x1] = False
+        assert torch.equal(full[..., outside], pre[..., outside])

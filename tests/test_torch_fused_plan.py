@@ -259,10 +259,11 @@ def test_plan_smem_is_the_kernels_layout():
 @pytest.mark.parametrize("other", [
     dict(), dict(sigma=31 / 3), dict(sigma=4.0, fast=True),
     dict(sigma=4.0, threshold=0.35), dict(sigma=4.0, pre=False), dict(sigma=4.0, h=44),
-    dict(sigma=4.0, noise=True, grain_size=2), dict(sigma=4.0, noise=True, grain_size=3)])
+    dict(sigma=4.0, noise=True, grain_size=2), dict(sigma=4.0, noise=True, grain_size=3),
+    dict(sigma=4.0, text_box=(3, 9, 10, 40))])
 def test_plan_is_checked_against_the_spec(other):
     """The wrapper launches only with a plan made for the spec's frame,
-    input, core, radius, knee and raw grain (the kernel takes its taps and
+    input, core, radius, knee, raw grain and text box (the kernel takes its taps and
     knee from the spec and its ring sizes and raw stage from the plan);
     another spec's consts are refused, and taps of the same radius share a
     plan."""
@@ -438,31 +439,39 @@ def test_radius_that_fits_no_strip_splits(key):
         assert plan.split == split and (split or plan.smem <= kfused.SMEM_MAX)
 
 
-@pytest.mark.parametrize("pre", [True, False])
+@pytest.mark.parametrize("pre", [True, False, "text"])
 def test_split_route_is_the_fused_twin(pre):
-    """The split route's three twins (prologue alone, stand-alone bloom,
-    epilogue on the f32 image) give the fused twin's bits, at the smallest
-    frame that splits."""
+    """The split route's three twins (prologue alone, with the text
+    composited where the spec has a text box; stand-alone bloom; epilogue
+    on the f32 image) give the fused twin's bits, at the smallest frame
+    that splits."""
     from pythoncrt_tpu_torch.kernels import bloom3 as kbloom3
 
+    text, pre = pre == "text", bool(pre)
     r = SPLIT_AT[((1, 1), pre)]
     spec = kfused.build_fused_spec(1, 1, sigma=r / 3, strength=0.6, threshold=0.2, px=1,
                                    ab=1, pre=pre, triad=True, scanlines=True, vignette=True,
                                    vig_strength=0.25, noise=True, noise_scale=0.01,
-                                   emit="u8", corder=(1, 2, 0))
+                                   emit="u8", corder=(1, 2, 0),
+                                   text_box=(0, 1, 0, 1) if text else ())
     consts = kfused.fused_consts(spec)
     assert consts.plan.split and consts.tapdev is None
     pre_spec, pre_consts, bloom, post, post_consts = consts.split
     assert (pre_spec is not None) == pre and not post.pre and not post.bloom
-    assert bloom.taps == spec.taps and bloom.r == r
+    assert bloom.taps == spec.taps and bloom.r == r and not post.text_box
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 256, (2, 3, 1, 1), np.uint8)) if pre else \
         torch.from_numpy(rng.random((2, 3, 1, 1), np.float32))
     kw = dict(grain=torch.from_numpy(rng.standard_normal((2, 1, 1), np.float32)),
               sl=torch.from_numpy(rng.random((2, 1), np.float32)),
               vy2=torch.zeros(1), vx2=torch.zeros(1), tri=torch.ones(3, 1))
+    ops = {}
+    if text:
+        assert pre_spec.text_box == spec.text_box and pre_consts.plan.trow.tolist() == [0]
+        ops = dict(talpha=torch.tensor([[0.6]]), trgb=torch.tensor([[[0.1]], [[0.9]], [[0.4]]]))
+        kw.update(ops)
     want = kfused.fused_pipeline_ref(x, spec, consts, **kw)
-    mid = kfused.fused_pipeline_ref(x, pre_spec, pre_consts) if pre else x
+    mid = kfused.fused_pipeline_ref(x, pre_spec, pre_consts, **ops) if pre else x
     got = kfused.fused_pipeline_ref(kbloom3.bloom3_planar_ref(mid, bloom), post, post_consts,
                                     **kw)
     assert got.dtype == torch.uint8 and torch.equal(got, want)
@@ -636,3 +645,42 @@ def test_raw_grain_chunk_rule_counts_the_register_cap(precision):
     assert p.step == (kfused.WALK["fast", True][0] if direct else kfused.GRAW_STEPS[0])
     assert min(kfused.blocks_per_sm(p.smem), kfused.register_blocks(True, True, direct, True)) \
         == (3 if direct else 4)
+
+
+# text boxes' rows (y0, y1) at the odd shape, and c4.caption's at 1080p
+TEXT_ROWS = {("odd", "inner"): (10, 25), ("odd", "top"): (0, 9), ("odd", "bottom"): (36, 45),
+             ("odd", "whole"): (0, 45), ("odd", "one_row"): (7, 8),
+             ("1080p", "caption"): (108, 243)}
+
+
+@pytest.mark.parametrize("core", ["r4", "fast", "fast_knee", "r33", "off"])
+@pytest.mark.parametrize("maps", ["px2_ab1", "px3_abm2"])
+@pytest.mark.parametrize("shape,box", sorted(TEXT_ROWS), ids=lambda v: str(v))
+def test_text_plan_walk_keeps_the_box_rows_distinct(shape, box, maps, core):
+    """plan_chunks replays a TEXT walk (the text composited in the
+    prologue): each output row of the text box is a distinct row of its own
+    (the composite makes rows of one source row differ there), named by
+    trow, and the row after the box starts one; the rows outside it still
+    share a ring slot where their y_map entries are equal. Every ring read
+    of the walk is in place and is the row the twin reads."""
+    h, w = SHAPES[shape]
+    y0, y1 = TEXT_ROWS[shape, box]
+    px, ab = MAPS[maps]
+    spec = kfused.build_fused_spec(h, w, strength=0.25, px=px, ab=ab, corder=(1, 2, 0),
+                                   text_box=(y0, y1, 20, 90), **CORES[core])
+    consts = kfused.fused_consts(spec)
+    plan, y_map = consts.plan, consts.y_map.numpy()
+    dist = plan.ydist
+    inbox = np.zeros(h + 1, bool)
+    inbox[y0:y1] = True
+    new = np.diff(dist) == 1
+    assert np.all(np.diff(dist) <= 1) and dist[0] == 0
+    assert np.array_equal(new, (np.diff(y_map) != 0) | inbox[1:h] | inbox[:h - 1])
+    assert np.array_equal(plan.ysrc[dist], y_map)
+    assert len(plan.ysrc) < h or (y0, y1) == (0, h)  # rows outside the box deduplicated
+    want = np.full(len(plan.ysrc), -1)
+    want[dist[y0:y1]] = np.arange(y1 - y0)
+    assert np.array_equal(plan.trow, want)
+    assert torch.equal(consts.plan_tables[6], torch.from_numpy(want.astype(np.int32)))
+    assert row_reads(plan, consts, y_map) == ref_rows(plan, consts, y_map)
+    assert plan.key == kfused.plan_key(spec) and plan.smem <= kfused.SMEM_MAX

@@ -140,15 +140,17 @@ def test_staged_step_matches_oracle_and_jax(name, layout):
 @pytest.mark.parametrize("after", [False, True], ids=["before", "after"])
 @pytest.mark.parametrize("name", sorted(TEXT))
 def test_text_overlay_matches_oracle_and_jax(name, after):
-    """Text composited before the bloom (the fused kernel's f32-input
-    mode, as the JAX engine's pre=False) and after the warp."""
+    """Text composited before the bloom (in the fused kernel's prologue,
+    over the overlay's box; the JAX engine takes its kernel's pre=False)
+    and after the warp."""
     def route(pk, p):
         assert pk._pallas_fused and pk._fused_spec.pre is after
 
     text = TextParams(text="CH 3", size=12, after=after)
     layout = "planar_gbr" if name == "c4" else "nhwc"
     eng = check_three_ways(TEXT[name], layout, text, overlay(), route)
-    assert not eng._staged and eng.spec.pre is after
+    assert not eng._staged and eng.spec.pre and bool(eng.spec.text_box) is not after
+    assert eng.text_route == ("after" if after else "fused")
 
 
 def test_text_with_2d_scanlines_matches_oracle_and_jax():
