@@ -46,9 +46,10 @@ Two kinds of configuration take another route to stage 11:
 
 The step is two halves, as the JAX engine's ``_batch_effects`` and
 ``_finish``: ``_effects`` (stages 1-14, per frame) and ``_finish`` (stage
-15 and the uint8 cast), so MultiClipEngine (parallel/mesh.py) can run
-the effects over a flat batch of several clips and finish it with the
-persistence kernel's multi-clip mode.
+15 and the uint8 cast), so the sharded engine (parallel/mesh.py) can
+finish its shards' effects apart. MultiClipEngine runs the whole step
+over a flat batch of several clips with their clip-major states, which
+``_finish`` takes to the persistence kernel's multi-clip mode.
 
 Host tables (pixel maps, triad row, vignette vectors, warp tables,
 resize taps, glitch amplitudes and segment index) come from the port's
@@ -566,27 +567,44 @@ class CRTEngine:
         return out
 
     def _finish(self, imgs: torch.Tensor, state: torch.Tensor, first: bool, dst=None):
-        """Stage 15 and the uint8 cast over one stream's batch -> (uint8
-        frames, new (3, H, W) f32 state); the persistence kernel writes
-        its frames into ``dst`` when given."""
+        """Stage 15 and the uint8 cast -> (uint8 frames, new f32 state).
+        ``state`` is one stream's (3, H, W), or (C, 3, H, W) for C clips
+        whose B / C frames each lie one after another in the batch
+        (clip-major, MultiClipEngine): then the persistence kernel runs
+        once in its multi-clip mode, or each clip finishes on its own
+        frames. The persistence kernel writes its frames into ``dst``
+        when given."""
         p = self.params
+        clips = state is not None and state.ndim == 4
         if p.persistence_on and not self.assoc_scan:  # stage 15
             with perf.span("crt.persist"):
-                return kpersist.persistence_scan(imgs, state, first, p.persistence,
-                                                 emit_u8=True, out=dst)
+                return kpersist.persistence_scan(imgs, None if clips else state, first,
+                                                 p.persistence, emit_u8=True,
+                                                 clip_states=state if clips else None, out=dst)
         with perf.span("crt.torch_ops"):
-            if p.persistence_on:
-                return self._assoc_persistence(imgs, state, first)
-            if imgs.dtype == torch.uint8:
-                # the carried state is the quantized last frame in [0, 1];
-                # nothing reads it back while persistence is off
-                return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
-            return ocolor.to_uint8(imgs), imgs[-1]
+            if not clips:
+                return self._finish_one(imgs, state, first)
+            b = imgs.shape[0] // state.shape[0]
+            outs, ends = zip(*(self._finish_one(imgs[k * b:(k + 1) * b], state[k], first)
+                               for k in range(state.shape[0])))
+            return torch.cat(outs), torch.stack(ends)
+
+    def _finish_one(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):
+        """_finish's torch ops over one stream's frames: the associative
+        scan, or with persistence off the cast alone."""
+        if self.params.persistence_on:
+            return self._assoc_persistence(imgs, state, first)
+        if imgs.dtype == torch.uint8:
+            # the carried state is the quantized last frame in [0, 1];
+            # nothing reads it back while persistence is off
+            return imgs, imgs[-1].float() * np.float32(1.0 / 255.0)
+        return ocolor.to_uint8(imgs), imgs[-1]
 
     def _step(self, x: torch.Tensor, aux, state: torch.Tensor, first: bool, dst=None):
-        """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state on
-        the device -> (uint8 planar frames, new state); the last kernel
-        that emits the frames writes them into ``dst`` when given."""
+        """(B, 3, H, W) uint8 planar frames and a (3, H, W) f32 state, or
+        a clip-major (C, 3, H, W) one (_finish), on the device -> (uint8
+        planar frames, new state); the last kernel that emits the frames
+        writes them into ``dst`` when given."""
         return self._finish(self._effects(x, aux, dst), state, first, dst)
 
     def _assoc_persistence(self, imgs: torch.Tensor, state: torch.Tensor, first: bool):

@@ -351,8 +351,9 @@ class MultiClipEngine:
     as one flat batch through stages 1-14 (the effects are per frame),
     then stage 15 as one launch of the persistence kernel's multi-clip
     mode (kernels/persist.py ``clip_states``), which restarts the carry at
-    each clip boundary. With persistence off (or ``assoc_scan``), each
-    clip finishes through ``CRTEngine._finish`` on its own frames, so its
+    each clip boundary: one ``CRTEngine._step`` with the clips' (C / size,
+    3, H, W) states. With persistence off (or ``assoc_scan``),
+    ``CRTEngine._finish`` finishes each clip on its own frames, so its
     state is its last frame as the JAX engine's vmapped ``_finish`` gives.
 
     Native and host rng draw from absolute frame indices, so clips that
@@ -364,19 +365,10 @@ class MultiClipEngine:
         self.mesh = mesh if mesh is not None else DeviceMesh([engine.device], CLIP_AXIS)
         self.ndev = self.mesh.size
         self._reps = _replicas(engine, self.mesh)
-
-    @staticmethod
-    def _finish(eng: CRTEngine, imgs: torch.Tensor, states: torch.Tensor, first: bool,
-                dst=None):
-        p = eng.params
-        if p.persistence_on and not eng.assoc_scan:
-            with perf.span("crt.persist"):
-                return kpersist.persistence_scan(imgs, None, first, p.persistence,
-                                                 emit_u8=True, clip_states=states, out=dst)
-        b = imgs.shape[0] // states.shape[0]
-        outs, ends = zip(*(eng._finish(imgs[k * b:(k + 1) * b], states[k], first)
-                           for k in range(states.shape[0])))
-        return torch.cat(outs), torch.stack(ends)
+        self._nhwc = engine.layout == "nhwc"
+        # the devices whose step writes its frames straight into the output
+        self._same = [not self._nhwc and d == _canonical(engine.device)
+                      for d in self.mesh.devices]
 
     def process(self, frames_u8, frame_indices, states=None):
         eng = self.engine
@@ -419,23 +411,13 @@ class MultiClipEngine:
         if idx.size != n * c * b:
             raise ValueError(f"frame_indices {idx.shape} do not pair with {c} clips of {b}")
         first = states is None
-        if first:
-            states = torch.zeros((c, *fshape), dtype=torch.float32, device=eng.device)
-        elif tuple(states.shape) != (c, *fshape):
-            raise ValueError(f"states shape {tuple(states.shape)} != {(c, *fshape)}")
-        states = torch.as_tensor(states, dtype=torch.float32)
+        sts = self._states_in(states, c)
         out = stack_out(out, x.shape, eng.device)
         flat = x.reshape(n, c * b, *fshape)  # clip-major per chunk
         out_flat = out.view(n, c * b, *fshape)
         aux = eng.make_aux(idx.reshape(-1))
-        nhwc = eng.layout == "nhwc"
-        k = c // self.ndev
+        nhwc, k = self._nhwc, c // self.ndev
         auxes = _uploads(self.mesh, self._reps, aux)
-        sts = []
-        for s, dev in enumerate(self.mesh.devices):
-            with _on(dev):
-                sts.append(_planar(states[s * k:(s + 1) * k].to(dev, non_blocking=True), nhwc))
-        same = [not nhwc and dev == _canonical(eng.device) for dev in self.mesh.devices]
         for i in range(n):
             with perf.span("crt.step"):
                 outs = []
@@ -443,10 +425,30 @@ class MultiClipEngine:
                     fs = slice(s * k * b, (s + 1) * k * b)
                     with _on(dev):
                         f = _planar(flat[i, fs].to(dev, non_blocking=True), nhwc)
-                        imgs = rep._effects(f, aux_slice(auxes[s], slice(
-                            i * c * b + fs.start, i * c * b + fs.stop)))
-                        o, sts[s] = self._finish(rep, imgs, sts[s], first and i == 0,
-                                                 out_flat[i, fs] if same[s] else None)
+                        o, sts[s] = rep._step(f, aux_slice(auxes[s], slice(
+                            i * c * b + fs.start, i * c * b + fs.stop)), sts[s], first and i == 0,
+                            out_flat[i, fs] if self._same[s] else None)
                     outs.append(o)
                 _gather(outs, nhwc, eng.device, out_flat[i])
-        return out, _gather(sts, nhwc, eng.device)
+        with perf.span("crt.carry"):
+            return out, _gather(sts, nhwc, eng.device)
+
+    def _states_in(self, states, c: int) -> list:
+        """The C clips' states before a stack (None: the streams' first
+        step, zeros), checked and placed clip-major on the mesh devices,
+        planar: one (C / size, 3, H, W) f32 tensor per device."""
+        eng = self.engine
+        fshape = eng._frame_shape()
+        with perf.span("crt.carry"):
+            if states is None:
+                states = torch.zeros((c, *fshape), dtype=torch.float32, device=eng.device)
+            elif tuple(states.shape) != (c, *fshape):
+                raise ValueError(f"states shape {tuple(states.shape)} != {(c, *fshape)}")
+            states = torch.as_tensor(states, dtype=torch.float32)
+            k = c // self.ndev
+            sts = []
+            for s, dev in enumerate(self.mesh.devices):
+                with _on(dev):
+                    sts.append(_planar(states[s * k:(s + 1) * k].to(dev, non_blocking=True),
+                                       self._nhwc))
+            return sts

@@ -8,7 +8,9 @@ encode threads), ``fx.*`` the effect step.
 
 ``span`` marks a layer of the port for torch.profiler: the engine's calls
 (``crt.call``), its per-frame inputs (``crt.aux``, ``crt.upload``), each
-batch's step of a call's step loop (``crt.step``), its torch-op stages (``crt.torch_ops``), each kernel wrapper (``crt.draws``,
+batch's step of a call's step loop (``crt.step``), the multi-clip engine's
+clip states placed before the steps and gathered after them
+(``crt.carry``), its torch-op stages (``crt.torch_ops``), each kernel wrapper (``crt.draws``,
 ``crt.fused``, ``crt.warp``, ``crt.bloom``, ``crt.glitch``, ``crt.persist``),
 each launch (``crt.launch``) and the GUI preview's steps (``preview.*``).
 The spans land in the profiler's Kineto trace, on one clock with the

@@ -1,7 +1,9 @@
 """The port's multi-clip batch render on the CPU (the kernels' plain
 twins): the persistence kernel's multi-clip mode against the JAX kernel
 in interpret mode and against per-clip scans, MultiClipEngine against
-single-clip CRTEngine runs and against the JAX MultiClipEngine,
+single-clip CRTEngine runs, against the benchmark's plain reference
+(portbench/reference/) and against the JAX MultiClipEngine, the engine's
+finish over clip-major states against per-clip finishes,
 process_videos against sequential process_video renders, render_batch's
 grouping, fallback and journal, and the --batch-manifest CLI.
 
@@ -28,7 +30,7 @@ from pythoncrt_tpu import EffectParams as JaxParams
 from pythoncrt_tpu.kernels import persist as jpersist
 from pythoncrt_tpu.parallel import MultiClipEngine as JaxMultiClip
 from pythoncrt_tpu.parallel import make_mesh
-from pythoncrt_tpu_torch import CRTEngine, EffectParams, cli
+from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams, cli
 from pythoncrt_tpu_torch.batch import ClipJob, render_batch
 from pythoncrt_tpu_torch.kernels import persist as tpersist
 from pythoncrt_tpu_torch.multiclip import ClipRenderResult, process_videos
@@ -85,11 +87,15 @@ def test_multiclip_twin_is_per_clip_scans(first, clips):
 
 # ---- MultiClipEngine ----------------------------------------------------
 
+TEXT_AFTER = TextParams(text="CH 5", size=12, after=True)
 CONFIGS = {
     "c4": C4,
     "persistence_off": dict(persistence=0.0, noise_strength=3.0, glitch_amp_px=4,
                             glitch_height_frac=0.25),
     "angled_text_free": dict(persistence=0.5, scanline_angle=8.0, scanline_thickness=1.5),
+    # the c5 batch render: c4's strengths, a caption after the effects
+    "c5_text_after_2clips": dict(C4, text=TEXT_AFTER),
+    "c5_text_after_3clips": dict(C4, text=TEXT_AFTER),
 }
 
 
@@ -97,27 +103,94 @@ def planar(x):
     return np.ascontiguousarray(np.moveaxis(x, -1, -3)[..., [1, 2, 0], :, :])
 
 
+def caption(h, w, seed=5):
+    """(H, W, 4) uint8 RGBA drawn from the seed over a box inside the
+    frame, clear elsewhere (the benchmark's overlay_for)."""
+    ov = np.zeros((h, w, 4), np.uint8)
+    box = ov[h // 6:h // 6 + h // 3, w // 8:w // 8 + w // 2]
+    box[...] = np.random.default_rng(seed).integers(0, 256, box.shape, dtype=np.uint8)
+    return ov
+
+
 @pytest.mark.parametrize("rng", ["native", "host"])
 @pytest.mark.parametrize("layout", ["nhwc", "planar_gbr"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_multiclip_engine_equals_single_clip_runs(name, layout, rng):
-    """3 clips x 4 frames, two steps, bit for bit the 3 single-clip runs
-    (outputs and carried states); rng streams keyed by frame index."""
+    """3 clips (2 where the case says so) x 4 frames, two steps, bit for
+    bit the single-clip runs (outputs and carried states); rng streams
+    keyed by frame index."""
     p = EffectParams(**CONFIGS[name])
+    clips = 2 if name.endswith("_2clips") else 3
     kw = dict(layout="planar", channel_order="gbr") if layout == "planar_gbr" else {}
-    frames = np.stack([synth_frames(8, H, W, seed=30 + c) for c in range(3)])
-    if kw:
+    if p.text.enabled:
+        kw["text_rgba"] = caption(H, W)
+    frames = np.stack([synth_frames(8, H, W, seed=30 + c) for c in range(clips)])
+    if layout == "planar_gbr":
         frames = planar(frames)
-    idx = np.tile(np.arange(8), (3, 1)) + np.array([[0], [100], [0]])
+    idx = np.tile(np.arange(8), (clips, 1)) + np.array([[0], [100], [0]])[:clips]
     mc = MultiClipEngine(CRTEngine(p, H, W, FPS, rng=rng, seed=2, device="cpu", **kw))
+    assert mc.engine.text_route == ("after" if p.text.enabled else "none")
     o1, st = mc.process(frames[:, :4], idx[:, :4])
     o2, st = mc.process(frames[:, 4:], idx[:, 4:], st)
-    assert o1.shape == (3, 4, *frames.shape[2:]) and o1.dtype == torch.uint8
-    for c in range(3):
+    assert o1.shape == (clips, 4, *frames.shape[2:]) and o1.dtype == torch.uint8
+    for c in range(clips):
         eng = CRTEngine(p, H, W, FPS, rng=rng, seed=2, device="cpu", **kw)
         a, s = eng.process(frames[c, :4], idx[c, :4])
         b, s = eng.process(frames[c, 4:], idx[c, 4:], s)
         assert torch.equal(o1[c], a) and torch.equal(o2[c], b) and torch.equal(st[c], s), c
+
+
+def test_multiclip_text_after_is_the_plain_reference():
+    """The c5 configuration at 30x64 (c4's strengths, planar gbr, native
+    draws, a caption after the effects), 2 clips x 4 frames over two steps
+    of one process_stack call, against the benchmark's plain reference
+    rendering each clip as a stream with the engine's seed: bit for bit."""
+    from portbench.reference.chain import Chain
+    from portbench.reference.compare import gaps, to_rgb
+
+    h, w, seed = 30, 64, 2**31 + 17
+    with open(os.path.join(REPO, "portbench", "configs", "c5_batch_4k.json")) as f:
+        cfg = json.load(f)
+    cfg = dict(cfg, height=h, width=w, params=dict(cfg["params"], text={
+        "text": "PLAY", "size": 12, "after": True}))
+    ov = caption(h, w)
+    p = EffectParams(**{k: v for k, v in cfg["params"].items() if k != "text"},
+                     text=TextParams(**cfg["params"]["text"]))
+    mc = MultiClipEngine(CRTEngine(p, h, w, cfg["fps"], engine=cfg["engine"], rng=cfg["rng"],
+                                   seed=seed, text_rgba=ov, layout=cfg["layout"],
+                                   channel_order=cfg["channel_order"], device="cpu"))
+    frames = planar(np.stack([synth_frames(8, h, w, seed=60 + c) for c in range(2)]))
+    stack = np.ascontiguousarray(frames.reshape(2, 2, 4, 3, h, w).transpose(1, 0, 2, 3, 4, 5))
+    idx = np.tile(np.arange(8).reshape(2, 1, 4), (1, 2, 1))
+    outs, _ = mc.process_stack(stack, idx)
+    chain = Chain(cfg, seed, "cpu", torch.float32, ov)
+    for c in range(2):
+        want, _ = chain.render(to_rgb(torch.from_numpy(frames[c]), cfg), np.arange(8), None)
+        got = to_rgb(outs[:, c].reshape(8, 3, h, w), cfg)
+        assert gaps(got, want) == (0, 0), c
+
+
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("route", ["kernel", "assoc_scan", "persistence_off",
+                                   "persistence_off_u8"])
+def test_finish_over_clip_major_states_is_per_clip_finishes(route, first):
+    """CRTEngine._finish with a (C, 3, H, W) state (the multi-clip launch,
+    or each clip on its own frames) equals _finish over each clip's
+    frames with its own state: frames and states bit for bit."""
+    p = EffectParams(persistence=0.0 if route.startswith("persistence_off") else 0.6)
+    eng = CRTEngine(p, 5, 7, FPS, assoc_scan=route == "assoc_scan", layout="planar",
+                    device="cpu")
+    rng = np.random.default_rng(3)
+    clips, b = 3, 4
+    imgs = torch.from_numpy(rng.random((clips * b, 3, 5, 7), dtype=np.float32))
+    if route == "persistence_off_u8":
+        imgs = (imgs * 255).to(torch.uint8)
+    states = torch.from_numpy(rng.random((clips, 3, 5, 7), dtype=np.float32))
+    got, got_s = eng._finish(imgs, states, first)
+    assert got.dtype == torch.uint8 and got.shape == imgs.shape and got_s.shape == states.shape
+    for c in range(clips):
+        want, want_s = eng._finish(imgs[c * b:(c + 1) * b], states[c], first)
+        assert torch.equal(got[c * b:(c + 1) * b], want) and torch.equal(got_s[c], want_s), c
 
 
 def test_multiclip_engine_assoc_scan_and_stack():

@@ -121,6 +121,9 @@ def test_the_mesh_engines_are_one_call_each(kind):
         got = spans(fn)
         names = Counter(s[0] for s in got)
         assert names["crt.call"] == 1 and names["crt.aux"] == 1 and names["crt.step"] == steps
+        # the multi-clip engine places its clips' states before the steps and
+        # gathers them after
+        assert names["crt.carry"] == (2 if kind == "multiclip" else 0)
         call = next(s for s in got if s[0] == "crt.call")
         assert all(inside(s, call) for s in got)
         wrappers = [s for s in got if s[0] in WRAPPERS]
