@@ -43,7 +43,11 @@ Phases (each must pass; any failure exits non-zero):
    stripe bloom on c3-stripe); at 3840x2160 on c5's flat batch of 4
    clips x 8 frames, the fused kernel (c4 spec, fast core; its twin
    clip by clip), the glitch shear in place and, on the effects' output,
-   the persistence kernel's multi-clip mode. Then every gaussian route at
+   the persistence kernel's multi-clip mode; the text after the effects
+   (csrc/text.cu) bit for bit composite_text on the grid the engine
+   picks: the box grid on 16 of those frames with c5.batch's caption box
+   (216, 486, 384, 1664), the whole-frame grid on c3-angled's warp emit
+   at 1080p, each beside composite_text over the whole batch. Then every gaussian route at
    sigma 11 and 20 (radius 33 and 60, past the 63 taps of the launch
    arguments) at 1080p: the fused kernel (the CLI defaults with
    --no-fast-bloom), bloom3 (defaults-angled with the gaussian bloom),
@@ -180,7 +184,8 @@ Phases (each must pass; any failure exits non-zero):
    against its event time per wrapper call; the glitch shear's the same way
    at its four rows' shapes and offsets (c4's band in place and out of
    place, c5's, the preview's) on fresh frames, beside torch.gather of the
-   same band and index; then the card's line, one JSON line with the
+   same band and index; the text rows' the same way on fresh frames,
+   beside composite_text over the whole batch; then the card's line, one JSON line with the
    kernel table, then the result line.
 
 It imports nothing of JAX or of the JAX package. Without a CUDA device it
@@ -274,6 +279,10 @@ C3_ANGLED_FLAGS = [*C3_FLAGS, "--scanline-angle", "5", "--scanline-thickness", "
 DEF_ANGLED = dict(scanline_angle=12.0, scanline_thickness=2.0)
 DEF_ANGLED_FLAGS = ["--scanline-angle", "12", "--scanline-thickness", "2"]
 C4_TEXT = dict(text="PLAY", size=48, after=False)
+# c5.batch's caption after the effects (portbench/traffic/manifest.json):
+# a 270 x 1280 box at (216, 384) of the 3840x2160 frame
+C5_TEXT = dict(text="CH 5", size=48, after=True)
+C5_CAPTION = (216, 486, 384, 1664)
 C4_TEXT_FLAGS = [*C4_FLAGS, "--text", "PLAY", "--text-size", "48"]
 FUSED_TOL = 2e-6  # f32, same op order on both sides (-fmad=false)
 SIGMAS = {"s11": 11.0, "s20": 20.0}  # radius 33 and 60: past the launch arguments' 63 taps
@@ -306,6 +315,8 @@ OPS_PER_VALUE = {"fused_pipeline": 40, "fused_pipeline_gaussian": 70, "warp_plan
                  "bloom2_planar_fast": 30, "bloom2_planar_pipelined": 45, "bloom_stripe": 45,
                  "persistence_scan_multiclip": 6, "glitch_shear_band": 0,
                  "fused_pipeline_c5": 40, "glitch_shear_c5": 0,
+                 # the composite: a subtract, two multiplies, an add and the clip
+                 "text_after_c5": 6, "text_after_c3_angled": 6,
                  # 2 x (2r + 1) multiply-adds and the composite
                  "fused_pipeline_s11": 300, "fused_pipeline_s20": 520,
                  "fused_pipeline_f32in_s11": 300,
@@ -1123,8 +1134,10 @@ def main() -> int:
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
     from pythoncrt_tpu_torch.kernels import rng as krng
+    from pythoncrt_tpu_torch.kernels import text as ktext
     from pythoncrt_tpu_torch.kernels import triad as ktriad
     from pythoncrt_tpu_torch.kernels import warp as kwarp
+    from pythoncrt_tpu_torch.ops import color as ocolor
     from pythoncrt_tpu_torch.ops import resize as oresize
 
     dev = torch.device("cuda")
@@ -1133,6 +1146,7 @@ def main() -> int:
                   for k, (kw, text) in PREVIEW_CONFIGS.items()},
                "c3-bloom2": EffectParams(**C3), "defaults-bloom2": EffectParams(),
                "c3-stripe": EffectParams(**C3), "c5": EffectParams(**C4),
+               "c5-text": EffectParams(**C4, text=TextParams(**C5_TEXT)),
                "defaults-s11": EffectParams(fast_bloom=False, bloom_sigma=11.0),
                "c4-text-s11": EffectParams(**dict(C4, fast_bloom=False, bloom_sigma=11.0),
                                            text=TextParams(**C4_TEXT)),
@@ -1783,6 +1797,69 @@ def main() -> int:
         frames=C5_CLIPS * B, res=(H4, W4))
     glitch_device["glitch_shear_c5"] = (C5_CLIPS * B, (C5_CLIPS * B, 3, H4, W4), y5, off5, seg5,
                                         True)
+
+    # the text after the effects (csrc/text.cu) on the grid each route's
+    # engine picks: the box grid at c5.batch's call, 16 of these 4K frames
+    # (the fused emit, sheared) with c5's caption; the whole-frame grid on
+    # c3-angled's warp emit at 1080p. Bit for bit composite_text over the
+    # whole batch; the twin (torch ops over the box) and composite_text
+    # (the torch ops stage 13 ran before the kernel) timed beside it; the
+    # bound from the bytes the grid reads and writes
+    text_device = {}  # row -> (frames, batch shape, crops, whole, alpha, rgb), for [6]
+
+    def text_row(kname, eng, feed, grid, note):
+        tb, (alpha, rgb) = eng._text_crops, eng._text
+        if eng.text_route != "after" or eng.text_grid != grid:
+            fail(f"{kname}: text route {eng.text_route}, grid {eng.text_grid}; expected after, "
+                 f"{grid}")
+        whole = grid == "whole"
+        want = ocolor.composite_text(feed, alpha, rgb)
+        n0 = ktext.launches
+        got = ktext.composite_after(feed.clone(), tb, whole)
+        torch.cuda.synchronize()
+        if ktext.launches != n0 + 1 or not torch.equal(got, want):
+            fail(f"{kname}: text_after_kernel is not bitwise composite_text")
+        plan = ktext.last_plan
+        b, _, h, w = feed.shape
+        y0, y1, x0, x1 = tb.box
+        values = b * 3 * (h * w if whole else (y1 - y0) * (x1 - x0))
+        work = feed.clone()
+        row(kname, "pythoncrt_tpu_torch/csrc/text.cu", "pythoncrt_tpu/engine.py:1238 (XLA ops)",
+            (got - want).abs().max().item(), 0,
+            time_ms(lambda: ktext.composite_after(work, tb, whole)),
+            time_ms(lambda: ktext.composite_box_ref(work, tb, whole), iters=3),
+            time_ms(lambda: ocolor.composite_text(feed, alpha, rgb), iters=3),
+            2 * 4 * values + nbytes(tb.alpha, tb.rgb), values, tol=0.0,
+            note=f" ({note}; {grid} grid, box {tb.box}; plan: "
+                 f"{'16-byte' if plan.vec else 'scalar'} batch accesses, "
+                 f"{'16-byte' if plan.cvec else 'scalar'} crop loads, {plan.tx} threads a row; "
+                 f"library: composite_text over the whole batch; the kernel's device time: [6])",
+            frames=b, res=(h, w))
+        text_device[kname] = (b, tuple(feed.shape), tb, whole, alpha, rgb)
+        del want, got, work
+
+    ov5 = np.zeros((H4, W4, 4), np.uint8)
+    ty0, ty1, tx0, tx1 = C5_CAPTION
+    cap5 = np.random.default_rng(5).integers(0, 256, (ty1 - ty0, tx1 - tx0, 4), dtype=np.uint8)
+    cap5[0, 0, 3] = cap5[-1, -1, 3] = 255  # the caption's corners pin its box
+    ov5[ty0:ty1, tx0:tx1] = cap5
+    eng5t = CRTEngine(configs["c5-text"], H4, W4, FPS, layout="planar", channel_order="gbr",
+                      device=dev, text_rgba=ov5)
+    if eng5t._text_crops.box != C5_CAPTION:
+        fail(f"c5's caption box is {eng5t._text_crops.box}, expected {C5_CAPTION}")
+    text_row("text_after_c5", eng5t, g5[:16].clone(), "box", "c5.batch's call: 16 frames of "
+             "c5's fused emit, sheared, and its caption")
+    del eng5t, ov5, cap5
+    eng3t = CRTEngine(configs["c3-angled"], H, W, FPS, layout="planar", channel_order="gbr",
+                      device=dev, text_rgba=ov_synth)
+    if not (eng3t._staged and eng3t.params.warp_on):
+        fail("c3-angled does not take the staged step and the warp")
+    x3 = torch.randint(0, 256, (B, 3, H, W), generator=gen, device=dev, dtype=torch.uint8)
+    feed3 = kwarp.warp_planar(eng3t._staged_stages(x3, eng3t.upload(eng3t.make_aux(
+        np.arange(B)))), eng3t.warp_tables, emit_u8=False)
+    text_row("text_after_c3_angled", eng3t, feed3, "whole", "c3-angled: the staged step, then "
+             "the warp's unclamped f32 emit, with its text after the warp")
+    del eng3t, x3, feed3
     del want, work, idx5, band5, f5
 
     imgs5 = eng5._effects(x5, aux5)
@@ -2027,6 +2104,7 @@ def main() -> int:
     counters = {  # launch counter -> (module, attribute)
         "fused_pipeline": (kfused, "launches"), "warp_planar": (kwarp, "launches"),
         "persistence_scan": (kpersist, "launches"), "glitch_shear": (kglitch, "launches"),
+        "text_after": (ktext, "launches"),
         "bloom3": (kbloom3, "launches"), "bloom2": (kbloom2, "launches"),
         "bloom": (kbloom, "launches"), "persistence_multiclip": (kpersist, "multiclip_launches"),
         "rng_grain": (krng, "grain_launches"), "rng_export": (krng, "export_launches"),
@@ -2058,7 +2136,8 @@ def main() -> int:
         ("c4", C4_FLAGS, configs["c4"], N_MAIN,
          ("fused_pipeline", "glitch_shear", "persistence_scan", "rng_grain", "rng_export")),
         ("c3", C3_FLAGS, configs["c3"], N_C3, ("fused_pipeline", "warp_planar", "rng_grain")),
-        ("c3-angled", C3_ANGLED_FLAGS, configs["c3-angled"], N_C3, ("bloom3", "warp_planar")),
+        ("c3-angled", C3_ANGLED_FLAGS, configs["c3-angled"], N_C3,
+         ("bloom3", "warp_planar", "text_after")),
         ("defaults-angled", DEF_ANGLED_FLAGS, configs["defaults-angled"], N_MAIN,
          ("bloom3", "persistence_scan")),
         ("c4-text", C4_TEXT_FLAGS, configs["c4-text"], N_MAIN,
@@ -3101,6 +3180,11 @@ def main() -> int:
                                           "c4-segments-resume", "gui-export") + sh_c4 + spc_c4),
         "glitch_shear_c5": ("glitch_shear", ("c5", "c5-stacks") + sh_c5),
         "glitch_shear_band": ("glitch_shear", ()),
+        # c5's caption after the effects runs in the benchmark's c5.batch,
+        # on no path here; the whole-frame grid on every path with the text
+        # after the warp
+        "text_after_c5": ("text_after", ()),
+        "text_after_c3_angled": ("text_after", None),
         "bloom3_planar": ("bloom3", ("c3-angled",)),
         "bloom3_fast_planar": ("bloom3", ("defaults-angled",)),
         "bloom2_planar": ("bloom2", ("c3-bloom2",)),
@@ -3189,6 +3273,22 @@ def main() -> int:
               f"{max(0.0, entry['ms'] - dev_ms):.4f} ms of it the wrapper's host path and the "
               f"launch, on {card}", flush=True)
         del frames, band, gidx, run
+    # the text rows: the kernel's device time on fresh frames in [0, 1) of
+    # each row's shape and grid, composite_text over the whole batch in the
+    # same window
+    for kname, (nb, shape, tb, whole, alpha, rgb) in text_device.items():
+        frames = torch.rand(shape, device=dev)
+        dev_ms, lib_dev = kernel_device_ms(
+            functools.partial(ktext.composite_after, frames, tb, whole),
+            functools.partial(ocolor.composite_text, frames, alpha, rgb), "text_after_kernel")
+        entry = table[kname]
+        entry.update(device_ms=dev_ms, library_device_ms=lib_dev)
+        print(f"[6] {kname}: the kernel's device time {dev_ms:.4f} ms per launch "
+              f"({dev_ms / nb:.4f} ms/frame; {100 * entry['bound_ms'] / dev_ms:.1f}% of the bound, "
+              f"bytes), composite_text over the whole batch {lib_dev:.4f} ms in the same window "
+              f"(torch.profiler; the kernel / composite_text {dev_ms / lib_dev:.4f}); event time "
+              f"per wrapper call {entry['ms']:.4f} ms, on {card}", flush=True)
+        del frames
     print(f"card: {card}")
     print(card)
     print(json.dumps({"kernels": list(table.values())}))

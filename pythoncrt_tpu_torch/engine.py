@@ -19,7 +19,10 @@ found once when the engine is built; the overlay's alpha and colour
 cropped to it are the kernel's ``talpha`` and ``trgb`` operands).
 ``text_route`` records where the text is composited: "fused" (in the
 fused kernel), "torch" (the staged step's ``_pre_bloom``), "after"
-(stage 13, torch ops) or "none".
+(stage 13, kernels/text.py) or "none". Text after the effects is
+composited in place over the same box (``text_grid`` "box"), or, after
+the warp, whose f32 emit is not clamped, over the whole frame with the
+clip outside the box (``text_grid`` "whole").
 
 Two kinds of configuration take another route to stage 11:
 
@@ -97,6 +100,7 @@ from .kernels import fused as kfused
 from .kernels import glitch as kglitch
 from .kernels import persist as kpersist
 from .kernels import rng as krng
+from .kernels import text as ktext
 from .kernels import warp as kwarp
 from .ops import color as ocolor
 from .ops import resize as oresize
@@ -316,19 +320,19 @@ class CRTEngine:
                             else optin or ("bloom3" if self._staged else "fused"))
         self.text_route = ("after" if self._text_after else "none" if not self._text_before
                            else "torch" if self._staged else "fused")
-        text_box, self._text_box_ops = (), {}
-        if self.text_route == "fused":
-            # the rows and columns where the alpha is not 0: outside them the
-            # composite is the identity (none where the overlay is clear)
-            alpha = self._text[0]
-            rows = torch.nonzero(alpha.amax(1) > 0).flatten().tolist()
-            cols = torch.nonzero(alpha.amax(0) > 0).flatten().tolist()
-            if rows:
-                text_box = (rows[0], rows[-1] + 1, cols[0], cols[-1] + 1)
-                y0, y1, x0, x1 = text_box
-                self._text_box_ops = dict(
-                    talpha=alpha[y0:y1, x0:x1].contiguous(),
-                    trgb=self._text[1][:, y0:y1, x0:x1].contiguous())
+        # the rows and columns where the alpha is not 0, and the overlay
+        # cropped to them: outside them the composite is the identity on
+        # values in [0, 1] (no box where the overlay is clear)
+        self._text_crops = (ktext.find_box(*self._text)
+                            if self.text_route in ("fused", "after") else ktext.TextBox())
+        text_box = self._text_crops.box if self.text_route == "fused" else ()
+        self._text_box_ops = (dict(talpha=self._text_crops.alpha, trgb=self._text_crops.rgb)
+                              if text_box else {})
+        # stage 13 over the box alone where its input is in [0, 1] (the
+        # fused kernel's f32 emit, the staged epilogue); over the whole frame,
+        # clipped outside the box, after the warp's unclamped f32 emit
+        self.text_grid = (("whole" if p.warp_on else "box") if self.text_route == "after"
+                          else None)
         if p.scanlines_on and not p.scanlines_1d:
             self._sl_omega = np.float32(2.0 * np.pi / max(1e-6, p.scanline_period_px))
             self._sl_inv_sharp = np.float32(
@@ -557,8 +561,8 @@ class CRTEngine:
                 out = kwarp.warp_planar(out, self.warp_tables, emit_u8=self._warp_u8,
                                         out=dst if self._warp_u8 else None)
         if self._text_after:  # stage 13
-            with perf.span("crt.torch_ops"):
-                out = ocolor.composite_text(out, *self._text)
+            with perf.span("crt.text"):
+                out = ktext.composite_after(out, self._text_crops, self.text_grid == "whole")
         if self._glitch:  # stage 14
             offs = self.glitch_offsets(aux)
             with perf.span("crt.glitch"):

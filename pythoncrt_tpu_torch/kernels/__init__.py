@@ -16,6 +16,14 @@ def dest(out, shape, dtype, device, who: str):
     return out
 
 
+def on_card(t, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
+    plain twin); any other device is refused."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
 def into(out, res):
     """A plain twin's result ``res``, copied into ``out`` when the caller
     gave one (the CPU side of a wrapper's ``out``)."""

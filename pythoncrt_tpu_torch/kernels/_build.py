@@ -33,11 +33,11 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 SOURCES = ("fused.cu", "warp.cu", "persist.cu", "glitch.cu", "bloom_walk.cu", "triad_sweep.cu",
-           "rng.cu", "rng_sweep.cu")
+           "rng.cu", "rng_sweep.cu", "text.cu")
 # included by the sources: hashed with them
 HEADERS = ("crt_common.cuh", "triad_pow.cuh", "box_muller.cuh")
 KERNELS = ("crt_fused", "crt_warp", "crt_persist", "crt_glitch", "crt_walk", "crt_triad_sweep",
-           "crt_rng", "crt_rng_sweep")
+           "crt_rng", "crt_rng_sweep", "crt_text")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",

@@ -77,6 +77,7 @@ from ..ops import blur as oblur
 from ..ops import color as ocolor
 from ..ops import resize as oresize
 from . import _build, dest, into
+from . import text as ktext
 
 launches = 0  # CUDA launches made by fused_pipeline
 
@@ -792,12 +793,10 @@ def epilogue_ref(m: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,
 def text_ref(x: torch.Tensor, spec: FusedSpec, talpha: torch.Tensor,
              trgb: torch.Tensor) -> torch.Tensor:
     """Stage 5 in place on the prologue's (B, 3, H, W) f32 output: the
-    text composited over the spec's box (ops/color.composite_text), from
+    text composited over the spec's box (kernels/text.py's box twin), from
     its alpha (bh, bw) and colour (3, bh, bw) there; outside the box the
     composite is the identity (alpha 0)."""
-    y0, y1, x0, x1 = spec.text_box
-    x[..., y0:y1, x0:x1] = ocolor.composite_text(x[..., y0:y1, x0:x1], talpha, trgb)
-    return x
+    return ktext.composite_box_ref(x, ktext.TextBox(spec.text_box, talpha, trgb), False)
 
 
 def fused_pipeline_ref(img: torch.Tensor, spec: FusedSpec, consts: FusedConsts, *,

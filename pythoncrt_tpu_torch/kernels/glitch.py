@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, on_card
 
 launches = 0  # CUDA launches made by shear_planar and shear_planar_inplace
 last_plan = None  # the GlitchPlan of the latest launch
@@ -134,17 +134,10 @@ def _launch(src: torch.Tensor, dst: torch.Tensor, y0: int, off: torch.Tensor,
     last_plan = plan
 
 
-def _on_card(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one (the twin)."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device.type == "cuda"
-
-
 def shear_planar(band: torch.Tensor, off: torch.Tensor,
                  seg_index: torch.Tensor) -> torch.Tensor:
     """Out of place on a band: (B, 3, R, W) f32 -> a new sheared band."""
-    if not _on_card(band, "shear_planar"):
+    if not on_card(band, "shear_planar"):
         return shear_planar_ref(band, off, seg_index)
     out = torch.empty_like(band)
     _launch(band, out, 0, off, seg_index)
@@ -156,7 +149,7 @@ def shear_planar_inplace(imgs: torch.Tensor, y0: int, off: torch.Tensor,
     """In place on full frames: rows [y0, H) of (B, 3, H, W) f32 frames
     are sheared by (B, H - y0, NSEG) int32 offsets; the rows above y0 are
     not touched. Returns ``imgs``."""
-    if not _on_card(imgs, "shear_planar_inplace"):
+    if not on_card(imgs, "shear_planar_inplace"):
         imgs[:, :, y0:] = shear_planar_ref(imgs[:, :, y0:], off, seg_index)
         return imgs
     _launch(imgs, imgs, y0, off, seg_index)

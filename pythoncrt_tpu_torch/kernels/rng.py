@@ -40,7 +40,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, on_card
 
 # CUDA launches made by grain_normals, glitch_export_offsets, glitch_preview_offsets
 grain_launches = export_launches = preview_launches = 0
@@ -336,14 +336,11 @@ class _RngArgs(ctypes.Structure):
 
 
 def _on_card(frames: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
-    twin); the frame indices must be a (B,) int64 tensor."""
-    if frames.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {frames.device}")
+    """``on_card``, and the frame indices must be a (B,) int64 tensor."""
     if frames.dtype != torch.int64 or frames.ndim != 1:
         raise ValueError(f"{name}: frames must be a (B,) int64 tensor, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
-    return frames.device.type == "cuda"
+    return on_card(frames, name)
 
 
 def _launch(mode: str, out: torch.Tensor, seed: int, frames: torch.Tensor, stream: int,

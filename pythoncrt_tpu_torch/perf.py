@@ -11,7 +11,7 @@ encode threads), ``fx.*`` the effect step.
 batch's step of a call's step loop (``crt.step``), the multi-clip engine's
 clip states placed before the steps and gathered after them
 (``crt.carry``), its torch-op stages (``crt.torch_ops``), each kernel wrapper (``crt.draws``,
-``crt.fused``, ``crt.warp``, ``crt.bloom``, ``crt.glitch``, ``crt.persist``),
+``crt.fused``, ``crt.warp``, ``crt.bloom``, ``crt.text``, ``crt.glitch``, ``crt.persist``),
 each launch (``crt.launch``) and the GUI preview's steps (``preview.*``).
 The spans land in the profiler's Kineto trace, on one clock with the
 device operations, and record nothing while no profiler is recording.

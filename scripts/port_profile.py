@@ -283,8 +283,8 @@ def profile(name: str, params: dict, xs) -> dict:
     from pythoncrt_tpu_torch.kernels import fused as kfused
     from pythoncrt_tpu_torch.kernels import glitch as kglitch
     from pythoncrt_tpu_torch.kernels import persist as kpersist
+    from pythoncrt_tpu_torch.kernels import text as ktext
     from pythoncrt_tpu_torch.kernels import warp as kwarp
-    from pythoncrt_tpu_torch.ops import color as ocolor
 
     p = EffectParams(**params, text=TextParams(**TEXT.get(name, {})))
     with optin_env(name):
@@ -335,9 +335,9 @@ def profile(name: str, params: dict, xs) -> dict:
         host["fused_pipeline"] = host_us(
             lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw))
         f = kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
-    if eng._text_after:
-        kernels["text composite after the warp (torch ops)"] = events_ms(
-            lambda: ocolor.composite_text(f, *eng._text), iters=5)
+    if eng._text_after:  # in place on f: its values stay in [0, 1]
+        kernels[f"text_after ({eng.text_grid} grid)"] = events_ms(
+            lambda: ktext.composite_after(f, eng._text_crops, eng.text_grid == "whole"))
     if p.warp_on:
         kernels["warp_planar"] = events_ms(
             lambda: kwarp.warp_planar(f, eng.warp_tables, emit_u8=eng._warp_u8))

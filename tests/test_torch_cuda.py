@@ -44,7 +44,11 @@ one row or one column wide. The fused kernel's text mode (TEXT: the
 overlay composited in the uint8 prologue over its box) is held to its
 twin and to the bits of the f32-input mode fed the torch ops' stages 1-5,
 in every instantiation, and the instantiations without it to the SASS
-they had before it was added."""
+they had before it was added. The text after the effects (csrc/text.cu,
+both grids) is ops/color.composite_text bit for bit at boxes on each
+edge, on the engine's feeds (c5's 4K fused f32 emit, the warp's, the
+staged step's), and a multi-clip c5 step is the benchmark's plain
+reference bit for bit."""
 
 import dataclasses
 
@@ -60,8 +64,10 @@ from pythoncrt_tpu_torch.kernels import fused as kfused
 from pythoncrt_tpu_torch.kernels import glitch as kglitch
 from pythoncrt_tpu_torch.kernels import persist as kpersist
 from pythoncrt_tpu_torch.kernels import rng as krng
+from pythoncrt_tpu_torch.kernels import text as ktext
 from pythoncrt_tpu_torch.kernels import triad as ktriad
 from pythoncrt_tpu_torch.kernels import warp as kwarp
+from pythoncrt_tpu_torch.ops import color as ocolor
 from pythoncrt_tpu_torch.params import EffectParams
 
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5,
@@ -1311,3 +1317,148 @@ def test_process_stack_on_card_is_the_process_loop(cuda_dev, name, which, planar
     torch.cuda.synchronize()
     assert got is dst
     assert torch.equal(got, torch.stack(outs)) and torch.equal(gst, st)
+
+
+# ---- stage 13: the text after the effects (csrc/text.cu) ----------------
+
+TEXT_AFTER_SHAPES = [(2, 45, 251), (2, 48, 200), (3, 33, 132), (1, 7, 9)]
+
+
+def text_planes(ov, dev):
+    """An (H, W, 4) uint8 overlay as the engine holds it: (H, W) alpha and
+    (3, H, W) colour, u8 / 255 in f32, on ``dev``."""
+    t = torch.from_numpy(ov).to(dev).float() / 255.0
+    return t[..., 3].contiguous(), t[..., :3].permute(2, 0, 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", ["aligned", "offset"])
+@pytest.mark.parametrize("whole", [False, True], ids=["box", "whole"])
+@pytest.mark.parametrize("box", sorted(TEXT_BOXES))
+@pytest.mark.parametrize("shape", TEXT_AFTER_SHAPES, ids=["odd", "w200", "w132", "tiny"])
+def test_text_after_kernel_is_composite_text(cuda_dev, shape, box, whole, base):
+    """text_after_kernel bit for bit ops/color.composite_text over boxes at
+    each edge, the whole frame, none (the box grid launches nothing), on a
+    batch in [0, 1] for the box grid and with values planted off it (-0.5,
+    1 + 2^-23, 3) for the whole-frame grid; ``offset``: the batch 4 bytes
+    off 16, so the scalar walk."""
+    b, h, w = shape
+    ov, want_box = text_overlay(h, w, box)
+    alpha, rgb = text_planes(ov, cuda_dev)
+    tb = ktext.find_box(alpha, rgb)
+    assert tb.box == want_box
+    g = torch.Generator(device=cuda_dev).manual_seed(11)
+    img = torch.rand((b, 3, h, w), generator=g, device=cuda_dev)
+    img[torch.rand(img.shape, generator=g, device=cuda_dev) < 0.05] = 1.0
+    if whole:
+        for v in (-0.5, 1.0 + 2.0 ** -23, 3.0):
+            img[torch.rand(img.shape, generator=g, device=cuda_dev) < 0.05] = v
+    want = ocolor.composite_text(img, alpha, rgb)
+    got = img.clone()
+    if base == "offset":
+        got = torch.empty(img.numel() + 1, device=cuda_dev)[1:].view(img.shape).copy_(img)
+    n0 = ktext.launches
+    assert ktext.composite_after(got, tb, whole) is got
+    torch.cuda.synchronize()
+    assert ktext.launches == n0 + int(bool(tb.box) or whole)
+    assert torch.equal(got, want if (whole or tb.box) else img)
+    if ktext.launches > n0:
+        assert ktext.last_plan.vec == int(base == "aligned" and w % 4 == 0)
+
+
+def c5_caption(h, w, seed=6):
+    """The c5 cell's caption box (portbench/traffic/manifest.json, [216, 384,
+    270, 1280] at 3840x2160) scaled to h x w, seeded RGBA with 0s and 255s."""
+    ov = np.zeros((h, w, 4), np.uint8)
+    y0, x0, bh, bw = 216 * h // 2160, 384 * w // 3840, 270 * h // 2160, 1280 * w // 3840
+    a = np.random.default_rng(seed).integers(0, 256, (bh, bw, 4), dtype=np.uint8)
+    a[1::7, :, 3] = 0
+    a[0, 0, 3] = a[-1, -1, 3] = 255
+    ov[y0:y0 + bh, x0:x0 + bw] = a
+    return ov
+
+
+# route -> (params, shape, grid): the feeds that reach stage 13
+TEXT_AFTER_FEEDS = {
+    "c5_fused_4k": (VARIANTS["c4"], (16, 2160, 3840), "box"),
+    "c3_warp": (C3, (4, 270, 480), "whole"),
+    "c4_angled_staged": ({**VARIANTS["c4"], "scanline_angle": 5.0, "scanline_thickness": 1.5},
+                         (4, 96, 320), "box"),
+    "c3_angled_warp": ({**C3, "scanline_angle": 5.0, "scanline_thickness": 1.5}, (3, 45, 251),
+                       "whole"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(TEXT_AFTER_FEEDS))
+def test_text_after_kernel_on_the_engines_feeds(cuda_dev, route):
+    """Stage 13 on the batch the engine's step hands it (the fused kernel's
+    f32 emit at c5's 4K shape and caption, the warp's f32 emit, the staged
+    step's epilogue, with and without the warp): text_after_kernel on the
+    engine's grid bit for bit composite_text over the whole batch."""
+    over, (b, h, w), grid = TEXT_AFTER_FEEDS[route]
+    p = EffectParams(**over, text=TextParams(text="T", after=True))
+    eng = CRTEngine(p, h, w, 24.0, seed=2**31 + 9, device=cuda_dev, layout="planar",
+                    channel_order="gbr", text_rgba=c5_caption(h, w))
+    assert eng.text_route == "after" and eng.text_grid == grid
+    assert eng._staged == ("angled" in route)
+    aux = eng.upload(eng.make_aux(np.arange(b)))
+    x = frames(b, h, w, cuda_dev)
+    if eng._staged:
+        feed = eng._staged_stages(x, aux)
+    else:
+        feed = kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **eng.fused_operands(aux))
+    if p.warp_on:
+        feed = kwarp.warp_planar(feed, eng.warp_tables, emit_u8=False)
+    want = ocolor.composite_text(feed, *eng._text)
+    n0 = ktext.launches
+    got = ktext.composite_after(feed, eng._text_crops, grid == "whole")
+    torch.cuda.synchronize()
+    assert got is feed and ktext.launches == n0 + 1 and torch.equal(got, want)
+    if route == "c5_fused_4k":
+        assert eng._text_crops.box == (216, 486, 384, 1664)
+        assert ktext.last_plan == ktext.TextPlan(1, 1, 160)
+
+
+@pytest.mark.cuda
+def test_multiclip_text_after_on_card_is_the_plain_reference(cuda_dev):
+    """c5 (c4's strengths, planar gbr, native draws, the caption after the
+    effects) at 540x960, 2 clips x 8 frames over two steps of one
+    process_stack call, enqueued with no host sync, against the
+    benchmark's plain reference rendering each clip as a stream: bit for
+    bit, one text_after_kernel launch a step."""
+    import json
+    import os
+
+    from portbench.reference.chain import Chain
+    from portbench.reference.compare import gaps, to_rgb
+
+    h, w, seed = 540, 960, 2**31 + 29
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", "c5_batch_4k.json")) as f:
+        cfg = json.load(f)
+    cfg = dict(cfg, height=h, width=w, params=dict(cfg["params"], text={
+        "text": "PLAY", "size": 24, "after": True}))
+    ov = c5_caption(h, w)
+    p = EffectParams(**{k: v for k, v in cfg["params"].items() if k != "text"},
+                     text=TextParams(**cfg["params"]["text"]))
+    mc = MultiClipEngine(CRTEngine(p, h, w, cfg["fps"], engine=cfg["engine"], rng=cfg["rng"],
+                                   seed=seed, text_rgba=ov, layout=cfg["layout"],
+                                   channel_order=cfg["channel_order"], device=cuda_dev))
+    assert mc.engine.text_grid == "box"
+    x = frames(16, h, w, cuda_dev).reshape(2, 8, 3, h, w)
+    stack = x.reshape(2, 2, 4, 3, h, w).transpose(0, 1).contiguous()
+    idx = np.tile(np.arange(8).reshape(2, 1, 4), (1, 2, 1))
+    n0 = ktext.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, _ = mc.process_stack(stack, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ktext.launches == n0 + 2
+    chain = Chain(cfg, seed, cuda_dev, torch.float32, ov)
+    for c in range(2):
+        want, _ = chain.render(to_rgb(x[c], cfg), np.arange(8), None)
+        got = to_rgb(outs[:, c].reshape(8, 3, h, w), cfg)
+        assert gaps(got, want) == (0, 0), c

@@ -3,8 +3,9 @@
 Each public call of an engine is one ``crt.call``; inside it the
 per-frame inputs (``crt.aux``, ``crt.upload``) and one ``crt.step`` per
 batch, which holds one span per kernel wrapper call (``crt.draws``,
-``crt.fused``, ``crt.glitch``, ``crt.persist``), none inside another. On the CPU the wrappers run their plain twins, so
-no ``crt.launch`` is recorded here (the card's test counts them against
+``crt.fused``, ``crt.text``, ``crt.glitch``, ``crt.persist``), none
+inside another. On the CPU the wrappers run their plain twins, so no
+``crt.launch`` is recorded here (the card's test counts them against
 the device's kernels: portbench/tests/test_portbench_spans.py). With no
 profiler recording, a span records nothing.
 """
@@ -16,19 +17,22 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, perf
+from pythoncrt_tpu_torch import CRTEngine, EffectParams, MultiClipEngine, TextParams, perf
 from pythoncrt_tpu_torch.parallel import DeviceMesh, ShardedCRTEngine
 
 from conftest import synth_frames
 from test_torch_engine import C4
 
 H, W, B = 24, 32, 2
-WRAPPERS = ("crt.draws", "crt.fused", "crt.warp", "crt.bloom", "crt.glitch", "crt.persist")
+WRAPPERS = ("crt.draws", "crt.fused", "crt.warp", "crt.bloom", "crt.text", "crt.glitch",
+            "crt.persist")
 # per step of a call: the grain draw, fused, persistence; c4 adds the
-# glitch offsets' draw and the shear
+# glitch offsets' draw and the shear, c5 the text after the effects
 PER_STEP = {"defaults": {"crt.draws": 1, "crt.fused": 1, "crt.persist": 1},
-            "c4": {"crt.draws": 2, "crt.fused": 1, "crt.glitch": 1, "crt.persist": 1}}
-PARAMS = {"defaults": {}, "c4": C4}
+            "c4": {"crt.draws": 2, "crt.fused": 1, "crt.glitch": 1, "crt.persist": 1},
+            "c5": {"crt.draws": 2, "crt.fused": 1, "crt.text": 1, "crt.glitch": 1,
+                   "crt.persist": 1}}
+PARAMS = {"defaults": {}, "c4": C4, "c5": {**C4, "text": TextParams(text="T", after=True)}}
 
 
 def spans(fn) -> list:
@@ -45,8 +49,11 @@ def inside(a, b) -> bool:
 
 
 def engine(name, layout="planar", **kw) -> CRTEngine:
-    return CRTEngine(EffectParams(**PARAMS[name]), H, W, 24.0, seed=7, layout=layout,
-                     device="cpu", **kw)
+    p = EffectParams(**PARAMS[name])
+    if p.text.enabled:  # a caption over a box inside the frame
+        kw["text_rgba"] = np.zeros((H, W, 4), np.uint8)
+        kw["text_rgba"][5:15, 4:20] = np.random.default_rng(1).integers(0, 256, (10, 16, 4))
+    return CRTEngine(p, H, W, 24.0, seed=7, layout=layout, device="cpu", **kw)
 
 
 def frames(n, seed=3, layout="planar") -> torch.Tensor:
