@@ -324,12 +324,6 @@ class ShardedCRTEngine:
                 outs.append(ocolor.to_uint8(y.add_(tpow * carry).clamp_(0.0, 1.0)))
         return outs
 
-    def _outputs(self, outs: list, new_state: torch.Tensor, out: torch.Tensor):
-        """Gather the shards' frames into ``out`` (on the engine's device,
-        in its layout); -> the state there, in the layout."""
-        _gather(outs, self.engine.layout == "nhwc", self.engine.device, out)
-        return self._state_out(new_state)
-
     def _state_out(self, state: torch.Tensor) -> torch.Tensor:
         """A planar state -> the caller's: on the engine's device, in its
         layout."""

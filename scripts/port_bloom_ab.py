@@ -40,8 +40,8 @@ built (default: this script's own; an earlier commit unpacked with
   segments) in place and out of place on the band, and at c5's 4K on 32
   frames in place; each with its kernel's device time and torch.gather's
   (the same band and index) in one torch.profiler window beside both
-  event times and both host times per call (port_profile.host_us: calls
-  issued back to back without waiting for the card).
+  event times and both host times per call (host_us: calls issued back
+  to back without waiting for the card).
 
 Per case: CUDA-event time (median of 5 repeats of 20 calls) per call and
 per frame, the bytes bound (inputs and outputs once, tables once, at
@@ -67,7 +67,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import hashlib
 import json
 import os
@@ -79,23 +78,24 @@ import time
 
 import numpy as np
 
-from port_profile import host_us, kernel_device_ms
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import device_ms, optin_env, synth_overlay, time_ms  # noqa: E402
+from portbench.yardstick import HBM_BYTES_PER_S  # noqa: E402
 
 H, W, B = 1080, 1920, 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 C3 = dict(scanline_strength=0.6, triad_strength=0.35, triad_softness=0.5, aberration_px=1,
           bloom_sigma=1.2, bloom_strength=0.25, fast_bloom=False, noise_strength=1.5,
           vignette_strength=0.25, persistence=0.0, pixel_size=2, grain_size=2,
           warp_strength=0.15, flicker_strength=0.2, flicker_hz=2.0, brightness=0.02,
           contrast=1.05, gamma=1.1, saturation=0.9, temperature=0.1)
-PATHS = {  # path -> (params, opt-in variables)
-    "c3-angled": (dict(C3, scanline_angle=5.0, scanline_thickness=1.5), {}),
-    "defaults-angled": (dict(scanline_angle=12.0, scanline_thickness=2.0), {}),
-    "c3-bloom2": (C3, {"PCRT_BLOOM2_GAUSS": "1"}),
-    "defaults-bloom2": ({}, {"PCRT_BLOOM2_FAST": "1"}),
-    "c3-stripe": (C3, {"PCRT_PALLAS_BLOOM": "1"}),
+PATHS = {  # path -> params; the bloom opt-ins' variables: chip_smoke.OPTINS
+    "c3-angled": dict(C3, scanline_angle=5.0, scanline_thickness=1.5),
+    "defaults-angled": dict(scanline_angle=12.0, scanline_thickness=2.0),
+    "c3-bloom2": C3,
+    "defaults-bloom2": {},
+    "c3-stripe": C3,
 }
-OPTIN_VARS = ("PCRT_BLOOM2_GAUSS", "PCRT_BLOOM2_FAST", "PCRT_PALLAS_BLOOM")
 SIGMAS = {"r31": 31 / 3, "s11": 11.0, "s20": 20.0}
 C4 = dict(scanline_strength=0.6, triad_strength=0.35, aberration_px=1, bloom_strength=0.25,
           fast_bloom=True, noise_strength=1.5, vignette_strength=0.25, persistence=0.6,
@@ -123,34 +123,21 @@ SWEEP_GLITCH = dict(MAX_TX=(64, 128, 256, 512))
 SMEM_PER_SM = 233472  # an H100 SM's shared memory for blocks (228 KB), 1 KB reserved per block
 
 
-@contextlib.contextmanager
-def optin_env(env: dict):
-    saved = {k: os.environ.pop(k, None) for k in OPTIN_VARS}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k in OPTIN_VARS:
-            os.environ.pop(k, None)
-            if saved[k] is not None:
-                os.environ[k] = saved[k]
-
-
-def events_ms(fn, repeats: int = 5, calls: int = 20) -> float:
+def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds per call of fn, the calls issued back to back
+    without waiting for the card, median of the repeats."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
+    runs = []
     for _ in range(repeats):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        t1.record()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / calls)
-    return statistics.median(times)
+    return statistics.median(runs)
 
 
 # a fused_strip_kernel instantiation's mangled name: core, radius, f32 input,
@@ -252,8 +239,8 @@ def main() -> int:
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 256, (B, 3, H, W), dtype=np.uint8)).cuda()
     feeds = {}
-    for path, (params, env) in PATHS.items():
-        with optin_env(env):
+    for path, params in PATHS.items():
+        with optin_env(path):
             eng = CRTEngine(EffectParams(**params), H, W, 24.0, layout="planar",
                             channel_order="gbr", device="cuda")
         feeds[path] = (eng, eng._pre_bloom(x).contiguous())
@@ -262,7 +249,7 @@ def main() -> int:
     def case(fn, feed, extra_bytes=0, out_bytes=None):
         out = fn()
         torch.cuda.synchronize()
-        ms = events_ms(fn)
+        ms = time_ms(fn, 20, 5)
         bms = bound_ms(feed.numel() * 4 + (feed.numel() * 4 if out_bytes is None else out_bytes)
                        + extra_bytes)
         return dict(ms=ms, ms_per_frame=ms / B, bound_ms_per_frame=bms / B,
@@ -313,12 +300,9 @@ def main() -> int:
                     device="cuda")
     kw = eng.fused_operands(eng.make_aux(aux_idx))
     warps["u8"] = (eng, kfused.fused_pipeline(x, eng.spec, eng.fused_tables, **kw))
-    rng_t = np.random.default_rng(4)
-    ov = np.zeros((H, W, 4), np.uint8)
-    ov[H // 10:H // 10 + H // 8, W // 10:W // 10 + W // 3] = rng_t.integers(
-        0, 256, (H // 8, W // 3, 4), dtype=np.uint8)
-    eng = CRTEngine(EffectParams(**PATHS["c3-angled"][0], text=TextParams(text="CH 3", size=48,
-                                                                          after=True)),
+    ov = synth_overlay(H, W, 4)
+    eng = CRTEngine(EffectParams(**PATHS["c3-angled"], text=TextParams(text="CH 3", size=48,
+                                                                       after=True)),
                     H, W, 24.0, layout="planar", channel_order="gbr", device="cuda",
                     text_rgba=ov)
     warps["f32"] = (eng, eng._staged_stages(x, eng.make_aux(aux_idx)).contiguous())
@@ -359,7 +343,7 @@ def main() -> int:
         fn = lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)  # noqa: E731
         out = fn()
         torch.cuda.synchronize()
-        ms = events_ms(fn)
+        ms = time_ms(fn, 20, 5)
         plan = eng.fused_tables.plan
         return dict(ms=ms, ms_per_frame=ms / B, sha256=digest(out),
                     plan=dict(sw=plan.sw, step=plan.step, run=plan.run, depth=plan.depth,
@@ -398,8 +382,8 @@ def main() -> int:
         lib = lambda: torch.gather(band, 3, gidx)  # noqa: E731
         same = torch.equal(out, lib())
         nb = frames.shape[0]
-        ms, lib_ms = events_ms(fn), events_ms(lib)
-        dev, lib_dev = kernel_device_ms(fn, lib, "glitch_kernel")
+        ms, lib_ms = time_ms(fn, 20, 5), time_ms(lib, 20, 5)
+        dev, lib_dev = device_ms((fn, "glitch_kernel"), (lib, None))
         host, lib_host = host_us(fn), host_us(lib)
         bms = bound_ms(2 * band.numel() * 4 + off.numel() * 4 + seg.numel() * 4)
         return dict(ms=ms, ms_per_frame=ms / nb, device_ms=dev, device_ms_per_frame=dev / nb,

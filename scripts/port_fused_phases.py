@@ -46,7 +46,6 @@ import argparse
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 
@@ -137,18 +136,17 @@ def make_tree(name: str, edits: list, src_tree: str = ROOT) -> str:
 
 def time_tree(tree: str, cases: list) -> dict:
     """Run in the process that imports ``tree``'s package: ms/frame per case."""
-    sys.path.insert(0, tree)
+    sys.path[:0] = [tree, ROOT]
     import numpy as np
     import torch
 
+    from chip_smoke import synth_overlay, time_ms
     from pythoncrt_tpu_torch import CRTEngine, EffectParams, TextParams
     from pythoncrt_tpu_torch.kernels import fused as kfused
 
     x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (B, 3, H, W),
                                                            dtype=np.uint8)).cuda()
-    ov = np.zeros((H, W, 4), np.uint8)
-    ov[H // 10:H // 10 + H // 8, W // 10:W // 10 + W // 3] = np.random.default_rng(4).integers(
-        0, 256, (H // 8, W // 3, 4), dtype=np.uint8)
+    ov = synth_overlay(H, W, 4)
     out = {}
     for name in cases:
         params, text = CASES[name]
@@ -159,21 +157,9 @@ def time_tree(tree: str, cases: list) -> dict:
         feed = x if eng.spec.pre else eng._pre_bloom(x).contiguous()
         kw = eng.fused_operands(eng.make_aux(np.arange(B)))
 
-        def fn():
-            return kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw)
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(20):
-                fn()
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1) / 20)
+        ms = time_ms(lambda: kfused.fused_pipeline(feed, eng.spec, eng.fused_tables, **kw), 20, 5)
         plan = eng.fused_tables.plan
-        out[name] = dict(ms_per_frame=statistics.median(times) / B, sw=plan.sw, step=plan.step,
+        out[name] = dict(ms_per_frame=ms / B, sw=plan.sw, step=plan.step,
                          run=plan.run, smem=plan.smem)
     return out
 

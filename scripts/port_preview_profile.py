@@ -9,14 +9,14 @@ synthetic text overlay), ``--ticks`` stateful ticks of
 on a warm preview engine (cache hits):
 
 - the whole ticks on the host clock, with no profiler (median, min, max);
-- the same ticks under torch.profiler: the function's own
-  ``preview.<step>`` ranges (fit, grain, engine, d2h, blend, to_uint8;
-  the median ms of each), their sum beside the profiled tick's median
-  (the difference is what no range covers), and the device's kernel and
-  copy time per tick (the largest eight by name, and apart from it the
-  ranges' own device-side annotations). The engine range enqueues the step and the d2h range waits for
-  the card and copies the frame back, so the card's busy share is given
-  of those two ranges and of the whole tick.
+- the same ticks under torch.profiler, read from its trace by
+  portbench/trace.py: the function's own ``preview.<step>`` ranges (fit,
+  grain, engine, d2h, blend, to_uint8; the median ms of each), their sum
+  beside the profiled tick's median (the difference is what no range
+  covers), and the device's kernel and copy time per tick (the largest
+  eight by name). The engine range enqueues the step and the d2h range
+  waits for the card and copies the frame back, so the card's share of
+  those two ranges and of the whole tick is given.
 
 Also the cost of one range (enter and exit) with no profiler running, in
 microseconds. Prints one JSON object per configuration and writes them to
@@ -40,6 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import FPS, H, PREVIEW_CONFIGS, W, synth_overlay  # noqa: E402
+from portbench import trace as ptrace  # noqa: E402
 
 STEPS = ("fit", "grain", "engine", "d2h", "blend", "to_uint8")
 
@@ -75,7 +76,6 @@ def main() -> int:
 
     gui_qt.overlay_for = lambda w, h, t: synth_overlay(h, w, 4) if t.enabled else None
     frames = np.random.default_rng(4).integers(0, 256, (args.ticks, H, W, 3), dtype=np.uint8)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     card, cost, results = smi(), span_cost_us(), []
 
     def run(p) -> list:
@@ -92,23 +92,19 @@ def main() -> int:
         pw, ph = gui_qt._preview_size(W, H)
         run(p)  # warm: the engine built, the kernels loaded
         ticks = run(p)
-        with torch.profiler.profile(activities=acts) as prof:
-            prof_ticks = run(p)
+        prof_ticks = []
+
+        def profiled(p=p):
+            prof_ticks[:] = run(p)
+            return args.ticks, args.ticks
+        tr = ptrace.profile(profiled)
         spans = {s: [] for s in STEPS}
-        cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-        for ev in prof.events():  # the host's ranges (each also has a device-side twin)
-            if ev.device_type == cpu and ev.name[8:] in spans and ev.name.startswith("preview."):
-                spans[ev.name[8:]].append(ev.time_range.elapsed_us() / 1e3)
-        # device time of the kernels and copies; the ranges' device-side
-        # annotations span their kernels and the gaps between them, so they
-        # are kept apart
-        dev, notes = {}, {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0.0)
-            if us and ev.device_type == cuda:
-                (notes if ev.key.startswith("preview.") else dev)[ev.key] = us / 1e3 / args.ticks
+        for hname, _, dur in tr.host:  # the host's ranges
+            if hname.startswith("preview.") and hname[8:] in spans:
+                spans[hname[8:]].append(dur / 1e3)
+        dev = {}  # device ms per tick of the kernels and copies, by name
+        for dname, _, _, dur in tr.device:
+            dev[dname] = dev.get(dname, 0.0) + dur / 1e3 / args.ticks
         dev_tick = sum(dev.values())
         top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
         med = {k: statistics.median(v) if v else 0.0 for k, v in spans.items()}
@@ -120,9 +116,8 @@ def main() -> int:
                    steps_sum_ms=sum(med.values()),
                    profiled_tick_ms_median=statistics.median(prof_ticks),
                    device_ms_per_tick=dev_tick, device_ms_per_tick_top=top,
-                   range_annotations_device_ms_per_tick=notes,
-                   device_busy_share_of_engine_and_d2h=dev_tick / (med["engine"] + med["d2h"]),
-                   device_busy_share_of_tick=dev_tick / statistics.median(ticks),
+                   device_share_of_engine_and_d2h=dev_tick / (med["engine"] + med["d2h"]),
+                   device_share_of_tick=dev_tick / statistics.median(ticks),
                    range_cost_us=cost)
         print(json.dumps(res), flush=True)
         results.append(res)

@@ -32,6 +32,8 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from chip_smoke import device_ms  # noqa: E402
+
 GRAIN_DRAW = "        normals4(bm::kAngle, bm::kLog, draw(a, g, f), z);"
 # name -> [(text of csrc/rng.cu or csrc/box_muller.cuh, replacement)]
 VARIANTS = {
@@ -98,25 +100,6 @@ def build(names, csrc, nvcc, flags, root) -> dict:
     return libs
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """Device time per call of the kernels fn launches (torch.profiler)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a window whose kernel records did not arrive is taken again
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0))
-                 for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us:
-            return us / 1e3 / calls
-    return float("nan")
-
-
 def main() -> int:
     import torch
 
@@ -179,9 +162,9 @@ def main() -> int:
                     launch(lib, mode, nb, n0, n1, amp, out, fr)
                     torch.cuda.synchronize()
                     same[name] = bool(torch.equal(out, want))
-                    times[name].append(device_ms(lambda: launch(lib, mode, nb, n0, n1, amp,
-                                                                out, fr)))
-            randn = device_ms(lambda: torch.randn(want.shape, device=dev))
+                    times[name].append(device_ms((lambda: launch(lib, mode, nb, n0, n1, amp,
+                                                                 out, fr), None))[0])
+            randn = device_ms((lambda: torch.randn(want.shape, device=dev), None))[0]
             row = dict(shape=cname, randn_ms=randn, card=card, variants={
                 n: dict(ms_min=min(t), ms_max=max(t), bit_for_bit=same[n]) for n, t in times.items()})
             results.append(row)

@@ -26,9 +26,12 @@ and gamma, and on crafted inputs next to f32 rounding midpoints and the
 subnormal boundaries, each of which takes the fallback. The GUI
 preview's engine call (process_at, one frame at 960x540 and 853x480) is
 held to the CPU step within 1 LSB. The frame-sharded engine over 2, 4
-and 8 logical shards of cuda:0, and over every visible card (skipped on
-a one-card host), is held to the single-device engine: 0 LSB without
-persistence, else 1 LSB and the state within 1e-4. process_stack of
+and 8 logical shards of cuda:0 (at 1080p too: c4 planar gbr, the CLI
+defaults NHWC, c3 over 4), and over every visible card (skipped on a
+one-card host), is held to the single-device engine: 0 LSB without
+persistence, else 1 LSB and the state within 1e-4. The multi-clip engine
+is bit for bit single-clip runs (c5 at 3840x2160 too) and, over 2 and 4
+logical clip devices, the engine on one device. process_stack of
 CRTEngine, of a 2-shard ShardedCRTEngine and of MultiClipEngine, into the
 caller's ``out``, is bit for bit its process() loop. The native draws
 (csrc/rng.cu: the grain field, the export and preview glitch offsets, one
@@ -1005,35 +1008,69 @@ def test_env_routes_on_card_match_cpu(cuda_dev, name, monkeypatch):
     assert mod.launches == n0 + 2
 
 
+# case -> (clips, frames a clip, height, width, layout, logical clip
+# devices): c4's strengths on small frames, then c5 (the same strengths) at
+# 3840x2160 with native draws, on one device and over a clip mesh of 2 and 4
+MULTICLIP = {"nhwc": (3, 8, 96, 320, "nhwc", 0), "planar": (3, 8, 96, 320, "planar", 0),
+             "c5_4k": (4, 16, 2160, 3840, "nhwc", 0),
+             "c5_clips_x2": (4, 8, 2160, 3840, "planar", 2),
+             "c5_clips_x4": (4, 8, 2160, 3840, "planar", 4)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["nhwc", "planar"])
-def test_multiclip_engine_on_card(cuda_dev, layout):
-    """c4 on 3 clips x 4 frames, two steps: equal, bit for bit, to three
-    single-clip runs on the card, and within 1 LSB of the CPU's."""
+@pytest.mark.parametrize("case", list(MULTICLIP))
+def test_multiclip_engine_on_card(cuda_dev, case):
+    """c4 on 3 clips x 8 frames (host rng), two steps: equal, bit for bit,
+    to three single-clip runs on the card, and within 1 LSB of the CPU's.
+    c5 on 4 clips x 16 frames at 3840x2160 (native rng): bit for bit four
+    single-clip runs, one multi-clip persistence launch a step; on 4 clips
+    x 8 over 2 and 4 logical clip devices of cuda:0: bit for bit the
+    engine on one device, frames and states."""
+    from pythoncrt_tpu_torch.parallel import CLIP_AXIS, DeviceMesh
+
+    clips, n, h, w, layout, ndev = MULTICLIP[case]
     p = EffectParams(**VARIANTS["c4"])
     kw = dict(layout="planar", channel_order="gbr") if layout == "planar" else {}
-    shape = (3, 8, 3, 96, 320) if layout == "planar" else (3, 8, 96, 320, 3)
-    x = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
-    idx = np.tile(np.arange(8), (3, 1))
+    shape = (clips, n, 3, h, w) if layout == "planar" else (clips, n, h, w, 3)
+    small = h < 1080
+    if small:
+        x = np.random.default_rng(2).integers(0, 256, shape, dtype=np.uint8)
+    else:  # 4K frames made on the card
+        g = torch.Generator(device=cuda_dev).manual_seed(5)
+        x = torch.randint(0, 256, shape, generator=g, device=cuda_dev, dtype=torch.uint8)
+    idx = np.tile(np.arange(n), (clips, 1))
+    half = n // 2
+
+    def two_steps(run):
+        o1, st = run.process(x[:, :half], idx[:, :half])
+        o2, st = run.process(x[:, half:], idx[:, half:], st)
+        return torch.cat([o1, o2], 1), st
+
+    rng = "host" if small else "native"
+    if ndev:
+        eng = CRTEngine(p, h, w, 24.0, rng=rng, device=cuda_dev, **kw)
+        got, gst = two_steps(MultiClipEngine(eng, DeviceMesh([torch.device("cuda", 0)] * ndev,
+                                                              CLIP_AXIS)))
+        want, wst = two_steps(MultiClipEngine(eng))
+        assert torch.equal(got, want) and torch.equal(gst, wst)
+        return
     res = {}
-    for dev in (cuda_dev, "cpu"):
-        mc = MultiClipEngine(CRTEngine(p, 96, 320, 24.0, rng="host", device=dev, **kw))
-        n0 = kpersist.launches
-        o1, st = mc.process(x[:, :4], idx[:, :4])
-        o2, st = mc.process(x[:, 4:], idx[:, 4:], st)
-        res[str(dev)] = (torch.cat([o1, o2], 1).cpu(), st.cpu())
+    for dev in (cuda_dev, "cpu") if small else (cuda_dev,):
+        mc = MultiClipEngine(CRTEngine(p, h, w, 24.0, rng=rng, device=dev, **kw))
+        n0, m0 = kpersist.launches, kpersist.multiclip_launches
+        o, st = res[str(dev)] = two_steps(mc)
         if dev != "cpu":
-            assert kpersist.launches == n0 + 2
-            for c in range(3):
-                eng = CRTEngine(p, 96, 320, 24.0, rng="host", device=dev, **kw)
-                a, s = eng.process(x[c, :4], idx[c, :4])
-                b, s = eng.process(x[c, 4:], idx[c, 4:], s)
-                assert torch.equal(torch.cat([a, b]).cpu(), res[str(dev)][0][c])
-                assert torch.equal(s.cpu(), res[str(dev)][1][c])
-    (og, sg), (oc, sc) = res[str(cuda_dev)], res["cpu"]
-    d = (og.int() - oc.int()).abs()
-    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
-    assert (sg - sc).abs().max().item() <= 2e-6
+            assert kpersist.launches == n0 + 2 and kpersist.multiclip_launches == m0 + 2
+            for c in range(clips):
+                eng = CRTEngine(p, h, w, 24.0, rng=rng, device=dev, **kw)
+                a, s = eng.process(x[c, :half], idx[c, :half])
+                b, s = eng.process(x[c, half:], idx[c, half:], s)
+                assert torch.equal(torch.cat([a, b]), o[c]) and torch.equal(s, st[c])
+    if small:
+        (og, sg), (oc, sc) = res[str(cuda_dev)], res["cpu"]
+        d = (og.cpu().int() - oc.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+        assert (sg.cpu() - sc).abs().max().item() <= 2e-6
 
 
 # --precision fast (triad_mode 3): every instantiation of the fused kernel
@@ -1245,15 +1282,26 @@ def sharded_against_single(mesh, name, planar_gbr, h=64, w=200, b=8):
         assert d <= 1 and (got[1] - want[1]).abs().max().item() <= 1e-4
 
 
+# (config, shards, planar gbr, frame size): every configuration and layout
+# at 64x200, then the renders' frame size: c4 planar gbr (the ffmpeg pipe's
+# layout) and the CLI defaults NHWC (the OpenCV pipe's) over 2, 4 and 8
+# shards, c3 NHWC over 4
+SHARD_CASES = ([(name, n, gbr, (64, 200)) for name in sorted(SHARDED) for n in (2, 4, 8)
+                for gbr in (False, True)]
+               + [("c4", n, True, (1080, 1920)) for n in (2, 4, 8)]
+               + [("defaults", n, False, (1080, 1920)) for n in (2, 4, 8)]
+               + [("c3", 4, False, (1080, 1920))])
+SHARD_IDS = [f"{name}-{n}-{'planar_gbr' if gbr else 'nhwc'}" + ("-1080p" if hw[0] == 1080 else "")
+             for name, n, gbr, hw in SHARD_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("planar_gbr", [False, True], ids=["nhwc", "planar_gbr"])
-@pytest.mark.parametrize("n", [2, 4, 8])
-@pytest.mark.parametrize("name", sorted(SHARDED))
-def test_sharded_engine_logical_shards_on_one_card(cuda_dev, name, n, planar_gbr):
+@pytest.mark.parametrize("name, n, planar_gbr, hw", SHARD_CASES, ids=SHARD_IDS)
+def test_sharded_engine_logical_shards_on_one_card(cuda_dev, name, n, planar_gbr, hw):
     """n logical shards on cuda:0 (B = 8: one frame a shard at n = 8)."""
     from pythoncrt_tpu_torch.parallel import DeviceMesh
 
-    sharded_against_single(DeviceMesh([torch.device("cuda", 0)] * n), name, planar_gbr)
+    sharded_against_single(DeviceMesh([torch.device("cuda", 0)] * n), name, planar_gbr, *hw)
 
 
 @pytest.mark.cuda
